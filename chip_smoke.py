@@ -16,7 +16,10 @@ first mismatch:
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, each held against a numpy float64 reference of the
-             program, with the kernels' launch counts read around the run.
+             program, with the kernels' launch counts read around the run;
+             the programs the kernels serve, and the slowest, run once more
+             under torch.profiler for the device's busy time and idle share;
+             the group-by programs run again with the segment kernel pinned.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -113,7 +116,7 @@ def phase_build(torch):
 # ---------------------------------------------------------------------------
 
 def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
-                  reps=5):
+                  hot=0.0, reps=5):
     from repro_torch.kernels.segment_reduce import (_identity,
                                                      segment_reduce,
                                                      segment_reduce_plain)
@@ -121,6 +124,10 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
     lo, hi = (-max(1, k // 20), k + max(1, k // 20)) if special else (0, k)
     ids = torch.randint(lo, hi, (n,), generator=g, device=dev,
                         dtype=torch.int32)
+    if hot:
+        # a hot key: this share of the rows all land on segment 0
+        ids = torch.where(torch.rand(n, generator=g, device=dev) < hot,
+                          0, ids).to(torch.int32)
     shape = (n,) if d == 1 else (n, d)
     if dtype == "int32":
         vals = torch.randint(-1000, 1000, shape, generator=g, device=dev,
@@ -190,7 +197,8 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
     bytes_ = 4 * n + 4 * n * d + 8 * k * d
     bound_ms = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"segment_reduce N={n} K={k} D={d} op={op} {dtype}"
-               + (" ids<0,>=K, inf/NaN" if special else ""),
+               + (" ids<0,>=K, inf/NaN" if special else "")
+               + (f" hot key holds {hot:.0%} of rows" if hot else ""),
                max_abs_err=err, tol=tol_txt, kernel_ms=kernel_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by="bytes")
@@ -198,8 +206,15 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
     return rec
 
 
-def _tile_case(torch, g, m, k, n, bm, dtype, masked, reps=3):
-    from repro_torch.kernels.tile_matmul import tile_matmul, tile_matmul_plain
+def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
+    """One product through the dense entry `tile_matmul`, or through
+    `tile_matmul_packed` on the tiles of `pack(a, bm, bm)` (the main
+    path's form)."""
+    from repro_torch.core.tiles import pack
+    from repro_torch.kernels.tile_matmul import (tile_matmul,
+                                                 tile_matmul_packed,
+                                                 tile_matmul_packed_plain,
+                                                 tile_matmul_plain)
     dev = "cuda"
     dt = getattr(torch, dtype)
     a = torch.randn(m, k, generator=g, device=dev).to(dt)
@@ -215,18 +230,32 @@ def _tile_case(torch, g, m, k, n, bm, dtype, masked, reps=3):
         mask[perm[: (mt * kt + 1) // 2]] = 1.0
         mask = mask.reshape(mt, kt)
         density = float(mask.mean())
-    got = tile_matmul(a, b, mask, bm=bm, bk=bm)
-    want = tile_matmul_plain(a, b, mask, bm=bm, bk=bm)
+    if packed:
+        t = pack(a, bm, bm, prune_zero=False)
+        if mask is None:
+            mask = t.mask
+
+        def kern():
+            return tile_matmul_packed(t.tiles, mask, t.shape, b)
+
+        def plain():
+            return tile_matmul_packed_plain(t.tiles, mask, t.shape, b)
+    else:
+        def kern():
+            return tile_matmul(a, b, mask, bm=bm, bk=bm)
+
+        def plain():
+            return tile_matmul_plain(a, b, mask, bm=bm, bk=bm)
+    got = kern()
+    want = plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     # two float32 summation orders over K products of unit normals
     tol = 1e-4 * math.sqrt(k) * 4 + 1e-4
-    require(err <= tol, f"tile_matmul {m}x{k}x{n} {dtype} masked={masked}: "
-                        f"err {err} > {tol}")
-    kernel_ms = time_ms(torch, lambda: tile_matmul(a, b, mask, bm=bm, bk=bm),
-                        reps)
-    plain_ms = time_ms(torch, lambda: tile_matmul_plain(a, b, mask, bm=bm,
-                                                        bk=bm), reps)
+    require(err <= tol, f"tile_matmul {m}x{k}x{n} {dtype} masked={masked} "
+                        f"packed={packed}: err {err} > {tol}")
+    kernel_ms = time_ms(torch, kern, reps)
+    plain_ms = time_ms(torch, plain, reps)
     if mask is not None:
         dense_a = a * mask.repeat_interleave(bm, 0).repeat_interleave(
             bm, 1)[:m, :k].to(dt)
@@ -239,7 +268,8 @@ def _tile_case(torch, g, m, k, n, bm, dtype, masked, reps=3):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"tile_matmul {m}x{k}x{n} bm=bk={bm} {dtype} "
-               + (f"masked density={density:.3f}" if masked else "unmasked"),
+               + (f"masked density={density:.3f}" if masked else "unmasked")
+               + (" packed" if packed else " dense lhs"),
                max_abs_err=err, tol=f"{tol:.3g} abs", kernel_ms=kernel_ms,
                plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_ops, t_bytes),
@@ -260,7 +290,15 @@ def phase_kernels(torch, seed):
         _segment_case(torch, g, N_ROWS, VOCAB, 1, "+", dtype="int32"),
         *[_segment_case(torch, g, 2 ** 22, 1000, 1, op, special=True)
           for op in ("+", "min", "max")],
+        _segment_case(torch, g, N_ROWS, GROUPS, 1, "+", hot=0.25),
     ]
+    # what a colliding row costs the kernel: the hot-key case against the
+    # uniform one, per row that lands on the hot segment (the cost row's
+    # dup_row prices the same thing)
+    extra_us = (seg[-1]["kernel_ms"] - seg[1]["kernel_ms"]) * 1e3 \
+        / (0.25 * N_ROWS)
+    log(f"[kernels] segment_reduce collision cost: {extra_us:.3g} us per "
+        f"row on one hot segment (N={N_ROWS}, K={GROUPS}, 25% hot)")
     from repro_torch.kernels import segment_reduce
     ids = torch.zeros(2, dtype=torch.int32, device="cuda")
     vals = torch.tensor([2 ** 24 + 1, 1], dtype=torch.int32, device="cuda")
@@ -272,14 +310,16 @@ def phase_kernels(torch, seed):
     log("[kernels] segment_reduce int32 exact at 2^24+1: "
         f"sum={int(s[0])} max={int(mx[0])}")
     tile = [
-        _tile_case(torch, g, MAT, MAT, MAT, 128, "float32", True),
-        _tile_case(torch, g, MAT, MAT, MAT, 128, "bfloat16", True),
-        _tile_case(torch, g, MAT, MAT, MAT, 128, "float32", False),
-        _tile_case(torch, g, 100, 70, 90, 32, "float32", True),
+        _tile_case(torch, g, MAT, MAT, MAT, 128, "float32", True, True),
+        _tile_case(torch, g, MAT, MAT, MAT, 128, "bfloat16", True, True),
+        _tile_case(torch, g, MAT, MAT, MAT, 128, "float32", False, False),
+        _tile_case(torch, g, 100, 70, 90, 32, "float32", True, True),
+        _tile_case(torch, g, 100, 70, 90, 32, "float32", True, False),
     ]
     torch.cuda.synchronize()
     # the entries of the kernel line: the main path's shapes (the group-by
-    # over 2^20 segments, the packed 8192^3 product)
+    # over 2^20 segments, the packed 8192^3 product through the packed
+    # entry)
     return {"segment_reduce": seg[1], "tile_matmul": tile[0]}
 
 
@@ -302,10 +342,11 @@ def _rel_err(out, ref):
 
 
 def _programs(np, rng, torch):
-    """(name, program, inputs, reference(outputs)->{name: err}, tol, note,
-    op_select-forced rerun?) for each program.  Inputs are made with numpy
-    from the seed and moved to the card once; references are numpy
-    float64 (a sample of rows for the 8192^3 products)."""
+    """(name, inputs, reference() -> {output: array}[, rows]) for each
+    program.  Inputs are made with numpy from the seed and every array is
+    moved to the card once, so that run() times hold no host-to-device
+    copy; references are numpy float64 (a sample of rows for the 8192^3
+    products)."""
     from repro_torch.core.programs import ALL
     from repro_torch.core.tiles import pack
 
@@ -337,24 +378,24 @@ def _programs(np, rng, torch):
     ks = (1.0, 500.0, 5000.0)
     out.append(("string_match",
                 dict(W=(dev(ws),), k1=ks[0], k2=ks[1], k3=ks[2],
-                     found=np.zeros(3, f32)),
+                     found=dev(np.zeros(3, f32))),
                 lambda: dict(found=np.array([float((ws == k).any())
                                              for k in ks]))))
     toks = rng.integers(0, VOCAB, N_ROWS).astype(f32)
     out.append(("word_count",
-                dict(W=(dev(toks),), C=np.zeros(VOCAB, f32)),
+                dict(W=(dev(toks),), C=dev(np.zeros(VOCAB, f32))),
                 lambda: dict(C=np.bincount(toks.astype(np.int64),
                                            minlength=VOCAB))))
     px = [rng.integers(0, 256, N_ROWS).astype(f32) for _ in range(3)]
     out.append(("histogram",
-                dict(P=tuple(dev(c) for c in px), R=np.zeros(256, f32),
-                     G=np.zeros(256, f32), B=np.zeros(256, f32)),
+                dict(P=tuple(dev(c) for c in px),
+                     **{c: dev(np.zeros(256, f32)) for c in "RGB"}),
                 lambda: {n_: np.bincount(c.astype(np.int64), minlength=256)
                          for n_, c in zip("RGB", px)}))
     keys = rng.integers(0, GROUPS, N_ROWS).astype(f32)
     gv = rng.standard_normal(N_ROWS, dtype=f32)
     out.append(("group_by",
-                dict(S=(dev(keys), dev(gv)), C=np.zeros(GROUPS, f32)),
+                dict(S=(dev(keys), dev(gv)), C=dev(np.zeros(GROUPS, f32))),
                 lambda: dict(C=np.bincount(keys.astype(np.int64),
                                            weights=gv.astype(np.float64),
                                            minlength=GROUPS))))
@@ -418,9 +459,9 @@ def _programs(np, rng, torch):
         return dict(P=p, NP=np_, C=c, steps=float(PR_STEPS))
     out.append(("pagerank",
                 dict(E=(dev(src.astype(f32)), dev(dst.astype(f32))),
-                     P=np.full(PR_VERTICES, 1.0 / PR_VERTICES, f32),
-                     NP=np.zeros(PR_VERTICES, f32),
-                     C=np.zeros(PR_VERTICES, f32), N=PR_VERTICES,
+                     P=dev(np.full(PR_VERTICES, 1.0 / PR_VERTICES, f32)),
+                     NP=dev(np.zeros(PR_VERTICES, f32)),
+                     C=dev(np.zeros(PR_VERTICES, f32)), N=PR_VERTICES,
                      num_steps=float(PR_STEPS), steps=0.0, b=b_),
                 pr_ref))
     kx = (rng.standard_normal(KM_POINTS, dtype=f32) * 3).astype(f32)
@@ -442,13 +483,12 @@ def _programs(np, rng, torch):
                     CN=cn, NX=sx / np.maximum(cn, 1.0),
                     NY=sy / np.maximum(cn, 1.0))
     out.append(("kmeans_step",
-                dict(P=(dev(kx), dev(ky)), CX=cx, CY=cy, K=KM_K,
+                dict(P=(dev(kx), dev(ky)), CX=dev(cx), CY=dev(cy), K=KM_K,
                      D=torch.zeros(KM_POINTS, KM_K, device="cuda"),
                      MinD=torch.full((KM_POINTS,), 1e30, device="cuda"),
                      Cl=torch.zeros(KM_POINTS, device="cuda"),
-                     SX=np.zeros(KM_K, f32), SY=np.zeros(KM_K, f32),
-                     CN=np.zeros(KM_K, f32), NX=np.zeros(KM_K, f32),
-                     NY=np.zeros(KM_K, f32)),
+                     **{a_: dev(np.zeros(KM_K, f32))
+                        for a_ in ("SX", "SY", "CN", "NX", "NY")}),
                 km_ref))
     n_, l_ = MF_N, MF_L
     R = rng.standard_normal((n_, n_), dtype=f32)
@@ -504,6 +544,40 @@ def _ms_text(times):
             f"min {times[0]:.3f}, max {times[-1]:.3f})")
 
 
+# the programs whose run() the smoke also traces: those the kernels serve
+# and the slowest ones
+PROFILED = ("word_count", "histogram", "group_by",
+            "matrix_multiplication[packed]", "pagerank", "kmeans_step")
+
+
+def _profile(torch, name, cp, inputs, run_ms, top=5):
+    """One more run() under torch.profiler: the device's busy time (the sum
+    of the durations of the kernels and copies it ran), its idle share of
+    `run_ms` (the unprofiled median run), and the kernels that took the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cp.run(inputs)
+        torch.cuda.synchronize()
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            ms, c = per.get(e.name, (0.0, 0))
+            per[e.name] = (ms + e.device_time_total / 1e3, c + 1)
+    if not per:
+        log(f"[profile] {name}: the profiler recorded no device time")
+        return
+    busy = sum(ms for ms, _ in per.values())
+    rows = sorted(((ms, k, c) for k, (ms, c) in per.items()), reverse=True)
+    log(f"[profile] {name}: device busy {busy:.3f} ms of a {run_ms:.3f} ms "
+        f"run (unprofiled median), idle share "
+        f"{max(0.0, 1.0 - busy / run_ms):.3f}; top kernels: "
+        + "; ".join(f"{k[:70]} x{c} {ms:.3f} ms" for ms, k, c in rows[:top]))
+
+
 def _check(name, out, ref_fn, rows=None):
     ref = ref_fn()
     tol = TOLS.get(name, DEFAULT_TOL)
@@ -524,6 +598,7 @@ def phase_main(torch, seed):
     from repro_torch.kernels import ops
     rng = np.random.default_rng(seed)
     ALL, progs = _programs(np, rng, torch)
+    medians = {}
     log(f"[main] sizes: bags N={N_ROWS} rows, word_count vocabulary "
         f"{VOCAB}, group_by {GROUPS} groups, matrices {MAT}x{MAT}, pagerank "
         f"{PR_VERTICES} vertices {PR_EDGES} edges {PR_STEPS} steps, kmeans "
@@ -546,6 +621,7 @@ def phase_main(torch, seed):
         before = counts
         log(f"[main] {name}: {_ms_text(times)}  rel_err={worst:.3g} "
             f"(tol {tol})  launches={delta}  " + "; ".join(sel))
+        medians[name] = (cp, times[len(times) // 2])
         if pname in ("word_count", "histogram", "group_by"):
             require(delta["segment_reduce"] > 0,
                     f"{name}: segment_reduce kernel was not launched")
@@ -565,14 +641,26 @@ def phase_main(torch, seed):
                         "kmeans_step"):
             continue
         cp = compile_program(ALL[name], op_select="force:pallas")
+        ops.reset_launch_counts()
         out, times = _run_program(torch, cp, inputs, reps=1)
+        forced = ops.launch_counts()
         worst, tol = _check(name, out, ref_fn)
         sel = sorted({ln.strip() for ln in cp.explain().splitlines()
                       if "segment:" in ln})
         log(f"[main] {name} op_select=force:pallas: {times[0]:.3f} ms  "
-            f"rel_err={worst:.3g} (tol {tol})  " + "; ".join(sel))
+            f"rel_err={worst:.3g} (tol {tol})  launches={forced}  "
+            + "; ".join(sel))
+        require(forced["segment_reduce"] > 0,
+                f"{name} op_select=force:pallas: segment_reduce kernel was "
+                "not launched")
         del out
         torch.cuda.empty_cache()
+    # traced last, so that the profiler cannot slow a timed run
+    for item in progs:
+        name, inputs = item[:2]
+        if name in PROFILED:
+            cp, run_ms = medians[name]
+            _profile(torch, name, cp, inputs, run_ms)
     return launches
 
 

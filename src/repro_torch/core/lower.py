@@ -311,8 +311,8 @@ def salt_for_node(node, env, selector, skew_salting: str, *,
         n = min(n, int(lim))
     if n == 0:
         return 1
-    from .op_select import probe_hot_fraction
-    hot = probe_hot_fraction(c[:min(n, 4096)].cpu().numpy())
+    from .op_select import PROBE_ROWS, probe_hot_fraction
+    hot = probe_hot_fraction(c[:min(n, PROBE_ROWS)].cpu().numpy())
     dec = selector.choose_salt(n=n, k=int(dest.shape[0]), op=node.op,
                                nshards=nshards, hot_frac=hot)
     return int(dec.backend.split(":", 1)[1]) \

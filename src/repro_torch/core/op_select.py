@@ -97,14 +97,15 @@ class Decision:
 # packages make the same choices on the CPU.  The segment kernel's CPU form
 # is its plain version, which the model never picks (pallas_fixed).
 #
-# The cuda row holds first-principles estimates for an H100, not
-# measurements; autotune mode replaces them with measurement the first time
-# a class is seen on the card.  The segment kernel reads 4 bytes of id and
-# 4 of value per row and writes the [K, D] output once, so its rows cost
-# 8 bytes and its cells 8 bytes (fill + write) at 3.35 TB/s, plus one
-# launch.  The torch scatter reads the same row through an int64 index it
-# must first build (≈ 24 bytes a row); sort adds a radix sort per row and
-# log₂N; onehot materializes an [N, K] matrix (≈ 8 bytes a cell).
+# The cuda row holds first-principles estimates for an H100 (dup_row
+# apart, see below); autotune mode replaces them with measurement the
+# first time a class is seen on the card.  The segment kernel reads 4
+# bytes of id and 4 of value per row and writes the [K, D] output once,
+# so its rows cost 8 bytes and its cells 8 bytes (fill + write) at
+# 3.35 TB/s, plus one launch.  The torch scatter reads the same row
+# through an int64 index it must first build (≈ 24 bytes a row); sort
+# adds a radix sort per row and log₂N; onehot materializes an [N, K]
+# matrix (≈ 8 bytes a cell).
 # tile_mxu equals einsum_cell: the packed product does the same flops as
 # the dense einsum, and wins by the unpack it saves — the relation the
 # reference package's tpu row encodes.
@@ -123,13 +124,15 @@ _COSTS = {
                  pallas_kd=8 / _HBM_BYTES_PER_US,
                  tile_mxu=3e-8, einsum_cell=3e-8,
                  unpack_cell=8 / _HBM_BYTES_PER_US,
-                 dup_row=1e-3, salt_fold=3e-4),
+                 dup_row=1.7e-3, salt_fold=3e-4),
 }
 # dup_row: extra per-row cost when rows COLLIDE on one destination row —
-# on the GPU, atomics on one address serialize in L2 at about one a
-# nanosecond; the CPU loop is sequential regardless, so 0: cost mode never
-# salts on CPU.  salt_fold: per-cell cost of the [K, S] ⊕-fold that merges
-# the salted sub-destinations back.
+# on the GPU, atomics on one address serialize in L2.  The cuda value is
+# measured: chip_smoke.py's hot-key segment case on an H100 (a quarter of
+# 2^26 rows on one of 2^20 segments) takes 1.7 ns more per hot row than
+# uniform keys.  The CPU loop is sequential regardless, so 0: cost mode
+# never salts on CPU.  salt_fold: per-cell cost of the [K, S] ⊕-fold that
+# merges the salted sub-destinations back.
 
 
 def _segment_cost(c: dict, backend: str, n: int, k: int, d: int) -> float:
@@ -148,7 +151,10 @@ def _segment_cost(c: dict, backend: str, n: int, k: int, d: int) -> float:
     return math.inf
 
 
-def probe_hot_fraction(keys, cap: int = 4096) -> float:
+PROBE_ROWS = 4096          # rows of the key column the skew probe samples
+
+
+def probe_hot_fraction(keys, cap: int = PROBE_ROWS) -> float:
     """Run-time skew probe: the fraction of rows held by the most frequent
     key in a host-side prefix sample of the key column (≤ `cap` rows,
     copied to the host once per call)."""
@@ -158,6 +164,17 @@ def probe_hot_fraction(keys, cap: int = 4096) -> float:
         return 0.0
     _, counts = np.unique(a, return_counts=True)
     return float(counts.max()) / float(a.size)
+
+
+def uniform_max_count(s: int, k: int) -> float:
+    """A bound on the count of the most frequent key in `s` draws of `k`
+    uniform keys, exceeded with probability ≲ 1/k: the mean s/k plus the
+    Bernstein margin √(2·(s/k)·ln k) + ⅔·ln k of a union over the k keys.
+    When k ≫ s the mean is below one row, yet the hottest key of a
+    uniform sample still shows up two or three times."""
+    lam = s / max(1, k)
+    lnk = math.log(max(2, k))
+    return lam + math.sqrt(2.0 * lam * lnk) + 2.0 / 3.0 * lnk
 
 
 def _hot_bucket(hot_frac: float) -> int:
@@ -184,7 +201,7 @@ def _measure_segment(backend: str, n: int, k: int, d: int, op: str,
 
     cells = n * k * max(1, d)
     if backend == "onehot" and cells > _MEASURE_CELL_CAP:
-        return math.inf
+        return math.inf          # never materialized at this size: never wins
     dt = getattr(torch, str(dtype).replace("torch.", ""))
     rng = np.random.default_rng(0)
     ids = torch.as_tensor(rng.integers(0, k, n), dtype=torch.int32,
@@ -197,20 +214,19 @@ def _measure_segment(backend: str, n: int, k: int, d: int, op: str,
         return COMBINE[op](dest, segment_flat(backend, ids, vals, k, op)
                            .to(dt))
 
+    # no try: a candidate that fails to build or launch raises here, so no
+    # decision is made (or cached) while a kernel is broken
     cuda = torch.device(device).type == "cuda"
-    try:
-        fn()                                   # warm up (and build)
-        if cuda:
-            torch.cuda.synchronize(device)
-        reps = 3
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        if cuda:
-            torch.cuda.synchronize(device)
-        return (time.perf_counter() - t0) / reps * 1e6
-    except (RuntimeError, ValueError):
-        return math.inf          # a candidate that cannot run never wins
+    fn()                                       # warm up (and build)
+    if cuda:
+        torch.cuda.synchronize(device)
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -327,8 +343,13 @@ class OpSelector:
             return Decision(hit["backend"], "cache", key)
         # skew guard: a key is only "hot" when it holds several times its
         # fair 1/K share — below that, the collision chain is the inherent
-        # n/K every group-by pays, and salting can only add fold cost
-        if hot_frac * max(1, k) < 4.0:
+        # n/K every group-by pays, and salting can only add fold cost — AND
+        # more rows of the probe's sample than the hottest of K uniform
+        # keys would (the sample is ≤ PROBE_ROWS rows: with K ≫ that, 4×
+        # the fair share is a fraction of one row)
+        sample = min(n, PROBE_ROWS)
+        if hot_frac * max(1, k) < 4.0 or \
+                hot_frac * sample <= uniform_max_count(sample, k):
             return Decision("none", "cost", key)
         c = self._costs()
         # only EXCESS collisions beyond the balanced chain serialize extra

@@ -53,15 +53,8 @@ def unpack(t: TiledMatrix) -> torch.Tensor:
 
 def matmul_tiled(a: TiledMatrix, b) -> torch.Tensor:
     """Block-sparse matmul on the packed representation via the
-    tile_matmul kernel (the mask skips absent tiles)."""
+    tile_matmul kernel, which reads the tiles where they lie (the mask
+    skips absent tiles)."""
     from ..kernels import ops
-    bm, bk = a.tile_shape
     bdense = unpack(b) if isinstance(b, TiledMatrix) else b
-    mt, kt, _, _ = a.tiles.shape
-    a_dense = a.tiles.permute(0, 2, 1, 3).reshape(mt * bm, kt * bk)
-    kp = a_dense.shape[1]
-    b_p = torch.zeros((kp, bdense.shape[1]), dtype=bdense.dtype,
-                      device=bdense.device)
-    b_p[:bdense.shape[0]] = bdense
-    out = ops.tile_matmul(a_dense, b_p, tile_mask=a.mask, bm=bm, bk=bk)
-    return out[:a.shape[0]]
+    return ops.tile_matmul_packed(a.tiles, a.mask, a.shape, bdense)

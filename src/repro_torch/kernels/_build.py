@@ -37,9 +37,9 @@ SIGNATURES = {
                                   ctypes.c_longlong, ctypes.c_int, _P],
     },
     "tile_matmul": {
-        "tile_matmul_launch": [ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, _P],
+        "tile_matmul_launch": [ctypes.c_int, _P, *[ctypes.c_longlong] * 4,
+                               _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     },
 }
 

@@ -17,7 +17,9 @@
 // the packing tiles it touches whatever (bm, bk) is: where one mask entry
 // covers the whole step it scales the staged A tile once, otherwise every
 // element looks up its own tile.  Ragged M, N and K edges load zeros and
-// store nothing.  wgmma, TMA and warp specialisation are later work.
+// store nothing.  A is read through four strides, so the same kernel takes a
+// dense row-major lhs or the §5 packed tiles in place (no unpack, no padded
+// copy of B).  wgmma, TMA and warp specialisation are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -26,6 +28,8 @@ namespace {
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
 constexpr int kThreads = (BM / TM) * (BN / TN);    // 256
 constexpr int kColThreads = BN / TN;               // 16
+static_assert(kThreads % BK == 0 && BM * BK % kThreads == 0,
+              "A staging: every thread stages whole rows of one k column");
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -33,11 +37,15 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
   return __bfloat162float(x);
 }
 
-// A [M, K] and B [K, N] row-major; mask [ceil(M/bm), Kt] float or null;
-// C [M, N] float32.
+// Logical A [M, K]: element (r, c) lies at
+//   (r / bm)·sa0 + (c / bk)·sa1 + (r % bm)·sa2 + (c % bk)·sa3
+// (a dense row-major lhs: {bm·K, bk, K, 1}; packed tiles [Mt, Kt, bm, bk]:
+// {Kt·bm·bk, bm·bk, bk, 1}).  B [K, N] row-major; mask [ceil(M/bm), Kt]
+// float or null; C [M, N] float32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tile_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
+tile_matmul_kernel(const T* __restrict__ A, long long sa0, long long sa1,
+                   long long sa2, long long sa3, const T* __restrict__ B,
                    const float* __restrict__ mask, float* __restrict__ C,
                    int M, int N, int K, int bm, int bk, int Kt) {
   __shared__ float As[BK][BM + 4];    // k-major; +4 keeps the staging stores conflict-free
@@ -57,6 +65,21 @@ tile_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int mr0 = mask ? m0 / bm : 0;
   const int mr1 = mask ? m_last / bm : 0;
 
+  // A staging: thread tid stages column tid % BK of every k-step for the
+  // same kARows rows each step, so the rows' tile indices and offsets are
+  // worked out once here, and each step costs one division (its column).
+  constexpr int kARows = BM * BK / kThreads;         // 4
+  const int a_kk = tid % BK;
+  int a_mm[kARows], a_ti[kARows];
+  long long a_off[kARows];
+#pragma unroll
+  for (int j = 0; j < kARows; ++j) {
+    a_mm[j] = tid / BK + j * (kThreads / BK);
+    const int gr = m0 + a_mm[j];
+    a_ti[j] = gr < M ? gr / bm : -1;                 // -1: past the ragged edge
+    a_off[j] = gr < M ? a_ti[j] * sa0 + (gr - a_ti[j] * bm) * sa2 : 0;
+  }
+
   for (int k0 = 0; k0 < K; k0 += BK) {
     float scale = 1.0f;
     bool per_elem = false;
@@ -74,15 +97,19 @@ tile_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
       if (!any) continue;             // uniform across the block: every thread skips
       if (uniform) scale = first; else per_elem = true;
     }
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int mm = e / BK, kk = e % BK;
-      const int gr = m0 + mm, gc = k0 + kk;
-      float v = 0.0f;
-      if (gr < M && gc < K) {
-        const float mv = per_elem ? mask[(long long)(gr / bm) * Kt + gc / bk] : scale;
-        v = mv == 0.0f ? 0.0f : to_f32(A[(long long)gr * K + gc]) * mv;
+    {
+      const int gc = k0 + a_kk;
+      const int tj = gc / bk;
+      const long long col = tj * sa1 + (gc - tj * bk) * sa3;
+#pragma unroll
+      for (int j = 0; j < kARows; ++j) {
+        float v = 0.0f;
+        if (a_ti[j] >= 0 && gc < K) {
+          const float mv = per_elem ? mask[(long long)a_ti[j] * Kt + tj] : scale;
+          if (mv != 0.0f) v = to_f32(A[a_off[j] + col]) * mv;
+        }
+        As[a_kk][a_mm[j]] = v;
       }
-      As[kk][mm] = v;
     }
     for (int e = tid; e < BK * BN; e += kThreads) {
       const int kk = e / BN, nn = e % BN;
@@ -119,11 +146,14 @@ tile_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
 }  // namespace
 
-// dtype: 0 = float32 A and B, 1 = bfloat16 A and B.  mask may be null (the
-// unmasked kernel); otherwise it is [ceil(M/bm), ceil(K/bk)] float32.
-// Returns cudaGetLastError() after the launch.
-extern "C" int tile_matmul_launch(int dtype, const void* A, const void* B, const void* mask,
-                                  void* C, int M, int N, int K, int bm, int bk, void* stream) {
+// dtype: 0 = float32 A and B, 1 = bfloat16 A and B.  sa0..sa3: A's strides
+// in elements, as the kernel reads them.  mask may be null (the unmasked
+// kernel); otherwise it is [ceil(M/bm), ceil(K/bk)] float32.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int tile_matmul_launch(int dtype, const void* A, long long sa0, long long sa1,
+                                  long long sa2, long long sa3, const void* B,
+                                  const void* mask, void* C, int M, int N, int K, int bm,
+                                  int bk, void* stream) {
   if (M < 0 || N < 0 || K < 0 || bm < 1 || bk < 1) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return (int)cudaGetLastError();
   const int Kt = (K + bk - 1) / bk;
@@ -132,10 +162,12 @@ extern "C" int tile_matmul_launch(int dtype, const void* A, const void* B, const
   const float* mk = static_cast<const float*>(mask);
   if (dtype == 0)
     tile_matmul_kernel<float><<<grid, kThreads, 0, s>>>(
-        (const float*)A, (const float*)B, mk, (float*)C, M, N, K, bm, bk, Kt);
+        (const float*)A, sa0, sa1, sa2, sa3, (const float*)B, mk, (float*)C, M, N, K, bm,
+        bk, Kt);
   else if (dtype == 1)
     tile_matmul_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)A, (const __nv_bfloat16*)B, mk, (float*)C, M, N, K, bm, bk, Kt);
+        (const __nv_bfloat16*)A, sa0, sa1, sa2, sa3, (const __nv_bfloat16*)B, mk, (float*)C,
+        M, N, K, bm, bk, Kt);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

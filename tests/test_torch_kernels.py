@@ -18,7 +18,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.segment_reduce import (segment_reduce,
                                                 segment_reduce_plain,
                                                 segment_sum)
-from repro_torch.kernels.tile_matmul import tile_matmul, tile_matmul_plain
+from repro_torch.core.tiles import pack
+from repro_torch.kernels.tile_matmul import (tile_matmul, tile_matmul_packed,
+                                             tile_matmul_packed_plain,
+                                             tile_matmul_plain)
 
 rng = np.random.default_rng(0)
 
@@ -192,10 +195,40 @@ def test_tile_matmul_bad_mask_shape_raises():
         tile_matmul(a, a, torch.ones(3, 3), bm=32, bk=32)
 
 
+@pytest.mark.parametrize("m,k,n,bm", [(96, 64, 80, 32), (100, 70, 90, 32),
+                                      (20, 50, 30, 32)])
+def test_tile_matmul_packed_equals_masked_dense(m, k, n, bm):
+    # the packed entry reads [Mt, Kt, bm, bk] tiles of a logical (M, K)
+    # lhs; its product is the masked dense product of the same matrix
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    t = pack(_t(a), bm, bm, prune_zero=False)
+    mask = _t(rng.integers(0, 2, tuple(t.mask.shape)).astype(np.float32))
+    mask[0, 0] = 0.0
+    c = tile_matmul_packed(t.tiles, mask, t.shape, _t(b))
+    want = tile_matmul(_t(a), _t(b), mask, bm=bm, bk=bm)
+    np.testing.assert_array_equal(c.numpy(), want.numpy())
+    j = jax_tile_matmul(jnp.asarray(a), jnp.asarray(b),
+                        tile_mask=jnp.asarray(mask.numpy()), bm=bm, bn=bm,
+                        bk=bm)
+    np.testing.assert_allclose(c.numpy(), np.asarray(j), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_tile_matmul_packed_bad_shapes_raise():
+    t = pack(torch.ones(64, 48), 32, 32)
+    with pytest.raises(ValueError):
+        tile_matmul_packed(t.tiles, t.mask, (64, 48), torch.ones(40, 8))
+    with pytest.raises(ValueError):
+        tile_matmul_packed(t.tiles, t.mask, (64, 96), torch.ones(96, 8))
+
+
 def test_cpu_wrappers_count_no_launches():
     ops.reset_launch_counts()
     segment_reduce(_t(np.zeros(3, np.int32)), _t(np.ones(3, np.float32)), 2)
     tile_matmul(torch.ones(4, 4), torch.ones(4, 4))
+    t = pack(torch.ones(4, 4), 2, 2)
+    tile_matmul_packed(t.tiles, t.mask, t.shape, torch.ones(4, 4))
     assert ops.launch_counts() == {"segment_reduce": 0, "tile_matmul": 0}
 
 
@@ -235,4 +268,21 @@ def test_cuda_tile_matmul_matches_plain(cuda, dtype):
     mask = _t(r.integers(0, 2, (3, 3)).astype(np.float32)).to(cuda)
     got = tile_matmul(a, b, mask)
     want = tile_matmul_plain(a, b, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,bm", [(300, 260, 140, 128),
+                                      (100, 70, 90, 32)])
+def test_cuda_tile_matmul_packed_matches_plain(cuda, dtype, m, k, n, bm):
+    r = np.random.default_rng(m)
+    a = _t(r.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
+    b = _t(r.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
+    t = pack(a, bm, bm, prune_zero=False)
+    t.mask[0, 0] = 0.0
+    before = tile_matmul.launches
+    got = tile_matmul_packed(t.tiles, t.mask, t.shape, b)
+    want = tile_matmul_packed_plain(t.tiles, t.mask, t.shape, b)
+    assert tile_matmul.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)

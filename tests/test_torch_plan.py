@@ -8,13 +8,15 @@ reference's character for character (without the trailing
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from repro.core import compile_program as jax_compile
 from repro.core.op_select import OpSelector as JaxOpSelector
 from repro.core.programs import ALL as JAX_ALL
 from repro_torch.core import compile_program
-from repro_torch.core.op_select import SEGMENT_CANDIDATES, OpSelector
+from repro_torch.core.op_select import (PROBE_ROWS, SEGMENT_CANDIDATES,
+                                        OpSelector, probe_hot_fraction)
 from repro_torch.core.programs import ALL
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -96,6 +98,47 @@ def test_cuda_cost_row_picks_the_tile_kernel():
         == "pallas-tiled"
     assert OpSelector(mode="cost", cache_path=None, platform="cpu") \
         .choose_contract(m=8192, k=8192, n=8192).backend == "unpack-einsum"
+
+
+# hot-key salting: the skew guard weighs the hottest key against what the
+# probe's sample of uniform keys would show, however large K is
+_SALT_K = [256, 4096, 2 ** 17, 2 ** 20]
+
+
+def _probe(k, hot, seed):
+    r = np.random.default_rng(seed)
+    keys = r.integers(0, k, PROBE_ROWS)
+    if hot:
+        keys = np.where(r.random(PROBE_ROWS) < 0.25, 0, keys)
+    return probe_hot_fraction(keys)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("k", _SALT_K)
+def test_cuda_salt_guard_leaves_uniform_keys_alone(k, seed):
+    sel = OpSelector(mode="cost", cache_path=None, platform="cuda")
+    dec = sel.choose_salt(n=2 ** 26, k=k, op="+",
+                          hot_frac=_probe(k, False, seed))
+    assert (dec.backend, dec.source) == ("none", "cost")
+
+
+@pytest.mark.parametrize("k", _SALT_K)
+def test_cuda_salt_guard_salts_a_hot_key(k):
+    sel = OpSelector(mode="cost", cache_path=None, platform="cuda")
+    dec = sel.choose_salt(n=2 ** 26, k=k, op="+", hot_frac=_probe(k, True, 0))
+    assert dec.backend.startswith("salt:") and dec.source == "cost"
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("k", _SALT_K)
+def test_cpu_salt_decisions_equal_reference(k, hot):
+    h = _probe(k, hot, 0)
+    kw = dict(n=2 ** 20, k=k, op="+", hot_frac=h)
+    a = OpSelector(mode="cost", cache_path=None,
+                   platform="cpu").choose_salt(**kw)
+    b = JaxOpSelector(mode="cost", cache_path=None,
+                      platform="cpu").choose_salt(**kw)
+    assert (a.backend, a.source, a.why) == (b.backend, b.source, b.why)
 
 
 def test_device_defaults_to_cuda_and_refuses_the_cpu_silently():

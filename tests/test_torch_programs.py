@@ -140,6 +140,25 @@ def test_autotune_measures_once_then_reads_its_cache(tmp_path):
     assert lines[1][0] == lines[0][0].replace("[autotune]", "[cache]")
 
 
+def test_autotune_raises_on_a_failing_candidate_and_caches_nothing(
+        tmp_path, monkeypatch):
+    # a kernel that fails to build or launch must surface, never lose the
+    # measurement quietly and leave a cached choice that avoids it
+    from repro_torch.core import lower
+
+    def broken(backend, *a, **kw):
+        if backend == "pallas":
+            raise RuntimeError("segment_reduce: CUDA error 209")
+        return segment_flat(backend, *a, **kw)
+    monkeypatch.setattr(lower, "segment_flat", broken)
+    cache = tmp_path / "autotune.json"
+    cp = compile_program(ALL["group_by"], op_select="autotune",
+                         autotune_cache=str(cache), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cp.run(_copy(_groupby_inputs(3)["group_by"]))
+    assert not cache.exists()
+
+
 # ---------------------------------------------------------------------------
 # traps: where torch differs from jax, one test each
 # ---------------------------------------------------------------------------

@@ -19,7 +19,18 @@ first mismatch:
              program, with the kernels' launch counts read around the run;
              the programs the kernels serve, and the slowest, run once more
              under torch.profiler for the device's busy time and idle share;
-             the group-by programs run again with the segment kernel pinned.
+             the group-by programs run again with the segment kernel pinned;
+4. serve   — serve llama3-8b and falcon-mamba-7b at full width and full
+             depth (bf16, random weights from --seed, one model on the card
+             at a time) through `repro_torch.serve.ServeEngine`: 4 slots,
+             max_seq 2112, six requests of 2048, 1531, 1024, 777, 512 and
+             300 prompt tokens, 32 new tokens each, with the launch counts
+             read around the run; then prefill ms per prompt length, decode
+             ms per tick at 4 active slots, peak device memory and one
+             torch.profiler trace of a prefill and a decode tick; then a
+             2-layer float32 copy of each model (full width) run on the
+             card against the same weights on the CPU (the kernels' plain
+             versions).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -28,6 +39,7 @@ outside a checkout, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -51,6 +63,17 @@ MAT = 8192
 PR_VERTICES, PR_EDGES, PR_STEPS = 4_847_571, 68_993_773, 10   # soc-LiveJournal1
 KM_POINTS, KM_K = 2 ** 24, 64
 MF_N, MF_L = 4096, 64
+
+# the kernels of the program path (phase 3)
+PROGRAM_KERNELS = ("segment_reduce", "tile_matmul")
+
+# the serve path: what one H100 serving an 8B model holds (full width and
+# depth, bf16); prompt lengths include ones that 128 and 256 do not divide
+SERVE_ARCHS = {"llama3-8b": "flash_attention",
+               "falcon-mamba-7b": "selective_scan"}
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 4, 2112, 32
+PROMPT_LENS = (2048, 1531, 1024, 777, 512, 300)
+CHECK_LAYERS, CHECK_PROMPT, CHECK_NEW = 2, 300, 8
 
 
 class SmokeFailure(Exception):
@@ -278,6 +301,90 @@ def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
     return rec
 
 
+def _flash_case(torch, g, bh, s, hd, dtype, reps=5):
+    """Causal attention at the prefill's shape [B·Hq, S, hd]."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(bh, s, hd, generator=g, device="cuda").to(dt)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    require(got.dtype == dt and got.shape == want.shape,
+            f"flash_attention {dtype}: got {got.dtype} {tuple(got.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    # bf16: both round the output to bf16 (1 ulp is 2^-8 relative);
+    # float32: the same sums in another order, and __expf
+    rel = 1e-2 if dtype == "bfloat16" else 1e-4
+    tol = rel * float(want.float().abs().max())
+    require(err <= tol, f"flash_attention [{bh}, {s}, {hd}] {dtype}: err "
+                        f"{err} > {tol}")
+    kernel_ms = time_ms(torch, lambda: flash_attention(q, k, v), reps)
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v), reps)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # as [1, BH, S, hd]: PyTorch's fused attention backends take 4-d inputs
+    q4, k4, v4 = q[None], k[None], v[None]
+    library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True),
+                         reps)
+    esize = 2 if dtype == "bfloat16" else 4
+    flops = 4.0 * bh * hd * s * (s + 1) / 2      # causal pairs only
+    bytes_ = 4.0 * bh * s * hd * esize           # q, k, v read; out written
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    rec = dict(case=f"flash_attention causal [{bh}, {s}, {hd}] {dtype}",
+               max_abs_err=err, tol=f"{rel:g}*max|ref|", kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="scaled_dot_product_attention(is_causal=True)",
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log("[kernels] " + json.dumps(rec))
+    return rec
+
+
+def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
+    """The Mamba-1 scan of one prefill chunk [B, S, D, N]: with h0 and the
+    final state (a chunk after the first), or without either (the TPU
+    kernel's form)."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_plain)
+    dev = "cuda"
+    a = torch.exp(-torch.randn(b, s, d, n, generator=g, device=dev).abs())
+    bx = torch.randn(b, s, d, n, generator=g, device=dev) * 0.1
+    c = torch.randn(b, s, n, generator=g, device=dev)
+    h0 = torch.randn(b, d, n, generator=g, device=dev) if with_h0 else None
+    if with_h0:
+        got = selective_scan(a, bx, c, h0, return_state=True)
+        want = selective_scan_plain(a, bx, c, h0, return_state=True)
+    else:
+        # the TPU kernel's form, and the same call asking for the state
+        got = (selective_scan(a, bx, c),
+               selective_scan(a, bx, c, return_state=True)[1])
+        want = selective_scan_plain(a, bx, c, return_state=True)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, x, ref in zip(("y", "h_last"), got, want):
+        e = float((x - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        require(e <= tol, f"selective_scan [{b}, {s}, {d}, {n}] "
+                          f"h0={with_h0} {name}: err {e} > {tol}")
+        err = max(err, e)
+    kernel_ms = time_ms(torch, lambda: selective_scan(
+        a, bx, c, h0, return_state=with_h0), reps)
+    plain_ms = time_ms(torch, lambda: selective_scan_plain(
+        a, bx, c, h0, return_state=with_h0), 2)
+    state = 4 * b * d * n * (2 if with_h0 else 0)   # h0 read, h_last written
+    bytes_ = 4.0 * (2 * b * s * d * n + b * s * n + b * s * d) + state
+    rec = dict(case=f"selective_scan [{b}, {s}, {d}, {n}] float32 "
+               + ("h0 and h_last" if with_h0 else "from zero, y only"),
+               max_abs_err=err, tol="1e-4*max|ref| (y and h_last)",
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               library="none (no single PyTorch call)",
+               bound_ms=bytes_ / HBM_BYTES_S * 1e3, bound_by="bytes")
+    log("[kernels] " + json.dumps(rec))
+    return rec
+
+
 def phase_kernels(torch, seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -317,10 +424,21 @@ def phase_kernels(torch, seed):
         _tile_case(torch, g, 100, 70, 90, 32, "float32", True, False),
     ]
     torch.cuda.synchronize()
-    # the entries of the kernel line: the main path's shapes (the group-by
+    flash = [_flash_case(torch, g, 32, 2048, 128, "bfloat16"),
+             _flash_case(torch, g, 32, 777, 128, "bfloat16"),
+             _flash_case(torch, g, 32, 2048, 128, "float32"),
+             _flash_case(torch, g, 32, 777, 128, "float32")]
+    scan = [_scan_case(torch, g, 1, 256, 8192, 16, True),
+            _scan_case(torch, g, 1, 256, 8192, 16, False),
+            _scan_case(torch, g, 1, 1531, 8192, 16, False)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the entries of the kernel line: the main paths' shapes (the group-by
     # over 2^20 segments, the packed 8192^3 product through the packed
-    # entry)
-    return {"segment_reduce": seg[1], "tile_matmul": tile[0]}
+    # entry, the 2048-token llama3-8b prefill's attention, a 256-step
+    # falcon-mamba-7b chunk carried from the previous one)
+    return {"segment_reduce": seg[1], "tile_matmul": tile[0],
+            "flash_attention": flash[0], "selective_scan": scan[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -550,17 +668,17 @@ PROFILED = ("word_count", "histogram", "group_by",
             "matrix_multiplication[packed]", "pagerank", "kmeans_step")
 
 
-def _profile(torch, name, cp, inputs, run_ms, top=5):
-    """One more run() under torch.profiler: the device's busy time (the sum
-    of the durations of the kernels and copies it ran), its idle share of
-    `run_ms` (the unprofiled median run), and the kernels that took the
-    most device time."""
+def _profile(torch, name, fn, run_ms, top=5):
+    """One more call of `fn` under torch.profiler: the device's busy time
+    (the sum of the durations of the kernels and copies it ran), its idle
+    share of `run_ms` (the unprofiled median of the same call), and the
+    kernels that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cp.run(inputs)
+        fn()
         torch.cuda.synchronize()
     per: dict = {}
     for e in prof.events():
@@ -569,13 +687,14 @@ def _profile(torch, name, cp, inputs, run_ms, top=5):
             per[e.name] = (ms + e.device_time_total / 1e3, c + 1)
     if not per:
         log(f"[profile] {name}: the profiler recorded no device time")
-        return
+        return None
     busy = sum(ms for ms, _ in per.values())
     rows = sorted(((ms, k, c) for k, (ms, c) in per.items()), reverse=True)
     log(f"[profile] {name}: device busy {busy:.3f} ms of a {run_ms:.3f} ms "
         f"run (unprofiled median), idle share "
         f"{max(0.0, 1.0 - busy / run_ms):.3f}; top kernels: "
         + "; ".join(f"{k[:70]} x{c} {ms:.3f} ms" for ms, k, c in rows[:top]))
+    return busy
 
 
 def _check(name, out, ref_fn, rows=None):
@@ -630,7 +749,7 @@ def phase_main(torch, seed):
                     f"{name}: tile_matmul kernel was not launched")
         del out
         torch.cuda.empty_cache()
-    launches = ops.launch_counts()
+    launches = {k: ops.launch_counts()[k] for k in PROGRAM_KERNELS}
     log(f"[main] kernel launches on the main path: {json.dumps(launches)}")
     for k, v in launches.items():
         require(v > 0, f"kernel {k} was not launched on the main path")
@@ -660,7 +779,194 @@ def phase_main(torch, seed):
         name, inputs = item[:2]
         if name in PROFILED:
             cp, run_ms = medians[name]
-            _profile(torch, name, cp, inputs, run_ms)
+            _profile(torch, name, lambda: cp.run(inputs), run_ms)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving the two LM families
+# ---------------------------------------------------------------------------
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _serve_model(torch, np, arch, kernel, seed):
+    """Serve one model through the engine; returns the launch counts of the
+    engine run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import (ServeEngine, make_decode_step,
+                                   make_prefill_step)
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg).init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[serve] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B parameters, "
+        f"{w_bytes / 1e9:.2f} GB of weights ({str(cfg.param_dtype)}), init "
+        f"on the card from seed {seed} in {time.perf_counter() - t0:.1f} s; "
+        f"full width and full depth")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    # warm-up: one short request (allocator, cuBLAS handles, kernel build)
+    warm = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
+    warm.submit(prompts[-1][:64], 2)
+    warm.run()
+    del warm
+
+    # the main path: six requests through the engine, launches counted
+    eng = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
+    reqs = [eng.submit(p, SERVE_MAX_NEW) for p in prompts]
+    ticks, full_ticks = [], []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    while any(eng.active) or eng.queue:
+        full = all(r is not None for r in eng.active)   # no slot to admit
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        ticks.append(ms)
+        if full:               # a pure decode tick over every slot
+            full_ticks.append(ms)
+    run_s = time.perf_counter() - t_run
+    counts = ops.launch_counts()
+    log(f"[serve] {arch}: engine run of {len(reqs)} requests in {run_s:.3f} s"
+        f" ({len(ticks)} ticks, {SERVE_SLOTS} slots); kernel launches "
+        f"{json.dumps(counts)}")
+    require(counts[kernel] > 0, f"{arch}: {kernel} was not launched on the "
+                                "serve path")
+    for r in reqs:
+        require(r.done and len(r.out) == SERVE_MAX_NEW,
+                f"{arch}: request {r.rid} done={r.done} with {len(r.out)} "
+                f"tokens, expected {SERVE_MAX_NEW}")
+        require(all(0 <= t < cfg.vocab_size for t in r.out),
+                f"{arch}: request {r.rid} produced a token out of the "
+                "vocabulary")
+    require(full_ticks, f"{arch}: no decode tick ran with every slot busy")
+    dec_ms = _median(full_ticks)
+    log(f"[serve] {arch}: decode {dec_ms:.3f} ms per tick at {SERVE_SLOTS} "
+        f"active slots (median of {len(full_ticks)} ticks; min "
+        f"{min(full_ticks):.3f}, max {max(full_ticks):.3f}), "
+        f"{SERVE_SLOTS / dec_ms * 1e3:.1f} decode tokens/s")
+
+    # prefill per prompt length, through the engine's own prefill step
+    prefill = make_prefill_step(cfg, SERVE_MAX_SEQ)
+    pre_ms = {}
+    for p in prompts:
+        tokens = torch.as_tensor(p[None], device="cuda")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache1 = prefill(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (1, cfg.vocab_size),
+                f"{arch}: prefill of {len(p)} tokens gave non-finite logits "
+                f"or shape {tuple(logits.shape)}")
+        del cache1
+        pre_ms[len(p)] = _median(times)
+        log(f"[serve] {arch}: prefill {len(p)} tokens {pre_ms[len(p)]:.3f} ms"
+            f" (median of 3; min {min(times):.3f}, max {max(times):.3f}), "
+            f"{len(p) / pre_ms[len(p)] * 1e3:.0f} tokens/s")
+    # one decode over the engine's cache: finite logits for every slot
+    decode = make_decode_step(cfg)
+    toks = torch.as_tensor([[r.out[-1]] for r in reqs[:SERVE_SLOTS]],
+                           device="cuda")
+    pos = np.minimum(eng.pos, SERVE_MAX_SEQ - 1)
+    logits, _ = decode(model, eng.cache, toks, pos)
+    require(bool(torch.isfinite(logits).all())
+            and tuple(logits.shape) == (SERVE_SLOTS, cfg.vocab_size),
+            f"{arch}: decode gave non-finite logits or shape "
+            f"{tuple(logits.shape)}")
+    log(f"[serve] {arch}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        "(max_memory_allocated over init, engine run and prefills)")
+
+    # traced last: one prefill (the 2048-token prompt) and one decode tick
+    tokens = torch.as_tensor(prompts[0][None], device="cuda")
+    _profile(torch, f"{arch} prefill {len(prompts[0])} tokens",
+             lambda: prefill(model, {"tokens": tokens}),
+             pre_ms[len(prompts[0])])
+    _profile(torch, f"{arch} decode tick at {SERVE_SLOTS} slots",
+             lambda: decode(model, eng.cache, toks, pos), dec_ms)
+    del model, eng, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _model_check(torch, np, arch, seed):
+    """A 2-layer float32 copy of the model at full width: the port on the
+    card against the same weights on the CPU (the kernels' plain
+    versions), one prompt then greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    full = get_config(arch)
+    kind = full.layout[0][0][0]
+    cfg = full.replace(layout=(((kind,), CHECK_LAYERS),),
+                       param_dtype=torch.float32,
+                       compute_dtype=torch.float32,
+                       cache_dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = get_model(cfg, device="cpu").init(seed)
+    gpu = get_model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 1)
+    prompt = rng.integers(0, cfg.vocab_size, CHECK_PROMPT).astype(np.int32)
+    max_seq = CHECK_PROMPT + CHECK_NEW
+    ref, cc = cpu.prefill(torch.as_tensor(prompt[None]), max_seq)
+    got, gc_ = gpu.prefill(torch.as_tensor(prompt[None], device="cuda"),
+                           max_seq)
+    errs, toks = [], []
+    for step in range(CHECK_NEW + 1):
+        r, o = ref.double(), got.double().cpu()
+        require(bool(torch.isfinite(o).all()), f"{arch} check: non-finite "
+                                               "logits on the card")
+        e = float((o - r).abs().max()) / float(r.abs().max())
+        errs.append(e)
+        t_ref, t_got = int(torch.argmax(ref[0])), int(torch.argmax(got[0]))
+        require(e <= 1e-3, f"{arch} check step {step}: rel err {e} > 1e-3")
+        require(t_ref == t_got, f"{arch} check step {step}: token {t_got} on "
+                                f"the card, {t_ref} on the CPU")
+        toks.append(t_ref)
+        if step == CHECK_NEW:
+            break
+        pos = CHECK_PROMPT + step
+        ref, cc = cpu.decode(cc, torch.tensor([[t_ref]]), pos)
+        got, gc_ = gpu.decode(gc_, torch.tensor([[t_got]], device="cuda"),
+                              pos)
+    log(f"[serve] {arch} check: {CHECK_LAYERS} of {full.num_layers} layers "
+        f"(depth cut for this check only), full width, float32; prompt "
+        f"{CHECK_PROMPT} then {CHECK_NEW} greedy tokens, card vs CPU: max "
+        f"rel err {max(errs):.3g} (tol 1e-3; prefill {errs[0]:.3g}), tokens "
+        f"identical {toks}; {time.perf_counter() - t0:.1f} s")
+    del cpu, gpu, cc, gc_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(torch, seed):
+    import numpy as np
+    from repro_torch.kernels import ops
+    launches = {}
+    for arch, kernel in SERVE_ARCHS.items():
+        counts = _serve_model(torch, np, arch, kernel, seed)
+        launches[kernel] = counts[kernel]
+    for arch in SERVE_ARCHS:
+        _model_check(torch, np, arch, seed)
+    log(f"[serve] kernel launches on the serve path: {json.dumps(launches)}")
+    ops.reset_launch_counts()
     return launches
 
 
@@ -683,6 +989,9 @@ def main(argv=None) -> int:
         phase_build(torch)
         per_kernel = phase_kernels(torch, args.seed)
         launches = phase_main(torch, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(phase_serve(torch, args.seed))
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
         return 1
@@ -690,7 +999,13 @@ def main(argv=None) -> int:
                                   "segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce.py:109"),
                "tile_matmul": ("src/repro_torch/kernels/csrc/tile_matmul.cu",
-                               "src/repro/kernels/tile_matmul.py:69")}
+                               "src/repro/kernels/tile_matmul.py:69"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/"
+                                   "flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:70"),
+               "selective_scan": ("src/repro_torch/kernels/csrc/"
+                                  "selective_scan.cu",
+                                  "src/repro/kernels/selective_scan.py:60")}
     kernels = []
     for name, rec in per_kernel.items():
         src, repl = sources[name]

@@ -8,6 +8,12 @@ vector/matrix/map params take float32 or int32 by their declared type;
 dims stay python ints.  `tiled_from_arrays` rebuilds a packed matrix from
 the numpy fields (`tiles`, `mask`, `shape`) of the reference package's
 TiledMatrix; the caller does the `np.asarray`.
+
+For the LM stack, `lm_params_from_numpy` loads the reference's parameter
+tree (its `model.init(seed)`, leaves as numpy arrays) into the port's
+`LM`, one stacked leaf `g<gi>/s<i>_<kind>/...[r]` into each layer module;
+`lm_cache_from_numpy` and `lm_cache_to_numpy` carry a cache across in
+both directions, so that caches compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -81,3 +87,79 @@ def inputs_from_numpy(inputs: dict, device, params=None) -> dict:
         else:
             out[name] = to_tensor(v, device)
     return out
+
+
+def _np_to_tensor(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _leaf_paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}"
+
+
+def _at(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+@torch.no_grad()
+def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
+    """The port's `LM` holding the reference's parameters: `tree` is the
+    reference's `model.init(seed)` with numpy leaves.  Shapes and dtypes
+    must be the config's; every leaf of the tree is used exactly once."""
+    from .models.lm import LM, layer_slots
+    model = LM(cfg, device=device)
+    used = set()
+
+    def load(param, key, index=None):
+        t = _np_to_tensor(_at(tree, key), param.device)
+        if index is not None:
+            t = t[index]
+        if tuple(t.shape) != tuple(param.shape) or t.dtype != param.dtype:
+            raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype} does not "
+                             f"fit {tuple(param.shape)} {param.dtype}")
+        param.copy_(t)
+        used.add(key)
+
+    for name in ("embed", "final_norm", "lm_head"):
+        load(getattr(model, name), name)
+    for layer, (g, s, r, _) in zip(model.layers, layer_slots(cfg)):
+        for path, p, _ in layer.leaves():
+            load(p, f"{g}/{s}/{path}", r)
+    extra = set(_leaf_paths(tree)) - used
+    if extra:
+        raise ValueError(f"leaves of the tree that the port has no place "
+                         f"for: {sorted(extra)}")
+    return model
+
+
+def lm_cache_from_numpy(cfg, tree: dict, device="cuda") -> list:
+    """The port's per-layer cache list from the reference's stacked cache
+    tree (numpy leaves [L, B, ...])."""
+    from .models.lm import layer_slots
+    return [{k: _np_to_tensor(a[r], device) for k, a in tree[g][s].items()}
+            for g, s, r, _ in layer_slots(cfg)]
+
+
+def lm_cache_to_numpy(cfg, cache: list) -> dict:
+    """The reference's stacked cache tree from the port's cache list;
+    bfloat16 leaves come back as float32 (numpy has no bfloat16)."""
+    from .models.lm import layer_slots
+    stacks: dict = {}
+    for (g, s, _, _), c in zip(layer_slots(cfg), cache):
+        for k, t in c.items():
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            stacks.setdefault(g, {}).setdefault(s, {}).setdefault(
+                k, []).append(t.detach().cpu().numpy())
+    return {g: {s: {k: np.stack(v) for k, v in d.items()}
+                for s, d in gd.items()} for g, gd in stacks.items()}

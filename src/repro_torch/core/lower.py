@@ -1065,7 +1065,7 @@ class CompiledProgram:
         if compile_mode == "whole":
             raise NotImplementedError(
                 "compile_mode='whole' is not ported yet (ROADMAP.md, "
-                "Queue 1: whole-program compilation); use 'eager'")
+                "'Modules to port', whole-program compilation); use 'eager'")
         if compile_mode != "eager":
             raise ValueError(f"unknown compile_mode {compile_mode!r}")
         self.program = prog

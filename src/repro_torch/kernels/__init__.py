@@ -1,3 +1,5 @@
-from .ops import segment_reduce, segment_sum, tile_matmul
+from .ops import (flash_attention, segment_reduce, segment_sum,
+                  selective_scan, tile_matmul)
 
-__all__ = ["segment_reduce", "segment_sum", "tile_matmul"]
+__all__ = ["flash_attention", "segment_reduce", "segment_sum",
+           "selective_scan", "tile_matmul"]

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("segment_reduce", "tile_matmul")
+SOURCES = ("segment_reduce", "tile_matmul", "flash_attention",
+           "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +41,14 @@ SIGNATURES = {
         "tile_matmul_launch": [ctypes.c_int, _P, *[ctypes.c_longlong] * 4,
                                _P, _P, _P, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [ctypes.c_int, _P, _P, _P, _P,
+                                   *[ctypes.c_int] * 4, ctypes.c_float,
+                                   ctypes.c_int, _P],
+    },
+    "selective_scan": {
+        "selective_scan_launch": [*[_P] * 6, *[ctypes.c_int] * 4, _P],
     },
 }
 

@@ -2,19 +2,23 @@
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors.  Each counts its launches in a plain
-integer attribute (`segment_reduce.launches`, `tile_matmul.launches`; the
-packed entry `tile_matmul_packed` launches the same kernel and counts in
+integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
+`flash_attention.launches`, `selective_scan.launches`; the packed entry
+`tile_matmul_packed` launches the same kernel and counts in
 `tile_matmul.launches`), so a run can show that it went through the
-kernels.  `flash_attention` and
-`selective_scan` of the JAX package are not ported yet.
+kernels.
 """
 from __future__ import annotations
 
 from ._build import build_all
+from .flash_attention import flash_attention
 from .segment_reduce import segment_reduce, segment_sum
+from .selective_scan import selective_scan
 from .tile_matmul import tile_matmul, tile_matmul_packed
 
-KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul}
+KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
+           "flash_attention": flash_attention,
+           "selective_scan": selective_scan}
 
 
 def launch_counts() -> dict:
@@ -27,5 +31,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["build_all", "segment_reduce", "segment_sum", "tile_matmul",
-           "tile_matmul_packed", "launch_counts", "reset_launch_counts",
-           "KERNELS"]
+           "tile_matmul_packed", "flash_attention", "selective_scan",
+           "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -1,0 +1,147 @@
+"""GQA attention for prefill and decode, as the reference's
+`models/attention.py` computes it, without the mesh constraints.
+
+Prefill attention (causal, no window, queries aligned with keys) runs the
+hand-written `flash_attention` kernel on [B·Hq, S, hd].  Decode attention
+is plain torch, as the reference computes it outside any kernel.  Other
+forms (a local window, non-causal cross-attention) come with the lattn and
+whisper layers (ROADMAP.md, 'Modules to port').
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from .common import ParamDef, apply_rope, dense
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Param defs
+# ---------------------------------------------------------------------------
+
+def attn_defs(cfg) -> dict[str, ParamDef]:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = cfg.param_dtype
+    defs = {
+        "wq": ParamDef((d, hq * hd), ("embed", "qkv"), dt),
+        "wk": ParamDef((d, hkv * hd), ("embed", "qkv"), dt),
+        "wv": ParamDef((d, hkv * hd), ("embed", "qkv"), dt),
+        "wo": ParamDef((hq * hd, d), ("qkv", "embed"), dt),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((hq * hd,), ("qkv",), dt, init="zeros")
+        defs["bk"] = ParamDef((hkv * hd,), ("qkv",), dt, init="zeros")
+        defs["bv"] = ParamDef((hkv * hd,), ("qkv",), dt, init="zeros")
+    return defs
+
+
+def attn_cache_defs(cfg, batch: int, max_seq: int):
+    """(shape, dtype) of each cache leaf."""
+    shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (shp, cfg.cache_dtype), "v": (shp, cfg.cache_dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k, v, hq):
+    g = hq // k.shape[2]
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    return k, v
+
+
+def attention_core(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd] -> [B,Sq,Hq,hd], through the
+    flash_attention kernel.  The reference's query chunking (`attn_chunk`)
+    bounds the memory of its [Sq, Sk] scores; the kernel never forms them,
+    so it takes the whole sequence at once."""
+    if window > 0 or not causal or q_offset != 0:
+        raise NotImplementedError(
+            "attention_core: only causal attention without a window and with "
+            "aligned queries (prefill) is ported; local-window and cross "
+            "attention come with the lattn and whisper layers (ROADMAP.md, "
+            "'Modules to port')")
+    b, sq, hq, hd = q.shape
+    sk = k.shape[1]
+    k, v = _repeat_kv(k, v, hq)
+
+    def heads_first(x, s):
+        return x.transpose(1, 2).reshape(b * hq, s, hd)
+    out = flash_attention(heads_first(q, sq), heads_first(k, sk),
+                          heads_first(v, sk), causal=True)
+    return out.reshape(b, hq, sq, hd).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + rope + cache handling)
+# ---------------------------------------------------------------------------
+
+def _project_qkv(cfg, p, x):
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, hq, hd)
+    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
+    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
+    return q, k, v
+
+
+def _rope(cfg, q, k, pos):
+    if cfg.pos_embed != "rope":
+        return q, k
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE comes with the vlm family "
+                                  "(ROADMAP.md, 'Modules to port')")
+    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos,
+                                                          cfg.rope_theta)
+
+
+def attn_prefill(cfg, p, x, cache):
+    """Prefill: causal attention, and the post-rope k/v stored into the
+    zeroed [B, max_seq, Hkv, hd] cache it is given (`LM.prefill` makes a
+    fresh one).  Returns (y, cache)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x)
+    pos = torch.arange(s, device=x.device)
+    q, k = _rope(cfg, q, k, pos)
+    out = attention_core(q, k, v, causal=True)
+    kc, vc = cache["k"], cache["v"]
+    kc[:, :s] = k.to(kc.dtype)
+    vc[:, :s] = v.to(vc.dtype)
+    return dense(out.reshape(b, s, -1), p["wo"]), {"k": kc, "v": vc}
+
+
+def attn_decode(cfg, p, x, cache, pos):
+    """One-token decode.  x: [B,1,d]; pos: [B] int, each row's count of
+    tokens so far (a scalar is taken for every row).  Row r's rope angle
+    is pos[r], its k/v land at cache[r, pos[r]], and it attends to the
+    cache positions ≤ pos[r].  Updates the cache in place."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64) \
+        .reshape(-1).expand(b)
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, 1, hq, hd)
+    k = dense(x, p["wk"], p.get("bk")).reshape(b, 1, hkv, hd)
+    v = dense(x, p["wv"], p.get("bv")).reshape(b, 1, hkv, hd)
+    q, k = _rope(cfg, q, k, pos[:, None])
+
+    kc, vc = cache["k"], cache["v"]
+    cap = kc.shape[1]
+    rows = torch.arange(b, device=x.device)
+    slot = pos.clamp(0, cap - 1)     # the reference's update slice clamps
+    kc[rows, slot] = k[:, 0].to(kc.dtype)
+    vc[rows, slot] = v[:, 0].to(vc.dtype)
+
+    valid = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
+    kf, vf = _repeat_kv(kc.to(q.dtype), vc.to(q.dtype), hq)
+    scores = torch.einsum("bqhd,bshd->bhqs", q, kf).float()
+    scores = scores * (hd ** -0.5)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full((), NEG_INF, device=x.device))
+    w = torch.softmax(scores, dim=-1).to(vf.dtype)
+    out = torch.einsum("bhqs,bshd->bqhd", w, vf).reshape(b, 1, hq * hd)
+    return dense(out.to(x.dtype), p["wo"]), cache

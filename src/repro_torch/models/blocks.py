@@ -1,0 +1,79 @@
+"""Layer-kind dispatch: param defs + prefill/decode per block kind.
+
+Ported kinds: "dense" (GQA attn + SwiGLU) and "ssm" (Mamba-1).  The
+reference's "moe", "rec" and "lattn" kinds raise NotImplementedError
+naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention as attn
+from . import ssm as ssm_mod
+from .common import ParamDef, rms_norm, swiglu
+
+NOT_PORTED = {
+    "moe": "ROADMAP.md, 'Modules to port': the moe family",
+    "rec": "ROADMAP.md, 'Modules to port': the rec and lattn layers",
+    "lattn": "ROADMAP.md, 'Modules to port': the rec and lattn layers",
+}
+
+
+def _check_kind(kind: str):
+    if kind in NOT_PORTED:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
+                                  f"({NOT_PORTED[kind]})")
+    if kind not in ("dense", "ssm"):
+        raise ValueError(kind)
+
+
+def _norm_def(cfg):
+    return ParamDef((cfg.d_model,), ("embed",), torch.float32, init="zeros")
+
+
+def _mlp_defs(cfg):
+    d, ff = cfg.d_model, cfg.d_ff
+    dt = cfg.param_dtype
+    return {"w_gate": ParamDef((d, ff), ("embed", "ff"), dt),
+            "w_in": ParamDef((d, ff), ("embed", "ff"), dt),
+            "w_out": ParamDef((ff, d), ("ff", "embed"), dt)}
+
+
+def block_defs(cfg, kind: str) -> dict:
+    _check_kind(kind)
+    if kind == "ssm":
+        return {"ln": _norm_def(cfg), "ssm": ssm_mod.ssm_defs(cfg)}
+    return {"ln1": _norm_def(cfg), "attn": attn.attn_defs(cfg),
+            "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}
+
+
+def block_cache_defs(cfg, kind: str, batch: int, max_seq: int):
+    _check_kind(kind)
+    if kind == "ssm":
+        return ssm_mod.ssm_cache_defs(cfg, batch)
+    return attn.attn_cache_defs(cfg, batch, max_seq)
+
+
+def _ffn(p, h):
+    return swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_in"], p["mlp"]["w_out"])
+
+
+def block_prefill(cfg, kind, p, x, cache):
+    if kind == "ssm":
+        y, c = ssm_mod.mamba_forward(cfg, p["ssm"], rms_norm(x, p["ln"]),
+                                     return_state=True)
+        return x + y, c
+    y, c = attn.attn_prefill(cfg, p["attn"], rms_norm(x, p["ln1"]), cache)
+    h = x + y
+    return h + _ffn(p, rms_norm(h, p["ln2"])), c
+
+
+def block_decode(cfg, kind, p, x, cache, pos):
+    if kind == "ssm":
+        y, c = ssm_mod.mamba_decode(cfg, p["ssm"], rms_norm(x, p["ln"]),
+                                    cache)
+        return x + y, c
+    y, c = attn.attn_decode(cfg, p["attn"], rms_norm(x, p["ln1"]), cache,
+                            pos)
+    h = x + y
+    return h + _ffn(p, rms_norm(h, p["ln2"])), c

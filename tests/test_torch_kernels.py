@@ -10,14 +10,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention_ref import flash_attention_ref
 from repro.kernels.segment_reduce import segment_reduce as jax_segment_reduce
 from repro.kernels.segment_reduce import segment_sum as jax_segment_sum
 from repro.kernels.segment_reduce_ref import segment_reduce_ref
+from repro.kernels.selective_scan import selective_scan as jax_scan
+from repro.kernels.selective_scan_ref import selective_scan_ref
 from repro.kernels.tile_matmul import tile_matmul as jax_tile_matmul
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.segment_reduce import (segment_reduce,
                                                 segment_reduce_plain,
                                                 segment_sum)
+from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_plain)
 from repro_torch.core.tiles import pack
 from repro_torch.kernels.tile_matmul import (tile_matmul, tile_matmul_packed,
                                              tile_matmul_packed_plain,
@@ -229,7 +237,139 @@ def test_cpu_wrappers_count_no_launches():
     tile_matmul(torch.ones(4, 4), torch.ones(4, 4))
     t = pack(torch.ones(4, 4), 2, 2)
     tile_matmul_packed(t.tiles, t.mask, t.shape, torch.ones(4, 4))
-    assert ops.launch_counts() == {"segment_reduce": 0, "tile_matmul": 0}
+    q = torch.ones(2, 5, 16)
+    flash_attention(q, q, q)
+    a = torch.ones(1, 3, 4, 2)
+    selective_scan(a, a, torch.ones(1, 3, 2), return_state=True)
+    assert ops.launch_counts() == {"segment_reduce": 0, "tile_matmul": 0,
+                                   "flash_attention": 0, "selective_scan": 0}
+
+
+def test_every_source_has_its_ctypes_signatures():
+    # the CPU never loads a library, so check here that each source's C
+    # entry points are declared with as many arguments as the source has
+    import re
+    from repro_torch.kernels import _build
+    assert set(_build.SOURCES) == set(_build.SIGNATURES) == set(ops.KERNELS)
+    for name, fns in _build.SIGNATURES.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" const char* {name}_error_string(int code)' in src
+        for fn, argtypes in fns.items():
+            m = re.search(rf'extern "C" int {fn}\((.*?)\)\s*\{{', src,
+                          re.S)
+            assert m, fn
+            assert len(m.group(1).split(",")) == len(argtypes), fn
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and selective_scan: the plain versions against the JAX
+# Pallas kernels (interpret mode) and their jnp oracles, at the reference's
+# shapes and tolerance (tests/test_kernels.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,sk,hd,bq", [(2, 64, 64, 16, 32),
+                                            (4, 128, 128, 32, 64),
+                                            (1, 32, 32, 8, 32)])
+def test_flash_attention_matches_jax(bh, sq, sk, hd, bq, causal):
+    q = rng.standard_normal((bh, sq, hd)).astype(np.float32)
+    k = rng.standard_normal((bh, sk, hd)).astype(np.float32)
+    v = rng.standard_normal((bh, sk, hd)).astype(np.float32)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    want = jax_flash(jq, jk, jv, bq=bq, bk=32, causal=causal)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-3, atol=2e-3)
+    ref = flash_attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("sq,sk", [(13, 13), (77, 77), (20, 45)])
+def test_flash_attention_ragged_lengths(sq, sk):
+    # the TPU kernel needs Sq % bq == 0 and Sk % bk == 0; the port takes any
+    # lengths, so these are held against the jnp oracle alone (causal
+    # aligns query row i with key row i, as both packages do)
+    q = rng.standard_normal((3, sq, 16)).astype(np.float32)
+    k = rng.standard_normal((3, sk, 16)).astype(np.float32)
+    v = rng.standard_normal((3, sk, 16)).astype(np.float32)
+    for causal in (True, False):
+        got = flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+        ref = flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal)
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_flash_attention_bf16_keeps_dtype():
+    q = _t(rng.standard_normal((2, 9, 16)).astype(np.float32))
+    out = flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), flash_attention(q, q, q),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_bad_shapes_raise():
+    q = torch.ones(2, 8, 16)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.ones(3, 8, 16), torch.ones(3, 8, 16))
+    with pytest.raises(ValueError):
+        flash_attention(q, q.bfloat16(), q)
+
+
+def _scan_inputs(r, b, s, d, n):
+    a = np.exp(-np.abs(r.standard_normal((b, s, d, n)))).astype(np.float32)
+    bx = (r.standard_normal((b, s, d, n)) * 0.1).astype(np.float32)
+    c = r.standard_normal((b, s, n)).astype(np.float32)
+    return a, bx, c
+
+
+@pytest.mark.parametrize("b,s,d,n,bd,bk", [(2, 32, 16, 4, 8, 8),
+                                           (1, 64, 32, 8, 16, 16)])
+def test_selective_scan_matches_jax(b, s, d, n, bd, bk):
+    a, bx, c = _scan_inputs(np.random.default_rng(0), b, s, d, n)
+    got = selective_scan(_t(a), _t(bx), _t(c)).numpy()
+    ja, jb, jc = jnp.asarray(a), jnp.asarray(bx), jnp.asarray(c)
+    want = jax_scan(ja, jb, jc, bd=bd, bk=bk)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got, np.asarray(selective_scan_ref(ja, jb, jc)),
+                               rtol=2e-3, atol=2e-3)
+
+
+def _scan_f64(a, bx, c, h0):
+    h = h0.astype(np.float64)
+    y = np.empty(a.shape[:3])
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        y[:, t] = np.einsum("bdn,bn->bd", h, c[:, t])
+    return y, h
+
+
+@pytest.mark.parametrize("b,s,d,n", [(2, 13, 16, 4), (1, 40, 24, 16),
+                                     (3, 1, 5, 2)])
+def test_selective_scan_state_in_and_out(b, s, d, n):
+    r = np.random.default_rng(s)
+    a, bx, c = _scan_inputs(r, b, s, d, n)
+    h0 = r.standard_normal((b, d, n)).astype(np.float32)
+    y, h = selective_scan(_t(a), _t(bx), _t(c), _t(h0), return_state=True)
+    want_y, want_h = _scan_f64(a, bx, c, h0)
+    np.testing.assert_allclose(y.numpy(), want_y, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), want_h, rtol=1e-5, atol=1e-5)
+    # two chunks carried through the state are the whole sequence
+    cut = s // 2
+    y1, h1 = selective_scan(_t(a[:, :cut]), _t(bx[:, :cut]), _t(c[:, :cut]),
+                            _t(h0), return_state=True)
+    y2, h2 = selective_scan(_t(a[:, cut:]), _t(bx[:, cut:]), _t(c[:, cut:]),
+                            h1, return_state=True)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), want_y,
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(h2.numpy(), want_h, rtol=1e-5, atol=1e-5)
+
+
+def test_selective_scan_bad_shapes_raise():
+    a = torch.ones(1, 3, 4, 2)
+    with pytest.raises(ValueError):
+        selective_scan(a, a, torch.ones(1, 3, 4))
+    with pytest.raises(ValueError):
+        selective_scan(a, a, torch.ones(1, 3, 2), torch.ones(1, 2, 4))
 
 
 # ---------------------------------------------------------------------------
@@ -286,3 +426,46 @@ def test_cuda_tile_matmul_packed_matches_plain(cuda, dtype, m, k, n, bm):
     want = tile_matmul_packed_plain(t.tiles, t.mask, t.shape, b)
     assert tile_matmul.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,hd,causal", [(4, 128, 128, 128, True),
+                                                (3, 77, 77, 64, True),
+                                                (2, 50, 130, 32, False),
+                                                (5, 1, 1, 16, True)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, bh, sq, sk, hd,
+                                            causal):
+    r = np.random.default_rng(sq)
+    q, k = (_t(r.standard_normal((bh, s_, hd)).astype(np.float32))
+            .to(cuda, dtype) for s_ in (sq, sk))
+    v = _t(r.standard_normal((bh, sk, hd)).astype(np.float32)).to(cuda, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    # bf16 output rounding and float32 sums in another order
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,d,n", [(1, 256, 512, 16), (2, 77, 300, 16),
+                                     (1, 13, 64, 4)])
+def test_cuda_selective_scan_matches_plain(cuda, with_h0, b, s, d, n):
+    r = np.random.default_rng(s)
+    a, bx, c = (_t(x).to(cuda) for x in _scan_inputs(r, b, s, d, n))
+    h0 = _t(r.standard_normal((b, d, n)).astype(np.float32)).to(cuda) \
+        if with_h0 else None
+    before = selective_scan.launches
+    y, h = selective_scan(a, bx, c, h0, return_state=True)
+    assert selective_scan.launches == before + 1
+    wy, wh = selective_scan_plain(a, bx, c, h0, return_state=True)
+    for got, want in ((y, wy), (h, wh)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    torch.testing.assert_close(selective_scan(a, bx, c) if h0 is None
+                               else y, wy, rtol=1e-4, atol=1e-4)

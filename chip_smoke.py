@@ -12,7 +12,8 @@ first mismatch:
 2. kernels — call each kernel's wrapper on the card at the shapes the main
              path gives it, hold it against its plain PyTorch version, and
              time kernel, plain version and one library call beside the
-             least time the card could take (the bound);
+             least time the card could take (the bound), with the
+             kernel's TFLOP/s and the bound's share of its time;
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, each held against a numpy float64 reference of the
@@ -35,6 +36,16 @@ first mismatch:
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
+
+    python3 chip_smoke.py --parent DIR
+
+also builds the kernel sources of DIR (an earlier version of
+src/repro_torch/kernels/csrc, e.g. `git archive HEAD
+src/repro_torch/kernels/csrc` unpacked into the git-ignored `.checkout/`)
+that differ from the current ones, and phase 2 times each such kernel
+through the same wrapper with the earlier library and the current one,
+interleaved (earlier, current, current, earlier): `parent_ms` and
+`change_ms` in its `[kernels]` records.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +92,10 @@ class SmokeFailure(Exception):
     pass
 
 
+# name -> the library built from --parent's sources, where they differ
+PARENT_LIBS: dict = {}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -108,22 +124,78 @@ def time_ms(torch, fn, reps=5, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def _kernel_ms(torch, name, fn, reps):
+    """The kernel's time in a `[kernels]` record: `fn`'s, or with --parent
+    the mean of the current library's two times, interleaved with the
+    earlier library's, all through the same wrapper."""
+    from repro_torch.kernels import _build
+    if name not in PARENT_LIBS:
+        return dict(kernel_ms=time_ms(torch, fn, reps))
+    own = _build.load(name)
+    times = {"parent": [], "change": []}
+    try:
+        for which in ("parent", "change", "change", "parent"):
+            _build._LIBS[name] = PARENT_LIBS[name] if which == "parent" \
+                else own
+            times[which].append(time_ms(torch, fn, reps))
+    finally:
+        _build._LIBS[name] = own
+    kernel_ms = sum(times["change"]) / 2
+    return dict(kernel_ms=kernel_ms, parent_ms=times["parent"],
+                change_ms=times["change"],
+                speedup=sum(times["parent"]) / 2 / kernel_ms)
+
+
+def _rates(rec, ops):
+    """Add the achieved rate (`ops` operations over the kernel's time, in
+    TFLOP/s) and the bound's share of the kernel's time to a record."""
+    rec["tflops"] = ops / rec["kernel_ms"] / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+    log("[kernels] " + json.dumps(rec))
+    return rec
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-def phase_build(torch):
+def _source_text(csrc, name):
+    """A kernel's source and the headers it includes, or None when `csrc`
+    has no such kernel."""
+    src = csrc / f"{name}.cu"
+    if not src.exists():
+        return None
+    text = src.read_text()
+    heads = re.findall(r'#include "([^"]+)"', text)
+    return [text] + [(csrc / h).read_text() if (csrc / h).exists() else None
+                     for h in heads]
+
+
+def phase_build(torch, parent=None):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     per = _build.build_all()
     total = time.perf_counter() - t0
     log(f"[build] kernels built in {total:.2f} s "
         + " ".join(f"{k}={v:.2f}s" for k, v in per.items()))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        f"nvidia-smi failed: {smi.stderr.strip()}"
+    if parent is not None:
+        changed = [n for n in _build.SOURCES
+                   if _source_text(parent, n) not in
+                   (None, _source_text(_build.CSRC, n))]
+        _build.build_all(changed, parent)
+        PARENT_LIBS.update({n: _build.load(n, parent) for n in changed})
+        log(f"[build] --parent {parent}: built {changed} (the other "
+            "sources are the same)")
+    card = card_line()
     log(card)
     log(f"[build] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -196,8 +268,8 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
                     f"nan agreement {nan_ok}")
     # timings: kernel, plain version, one library call into a sentinel-
     # padded buffer (ids routed to the sentinel row beforehand)
-    kernel_ms = time_ms(torch, lambda: segment_reduce(ids, vals, k, op=op),
-                        reps)
+    kern = _kernel_ms(torch, "segment_reduce",
+                      lambda: segment_reduce(ids, vals, k, op=op), reps)
     plain_ms = time_ms(torch, lambda: segment_reduce_plain(ids, vals, k, op),
                        reps)
     idx = torch.where((ids >= 0) & (ids < k), ids, k).to(torch.int64)
@@ -222,11 +294,9 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
     rec = dict(case=f"segment_reduce N={n} K={k} D={d} op={op} {dtype}"
                + (" ids<0,>=K, inf/NaN" if special else "")
                + (f" hot key holds {hot:.0%} of rows" if hot else ""),
-               max_abs_err=err, tol=tol_txt, kernel_ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by="bytes")
-    log("[kernels] " + json.dumps(rec))
-    return rec
+               max_abs_err=err, tol=tol_txt, **kern, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
+    return _rates(rec, n * d)        # one ⊕ a value
 
 
 def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
@@ -277,7 +347,7 @@ def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
     tol = 1e-4 * math.sqrt(k) * 4 + 1e-4
     require(err <= tol, f"tile_matmul {m}x{k}x{n} {dtype} masked={masked} "
                         f"packed={packed}: err {err} > {tol}")
-    kernel_ms = time_ms(torch, kern, reps)
+    timed = _kernel_ms(torch, "tile_matmul", kern, reps)
     plain_ms = time_ms(torch, plain, reps)
     if mask is not None:
         dense_a = a * mask.repeat_interleave(bm, 0).repeat_interleave(
@@ -293,12 +363,11 @@ def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
     rec = dict(case=f"tile_matmul {m}x{k}x{n} bm=bk={bm} {dtype} "
                + (f"masked density={density:.3f}" if masked else "unmasked")
                + (" packed" if packed else " dense lhs"),
-               max_abs_err=err, tol=f"{tol:.3g} abs", kernel_ms=kernel_ms,
+               max_abs_err=err, tol=f"{tol:.3g} abs", **timed,
                plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log("[kernels] " + json.dumps(rec))
-    return rec
+    return _rates(rec, flops)
 
 
 def _flash_case(torch, g, bh, s, hd, dtype, reps=5):
@@ -313,14 +382,22 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5):
     torch.cuda.synchronize()
     require(got.dtype == dt and got.shape == want.shape,
             f"flash_attention {dtype}: got {got.dtype} {tuple(got.shape)}")
-    err = float((got.float() - want.float()).abs().max())
-    # bf16: both round the output to bf16 (1 ulp is 2^-8 relative);
-    # float32: the same sums in another order, and __expf
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    # per query row: a row that attends to i keys has outputs of about
+    # sqrt(e/i), so a whole-tensor scale (set by the first rows) would let
+    # a dropped or stale key tile through in the long rows.  bf16: both
+    # round the output to bf16 (1 ulp is 2^-8 to 2^-7 relative); float32:
+    # the same sums in another order, and __expf
     rel = 1e-2 if dtype == "bfloat16" else 1e-4
-    tol = rel * float(want.float().abs().max())
-    require(err <= tol, f"flash_attention [{bh}, {s}, {hd}] {dtype}: err "
-                        f"{err} > {tol}")
-    kernel_ms = time_ms(torch, lambda: flash_attention(q, k, v), reps)
+    ref = want.float().abs()
+    row_err = float((diff.amax(-1) / ref.amax(-1).clamp_min(1e-30)).max())
+    require(row_err <= rel,
+            f"flash_attention [{bh}, {s}, {hd}] {dtype}: worst query row "
+            f"err/max|ref row| {row_err:.3g} > {rel} (whole tensor: err/"
+            f"max|ref| {err / float(ref.max()):.3g})")
+    kern = _kernel_ms(torch, "flash_attention",
+                      lambda: flash_attention(q, k, v), reps)
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v), reps)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # as [1, BH, S, hd]: PyTorch's fused attention backends take 4-d inputs
@@ -333,13 +410,13 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"flash_attention causal [{bh}, {s}, {hd}] {dtype}",
-               max_abs_err=err, tol=f"{rel:g}*max|ref|", kernel_ms=kernel_ms,
+               max_abs_err=err, row_rel_err=row_err,
+               tol=f"{rel:g}*max|ref row| per query row", **kern,
                plain_ms=plain_ms, library_ms=library_ms,
                library="scaled_dot_product_attention(is_causal=True)",
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log("[kernels] " + json.dumps(rec))
-    return rec
+    return _rates(rec, flops)
 
 
 def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
@@ -369,7 +446,7 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
         require(e <= tol, f"selective_scan [{b}, {s}, {d}, {n}] "
                           f"h0={with_h0} {name}: err {e} > {tol}")
         err = max(err, e)
-    kernel_ms = time_ms(torch, lambda: selective_scan(
+    kern = _kernel_ms(torch, "selective_scan", lambda: selective_scan(
         a, bx, c, h0, return_state=with_h0), reps)
     plain_ms = time_ms(torch, lambda: selective_scan_plain(
         a, bx, c, h0, return_state=with_h0), 2)
@@ -378,11 +455,10 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
     rec = dict(case=f"selective_scan [{b}, {s}, {d}, {n}] float32 "
                + ("h0 and h_last" if with_h0 else "from zero, y only"),
                max_abs_err=err, tol="1e-4*max|ref| (y and h_last)",
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               **kern, plain_ms=plain_ms, library_ms=None,
                library="none (no single PyTorch call)",
                bound_ms=bytes_ / HBM_BYTES_S * 1e3, bound_by="bytes")
-    log("[kernels] " + json.dumps(rec))
-    return rec
+    return _rates(rec, 4 * b * s * d * n)    # h = a·h + bx; y += c·h
 
 
 def phase_kernels(torch, seed):
@@ -425,7 +501,9 @@ def phase_kernels(torch, seed):
     ]
     torch.cuda.synchronize()
     flash = [_flash_case(torch, g, 32, 2048, 128, "bfloat16"),
+             _flash_case(torch, g, 32, 1531, 128, "bfloat16"),
              _flash_case(torch, g, 32, 777, 128, "bfloat16"),
+             _flash_case(torch, g, 32, 2048, 64, "bfloat16"),
              _flash_case(torch, g, 32, 2048, 128, "float32"),
              _flash_case(torch, g, 32, 777, 128, "float32")]
     scan = [_scan_case(torch, g, 1, 256, 8192, 16, True),
@@ -665,7 +743,8 @@ def _ms_text(times):
 # the programs whose run() the smoke also traces: those the kernels serve
 # and the slowest ones
 PROFILED = ("word_count", "histogram", "group_by",
-            "matrix_multiplication[packed]", "pagerank", "kmeans_step")
+            "matrix_multiplication[packed]", "pagerank", "kmeans_step",
+            "matrix_factorization_step")
 
 
 def _profile(torch, name, fn, run_ms, top=5):
@@ -973,10 +1052,16 @@ def phase_serve(torch, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path, help="a directory of earlier "
+                    "kernel sources to time the current ones against")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               f"(no src/repro_torch beside {Path(__file__).name})",
+              file=sys.stderr)
+        return 2
+    if args.parent is not None and not args.parent.is_dir():
+        print(f"chip_smoke.py: --parent {args.parent} is not a directory",
               file=sys.stderr)
         return 2
     import torch
@@ -986,7 +1071,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     try:
-        phase_build(torch)
+        phase_build(torch, args.parent)
         per_kernel = phase_kernels(torch, args.seed)
         launches = phase_main(torch, args.seed)
         gc.collect()

@@ -4,11 +4,13 @@ Each `csrc/<name>.cu` has a plain C interface.  It is compiled by `nvcc`
 into its own shared library and loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -I csrc -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The build happens at the first CUDA call, never at import: the CPU tests
-import every module on machines without `nvcc`.  The library name carries a
-hash of the source, so an edited kernel is never served from a stale build.
+`-I csrc` lets a source include the shared `csrc/*.cuh` headers.  The build
+happens at the first CUDA call, never at import: the CPU tests import every
+module on machines without `nvcc`.  The library name carries a hash of the
+source, of every header and of the flags, so an edited kernel or header is
+never served from a stale build.
 `build_all()` starts one `nvcc` per source, all at once, and waits for them.
 """
 from __future__ import annotations
@@ -66,22 +68,33 @@ def nvcc() -> str:
                        "CUDA toolkit's nvcc, on the machine with the card")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+def _lib_path(name: str, csrc=None) -> Path:
+    csrc = CSRC if csrc is None else Path(csrc)
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str):
+def nvcc_command(name: str, out: Path, csrc=None, extra=()) -> list:
+    """The nvcc command line that builds `<csrc>/<name>.cu` (the package's
+    own `csrc` by default) into `out`."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    return [nvcc(), *NVCC_FLAGS, "-I", str(csrc), *extra, "-o", str(out),
+            str(csrc / f"{name}.cu")]
+
+
+def _start(name: str, csrc=None):
     """Start nvcc for one source; returns (process, tmp, final) or None when
     the library is already built."""
-    out = _lib_path(name)
+    out = _lib_path(name, csrc)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(nvcc_command(name, tmp, csrc),
+                            stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -95,11 +108,12 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)          # atomic: a concurrent build sees all or none
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every named kernel library in parallel; returns the seconds
-    from the start until each build finished (0.0 when already built)."""
+def build_all(names=SOURCES, csrc=None) -> dict:
+    """Compile every named kernel library of `csrc` in parallel; returns the
+    seconds from the start until each build finished (0.0 when already
+    built)."""
     t0 = time.perf_counter()
-    jobs = {n: _start(n) for n in names}
+    jobs = {n: _start(n, csrc) for n in names}
     secs = {}
     for n, job in jobs.items():
         if job is not None:
@@ -108,13 +122,18 @@ def build_all(names=SOURCES) -> dict:
     return secs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel source, built on first use."""
-    lib = _LIBS.get(name)
+def load(name: str, csrc=None) -> ctypes.CDLL:
+    """The loaded library of one kernel source, built on first use.  The
+    wrappers launch the one of the package's own `csrc`; another directory
+    (an earlier version of the sources, to time against) is built and
+    loaded beside it, and served by the wrappers only while `_LIBS` holds
+    it under `name`."""
+    own = csrc is None or Path(csrc) == CSRC
+    lib = _LIBS.get(name) if own else None
     if lib is not None:
         return lib
-    build_all((name,))
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    build_all((name,), csrc)
+    lib = ctypes.CDLL(str(_lib_path(name, csrc)))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -122,7 +141,8 @@ def load(name: str) -> ctypes.CDLL:
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    _LIBS[name] = lib
+    if own:
+        _LIBS[name] = lib
     return lib
 
 

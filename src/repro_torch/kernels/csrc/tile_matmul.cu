@@ -4,37 +4,76 @@
 // Replaces the Pallas TPU kernel `tile_matmul` (src/repro/kernels/
 // tile_matmul.py, `_kernel` and `_masked_kernel`).  The TPU grid cannot skip
 // a block, so its masked form multiplies every absent tile out by its mask
-// value of 0.  Here each block reads the tile mask itself and skips a k-step
-// whose A tiles are all absent: an absent tile costs no loads and no FMAs
-// and contributes exactly zero, which is `unpack`'s meaning.
+// value of 0.  Here each block skips the packing tiles whose rows of A are
+// all absent: an absent tile costs no loads and no FMAs and contributes
+// exactly zero, which is `unpack`'s meaning.
 //
 // Bound: operations.  2·M·N·K·density flops against 67 TFLOP/s of FP32
-// outside the tensor cores (989 TFLOP/s bf16 on the tensor cores, which this
-// first kernel does not use).  Design: one 128×128 output tile per block of
-// 256 threads, each thread an 8×8 register sub-tile accumulated in float32;
-// A and B stage through shared memory 8 k-values at a time (bf16 inputs are
-// widened with __bfloat162float as they are staged).  A k-step stays inside
-// the packing tiles it touches whatever (bm, bk) is: where one mask entry
-// covers the whole step it scales the staged A tile once, otherwise every
-// element looks up its own tile.  Ragged M, N and K edges load zeros and
-// store nothing.  A is read through four strides, so the same kernel takes a
-// dense row-major lhs or the §5 packed tiles in place (no unpack, no padded
-// copy of B).  wgmma, TMA and warp specialisation are later work.
+// outside the tensor cores; the float32 contract forbids TF32.  Design, the
+// classic register-blocked SIMT SGEMM:
+//   * one 128×128 output tile per block of 256 threads; thread (tr, tc) of
+//     a 16×16 grid accumulates an 8×8 sub-tile in float32 registers, rows
+//     {4tr..4tr+3, 64+4tr..}, columns {4tc..4tc+3, 64+4tc..}, so that every
+//     shared-memory read is a float4 and a warp's reads are conflict-free
+//     (A: two addresses, broadcast; B: 16 threads × 16 contiguous bytes);
+//   * k-tiles of 16: A is staged k-major (As[k][m], rows padded by 4 floats
+//     so that the transposing stores of a warp hit 32 distinct banks), B
+//     row-major; both through a two-stage ring fed by register prefetch:
+//     the global loads of k-tile s+1 are in flight while k-tile s is
+//     multiplied, with one __syncthreads a k-tile.  Global loads are 16
+//     bytes (float4, or 4 bf16 widened to float32 as they are staged)
+//     wherever the four elements are contiguous and aligned, else scalar;
+//   * the k loop runs over k-ranges, the packing tiles' columns
+//     [c·bk, (c+1)·bk), inside which a row's address is its range's base
+//     plus the column's offset times one stride (no division in the loop).
+//     With a mask, the presence of a range is decided once, by one
+//     __syncthreads_or over the block's rows, and an absent range costs
+//     nothing more.  Each thread looks up the mask value of its own two
+//     rows' tiles once a range, and scales its A elements by it as they are
+//     staged (not at all when it is 1, and to exactly 0, without a load,
+//     when it is 0).  So bm and bk need not divide 128 or 16: a k-tile that
+//     runs past its range's end loads zeros there, and the next range
+//     starts a k-tile of its own (a bk below 16 wastes the rest of each
+//     k-tile);
+//   * A is read through four strides, so the same kernel takes a dense
+//     lhs in any layout or the §5 packed tiles in place (no unpack, no
+//     padded copy of B).  Ragged M, N and K edges load zeros and store
+//     nothing.
+// wgmma, TMA and a bf16 tensor-core path are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
-constexpr int kThreads = (BM / TM) * (BN / TN);    // 256
-constexpr int kColThreads = BN / TN;               // 16
-static_assert(kThreads % BK == 0 && BM * BK % kThreads == 0,
-              "A staging: every thread stages whole rows of one k column");
+constexpr int BM = 128, BN = 128, BK = 16;
+constexpr int kThreads = 256;
+constexpr int APAD = 4;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// four consecutive elements, 4·sizeof(T)-byte aligned, as float32
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = lo.x;
+  x[1] = lo.y;
+  x[2] = hi.x;
+  x[3] = hi.y;
+}
+
+template <typename T>
+__device__ __forceinline__ bool aligned4(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
 }
 
 // Logical A [M, K]: element (r, c) lies at
@@ -43,103 +82,161 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
 // {Kt·bm·bk, bm·bk, bk, 1}).  B [K, N] row-major; mask [ceil(M/bm), Kt]
 // float or null; C [M, N] float32.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 tile_matmul_kernel(const T* __restrict__ A, long long sa0, long long sa1,
                    long long sa2, long long sa3, const T* __restrict__ B,
                    const float* __restrict__ mask, float* __restrict__ C,
                    int M, int N, int K, int bm, int bk, int Kt) {
-  __shared__ float As[BK][BM + 4];    // k-major; +4 keeps the staging stores conflict-free
-  __shared__ float Bs[BK][BN];
+  __shared__ __align__(16) float As[2][BK][BM + APAD];
+  __shared__ __align__(16) float Bs[2][BK][BN];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int tr = tid / kColThreads;   // rows tr*TM .. tr*TM+7
-  const int tc = tid % kColThreads;   // cols tc, tc+16, ... (conflict-free Bs reads)
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  const int m_last = min(m0 + BM, M) - 1;
-  const int mr0 = mask ? m0 / bm : 0;
-  const int mr1 = mask ? m_last / bm : 0;
-
-  // A staging: thread tid stages column tid % BK of every k-step for the
-  // same kARows rows each step, so the rows' tile indices and offsets are
-  // worked out once here, and each step costs one division (its column).
-  constexpr int kARows = BM * BK / kThreads;         // 4
-  const int a_kk = tid % BK;
-  int a_mm[kARows], a_ti[kARows];
-  long long a_off[kARows];
+  // staging: A rows ar and ar+64, k-offsets 4·aq..4·aq+3 (a warp: 16 rows ×
+  // two quads); B rows bkr and bkr+8, columns gn..gn+3 (a warp: one row)
+  const int ar = (tid & 15) + 16 * (tid >> 6);
+  const int aq = (tid >> 4) & 3;
+  const int bkr = tid >> 5;
+  const int gn = n0 + (tid & 31) * 4;
+  // this k-range's first column of A's rows ar and ar+64, their tile row
+  // (-1 past the ragged edge) and their tiles' mask value in this range
+  const T* a_rng[2];
+  int a_ti[2];
+  float sc[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < kARows; ++j) {
-    a_mm[j] = tid / BK + j * (kThreads / BK);
-    const int gr = m0 + a_mm[j];
-    a_ti[j] = gr < M ? gr / bm : -1;                 // -1: past the ragged edge
-    a_off[j] = gr < M ? a_ti[j] * sa0 + (gr - a_ti[j] * bm) * sa2 : 0;
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + ar + 64 * i;
+    a_ti[i] = r < M ? r / bm : -1;
+    a_rng[i] = r < M ? A + a_ti[i] * sa0 + (r - a_ti[i] * bm) * sa2 : A;
   }
+  const bool a_vec = sa3 == 1;
+  const bool b_vec = (N & 3) == 0 && gn + 3 < N && aligned4(B);
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    float scale = 1.0f;
-    bool per_elem = false;
-    if (mask != nullptr) {
-      const int kc0 = k0 / bk;
-      const int kc1 = (min(k0 + BK, K) - 1) / bk;
-      const float first = mask[(long long)mr0 * Kt + kc0];
-      bool any = false, uniform = true;
-      for (int r = mr0; r <= mr1; ++r)
-        for (int c = kc0; c <= kc1; ++c) {
-          const float mv = mask[(long long)r * Kt + c];
-          any |= (mv != 0.0f);
-          uniform &= (mv == first);
-        }
-      if (!any) continue;             // uniform across the block: every thread skips
-      if (uniform) scale = first; else per_elem = true;
-    }
-    {
-      const int gc = k0 + a_kk;
-      const int tj = gc / bk;
-      const long long col = tj * sa1 + (gc - tj * bk) * sa3;
+  // the k-ranges are the packing tiles' columns [c·bk, (c+1)·bk) ∩ [0, K)
+  int c = -1, k0 = 0, rs = 0, re = 0;
+
+  // the next k-tile, or false at the end; uniform across the block
+  auto advance = [&]() -> bool {
+    k0 += BK;
+    if (k0 < re) return true;
+    while (++c < Kt) {
+      rs = c * bk;
+      re = min(rs + bk, K);
 #pragma unroll
-      for (int j = 0; j < kARows; ++j) {
-        float v = 0.0f;
-        if (a_ti[j] >= 0 && gc < K) {
-          const float mv = per_elem ? mask[(long long)a_ti[j] * Kt + tj] : scale;
-          if (mv != 0.0f) v = to_f32(A[a_off[j] + col]) * mv;
-        }
-        As[a_kk][a_mm[j]] = v;
+      for (int i = 0; i < 2; ++i) {
+        if (c > 0) a_rng[i] += sa1;
+        sc[i] = a_ti[i] < 0 ? 0.f : mask ? mask[(long long)a_ti[i] * Kt + c] : 1.f;
+      }
+      if (!mask || __syncthreads_or(sc[0] != 0.f || sc[1] != 0.f)) {
+        k0 = rs;
+        return true;
       }
     }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int kk = e / BN, nn = e % BN;
-      const int gr = k0 + kk, gc = n0 + nn;
-      Bs[kk][nn] = (gr < K && gc < N) ? to_f32(B[(long long)gr * N + gc]) : 0.0f;
+    return false;
+  };
+
+  float ra[2][4], rb[2][4];   // the next k-tile, in flight
+  auto load_global = [&]() {
+    const int kin = k0 - rs + aq * 4;   // this thread's columns in the range
+    const int width = re - rs;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ra[i][0] = ra[i][1] = ra[i][2] = ra[i][3] = 0.f;
+      if (sc[i] != 0.f && kin < width) {
+        const T* p = a_rng[i] + kin * sa3;
+        if (a_vec && kin + 3 < width && aligned4(p)) {
+          load4(p, ra[i]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kin + e < width) ra[i][e] = to_f32(p[e * sa3]);
+        }
+        if (sc[i] != 1.f) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ra[i][e] *= sc[i];
+        }
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int gk = k0 + bkr + 8 * i;
+      rb[i][0] = rb[i][1] = rb[i][2] = rb[i][3] = 0.f;
+      if (gk < re) {
+        const T* p = B + (long long)gk * N + gn;
+        if (b_vec) {
+          load4(p, rb[i]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (gn + e < N) rb[i][e] = to_f32(p[e]);
+        }
+      }
+    }
+  };
+  auto store_smem = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) As[buf][aq * 4 + e][ar + 64 * i] = ra[i][e];
+      *reinterpret_cast<float4*>(&Bs[buf][bkr + 8 * i][(tid & 31) * 4]) =
+          make_float4(rb[i][0], rb[i][1], rb[i][2], rb[i][3]);
+    }
+  };
+
+  const int tr = tid >> 4, tc = tid & 15;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto compute = [&](int buf) {
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][tr * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + tr * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tc * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tc * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][tr * TM + i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tc + j * kColThreads];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
+  };
+
+  if (advance()) {
+    load_global();
+    store_smem(0);
     __syncthreads();
+    for (int buf = 0;; buf ^= 1) {
+      const bool more = advance();
+      if (more) load_global();   // in flight during this k-tile's FMAs
+      compute(buf);
+      if (!more) break;
+      store_smem(buf ^ 1);       // last read one k-tile ago, before the barrier
+      __syncthreads();
+    }
   }
 
+  const bool c_vec = (N & 3) == 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + tr * TM + i;
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + (i >> 2) * 64 + tr * 4 + (i & 3);
     if (r >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tc + j * kColThreads;
-      if (c < N) C[(long long)r * N + c] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * 64 + tc * 4;
+      float* dst = C + (long long)r * N + col;
+      if (c_vec && col + 3 < N) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < N) dst[e] = acc[i][h * 4 + e];
+      }
     }
   }
 }
@@ -148,14 +245,15 @@ tile_matmul_kernel(const T* __restrict__ A, long long sa0, long long sa1,
 
 // dtype: 0 = float32 A and B, 1 = bfloat16 A and B.  sa0..sa3: A's strides
 // in elements, as the kernel reads them.  mask may be null (the unmasked
-// kernel); otherwise it is [ceil(M/bm), ceil(K/bk)] float32.  Returns
-// cudaGetLastError() after the launch.
+// kernel); otherwise it is [ceil(M/bm), ceil(K/bk)] float32.  C must be
+// 16-byte aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int tile_matmul_launch(int dtype, const void* A, long long sa0, long long sa1,
                                   long long sa2, long long sa3, const void* B,
                                   const void* mask, void* C, int M, int N, int K, int bm,
                                   int bk, void* stream) {
   if (M < 0 || N < 0 || K < 0 || bm < 1 || bk < 1) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(C) % 16) return (int)cudaErrorMisalignedAddress;
   const int Kt = (K + bk - 1) / bk;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -4,11 +4,11 @@ wrapper and its plain PyTorch version.
 Replaces the Pallas TPU kernel `flash_attention` in
 src/repro/kernels/flash_attention.py (`_kernel`), the TPU target of the LM
 stack's `attention_core`.  The Hopper kernel (csrc/flash_attention.cu) runs
-one block per (batch·head, 64-row query tile), stages K/V through shared
-memory in 32-key tiles and keeps the running max, sum and accumulator in
-float32 registers.  It is bound by operations (4·BH·hd·Sq·Sk flops, about
-half that when causal); this first version does them with float32 FMAs,
-without tensor cores.
+one block per (batch·head, 64-row query tile) and keeps the running max,
+sum and accumulator in float32 registers.  It is bound by operations
+(4·BH·hd·Sq·Sk flops, about half that when causal).  bfloat16 inputs do
+both products on the tensor cores (mma.sync, K/V staged in bf16 by
+cp.async in 64-key tiles); float32 inputs keep float32 FMAs.
 
 Contract (the JAX kernel's): q [BH, Sq, hd], k and v [BH, Sk, hd], one
 dtype (float32 or bfloat16) → [BH, Sq, hd] in q's dtype.  Scores are
@@ -76,7 +76,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if sk == 0 or max(bh * sq, bh * sk) * hd >= 2 ** 62:
         raise ValueError(f"flash_attention: unsupported sizes bh={bh} "
                          f"sq={sq} sk={sk}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 kernel copies 16-byte chunks: a view that starts off a
+    # 16-byte boundary is copied to a fresh allocation
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+               for x in (q.contiguous(), k.contiguous(), v.contiguous()))
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream

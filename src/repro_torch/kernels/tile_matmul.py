@@ -5,10 +5,11 @@ Replaces the Pallas TPU kernel `tile_matmul` in
 src/repro/kernels/tile_matmul.py (`_kernel` unmasked, `_masked_kernel`
 masked).  The TPU grid cannot skip a block, so the TPU kernel multiplies an
 absent tile out; the Hopper kernel (csrc/tile_matmul.cu) reads the mask in
-the block and skips the tile, which then contributes exactly zero.  It is
-bound by operations (2·M·N·K·density flops); each block computes one
-128×128 output tile in float32 registers from operands staged in shared
-memory.
+the block, once per packing tile, and skips the tile, which then
+contributes exactly zero.  It is bound by operations (2·M·N·K·density
+flops); each block computes one 128×128 output tile, 8×8 float32 registers
+a thread, from k-tiles double-buffered through shared memory (a
+register-blocked SIMT SGEMM: float32, no TF32).
 
 Contract (the JAX kernel's): a [M, K] and b [K, N], float32 or bfloat16 →
 [M, N] float32.  `tile_mask` [ceil(M/bm), ceil(K/bk)] optional: lhs tile

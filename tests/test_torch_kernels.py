@@ -4,20 +4,28 @@ On the CPU each wrapper of `repro_torch.kernels` runs its plain PyTorch
 version; the JAX kernels run in interpret mode.  The sweeps and tolerances
 are those of tests/test_kernels.py.  The CUDA kernels themselves need a
 card: the tests marked `cuda` hold them against their plain versions and
-skip here."""
-import jax.numpy as jnp
+skip here.  They need no jax, so on the machine with the card, which has
+none, they run alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
+"""
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_attention import flash_attention as jax_flash
-from repro.kernels.flash_attention_ref import flash_attention_ref
-from repro.kernels.segment_reduce import segment_reduce as jax_segment_reduce
-from repro.kernels.segment_reduce import segment_sum as jax_segment_sum
-from repro.kernels.segment_reduce_ref import segment_reduce_ref
-from repro.kernels.selective_scan import selective_scan as jax_scan
-from repro.kernels.selective_scan_ref import selective_scan_ref
-from repro.kernels.tile_matmul import tile_matmul as jax_tile_matmul
+try:
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention as jax_flash
+    from repro.kernels.flash_attention_ref import flash_attention_ref
+    from repro.kernels.segment_reduce import \
+        segment_reduce as jax_segment_reduce
+    from repro.kernels.segment_reduce import segment_sum as jax_segment_sum
+    from repro.kernels.segment_reduce_ref import segment_reduce_ref
+    from repro.kernels.selective_scan import selective_scan as jax_scan
+    from repro.kernels.selective_scan_ref import selective_scan_ref
+    from repro.kernels.tile_matmul import tile_matmul as jax_tile_matmul
+except ImportError:     # the card's machine: only the `cuda` tests run there
+    pass
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -231,6 +239,93 @@ def test_tile_matmul_packed_bad_shapes_raise():
         tile_matmul_packed(t.tiles, t.mask, (64, 96), torch.ones(96, 8))
 
 
+def test_tile_matmul_packed_ignores_nan_in_absent_tiles():
+    # an absent tile contributes exactly zero, whatever it holds: NaN in
+    # its packed storage must not reach the product (the JAX kernel
+    # multiplies it out, 0·NaN, so the reference here is numpy)
+    m, k, n, bm = 100, 70, 90, 32
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    t = pack(_t(a), bm, bm, prune_zero=False)
+    mask = _t(rng.integers(0, 2, tuple(t.mask.shape)).astype(np.float32))
+    mask[0, 0] = 0.0
+    tiles = t.tiles.clone()
+    tiles[mask == 0] = float("nan")
+    c = tile_matmul_packed(tiles, mask, t.shape, _t(b)).numpy()
+    me = np.kron(mask.numpy(), np.ones((bm, bm), np.float32))[:m, :k]
+    assert np.isfinite(c).all()
+    np.testing.assert_allclose(c, (a * me) @ b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_tile_matmul_mask_values_scale_tiles(packed):
+    # a mask value other than 0/1 scales its tile, as the JAX kernel's
+    # `m * dot(a, b)` does
+    m, k, n, bm = 96, 64, 80, 32
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    mask = np.array([[0.5, 2.0], [0.0, 1.0], [2.0, 0.5]], np.float32)
+    if packed:
+        t = pack(_t(a), bm, bm, prune_zero=False)
+        c = tile_matmul_packed(t.tiles, _t(mask), t.shape, _t(b))
+    else:
+        c = tile_matmul(_t(a), _t(b), _t(mask), bm=bm, bk=bm)
+    j = jax_tile_matmul(jnp.asarray(a), jnp.asarray(b),
+                        tile_mask=jnp.asarray(mask), bm=bm, bn=bm, bk=bm)
+    np.testing.assert_allclose(c.numpy(), np.asarray(j), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_tile_matmul_transposed_lhs():
+    # a non-contiguous lhs (the transpose of a [K, M] matrix) is read
+    # through its strides
+    x = rng.standard_normal((70, 100)).astype(np.float32)
+    b = rng.standard_normal((70, 90)).astype(np.float32)
+    mask = rng.integers(0, 2, (4, 3)).astype(np.float32)
+    a = _t(x).t()
+    assert not a.is_contiguous()
+    c = tile_matmul(a, _t(b), _t(mask), bm=32, bk=32)
+    j = jax_tile_matmul(jnp.asarray(x.T), jnp.asarray(b),
+                        tile_mask=jnp.asarray(mask), bm=32, bn=32, bk=32)
+    np.testing.assert_allclose(c.numpy(), np.asarray(j), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    # a kernel that includes a csrc/*.cuh header is rebuilt when only the
+    # header changes: the library's name hashes the headers too
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build._lib_path("k") not in (first, second)
+    assert second.parent == first.parent == _build.BUILD_DIR
+
+
+def test_build_from_another_csrc(tmp_path, monkeypatch):
+    # an earlier version of the sources (to time against) builds from its
+    # own directory and headers into a library of another name
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    (tmp_path / "flash_attention.cu").write_text("// earlier\n")
+    own = _build._lib_path("flash_attention")
+    other = _build._lib_path("flash_attention", tmp_path)
+    assert other != own and other.parent == own.parent == _build.BUILD_DIR
+    cmd = _build.nvcc_command("flash_attention", other, tmp_path,
+                              ("-Xptxas", "-v"))
+    assert cmd[-1] == str(tmp_path / "flash_attention.cu")
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path)
+    assert "-Xptxas" in cmd and cmd[cmd.index("-o") + 1] == str(other)
+    assert _build.nvcc_command("flash_attention", own)[-1] == \
+        str(_build.CSRC / "flash_attention.cu")
+
+
 def test_cpu_wrappers_count_no_launches():
     ops.reset_launch_counts()
     segment_reduce(_t(np.zeros(3, np.int32)), _t(np.ones(3, np.float32)), 2)
@@ -305,6 +400,26 @@ def test_flash_attention_bf16_keeps_dtype():
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), flash_attention(q, q, q),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_ignores_nan_past_sk(causal):
+    # k and v as contiguous [:, :Sk] views of buffers that hold NaN past
+    # Sk: nothing past Sk may reach the output
+    sq, sk, hd = 77, 77, 16
+    q = rng.standard_normal((1, sq, hd)).astype(np.float32)
+    kv = [rng.standard_normal((1, sk, hd)).astype(np.float32)
+          for _ in range(2)]
+    bufs = [torch.full((1, 128, hd), float("nan")) for _ in range(2)]
+    for buf, x in zip(bufs, kv):
+        buf[:, :sk] = _t(x)
+    k, v = (buf[:, :sk] for buf in bufs)
+    assert k.is_contiguous() and v.is_contiguous()
+    got = flash_attention(_t(q), k, v, causal=causal).numpy()
+    assert np.isfinite(got).all()
+    ref = flash_attention_ref(jnp.asarray(q), jnp.asarray(kv[0]),
+                              jnp.asarray(kv[1]), causal=causal)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-3, atol=2e-3)
 
 
 def test_flash_attention_bad_shapes_raise():
@@ -447,8 +562,7 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, bh, sq, sk, hd,
     assert got.dtype == dtype
     # bf16 output rounding and float32 sums in another order
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-    scale = float(want.float().abs().max())
-    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    assert _flash_row_err(got, want) <= tol
 
 
 @pytest.mark.cuda
@@ -469,3 +583,140 @@ def test_cuda_selective_scan_matches_plain(cuda, with_h0, b, s, d, n):
         assert float((got - want).abs().max()) <= 1e-4 * scale
     torch.testing.assert_close(selective_scan(a, bx, c) if h0 is None
                                else y, wy, rtol=1e-4, atol=1e-4)
+
+
+# the edges of the tensor-core flash kernel (64-row query tiles, 64-key
+# tiles in a two-stage ring) and of the register-blocked tile kernel
+# (128×128 output tiles, 16-deep k-tiles, k-ranges per packing tile)
+
+def _flash_row_err(got, want):
+    """The worst query row's largest error over that row's largest |value|
+    in the plain version.  Per row, since a row that attends to i keys has
+    outputs of about sqrt(e/i): a scale over the whole tensor is set by the
+    first rows and would pass a dropped or stale key tile in long rows."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    return float((diff / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(1, 1, True), (63, 63, True),
+                                          (65, 65, True), (777, 777, True),
+                                          (50, 130, False)])
+def test_cuda_flash_attention_bf16_edges(cuda, hd, sq, sk, causal):
+    r = np.random.default_rng(hd * 1000 + sq)
+    q, k, v = (_t(r.standard_normal((2, s_, hd)).astype(np.float32))
+               .to(cuda, torch.bfloat16) for s_ in (sq, sk, sk))
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _flash_row_err(got, want) <= 1e-2      # bf16 output rounding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_nan_past_sk(cuda, dtype, causal):
+    # k and v are contiguous [:, :Sk] views of buffers holding NaN past Sk:
+    # the kernel's staging of the ragged last key tile must not read them
+    sq, sk, hd = 77, 77, 64
+    r = np.random.default_rng(77)
+    q = _t(r.standard_normal((1, sq, hd)).astype(np.float32)).to(cuda, dtype)
+    bufs = [torch.full((1, 256, hd), float("nan"), device=cuda, dtype=dtype)
+            for _ in range(2)]
+    for buf in bufs:
+        buf[:, :sk] = _t(r.standard_normal((1, sk, hd))
+                         .astype(np.float32)).to(cuda, dtype)
+    k, v = (buf[:, :sk] for buf in bufs)
+    assert k.is_contiguous() and v.is_contiguous()
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    assert _flash_row_err(got, want) <= \
+        (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def _half_mask(r, mt, kt, cuda):
+    mask = np.zeros(mt * kt, np.float32)
+    mask[r.permutation(mt * kt)[: (mt * kt + 1) // 2]] = 1.0
+    mask = mask.reshape(mt, kt)
+    mask[0, 0] = 0.0
+    return _t(mask).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bm", [(384, 512, 256, 128),
+                                      (100, 70, 90, 32)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_tile_matmul_half_masked(cuda, m, k, n, bm, packed):
+    # bm = bk = 128: each block's rows and each k-range lie in one packing
+    # tile (the main path); bm = 32: a block spans four tile rows and every
+    # size is ragged
+    r = np.random.default_rng(m + k)
+    a = _t(r.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    b = _t(r.standard_normal((k, n)).astype(np.float32)).to(cuda)
+    mask = _half_mask(r, -(-m // bm), -(-k // bm), cuda)
+    before = tile_matmul.launches
+    if packed:
+        t = pack(a, bm, bm, prune_zero=False)
+        got = tile_matmul_packed(t.tiles, mask, t.shape, b)
+        want = tile_matmul_packed_plain(t.tiles, mask, t.shape, b)
+    else:
+        got = tile_matmul(a, b, mask, bm=bm, bk=bm)
+        want = tile_matmul_plain(a, b, mask, bm=bm, bk=bm)
+    assert tile_matmul.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bm", [(384, 512, 256, 128),
+                                      (100, 70, 90, 32)])
+def test_cuda_tile_matmul_nan_in_absent_tiles(cuda, m, k, n, bm):
+    r = np.random.default_rng(3 * m)
+    a = _t(r.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    b = _t(r.standard_normal((k, n)).astype(np.float32)).to(cuda)
+    t = pack(a, bm, bm, prune_zero=False)
+    mask = _half_mask(r, *t.mask.shape, cuda)
+    tiles = t.tiles.clone()
+    tiles[mask == 0] = float("nan")
+    got = tile_matmul_packed(tiles, mask, t.shape, b)
+    want = tile_matmul_packed_plain(tiles, mask, t.shape, b)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bm", [(384, 512, 256, 128),
+                                      (100, 70, 90, 32)])
+def test_cuda_tile_matmul_mask_values(cuda, m, k, n, bm):
+    r = np.random.default_rng(5 * m)
+    a = _t(r.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    b = _t(r.standard_normal((k, n)).astype(np.float32)).to(cuda)
+    mt, kt = -(-m // bm), -(-k // bm)
+    mask = _t(r.choice(np.array([0.0, 0.5, 1.0, 2.0], np.float32),
+                       (mt, kt))).to(cuda)
+    t = pack(a, bm, bm, prune_zero=False)
+    torch.testing.assert_close(tile_matmul_packed(t.tiles, mask, t.shape, b),
+                               tile_matmul_packed_plain(t.tiles, mask,
+                                                        t.shape, b),
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(tile_matmul(a, b, mask, bm=bm, bk=bm),
+                               tile_matmul_plain(a, b, mask, bm=bm, bk=bm),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_tile_matmul_transposed_lhs(cuda, masked):
+    # a [M, K] lhs with strides (1, M): no element of a k-quad is
+    # contiguous, so every A load takes the scalar path
+    r = np.random.default_rng(11)
+    x = _t(r.standard_normal((260, 300)).astype(np.float32)).to(cuda)
+    b = _t(r.standard_normal((260, 140)).astype(np.float32)).to(cuda)
+    a = x.t()
+    assert not a.is_contiguous()
+    mask = _half_mask(r, 3, 3, cuda) if masked else None
+    torch.testing.assert_close(tile_matmul(a, b, mask),
+                               tile_matmul_plain(a, b, mask),
+                               rtol=1e-4, atol=1e-3)

@@ -13,7 +13,13 @@ first mismatch:
              path gives it, hold it against its plain PyTorch version, and
              time kernel, plain version and one library call beside the
              least time the card could take (the bound), with the
-             kernel's TFLOP/s and the bound's share of its time;
+             kernel's TFLOP/s and the bound's share of its time; the
+             segment kernel at every main path's shape, each case also
+             launched again and with int64 ids, all bit-equal; the scan's
+             (a, bx) entry and its fused entry (a 2048- and a 1531-token
+             prefill's dt, A, B, C and bf16 x), the fused one also timed
+             against the unfused path; the segment kernel's whole run
+             against a run range by range (the same bits);
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, each held against a numpy float64 reference of the
@@ -62,9 +68,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory and FP32/bf16
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): device memory and
+# FP32/bf16.  The float32 peak is 132 SMs x 128 lanes x 2 operations at
+# the SXM part's 1.98 GHz boost clock; the exponentials' rate takes the
+# same clock: 16 a clock an SM on the special-function units (an upper
+# bound on their time: part of them could run as polynomials on the FMA
+# pipes)
+SMS, BOOST_HZ = 132, 1.98e9
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": SMS * 128 * 2 * BOOST_HZ, "bfloat16": 989e12}
+EXP_PER_S = 16 * SMS * BOOST_HZ
 
 # main-path data sizes: what a user of an analytics compiler runs on one
 # 80 GB card
@@ -81,8 +94,8 @@ PROGRAM_KERNELS = ("segment_reduce", "tile_matmul")
 
 # the serve path: what one H100 serving an 8B model holds (full width and
 # depth, bf16); prompt lengths include ones that 128 and 256 do not divide
-SERVE_ARCHS = {"llama3-8b": "flash_attention",
-               "falcon-mamba-7b": "selective_scan"}
+SERVE_ARCHS = {"llama3-8b": ("flash_attention",),
+               "falcon-mamba-7b": ("selective_scan_fused",)}
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 4, 2112, 32
 PROMPT_LENS = (2048, 1531, 1024, 777, 512, 300)
 CHECK_LAYERS, CHECK_PROMPT, CHECK_NEW = 2, 300, 8
@@ -211,7 +224,7 @@ def phase_build(torch, parent=None):
 # ---------------------------------------------------------------------------
 
 def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
-                  hot=0.0, reps=5):
+                  hot=0.0, broadcast=False, reps=5):
     from repro_torch.kernels.segment_reduce import (_identity,
                                                      segment_reduce,
                                                      segment_reduce_plain)
@@ -224,7 +237,11 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
         ids = torch.where(torch.rand(n, generator=g, device=dev) < hot,
                           0, ids).to(torch.int32)
     shape = (n,) if d == 1 else (n, d)
-    if dtype == "int32":
+    if broadcast:
+        # one value for every row (a count), as the executor hands it in:
+        # read once, never copied
+        vals = torch.ones((1,) * len(shape), device=dev).expand(shape)
+    elif dtype == "int32":
         vals = torch.randint(-1000, 1000, shape, generator=g, device=dev,
                              dtype=torch.int32)
     else:
@@ -242,7 +259,17 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
         vals[:: max(1, n // 7)] = float("nan")
     got = segment_reduce(ids, vals, k, op=op)
     want = segment_reduce_plain(ids, vals, k, op)
+    # deterministic: a second launch gives the same bits, and so do the
+    # same ids as int64 (the executor's dtype, read as it is)
+    again = segment_reduce(ids, vals, k, op=op)
+    wide = segment_reduce(ids.to(torch.int64), vals, k, op=op)
     torch.cuda.synchronize()
+    same = bool(torch.equal(got.view(torch.int32), again.view(torch.int32))
+                and torch.equal(got.view(torch.int32),
+                                wide.view(torch.int32)))
+    require(same, f"segment_reduce n={n} k={k} d={d} {op} {dtype}: two "
+                  "launches, or int32 and int64 ids, differ in their bits")
+    del again, wide
     if dtype == "int32":
         err = float((got.to(torch.int64) - want.to(torch.int64)).abs()
                     .max()) if got.numel() else 0.0
@@ -256,10 +283,12 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
         diff = torch.where(got == want, 0.0, (got - want).abs())[fin]
         err = float(diff.max()) if diff.numel() else 0.0
         if op == "+":
-            # atomics reorder each float32 sum: allow 1e-4·Σ|v| per segment
+            # the plain version (index_add_) sums in another order, with
+            # atomics: allow 1e-4·Σ|v| per segment against it
             scale = segment_reduce_plain(ids, vals.abs(), k, "+")[fin]
             ok = bool((diff <= 1e-4 * scale + 1e-6).all())
-            tol_txt = "1e-4*sum|v| per segment (float32 atomics reorder sums)"
+            tol_txt = ("1e-4*sum|v| per segment against the plain version; "
+                       "bit-equal across launches and id dtypes")
         else:
             ok = err == 0.0
             tol_txt = "exact (min/max do not depend on order)"
@@ -289,14 +318,41 @@ def _segment_case(torch, g, n, k, d, op, dtype="float32", special=False,
                               device=dev).scatter_reduce_(
                 0, idx2, vv, red, include_self=True)
     library_ms = time_ms(torch, lib, reps)
-    bytes_ = 4 * n + 4 * n * d + 8 * k * d
+    # ids and values read once, each output cell written once
+    bytes_ = 4 * n + (0 if broadcast else 4 * n * d) + 4 * k * d
     bound_ms = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"segment_reduce N={n} K={k} D={d} op={op} {dtype}"
                + (" ids<0,>=K, inf/NaN" if special else "")
-               + (f" hot key holds {hot:.0%} of rows" if hot else ""),
+               + (f" hot key holds {hot:.0%} of rows" if hot else "")
+               + (" one broadcast value" if broadcast else ""),
                max_abs_err=err, tol=tol_txt, **kern, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
     return _rates(rec, n * d)        # one ⊕ a value
+
+
+def _segment_ranges_check(torch, g):
+    """The order of the sums is fixed by ranges of rows, not by N: at
+    pagerank's shape (two ranges), one call gives the bits of the same rows
+    reduced range by range with the results folded in order (a chunked
+    run)."""
+    from repro_torch.kernels.segment_reduce import RANGE_ROWS, segment_reduce
+    n, k = PR_EDGES, PR_VERTICES
+    ids = torch.randint(0, k, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    vals = torch.randn(n, generator=g, device="cuda")
+    whole = segment_reduce(ids, vals, k)
+    chunked = None
+    for i in range(0, n, RANGE_ROWS):
+        part = segment_reduce(ids[i:i + RANGE_ROWS], vals[i:i + RANGE_ROWS],
+                              k)
+        chunked = part if chunked is None else chunked + part
+    torch.cuda.synchronize()
+    require(torch.equal(whole.view(torch.int32), chunked.view(torch.int32)),
+            "segment_reduce: the whole run and the run range by range "
+            "differ in their bits")
+    log(f"[kernels] segment_reduce N={n} K={k} +: the whole run and "
+        f"{-(-n // RANGE_ROWS)} ranges of {RANGE_ROWS} rows folded in order "
+        "are bit-equal")
 
 
 def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
@@ -420,9 +476,9 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5):
 
 
 def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
-    """The Mamba-1 scan of one prefill chunk [B, S, D, N]: with h0 and the
-    final state (a chunk after the first), or without either (the TPU
-    kernel's form)."""
+    """The scan's (a, bx) entry at a prefill chunk's shape [B, S, D, N]:
+    with h0 and the final state (a chunk after the first), or without
+    either (the TPU kernel's form)."""
     from repro_torch.kernels.selective_scan import (selective_scan,
                                                     selective_scan_plain)
     dev = "cuda"
@@ -461,12 +517,85 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
     return _rates(rec, 4 * b * s * d * n)    # h = a·h + bx; y += c·h
 
 
+def _fused_scan_case(torch, g, b, s, d, n, x_dtype, with_h0=False, reps=5):
+    """The fused entry at a falcon-mamba-7b prefill's shape: one call over
+    the whole prompt from the model's dt, A, B, C and x, returning the
+    final state, from zero as the prefill starts (or from an h0).  Also
+    times the parent's path for the same function (the [B, S, D, N]
+    discretisation in torch, then the (a, bx) entry)."""
+    import importlib
+    scan = importlib.import_module("repro_torch.kernels.selective_scan")
+    dev = "cuda"
+    dt = torch.nn.functional.softplus(
+        torch.rand(b, s, d, generator=g, device=dev) * 4 - 6)
+    A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(
+        d, 1) * (0.5 + torch.rand(d, 1, generator=g, device=dev))
+    Bm, Cm = (torch.randn(b, s, n, generator=g, device=dev) for _ in range(2))
+    x = torch.randn(b, s, d, generator=g, device=dev).to(
+        getattr(torch, x_dtype))
+    h0 = torch.randn(b, d, n, generator=g, device=dev) if with_h0 else None
+    got = scan.selective_scan_fused(dt, A, Bm, Cm, x, h0, return_state=True)
+    want = scan.selective_scan_fused_plain(dt, A, Bm, Cm, x, h0,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, v, ref in zip(("y", "h_last"), got, want):
+        e = float((v - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        require(e <= tol, f"selective_scan_fused [{b}, {s}, {d}, {n}] x "
+                          f"{x_dtype} {name}: err {e} > {tol}")
+        err = max(err, e)
+    del want
+    torch.cuda.empty_cache()
+
+    def fused():
+        return scan.selective_scan_fused(dt, A, Bm, Cm, x, h0,
+                                         return_state=True)
+
+    def unfused():
+        a = torch.exp(dt[..., None] * A)
+        bx = (dt * x.float())[..., None] * Bm[..., None, :]
+        return scan.selective_scan(a, bx, Cm, h0, return_state=True)
+    kernel_ms = time_ms(torch, fused, reps)
+    unfused_ms = time_ms(torch, unfused, 2)
+    plain_ms = time_ms(torch, lambda: scan.selective_scan_fused_plain(
+        dt, A, Bm, Cm, x, h0, return_state=True), 1, warmup=0)
+    torch.cuda.empty_cache()
+    esize = 2 if x_dtype == "bfloat16" else 4
+    state = 4 * b * d * n * (2 if with_h0 else 1)    # h0 read, h_last written
+    bytes_ = (4 + esize + 4) * b * s * d + 4 * d * n + 8 * b * s * n + state
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    # ~7 float32 operations a (t, d, n): dt·A, dt·x·B (2), h = a·h + bx (2),
+    # y += c·h (2); one exponential a (t, d, n) at EXP_PER_S
+    flops = 7.0 * b * s * d * n
+    t_flops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_exp = b * s * d * n / EXP_PER_S * 1e3
+    bound = max(t_bytes, t_flops, t_exp)
+    rec = dict(case=f"selective_scan_fused [{b}, {s}, {d}, {n}] x {x_dtype}"
+               + (", h0 and h_last" if with_h0 else ", h_last"),
+               max_abs_err=err, tol="1e-4*max|ref| (y and h_last)",
+               kernel_ms=kernel_ms, unfused_ms=unfused_ms, plain_ms=plain_ms,
+               library_ms=None, library="none (no single PyTorch call)",
+               bound_parts_ms=dict(bytes=t_bytes, float32=t_flops,
+                                   exp=t_exp),
+               bound_ms=bound,
+               bound_by="bytes" if bound == t_bytes else "operations")
+    return _rates(rec, flops)
+
+
 def phase_kernels(torch, seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
+    # the main paths' shapes first: group_by, word_count and histogram
+    # (counts: one broadcast value), kmeans_step's sums, pagerank's ⊕ of
+    # 68,993,773 edges into 4,847,571 vertices
     seg = [
-        _segment_case(torch, g, N_ROWS, 256, 1, "+"),
         _segment_case(torch, g, N_ROWS, GROUPS, 1, "+"),
+        _segment_case(torch, g, N_ROWS, VOCAB, 1, "+", broadcast=True),
+        _segment_case(torch, g, N_ROWS, 256, 1, "+", broadcast=True),
+        _segment_case(torch, g, KM_POINTS, KM_K, 1, "+"),
+        _segment_case(torch, g, PR_EDGES, PR_VERTICES, 1, "+"),
+        _segment_case(torch, g, N_ROWS, 256, 1, "+"),
         _segment_case(torch, g, N_ROWS, GROUPS, 1, "min"),
         _segment_case(torch, g, N_ROWS, GROUPS, 1, "max"),
         _segment_case(torch, g, 2 ** 24, 4096, 8, "+"),
@@ -478,7 +607,7 @@ def phase_kernels(torch, seed):
     # what a colliding row costs the kernel: the hot-key case against the
     # uniform one, per row that lands on the hot segment (the cost row's
     # dup_row prices the same thing)
-    extra_us = (seg[-1]["kernel_ms"] - seg[1]["kernel_ms"]) * 1e3 \
+    extra_us = (seg[-1]["kernel_ms"] - seg[0]["kernel_ms"]) * 1e3 \
         / (0.25 * N_ROWS)
     log(f"[kernels] segment_reduce collision cost: {extra_us:.3g} us per "
         f"row on one hot segment (N={N_ROWS}, K={GROUPS}, 25% hot)")
@@ -492,6 +621,7 @@ def phase_kernels(torch, seed):
             f"segment_reduce int32 2^24+1: got {s.tolist()} {mx.tolist()}")
     log("[kernels] segment_reduce int32 exact at 2^24+1: "
         f"sum={int(s[0])} max={int(mx[0])}")
+    _segment_ranges_check(torch, g)
     tile = [
         _tile_case(torch, g, MAT, MAT, MAT, 128, "float32", True, True),
         _tile_case(torch, g, MAT, MAT, MAT, 128, "bfloat16", True, True),
@@ -511,12 +641,20 @@ def phase_kernels(torch, seed):
             _scan_case(torch, g, 1, 1531, 8192, 16, False)]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    fused = [_fused_scan_case(torch, g, 1, 2048, 8192, 16, "bfloat16"),
+             _fused_scan_case(torch, g, 1, 1531, 8192, 16, "bfloat16",
+                              with_h0=True),
+             _fused_scan_case(torch, g, 1, 2048, 8192, 16, "float32")]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     # the entries of the kernel line: the main paths' shapes (the group-by
     # over 2^20 segments, the packed 8192^3 product through the packed
-    # entry, the 2048-token llama3-8b prefill's attention, a 256-step
-    # falcon-mamba-7b chunk carried from the previous one)
-    return {"segment_reduce": seg[1], "tile_matmul": tile[0],
-            "flash_attention": flash[0], "selective_scan": scan[0]}
+    # entry, the 2048-token llama3-8b prefill's attention, the scan kernel
+    # through its fused entry on a 2048-token falcon-mamba-7b prefill, as
+    # the serve path calls it; the (a, bx) entry, which no path calls, is
+    # checked and timed above)
+    return {"segment_reduce": seg[0], "tile_matmul": tile[0],
+            "flash_attention": flash[0], "selective_scan": fused[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -871,7 +1009,7 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
-def _serve_model(torch, np, arch, kernel, seed):
+def _serve_model(torch, np, arch, kernels, seed):
     """Serve one model through the engine; returns the launch counts of the
     engine run."""
     from repro_torch.configs import get_config
@@ -921,8 +1059,14 @@ def _serve_model(torch, np, arch, kernel, seed):
     log(f"[serve] {arch}: engine run of {len(reqs)} requests in {run_s:.3f} s"
         f" ({len(ticks)} ticks, {SERVE_SLOTS} slots); kernel launches "
         f"{json.dumps(counts)}")
-    require(counts[kernel] > 0, f"{arch}: {kernel} was not launched on the "
-                                "serve path")
+    for kernel in kernels:
+        require(counts[kernel] > 0, f"{arch}: {kernel} was not launched on "
+                                    "the serve path")
+    if "selective_scan_fused" in kernels:
+        # one scan a layer and prefill, each through the fused entry
+        require(counts["selective_scan"] == 0,
+                f"{arch}: {counts['selective_scan']} scans through the (a, "
+                "bx) entry, which materialises [B, S, D, N]")
     for r in reqs:
         require(r.done and len(r.out) == SERVE_MAX_NEW,
                 f"{arch}: request {r.rid} done={r.done} with {len(r.out)} "
@@ -1039,9 +1183,9 @@ def phase_serve(torch, seed):
     import numpy as np
     from repro_torch.kernels import ops
     launches = {}
-    for arch, kernel in SERVE_ARCHS.items():
-        counts = _serve_model(torch, np, arch, kernel, seed)
-        launches[kernel] = counts[kernel]
+    for arch, kernels in SERVE_ARCHS.items():
+        counts = _serve_model(torch, np, arch, kernels, seed)
+        launches.update({k: counts[k] for k in kernels})
     for arch in SERVE_ARCHS:
         _model_check(torch, np, arch, seed)
     log(f"[serve] kernel launches on the serve path: {json.dumps(launches)}")
@@ -1080,6 +1224,9 @@ def main(argv=None) -> int:
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
         return 1
+    # the scan kernel's launches through either entry
+    launches["selective_scan"] = launches.get("selective_scan", 0) \
+        + launches.pop("selective_scan_fused", 0)
     sources = {"segment_reduce": ("src/repro_torch/kernels/csrc/"
                                   "segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce.py:109"),

@@ -345,9 +345,9 @@ def collect_salts(nodes, env, selector, skew_salting: str, *,
 # ---------------------------------------------------------------------------
 
 class PlanExecutor:
-    def __init__(self, prog: Program, selector=None, device="cpu"):
+    def __init__(self, prog: Program, selector=None, device="cuda"):
         self.prog = prog
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # id(node) → the materialization the executor last chose for it
         # ("einsum", "dense-store", "segment:pallas[cost]", …);
         # CompiledProgram.explain() reads it

@@ -10,7 +10,8 @@ This module owns that choice.  Candidate backends:
   sort      sort the keys, then a segmented ⊕ over the sorted run
   onehot    [N, K] one-hot × [N] values as a matmul — group-by as matrix
             multiplication; integer values accumulate exactly in float64
-  pallas    the hand-written segment kernel.  The plan keeps the reference
+  pallas    the hand-written segment kernel (deterministic: the same bits
+            on every launch, float sums too).  The plan keeps the reference
             package's backend names (`"pallas"`, `"pallas-tiled"`) so that
             the planner is the same code in both packages; in this package
             `"pallas"` is the CUDA kernel of kernels/csrc/segment_reduce.cu
@@ -36,6 +37,12 @@ Two modes, one interface:
 `force:<backend>` short-circuits both (tests, A/B runs, and the legacy
 `use_kernels=True` flag, which maps to `force:pallas`).
 
+Determinism is owned here.  On the card, scatter and sort end in
+`index_add_`, whose float atomics add in another order on every launch;
+so a float + group-by on "cuda" chooses only among the backends that give
+the same bits every time (`DETERMINISTIC`).  min, max and integer sums
+do not depend on the order, and keep every candidate.
+
 Decisions are made when a node runs — concrete shapes are known there, and
 a decision changes only the computation, never its result (every backend
 implements the same ⊕-merge with paper §3.4 drop semantics).  The executor
@@ -58,6 +65,10 @@ SEGMENT_CANDIDATES = {
     "max": ("scatter", "sort", "pallas"),
     "*": ("scatter", "sort"),
 }
+
+# the backends whose float sums on the card do not depend on the order of
+# atomics: the deterministic segment kernel, and the one-hot product
+DETERMINISTIC = ("onehot", "pallas")
 
 CONTRACT_CANDIDATES = ("pallas-tiled", "unpack-einsum")
 
@@ -97,15 +108,18 @@ class Decision:
 # packages make the same choices on the CPU.  The segment kernel's CPU form
 # is its plain version, which the model never picks (pallas_fixed).
 #
-# The cuda row holds first-principles estimates for an H100 (dup_row
-# apart, see below); autotune mode replaces them with measurement the
-# first time a class is seen on the card.  The segment kernel reads 4
-# bytes of id and 4 of value per row and writes the [K, D] output once,
-# so its rows cost 8 bytes and its cells 8 bytes (fill + write) at
-# 3.35 TB/s, plus one launch.  The torch scatter reads the same row
-# through an int64 index it must first build (≈ 24 bytes a row); sort
-# adds a radix sort per row and log₂N; onehot materializes an [N, K]
-# matrix (≈ 8 bytes a cell).
+# The cuda row: the segment kernel's and the torch scatter's rates are
+# measured on an H100 (NVIDIA H100 80GB HBM3, 700 W) by chip_smoke.py's
+# phase 2; the rest are first-principles estimates, and autotune mode
+# replaces them all with measurement the first time a class is seen on
+# the card.  The kernel's small path ([K, D] of at most 2048 cells) costs
+# 6.6 ps a row (0.444 ms at N = 2^26, K = 256); its partitioned path
+# 23.6 ps a row and 0.60 ns a cell of [K, D] (fitted to 2.214 ms at N =
+# 2^26, K = 2^20 and 4.530 ms at pagerank's N = 68,993,773, K =
+# 4,847,571).  `index_add_` costs 13.5 ps a row at K = 2^17 … 2^20 (0.907
+# ms at N = 2^26); contention on a small K, which makes it far slower
+# (17.4 ms at K = 256), is not modelled.  Sort adds a radix sort per row
+# and log₂N; onehot materializes an [N, K] matrix (≈ 8 bytes a cell).
 # tile_mxu equals einsum_cell: the packed product does the same flops as
 # the dense einsum, and wins by the unpack it saves — the relation the
 # reference package's tpu row encodes.
@@ -116,22 +130,22 @@ _COSTS = {
                 pallas_row=0.0, pallas_kd=0.0,
                 tile_mxu=math.inf, einsum_cell=4e-5, unpack_cell=1.5e-3,
                 dup_row=0.0, salt_fold=0.004),
-    "cuda": dict(fixed=10.0, scatter_row=24 / _HBM_BYTES_PER_US,
+    "cuda": dict(fixed=10.0, scatter_row=1.35e-5,
                  sort_row=32 / _HBM_BYTES_PER_US,
                  onehot_cell=8 / _HBM_BYTES_PER_US,
                  pallas_cell=0.0, pallas_fixed=5.0,
-                 pallas_row=8 / _HBM_BYTES_PER_US,
-                 pallas_kd=8 / _HBM_BYTES_PER_US,
+                 pallas_row=2.36e-5, pallas_kd=5.98e-4,
+                 pallas_small_row=6.6e-6,
                  tile_mxu=3e-8, einsum_cell=3e-8,
                  unpack_cell=8 / _HBM_BYTES_PER_US,
-                 dup_row=1.7e-3, salt_fold=3e-4),
+                 dup_row=3.7e-3, salt_fold=3e-4),
 }
-# dup_row: extra per-row cost when rows COLLIDE on one destination row —
-# on the GPU, atomics on one address serialize in L2.  The cuda value is
-# measured: chip_smoke.py's hot-key segment case on an H100 (a quarter of
-# 2^26 rows on one of 2^20 segments) takes 1.7 ns more per hot row than
-# uniform keys.  The CPU loop is sequential regardless, so 0: cost mode
-# never salts on CPU.  salt_fold: per-cell cost of the [K, S] ⊕-fold that
+# dup_row: extra per-row cost when rows COLLIDE on one destination row.
+# The cuda value is measured: chip_smoke.py's hot-key segment case on an
+# H100 (a quarter of 2^26 rows on one of 2^20 segments) takes the segment
+# kernel 3.7 ns more per hot row than uniform keys (its lanes that share
+# an id commit in turn, and one block takes the hot id's bucket).  The
+# CPU loop is sequential regardless, so 0: cost mode never salts on CPU.  salt_fold: per-cell cost of the [K, S] ⊕-fold that
 # merges the salted sub-destinations back.
 
 
@@ -146,6 +160,9 @@ def _segment_cost(c: dict, backend: str, n: int, k: int, d: int) -> float:
     if backend == "onehot":
         return c["fixed"] + c["onehot_cell"] * nkd
     if backend == "pallas":
+        from ..kernels.segment_reduce import _SMALL_CELLS
+        if k * max(1, d) <= _SMALL_CELLS and "pallas_small_row" in c:
+            return c["pallas_fixed"] + c["pallas_small_row"] * nd
         return (c["pallas_fixed"] + c["pallas_cell"] * nkd
                 + c["pallas_row"] * nd + c["pallas_kd"] * k * max(1, d))
     return math.inf
@@ -300,6 +317,9 @@ class OpSelector:
                        dest_dist: str = "REP",
                        candidates: Optional[tuple] = None) -> Decision:
         cands = candidates or SEGMENT_CANDIDATES.get(op, ("scatter",))
+        if self.platform == "cuda" and op == "+" and \
+                "float" in str(dtype):
+            cands = tuple(b for b in cands if b in DETERMINISTIC) or cands
         if self.forced is not None and self.forced in cands:
             return Decision(self.forced, "forced")
         # a forced backend the candidate set does not admit (e.g.

@@ -1,5 +1,5 @@
 from .ops import (flash_attention, segment_reduce, segment_sum,
-                  selective_scan, tile_matmul)
+                  selective_scan, selective_scan_fused, tile_matmul)
 
 __all__ = ["flash_attention", "segment_reduce", "segment_sum",
-           "selective_scan", "tile_matmul"]
+           "selective_scan", "selective_scan_fused", "tile_matmul"]

@@ -37,7 +37,9 @@ SIGNATURES = {
     "segment_reduce": {
         "segment_reduce_launch": [ctypes.c_int, ctypes.c_int, _P, _P, _P,
                                   ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_longlong, ctypes.c_int, _P],
+                                  ctypes.c_longlong, ctypes.c_int, _P,
+                                  ctypes.c_int, _P, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_int],
     },
     "tile_matmul": {
         "tile_matmul_launch": [ctypes.c_int, _P, *[ctypes.c_longlong] * 4,
@@ -51,6 +53,8 @@ SIGNATURES = {
     },
     "selective_scan": {
         "selective_scan_launch": [*[_P] * 6, *[ctypes.c_int] * 4, _P],
+        "selective_scan_fused_launch": [*[_P] * 5, ctypes.c_int, *[_P] * 3,
+                                        *[ctypes.c_int] * 4, _P],
     },
 }
 
@@ -135,6 +139,8 @@ def load(name: str, csrc=None) -> ctypes.CDLL:
     build_all((name,), csrc)
     lib = ctypes.CDLL(str(_lib_path(name, csrc)))
     for fn, argtypes in SIGNATURES[name].items():
+        if not own and not hasattr(lib, fn):
+            continue          # an earlier version may lack a newer entry
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int

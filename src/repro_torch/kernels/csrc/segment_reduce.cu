@@ -1,38 +1,67 @@
-// Segment-⊕ (⊕ ∈ {+, min, max}) for Hopper (sm_90a), hand-written.
+// Segment-⊕ (⊕ ∈ {+, min, max}) for Hopper (sm_90a), hand-written,
+// deterministic: the same inputs give the same bits on every launch, for
+// float + too.
 //
 // Replaces the Pallas TPU kernel `segment_reduce` (src/repro/kernels/
 // segment_reduce.py, `_kernel`), which builds a one-hot [bn, bk] block per
-// step and reduces it on the MXU.  Hopper has no reason to materialize the
-// one-hot: each row's id names its destination directly, so this kernel is a
-// scatter with atomics.
+// step and reduces it on the MXU in a fixed grid order.  Hopper has no
+// reason to materialize the one-hot: each row's id names its destination.
+// What the TPU kernel's fixed order gives for free, this kernel keeps by
+// construction: every row is combined in an order fixed by the ids alone,
+// and every output cell is written once by the block that owns it.  No
+// atomic touches device memory, and no separate fill launch runs.
 //
 // Bound: device-memory bytes.  The least traffic is the ids and values read
-// once (4N + 4N·D bytes; 4N alone when the value is a broadcast constant)
-// and the [K, D] output written once, plus its identity fill.  Design:
-//   * grid-stride pass over rows, one row's D columns per iteration; a
-//     dropped row (id < 0 or id ≥ K) is never read, which gives the drop
-//     semantics and keeps 0×inf / NaN of a dropped row out of the result;
-//   * when the [K, D] output fits shared memory (≤ 48K cells) every block
-//     keeps a private identity-filled copy, reduces into it with shared
-//     atomics, then merges the non-identity cells into device memory with
-//     one global atomic each — the histogram case, where global atomics
-//     would serialize on a few hundred addresses;
-//   * otherwise rows go straight to device memory with global atomics — the
-//     large-K group-by case, whose output stays resident in the 50 MB L2.
-// Float + uses atomicAdd (the order of the adds, and so the last bits of a
-// sum, changes from run to run); float min/max use an atomicCAS loop that
-// propagates NaN like jnp.min/jnp.max; int32 uses atomicAdd/Min/Max and is
-// exact.
+// once and the [K, D] output written once.  Data read once is loaded with
+// the streaming hint (`__ldcs`, evict-first in L1 and L2).  Two paths:
+//   * small [K, D] (≤ kSmallCells cells: kmeans K = 64, histogram K = 256):
+//     each warp walks a fixed contiguous range of rows 32 at a time into
+//     its own copy of [K, D] in shared memory; the block merges its warps'
+//     copies in warp order into a partial [blocks, K, D] (device scratch),
+//     and a second short kernel folds the partials in block order.  The
+//     block count is fixed by N.
+//   * large [K, D] (group-by into 2^17 … 4.85M segments): a partitioned
+//     reduction over buckets of 2^shift consecutive ids (a bucket's slice
+//     of [K, D] fits shared memory).  bucket_count counts each warp range's
+//     kept rows per bucket; an exclusive scan over the [bucket, warp range]
+//     counts gives each (bucket, warp range) its place; the scatter writes
+//     every kept row's id and values there, stable in row order, so the
+//     scratch holds the rows bucket after bucket; bucket_reduce gives a
+//     block to a bucket, reduces its rows as the small path does (warps
+//     over fixed sub-ranges, copies merged in warp order) and writes its
+//     slice of the output once, identity where nothing landed.  This moves
+//     about 2·(4 + |id|)·N + 3·4·N·D bytes against the least (|id| + 4D)·N.
+//     A row scattered by itself leaves a partial 32-byte sector, which
+//     costs the device memory a read-modify-write: bucket_scatter_staged
+//     (one value a row, or none, and at most kStageBuckets buckets: every
+//     main path) stages each bucket's open sector in shared memory and
+//     stores it whole.
+// Within 32 rows, lanes that share an id commit to the warp's copy one at a
+// time in lane order for a few rounds (`lane_rounds`), and the rest of a
+// crowded id (a hot key) together, combined in a fixed tree
+// (`match_group`, `add_crowded`).  A dropped row (id < 0 or id ≥ K) is
+// never read, which gives the drop semantics and keeps 0×inf / NaN of a
+// dropped row out of the result.  Float min/max propagate NaN like
+// jnp.min/jnp.max; int32 is exact.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemThreads = 1024;       // one large private copy per SM still
-                                         // keeps 32 warps in flight
-constexpr int kSmemCells = 48 * 1024;    // 192 KB of 4-byte cells
+constexpr int kWarps = 8;                 // warps a block of every pass
+constexpr int kThreads = kWarps * 32;
+constexpr int kSmallCells = 2048;         // cells of one warp's copy (8 warps a block)
+constexpr int kSliceCells = 8192;         // cells of a bucket's slice (4 warps' copies)
+constexpr int kStageBuckets = 600;        // buckets whose sectors a block can stage
+constexpr int kScanChunk = 4096;          // counts one scan block covers
+constexpr int kUnroll = 8;                // 32-row groups loaded ahead
+constexpr int kTags = 512;                // tag slots a warp (a power of two)
+// lane-order rounds at most, then match_any: a small [K, D] meets ids
+// that repeat within 32 rows as a matter of course, a large one only on a
+// hot key
+constexpr int kSmallRounds = 6, kLargeRounds = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -44,153 +73,648 @@ template <> __device__ __forceinline__ int identity<int, kSum>() { return 0; }
 template <> __device__ __forceinline__ int identity<int, kMin>() { return INT_MAX; }
 template <> __device__ __forceinline__ int identity<int, kMax>() { return -INT_MAX; }
 
-__device__ __forceinline__ float nan_min(float a, float b) {
+template <typename T, int OP> __device__ __forceinline__ T combine(T a, T b);
+template <> __device__ __forceinline__ float combine<float, kSum>(float a, float b) { return a + b; }
+template <> __device__ __forceinline__ float combine<float, kMin>(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
 }
-__device__ __forceinline__ float nan_max(float a, float b) {
+template <> __device__ __forceinline__ float combine<float, kMax>(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
 }
+template <> __device__ __forceinline__ int combine<int, kSum>(int a, int b) { return a + b; }
+template <> __device__ __forceinline__ int combine<int, kMin>(int a, int b) { return min(a, b); }
+template <> __device__ __forceinline__ int combine<int, kMax>(int a, int b) { return max(a, b); }
 
-// works on shared and device memory alike (generic addressing)
-template <int OP>
-__device__ __forceinline__ void cas_minmax(float* addr, float v) {
-  unsigned int* a = reinterpret_cast<unsigned int*>(addr);
-  unsigned int old = *a;
-  unsigned int assumed;
-  do {
-    assumed = old;
-    float cur = __uint_as_float(assumed);
-    float nv = OP == kMin ? nan_min(cur, v) : nan_max(cur, v);
-    unsigned int nb = __float_as_uint(nv);
-    if (nb == assumed) return;
-    old = atomicCAS(a, assumed, nb);
-  } while (old != assumed);
+// rows [begin, end) of warp range `wt` when N rows are cut into `ranges`
+// ranges of `per` rows
+__device__ __forceinline__ void warp_range(long long n, long long per, long long wt,
+                                           long long* begin, long long* end) {
+  *begin = min(n, wt * per);
+  *end = min(n, *begin + per);
 }
 
-template <typename T, int OP> __device__ __forceinline__ void atomic_op(T* addr, T v);
-template <> __device__ __forceinline__ void atomic_op<float, kSum>(float* a, float v) { atomicAdd(a, v); }
-template <> __device__ __forceinline__ void atomic_op<float, kMin>(float* a, float v) { cas_minmax<kMin>(a, v); }
-template <> __device__ __forceinline__ void atomic_op<float, kMax>(float* a, float v) { cas_minmax<kMax>(a, v); }
-template <> __device__ __forceinline__ void atomic_op<int, kSum>(int* a, int v) { atomicAdd(a, v); }
-template <> __device__ __forceinline__ void atomic_op<int, kMin>(int* a, int v) { atomicMin(a, v); }
-template <> __device__ __forceinline__ void atomic_op<int, kMax>(int* a, int v) { atomicMax(a, v); }
+// The rows of one 32-row group that share a tag slot commit one a round,
+// in lane order, for up to ROUNDS rounds: each round every pending lane
+// writes 32 to its slot, the lowest pending lane of the slot wins it
+// (shared-memory atomicMin on an int, whose result does not depend on
+// order), and the winners, whose slots and so keys differ, commit
+// together.  A slot is key mod kTags, so two keys may share one and then
+// merely wait for each other.  Returns whether this lane is still pending:
+// the callers take the rest of a crowded group (a hot key) together, by
+// `__match_any_sync`, which is slower a group but not a round a row.
+// Called by one whole warp; `tag` is the warp's own kTags ints in shared
+// memory.
+template <int ROUNDS, typename F>
+__device__ __forceinline__ bool lane_rounds(bool pending, int key, int* tag, F commit) {
+  const int lane = threadIdx.x & 31;
+  int* t = tag + (key & (kTags - 1));
+  for (int round = 0; round < ROUNDS && __any_sync(kFull, pending); ++round) {
+    if (pending) *t = 32;
+    __syncwarp();
+    if (pending) atomicMin(t, lane);
+    __syncwarp();
+    if (pending && *t == lane) {
+      commit();
+      pending = false;
+    }
+    __syncwarp();
+  }
+  return pending;
+}
 
+// The pending lanes' match groups (lanes of one key): the mask of my group
+// (a lane that is not pending is a group of its own), its first lane, and
+// my rank in it
+struct Group {
+  unsigned mask;
+  int leader, rank;
+};
+__device__ __forceinline__ Group match_group(bool pending, int key) {
+  const int lane = threadIdx.x & 31;
+  const unsigned m = __match_any_sync(kFull, pending ? key : -2 - lane);
+  return {m, __ffs(m) - 1, __popc(m & ((1u << lane) - 1))};
+}
+
+// The rest of each id's rows in a crowded group: combined over their match
+// group by pointer jumping (a fixed tree), added by the group's first lane.
+// Out of line, so that the common path keeps its registers.
 template <typename T, int OP>
-__global__ void fill_identity(T* __restrict__ out, long long cells) {
-  const T ident = identity<T, OP>();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < cells; i += stride)
-    out[i] = ident;
+__device__ __noinline__ void add_crowded(bool pending, int id, T v, const T* row, int d,
+                                         T* copy) {
+  const int lane = threadIdx.x & 31;
+  const Group g = match_group(pending, id);
+  const unsigned later = g.mask & ~(0xffffffffu >> (31 - lane));
+  const int next0 = later ? __ffs(later) - 1 : -1;
+  const int most = __reduce_max_sync(kFull, __popc(g.mask));
+  for (int j = 0; j < d; ++j) {
+    T x = !pending ? identity<T, OP>() : j == 0 ? v : __ldcs(row + j);
+    int nx = next0;
+    for (int reach = 1; reach < most; reach <<= 1) {
+      const T o = __shfl_sync(kFull, x, nx & 31);
+      const int onx = __shfl_sync(kFull, nx, nx & 31);
+      if (nx >= 0) {
+        x = combine<T, OP>(x, o);
+        nx = onx;
+      }
+    }
+    if (pending && lane == g.leader) {
+      T* c = copy + (long long)id * d + j;
+      *c = combine<T, OP>(*c, x);
+    }
+  }
+  __syncwarp();
 }
 
-// vstride: elements between consecutive rows of `vals` (D for a dense
-// [N, D] block, 0 when every row carries the same broadcast value)
+// Reduce rows [begin, end) in order, 32 at a time, into `copy` ([span, d],
+// cells of ids id_lo … id_lo + span - 1); row r's id is ids[r·istride], its
+// values vals[r·vstride + j].  Rows of one id meet the copy in row order.  Called
+// by one whole warp; `copy` is the warp's own (shared or device memory).
+template <typename T, int OP, typename IdT, int U, int ROUNDS>
+__device__ void reduce_rows(const IdT* __restrict__ ids, int istride,
+                            const T* __restrict__ vals, long long vstride, int d,
+                            long long begin, long long end, long long id_lo, int span,
+                            T* copy, int* tag) {
+  const int lane = threadIdx.x & 31;
+  for (long long base = begin; base < end; base += 32 * U) {
+    int rel[U];
+    T v0[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = base + u * 32 + lane;
+      rel[u] = -1;
+      if (r < end) {
+        const long long x = (long long)__ldcs(ids + r * istride) - id_lo;
+        if (x >= 0 && x < span) rel[u] = (int)x;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = base + u * 32 + lane;
+      if (rel[u] >= 0) v0[u] = __ldcs(vals + r * vstride);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (base + u * 32 >= end) break;                     // warp-uniform
+      const long long r = base + u * 32 + lane;
+      const int id = rel[u];
+      const T v = v0[u];
+      const bool pending = lane_rounds<ROUNDS>(id >= 0, id, tag, [=] {
+        T* c = copy + (long long)id * d;
+        c[0] = combine<T, OP>(c[0], v);
+        for (int j = 1; j < d; ++j) c[j] = combine<T, OP>(c[j], __ldcs(vals + r * vstride + j));
+      });
+      if (__any_sync(kFull, pending))
+        add_crowded<T, OP>(pending, id, v, vals + r * vstride, d, copy);
+    }
+  }
+}
+
+// Fill `cells` cells with the identity: the calling block's threads.
+template <typename T, int OP>
+__device__ __forceinline__ void fill(T* p, int cells) {
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) p[i] = identity<T, OP>();
+}
+
+// Merge the block's warps' copies ([warps][stride] in shared memory) in
+// warp order into dst[0 … cells).
+template <typename T, int OP>
+__device__ __forceinline__ void merge_warps(const T* copies, int warps, int stride, int cells,
+                                            T* dst) {
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    T acc = copies[i];
+    for (int w = 1; w < warps; ++w) acc = combine<T, OP>(acc, copies[w * stride + i]);
+    dst[i] = acc;
+  }
+}
+
+// small path, pass 1: block g reduces warp ranges g·kWarps … into
+// dst[g] ([K, D]; the output itself when there is one block)
+template <typename T, int OP, typename IdT>
+__global__ void __launch_bounds__(kThreads)
+small_reduce(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n, int d,
+             long long vstride, int k, long long per, T* __restrict__ dst) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int tags[kWarps * kTags];
+  T* copies = reinterpret_cast<T*>(smem_raw);
+  const int cells = k * d;
+  fill<T, OP>(copies, kWarps * cells);
+  __syncthreads();
+  const int w = threadIdx.x >> 5;
+  long long begin, end;
+  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+  reduce_rows<T, OP, IdT, kUnroll, kSmallRounds>(ids, 1, vals, vstride, d, begin, end, 0, k,
+                                                 copies + w * cells, tags + w * kTags);
+  __syncthreads();
+  merge_warps<T, OP>(copies, kWarps, cells, cells, dst + (long long)blockIdx.x * cells);
+}
+
+// small path, pass 2: fold the partials [blocks, cells] in block order
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-seg_global(const int* __restrict__ ids, const T* __restrict__ vals, T* __restrict__ out,
-           long long n, int d, long long vstride, int k) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x; row < n; row += stride) {
-    const int id = __ldg(ids + row);
-    if (id < 0 || id >= k) continue;            // dropped: value never read
-    const T* v = vals + row * vstride;
-    T* o = out + (long long)id * d;
-    for (int j = 0; j < d; ++j) atomic_op<T, OP>(o + j, __ldg(v + j));
+fold_partials(const T* __restrict__ part, int blocks, int cells, T* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cells) return;
+  T acc = part[i];
+  for (int g = 1; g < blocks; ++g) acc = combine<T, OP>(acc, part[(long long)g * cells + i]);
+  out[i] = acc;
+}
+
+// large path, pass 1a: kept rows per (bucket, warp range), written
+// bucket-major: counts[b · ranges + wt]
+template <typename IdT>
+__global__ void __launch_bounds__(kThreads)
+bucket_count(const IdT* __restrict__ ids, long long n, int k, int shift, int nb,
+             long long per, int ranges, int* __restrict__ counts) {
+  extern __shared__ int cnt[];                 // [kWarps][nb]
+  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long begin, end;
+  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+#pragma unroll 4
+  for (long long r = begin + lane; r < end; r += 32) {
+    const long long id = __ldcs(ids + r);
+    if (id >= 0 && id < k) atomicAdd(&cnt[w * nb + (int)(id >> shift)], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) {
+    const int b = i / kWarps, ww = i % kWarps;
+    counts[(long long)b * ranges + (long long)blockIdx.x * kWarps + ww] = cnt[ww * nb + b];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) counts[(long long)nb * ranges] = 0;
+}
+
+// exclusive scan of counts[0 … len) in place, in three kernels: chunk
+// sums, a scan of the sums by one block, each chunk scanned from its sum
+__global__ void __launch_bounds__(kThreads)
+scan_sums(const int* __restrict__ counts, long long len, int* __restrict__ sums) {
+  const long long lo = (long long)blockIdx.x * kScanChunk;
+  int s = 0;
+  for (long long i = lo + threadIdx.x; i < min(len, lo + kScanChunk); i += blockDim.x)
+    s += counts[i];
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  __shared__ int part[kWarps];
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int w = 0; w < kWarps; ++w) t += part[w];
+    sums[blockIdx.x] = t;
   }
 }
 
+// block-wide exclusive scan of one int a thread; returns the thread's
+// prefix and sets *total
+__device__ __forceinline__ int block_exclusive(int v, int* total) {
+  __shared__ int warp_tot[kWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int inc = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += o;
+  }
+  if (lane == 31) warp_tot[w] = inc;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int i = 0; i < kWarps; ++i) {
+    before += i < w ? warp_tot[i] : 0;
+    all += warp_tot[i];
+  }
+  __syncthreads();
+  *total = all;
+  return before + inc - v;
+}
+
+__global__ void __launch_bounds__(kThreads) scan_chunk_sums(int* sums, int chunks) {
+  int carry = 0;
+  for (int lo = 0; lo < chunks; lo += kThreads) {
+    const int i = lo + threadIdx.x;
+    const int v = i < chunks ? sums[i] : 0;
+    int total;
+    const int ex = block_exclusive(v, &total);
+    if (i < chunks) sums[i] = carry + ex;
+    carry += total;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+scan_chunks(int* __restrict__ counts, long long len, const int* __restrict__ sums) {
+  constexpr int kPer = kScanChunk / kThreads;
+  const long long lo = (long long)blockIdx.x * kScanChunk + (long long)threadIdx.x * kPer;
+  int v[kPer];
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    v[j] = lo + j < len ? counts[lo + j] : 0;
+    s += v[j];
+  }
+  int total;
+  int run = sums[blockIdx.x] + block_exclusive(s, &total);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    if (lo + j < len) counts[lo + j] = run;
+    run += v[j];
+  }
+}
+
+// large path, pass 1b: every kept row's id and (unless the value is one
+// broadcast row) values to its place, stable in row order
+template <typename T, typename IdT>
+__global__ void __launch_bounds__(kThreads)
+bucket_scatter(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n, int d,
+               long long vstride, int k, int shift, int nb, long long per, int ranges,
+               const int* __restrict__ offs, int* __restrict__ sid, T* __restrict__ sval) {
+  extern __shared__ int cur[];                 // [kWarps][nb]: next free place
+  __shared__ int tags[kWarps * kTags];
+  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) {
+    const int b = i / kWarps, ww = i % kWarps;
+    cur[ww * nb + b] = offs[(long long)b * ranges + (long long)blockIdx.x * kWarps + ww];
+  }
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long begin, end;
+  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+  for (long long base = begin; base < end; base += 32 * kUnroll) {
+    long long id[kUnroll];
+    T v0[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long r = base + u * 32 + lane;
+      id[u] = r < end ? (long long)__ldcs(ids + r) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long r = base + u * 32 + lane;
+      if (vstride != 0 && id[u] >= 0 && id[u] < k) v0[u] = __ldcs(vals + r * vstride);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (base + u * 32 >= end) break;                     // warp-uniform
+      const long long r = base + u * 32 + lane;
+      const int bucket = id[u] >= 0 && id[u] < k ? (int)(id[u] >> shift) : -1;
+      int place = 0;
+      int* const at = cur + w * nb + bucket;
+      // places taken in lane order: the scatter is stable
+      const bool pending =
+          lane_rounds<kLargeRounds>(bucket >= 0, bucket, tags + w * kTags,
+                                    [&place, at] { place = (*at)++; });
+      if (__any_sync(kFull, pending)) {
+        const Group g = match_group(pending, bucket);
+        int base = 0;
+        if (pending && lane == g.leader) {
+          base = *at;
+          *at = base + __popc(g.mask);
+        }
+        base = __shfl_sync(kFull, base, g.leader);
+        if (pending) place = base + g.rank;
+        __syncwarp();
+      }
+      if (bucket >= 0) {
+        sid[place] = (int)id[u];
+        if (vstride != 0) {
+          sval[(long long)place * d] = v0[u];
+          for (int j = 1; j < d; ++j)
+            sval[(long long)place * d + j] = __ldcs(vals + r * vstride + j);
+        }
+      }
+    }
+  }
+}
+
+template <typename T> __device__ __forceinline__ unsigned bits(T v);
+template <> __device__ __forceinline__ unsigned bits<float>(float v) { return __float_as_uint(v); }
+template <> __device__ __forceinline__ unsigned bits<int>(int v) { return (unsigned)v; }
+
+// large path, pass 1b for rows of one word of value (or none, broadcast):
+// the same places as bucket_scatter, but written a 32-byte sector at a
+// time.  Records are W words (id, then the value's bits when W = 2), R = 8
+// / W to a sector.  Each warp stages the open sector of each bucket in
+// shared memory and stores it whole once its last record has its place;
+// a bucket's first and last sectors, which it shares with its neighbours,
+// are stored record by record.  Scattered single-record stores leave
+// partial sectors to the L2 and cost a device-memory read-modify-write
+// each; whole sectors do not.
+template <typename T, typename IdT, int W>
+__global__ void __launch_bounds__(kThreads)
+bucket_scatter_staged(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n,
+                      int k, int shift, int nb, long long per, int ranges,
+                      const int* __restrict__ offs, unsigned* __restrict__ rec) {
+  constexpr int R = 8 / W;
+  extern __shared__ int smem_int[];
+  int* cur = smem_int;                         // [kWarps][nb]: next free place
+  int* first = cur + kWarps * nb;              // [kWarps][nb]: the warp's first place
+  unsigned* stage = reinterpret_cast<unsigned*>(first + kWarps * nb);  // [kWarps][nb][8]
+  __shared__ int tags[kWarps * kTags];
+  for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) {
+    const int b = i / kWarps, ww = i % kWarps;
+    const int at = offs[(long long)b * ranges + (long long)blockIdx.x * kWarps + ww];
+    cur[ww * nb + b] = first[ww * nb + b] = at;
+  }
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  long long begin, end;
+  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+  for (long long base = begin; base < end; base += 32 * kUnroll) {
+    long long id[kUnroll];
+    T v0[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long r = base + u * 32 + lane;
+      id[u] = r < end ? (long long)__ldcs(ids + r) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long r = base + u * 32 + lane;
+      if (W == 2 && id[u] >= 0 && id[u] < k) v0[u] = __ldcs(vals + r);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (base + u * 32 >= end) break;                     // warp-uniform
+      const int bucket = id[u] >= 0 && id[u] < k ? (int)(id[u] >> shift) : -1;
+      const unsigned idw = (unsigned)id[u];
+      const unsigned vw = W == 2 && bucket >= 0 ? bits<T>(v0[u]) : 0u;
+      // places taken in lane order, one a bucket a round: the scatter is
+      // stable, and the lane that fills a sector stores it
+      const bool pending = lane_rounds<kLargeRounds>(bucket >= 0, bucket, tags + w * kTags, [=] {
+        const int slot = w * nb + bucket;
+        const int p = cur[slot]++;
+        unsigned* st = stage + slot * 8;
+        st[(p % R) * W] = idw;
+        if (W == 2) st[(p % R) * W + 1] = vw;
+        if (p % R == R - 1) {
+          const int lo = p - (R - 1);
+          if (lo >= first[slot]) {
+            uint4* dst = reinterpret_cast<uint4*>(rec + (long long)lo * W);
+            dst[0] = make_uint4(st[0], st[1], st[2], st[3]);
+            dst[1] = make_uint4(st[4], st[5], st[6], st[7]);
+          } else {
+            for (int q = first[slot] - lo; q < R; ++q)
+              for (int x = 0; x < W; ++x) rec[(long long)(lo + q) * W + x] = st[q * W + x];
+          }
+        }
+      });
+      if (__any_sync(kFull, pending)) {
+        // the rest of a crowded bucket: its open sector's staged records
+        // go out one by one, then the group's records straight to their
+        // places, contiguous; every place below the new cursor is then in
+        // device memory (`first` moves up to it)
+        const Group g = match_group(pending, bucket);
+        int base = 0;
+        if (pending && lane == g.leader) {
+          const int slot = w * nb + bucket;
+          base = cur[slot];
+          const int lo = base - base % R;
+          const unsigned* st = stage + slot * 8;
+          for (int q = max(first[slot] - lo, 0); q < base - lo; ++q)
+            for (int x = 0; x < W; ++x) rec[(long long)(lo + q) * W + x] = st[q * W + x];
+          cur[slot] = first[slot] = base + __popc(g.mask);
+        }
+        base = __shfl_sync(kFull, base, g.leader);
+        if (pending) {
+          rec[(long long)(base + g.rank) * W] = idw;
+          if (W == 2) rec[(long long)(base + g.rank) * W + 1] = vw;
+        }
+        __syncwarp();
+      }
+    }
+  }
+  __syncwarp();
+  // the open sector of every bucket: its records one by one
+  for (int b = lane; b < nb; b += 32) {
+    const int slot = w * nb + b, p = cur[slot];
+    const int lo = p - p % R;
+    const unsigned* st = stage + slot * 8;
+    for (int q = max(first[slot] - lo, 0); q < p - lo; ++q)
+      for (int x = 0; x < W; ++x) rec[(long long)(lo + q) * W + x] = st[q * W + x];
+  }
+}
+
+// large path, pass 2: block b reduces bucket b's rows (ids[r·istride],
+// values rows[r·rstride + j]) and writes its slice of the output.  With
+// `in_smem` each of its warps (8, or 4 for a slice above kSmallCells
+// cells, each then with twice the rows in flight) keeps a copy of the
+// slice in shared memory and takes a fixed share of the rows; the copies
+// are merged in warp order.  Otherwise (a slice too large for it) one warp
+// reduces straight into the output slice, which only this block writes.
 template <typename T, int OP>
-__global__ void __launch_bounds__(kSmemThreads)
-seg_smem(const int* __restrict__ ids, const T* __restrict__ vals, T* __restrict__ out,
-         long long n, int d, long long vstride, int k) {
+__global__ void __launch_bounds__(kThreads)
+bucket_reduce(const int* __restrict__ ids, int istride, const T* __restrict__ rows,
+              long long rstride, int d, int k, int shift, int ranges,
+              const int* __restrict__ offs, bool in_smem, T* __restrict__ out) {
   extern __shared__ unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);
-  const int cells = k * d;
-  const T ident = identity<T, OP>();
-  for (int j = threadIdx.x; j < cells; j += blockDim.x) acc[j] = ident;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x; row < n; row += stride) {
-    const int id = __ldg(ids + row);
-    if (id < 0 || id >= k) continue;
-    const T* v = vals + row * vstride;
-    T* o = acc + id * d;
-    for (int j = 0; j < d; ++j) atomic_op<T, OP>(o + j, __ldg(v + j));
+  __shared__ int tags[kWarps * kTags];
+  const int b = blockIdx.x;
+  const long long lo = offs[(long long)b * ranges], hi = offs[(long long)(b + 1) * ranges];
+  const long long id_lo = (long long)b << shift;
+  const int span = (int)min((long long)1 << shift, (long long)k - id_lo);
+  const int cells = span * d;
+  T* slice = out + id_lo * d;
+  if (!in_smem) {
+    fill<T, OP>(slice, cells);
+    __syncwarp();
+    reduce_rows<T, OP, int, kUnroll, kLargeRounds>(ids, istride, rows, rstride, d, lo, hi, id_lo,
+                                                   span, slice, tags);
+    return;
   }
+  T* copies = reinterpret_cast<T*>(smem_raw);
+  const int warps = blockDim.x >> 5;
+  const int stride = (1 << shift) * d;
+  fill<T, OP>(copies, warps * stride);
   __syncthreads();
-  for (int j = threadIdx.x; j < cells; j += blockDim.x) {
-    const T v = acc[j];
-    if (!(v == ident)) atomic_op<T, OP>(out + j, v);   // NaN != ident: merged
-  }
+  const int w = threadIdx.x >> 5;
+  const long long per = (hi - lo + warps - 1) / warps;
+  const long long wb = min(hi, lo + w * per), we = min(hi, wb + per);
+  if (warps == kWarps)
+    reduce_rows<T, OP, int, kUnroll, kLargeRounds>(ids, istride, rows, rstride, d, wb, we, id_lo,
+                                                   span, copies + w * stride, tags + w * kTags);
+  else
+    reduce_rows<T, OP, int, 2 * kUnroll, kLargeRounds>(ids, istride, rows, rstride, d, wb, we,
+                                                       id_lo, span, copies + w * stride,
+                                                       tags + w * kTags);
+  __syncthreads();
+  merge_warps<T, OP>(copies, warps, stride, cells, slice);
 }
 
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
+long long align256(long long bytes) { return (bytes + 255) / 256 * 256; }
+
+// every kernel here also holds kWarps·kTags ints of static shared memory,
+// so the opt-in above 48 KB is asked for whatever the dynamic size
+int set_smem(const void* fn, size_t bytes) {
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
 }
 
-template <typename T, int OP>
-void launch(const int* ids, const T* vals, T* out, long long n, int d, long long vstride,
-            int k, cudaStream_t stream) {
+template <typename T, int OP, typename IdT>
+int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long vstride, int k,
+           unsigned char* scratch, long long scratch_bytes, int blocks, int shift,
+           cudaStream_t s) {
   const long long cells = (long long)k * d;
-  const int sms = num_sms();
-  long long fill_blocks = (cells + kThreads - 1) / kThreads;
-  if (fill_blocks > 4LL * sms) fill_blocks = 4LL * sms;
-  if (fill_blocks < 1) fill_blocks = 1;
-  fill_identity<T, OP><<<(int)fill_blocks, kThreads, 0, stream>>>(out, cells);
-  if (n == 0 || cells == 0) return;
-  long long want = (n + kThreads - 1) / kThreads;
-  // a private copy pays off once the rows outnumber the cells it must
-  // initialize and merge
-  if (cells <= kSmemCells && n >= 8 * cells) {
-    const size_t bytes = (size_t)cells * sizeof(T);
-    cudaFuncSetAttribute(seg_smem<T, OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_smem<T, OP>, kSmemThreads, bytes);
-    if (per_sm < 1) per_sm = 1;
-    long long blocks = (long long)per_sm * sms;
-    const long long want_smem = (n + kSmemThreads - 1) / kSmemThreads;
-    if (blocks > want_smem) blocks = want_smem;
-    seg_smem<T, OP><<<(int)blocks, kSmemThreads, bytes, stream>>>(ids, vals, out, n, d, vstride, k);
-  } else {
-    long long blocks = 16LL * sms;
-    if (blocks > want) blocks = want;
-    seg_global<T, OP><<<(int)blocks, kThreads, 0, stream>>>(ids, vals, out, n, d, vstride, k);
+  if (cells == 0) return 0;
+  const long long ranges = (long long)blocks * kWarps;
+  const long long per = ((n + ranges - 1) / ranges + 31) / 32 * 32;
+  if (shift < 0) {                                       // small path
+    if (cells > kSmallCells) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)kWarps * cells * sizeof(T);
+    T* part = blocks == 1 ? out : reinterpret_cast<T*>(scratch);
+    if (blocks > 1 && scratch_bytes < (long long)blocks * cells * (long long)sizeof(T))
+      return (int)cudaErrorInvalidValue;
+    int err = set_smem((const void*)small_reduce<T, OP, IdT>, smem);
+    if (err) return err;
+    small_reduce<T, OP, IdT><<<blocks, kThreads, smem, s>>>(ids, vals, n, d, vstride, k, per,
+                                                            part);
+    if (blocks > 1)
+      fold_partials<T, OP><<<(int)((cells + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+          part, blocks, (int)cells, out);
+    return 0;
   }
+  // large path: the scratch holds counts [nb·ranges + 1], chunk sums, the
+  // kept rows' ids [n] and, unless broadcast, their values [n, d] (for d =
+  // 1 the two interleaved, a record of 8 bytes a row)
+  const long long nb = (k + (1LL << shift) - 1) >> shift;
+  const long long len = nb * ranges + 1;
+  const long long chunks = (len + kScanChunk - 1) / kScanChunk;
+  int* counts = reinterpret_cast<int*>(scratch);
+  int* sums = reinterpret_cast<int*>(scratch + align256(4 * len));
+  int* sid = reinterpret_cast<int*>(scratch + align256(4 * len) + align256(4 * chunks));
+  T* sval = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(sid) + align256(4 * n));
+  const long long need = align256(4 * len) + align256(4 * chunks) + align256(4 * n) +
+                         (vstride != 0 ? (long long)sizeof(T) * n * d : 0);
+  const long long slice = (1LL << shift) * d;
+  const bool in_smem = slice <= kSliceCells;
+  const int warps2 = slice <= kSmallCells ? kWarps : kWarps / 2;
+  const bool staged = (d == 1 || vstride == 0) && nb <= kStageBuckets;
+  if (scratch_bytes < need || n >= (1LL << 31) || len >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem1 = (size_t)kWarps * nb * sizeof(int);
+  const size_t smem_staged = (size_t)kWarps * nb * (2 * sizeof(int) + 32);
+  const size_t smem2 = in_smem ? (size_t)warps2 * slice * sizeof(T) : 0;
+  int err = set_smem((const void*)bucket_count<IdT>, smem1);
+  if (!err && staged && vstride == 0)
+    err = set_smem((const void*)bucket_scatter_staged<T, IdT, 1>, smem_staged);
+  if (!err && staged && vstride != 0)
+    err = set_smem((const void*)bucket_scatter_staged<T, IdT, 2>, smem_staged);
+  if (!err && !staged) err = set_smem((const void*)bucket_scatter<T, IdT>, smem1);
+  if (!err) err = set_smem((const void*)bucket_reduce<T, OP>, smem2);
+  if (err) return err;
+  bucket_count<IdT><<<blocks, kThreads, smem1, s>>>(ids, n, k, shift, (int)nb, per,
+                                                    (int)ranges, counts);
+  scan_sums<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
+  scan_chunk_sums<<<1, kThreads, 0, s>>>(sums, (int)chunks);
+  scan_chunks<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
+  unsigned* rec = reinterpret_cast<unsigned*>(sid);
+  const int threads2 = in_smem ? warps2 * 32 : 32;
+  if (staged && vstride == 0) {
+    bucket_scatter_staged<T, IdT, 1><<<blocks, kThreads, smem_staged, s>>>(
+        ids, vals, n, k, shift, (int)nb, per, (int)ranges, counts, rec);
+    bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
+        sid, 1, vals, 0, d, k, shift, (int)ranges, counts, in_smem, out);
+  } else if (staged) {
+    bucket_scatter_staged<T, IdT, 2><<<blocks, kThreads, smem_staged, s>>>(
+        ids, vals, n, k, shift, (int)nb, per, (int)ranges, counts, rec);
+    bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
+        sid, 2, reinterpret_cast<const T*>(rec + 1), 2, d, k, shift, (int)ranges, counts,
+        in_smem, out);
+  } else {
+    bucket_scatter<T, IdT><<<blocks, kThreads, smem1, s>>>(ids, vals, n, d, vstride, k, shift,
+                                                           (int)nb, per, (int)ranges, counts,
+                                                           sid, sval);
+    bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
+        sid, 1, vstride != 0 ? sval : vals, vstride != 0 ? d : 0, d, k, shift, (int)ranges,
+        counts, in_smem, out);
+  }
+  return 0;
 }
 
-template <typename T>
-void launch_op(int op, const int* ids, const T* vals, T* out, long long n, int d,
-               long long vstride, int k, cudaStream_t s) {
-  if (op == kSum) launch<T, kSum>(ids, vals, out, n, d, vstride, k, s);
-  else if (op == kMin) launch<T, kMin>(ids, vals, out, n, d, vstride, k, s);
-  else launch<T, kMax>(ids, vals, out, n, d, vstride, k, s);
+template <typename T, typename IdT>
+int launch_op(int op, const IdT* ids, const T* vals, T* out, long long n, int d,
+              long long vstride, int k, unsigned char* scratch, long long scratch_bytes,
+              int blocks, int shift, cudaStream_t s) {
+  if (op == kSum)
+    return launch<T, kSum, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+                                blocks, shift, s);
+  if (op == kMin)
+    return launch<T, kMin, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+                                blocks, shift, s);
+  return launch<T, kMax, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+                              blocks, shift, s);
+}
+
+template <typename IdT>
+int launch_dtype(int dtype, int op, const IdT* ids, const void* vals, void* out, long long n,
+                 int d, long long vstride, int k, unsigned char* scratch,
+                 long long scratch_bytes, int blocks, int shift, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_op<float, IdT>(op, ids, (const float*)vals, (float*)out, n, d, vstride, k,
+                                 scratch, scratch_bytes, blocks, shift, s);
+  return launch_op<int, IdT>(op, ids, (const int*)vals, (int*)out, n, d, vstride, k, scratch,
+                             scratch_bytes, blocks, shift, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = int32.  op: 0 = +, 1 = min, 2 = max.
-// ids [n] int32; vals rows of d elements, `vstride` elements apart; out
-// [k, d], fully written (identity where no row lands).  Returns
-// cudaGetLastError() after the launches.
+// dtype: 0 = float32, 1 = int32.  op: 0 = +, 1 = min, 2 = max.  ids [n],
+// int64 when id64 else int32; vals rows of d elements, `vstride` elements
+// apart (0: one broadcast row); out [k, d], every cell written (identity
+// where no row lands).  The plan comes from the caller: `blocks` blocks of
+// warp ranges, and shift < 0 for the small path or the bucket size 2^shift
+// of the large path; `scratch` is device memory of `scratch_bytes` (the
+// small path's partials, the large path's counts and scattered rows).
+// Returns the first CUDA error of the launches.
 extern "C" int segment_reduce_launch(int dtype, int op, const void* ids, const void* vals,
                                      void* out, long long n, int d, long long vstride, int k,
-                                     void* stream) {
+                                     void* stream, int id64, void* scratch,
+                                     long long scratch_bytes, int blocks, int shift) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (op < 0 || op > 2 || d < 1 || k < 0 || n < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    launch_op<float>(op, (const int*)ids, (const float*)vals, (float*)out, n, d, vstride, k, s);
-  else if (dtype == 1)
-    launch_op<int>(op, (const int*)ids, (const int*)vals, (int*)out, n, d, vstride, k, s);
-  else
+  if (op < 0 || op > 2 || d < 1 || k < 0 || n < 0 || blocks < 1 || shift > 30 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  const int err = id64 ? launch_dtype<long long>(dtype, op, (const long long*)ids, vals, out, n,
+                                                 d, vstride, k, sc, scratch_bytes, blocks,
+                                                 shift, s)
+                       : launch_dtype<int>(dtype, op, (const int*)ids, vals, out, n, d,
+                                           vstride, k, sc, scratch_bytes, blocks, shift, s);
+  return err ? err : (int)cudaGetLastError();
 }
 
 extern "C" const char* segment_reduce_error_string(int code) {

@@ -1,77 +1,246 @@
 // The Mamba-1 selective scan h_t = a_t ⊙ h_{t-1} + bx_t, y_t = Σ_N c_t ⊙ h_t,
-// for Hopper (sm_90a), hand-written.
+// for Hopper (sm_90a), hand-written, in two entries built from one kernel
+// template:
+//   * selective_scan_launch: the TPU kernel's contract, a and bx [B, S, D, N]
+//     read from device memory;
+//   * selective_scan_fused_launch: the discretisation fused in, a_t and bx_t
+//     formed in registers from dt [B, S, D], A [D, N], Bm [B, S, N] and x
+//     [B, S, D] (float32 or bf16) as the model computes them:
+//     a = exp(dt·A), bx = (dt·x)·B.  Nothing [B, S, D, N]-sized exists.
 //
 // Replaces the Pallas TPU kernel `selective_scan` (src/repro/kernels/
 // selective_scan.py, `_kernel`): a grid of (B, D/bd) steps that each own a
 // [bd, N] state slice in VMEM and walk the sequence with a fori_loop, so
-// the state never leaves fast memory.  This kernel also takes an initial
-// state h0 and writes the final state h_last, both optional: the serving
-// path carries the state across chunks and into the decode cache.
+// the state never leaves fast memory.  Both entries also take an optional
+// initial state h0 and write the final state h_last: the serving path
+// carries the state into the decode cache.
 //
-// Bound: device-memory bytes.  Each element of a and bx [B, S, D, N] is
-// read once, c [B, S, N] is read by every channel (it stays in L1/L2), y
-// [B, S, D] is written once; there are ~3 flops per element of a.  Design:
-//   * one thread per (b, d, n): N consecutive lanes of a warp own one
-//     channel d, so a warp's loads of a and bx at step t are one contiguous
-//     run of 32 floats and a block's a run of 256;
-//   * the state h stays in a register for the whole sequence; the loop over
-//     S is sequential only through that one FMA, and is unrolled so that
-//     the loads of later steps are in flight while earlier steps finish;
-//   * y_t is a shuffle sum over the N lanes of the channel (width N); lane
-//     n = 0 writes it;
-//   * channels past D (a ragged last block) load nothing and write nothing
+// Bound.  The (a, bx) entry is bound by device-memory bytes: a and bx are
+// read once, y written once.  The fused entry reads dt and x and writes y,
+// [B, S, D] each, and reads the small Bm/Cm; its floor is the larger of
+// those bytes and the S·D·N exponentials (one MUFU.EX2 each, 16 a clock
+// an SM).  a = exp2f(dt·A2) with A2 = A·log2(e) formed once in registers:
+// exp2f is CUDA's float32 exp2 (at most 2 ulp, CUDA Programming Guide,
+// single-precision functions), not __expf; the pre-scaled argument adds
+// a relative error of at most about ln2·|dt·A·log2 e|·2^-23 (≈ 1e-6 at
+// |dt·A| = 10) against expf(dt·A).
+//
+// Design:
+//   * a block owns kChannels = 32 channels d of one batch row b; each
+//     channel's N states are spread over L = N / NPT lanes of a warp, NPT
+//     = min(kStates, N) states a thread, all in registers for the whole
+//     sequence, with A[d, n] (fused entry) in registers too;
+//   * the sequence goes in tiles of kSteps steps: the block stages the
+//     tile's Bm and Cm rows (shared by every channel) and, fused, its dt
+//     and x rows (32 channels = 128 contiguous bytes a row) in shared
+//     memory, walks the tile, and writes the tile's y from shared memory,
+//     again 32 channels a row;
+//   * y_t of a channel is its lanes' partial sums Σ over NPT states, then
+//     a shuffle sum over the L lanes (log2 L shuffles);
+//   * channels past D (a ragged last block) load zeros and write nothing
 //     but still take part in the shuffles.
+// kStates = 2 was the fastest of 1, 2, 4, 8 and 16 states a thread at the
+// falcon-mamba-7b prefill's shape on an H100 (fewer states a thread means
+// more threads but more shuffles).  NPT and L are template parameters, so
+// that every index and the shuffle loop are known to the compiler.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kChannels = 32;   // channels d a block owns
+constexpr int kSteps = 64;      // steps t a tile stages
+constexpr int kStates = 2;      // states of a channel a thread holds (at most N)
 
-__global__ void __launch_bounds__(kThreads)
-    selective_scan_kernel(const float* __restrict__ a, const float* __restrict__ bx,
-                          const float* __restrict__ c, const float* __restrict__ h0,
-                          float* __restrict__ y, float* __restrict__ h_last, int S, int D,
-                          int N) {
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * (kThreads / N) + threadIdx.x / N;
-  const int n = threadIdx.x % N;
-  const bool live = d < D;
-  const long long step = (long long)D * N;            // a/bx stride of t
-  const float* ap = a + (long long)b * S * step + (long long)d * N + n;
-  const float* bp = bx + (long long)b * S * step + (long long)d * N + n;
-  const float* cp = c + (long long)b * S * N + n;
-  float* yp = y + (long long)b * S * D + d;
-  float h = (live && h0 != nullptr) ? h0[((long long)b * D + d) * N + n] : 0.f;
-#pragma unroll 8
-  for (int t = 0; t < S; ++t) {
-    const float av = live ? ap[t * step] : 0.f;
-    const float bv = live ? bp[t * step] : 0.f;
-    h = fmaf(av, h, bv);
-    float p = h * cp[(long long)t * N];
-    for (int off = N >> 1; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off, N);
-    if (live && n == 0) yp[(long long)t * D] = p;
+template <typename XT> __device__ __forceinline__ float widen(XT v);
+template <> __device__ __forceinline__ float widen<float>(float v) { return v; }
+template <> __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+struct Args {
+  const float* a;       // [B, S, D, N]                 (a, bx) entry
+  const float* bx;      // [B, S, D, N]                 (a, bx) entry
+  const float* dt;      // [B, S, D]                    fused entry
+  const float* A;       // [D, N]                       fused entry
+  const float* Bm;      // [B, S, N]                    fused entry
+  const void* x;        // [B, S, D] float32 or bf16    fused entry
+  const float* c;       // [B, S, N]
+  const float* h0;      // [B, D, N] or null
+  float* y;             // [B, S, D]
+  float* h_last;        // [B, D, N] or null
+  int S, D, N;
+};
+
+// NPT (1 or 2) consecutive floats of `p`, 4- or 8-byte aligned as NPT says
+template <int NPT>
+__device__ __forceinline__ void load_states(const float* p, float (&v)[NPT]) {
+  if constexpr (NPT == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = __ldg(p);
   }
-  if (live && h_last != nullptr) h_last[((long long)b * D + d) * N + n] = h;
+}
+
+// NPT consecutive floats of shared memory
+template <int NPT>
+__device__ __forceinline__ void load_shared(const float* p, float (&v)[NPT]) {
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) v[j] = p[j];
+}
+
+// a channel's N = NPT·L states on L lanes; a block has 32·L threads
+template <int NPT, int L, bool FUSED, typename XT>
+__global__ void __launch_bounds__(kChannels * L) selective_scan_kernel(Args g) {
+  __shared__ __align__(16) float c_s[kSteps * 32];             // Cm rows, N ≤ 32
+  __shared__ __align__(16) float b_s[FUSED ? kSteps * 32 : 4]; // Bm rows
+  __shared__ float dt_s[FUSED ? kSteps * kChannels : 1];
+  __shared__ float x_s[FUSED ? kSteps * kChannels : 1];
+  __shared__ float y_s[kSteps * kChannels];
+
+  constexpr int N = NPT * L;
+  const int S = g.S, D = g.D;
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * kChannels;
+  const int ch = threadIdx.x / L;                 // channel within the block
+  const int n0 = (threadIdx.x % L) * NPT;         // first state of the thread
+  const int d = d0 + ch;
+  const bool live = d < D;
+  const int nthreads = blockDim.x;
+
+  float h[NPT], A[NPT];
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) h[j] = A[j] = 0.f;
+  if (live && g.h0 != nullptr) load_states<NPT>(g.h0 + ((long long)b * D + d) * N + n0, h);
+  if constexpr (FUSED) {
+    if (live) load_states<NPT>(g.A + (long long)d * N + n0, A);
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) A[j] *= 1.4426950408889634f;   // log2(e)
+  }
+  const XT* x = static_cast<const XT*>(g.x);
+
+  for (int t0 = 0; t0 < S; t0 += kSteps) {
+    const int tn = min(kSteps, S - t0);
+    const long long row0 = (long long)b * S + t0;          // first [B, S] row
+    __syncthreads();                                        // last tile's y_s read
+    for (int i = threadIdx.x; i < tn * N; i += nthreads) {
+      c_s[i] = __ldg(g.c + row0 * N + i);
+      if constexpr (FUSED) b_s[i] = __ldg(g.Bm + row0 * N + i);
+    }
+    if constexpr (FUSED) {
+      for (int i = threadIdx.x; i < tn * kChannels; i += nthreads) {
+        const int t = i / kChannels, dd = d0 + i % kChannels;
+        const long long off = (row0 + t) * D + dd;
+        dt_s[i] = dd < D ? __ldg(g.dt + off) : 0.f;
+        x_s[i] = dd < D ? widen<XT>(x[off]) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int t = 0; t < tn; ++t) {
+      float av[NPT], bv[NPT];
+      if constexpr (FUSED) {
+        const float dtv = dt_s[t * kChannels + ch];
+        const float dx = dtv * x_s[t * kChannels + ch];
+        float bm[NPT];
+        load_shared<NPT>(b_s + t * N + n0, bm);
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          av[j] = exp2f(dtv * A[j]);
+          bv[j] = dx * bm[j];
+        }
+      } else {
+        const long long off = ((row0 + t) * D + d) * N + n0;
+        if (live) {
+          load_states<NPT>(g.a + off, av);
+          load_states<NPT>(g.bx + off, bv);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) av[j] = bv[j] = 0.f;
+        }
+      }
+      float cm[NPT];
+      load_shared<NPT>(c_s + t * N + n0, cm);
+      float p = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) {
+        h[j] = fmaf(av[j], h[j], bv[j]);
+        p = fmaf(h[j], cm[j], p);
+      }
+#pragma unroll
+      for (int off = L >> 1; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off, L);
+      if (n0 == 0) y_s[t * kChannels + ch] = p;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < tn * kChannels; i += nthreads) {
+      const int t = i / kChannels, dd = d0 + i % kChannels;
+      if (dd < D) g.y[(row0 + t) * D + dd] = y_s[i];
+    }
+  }
+  if (live && g.h_last != nullptr) {
+    float* hp = g.h_last + ((long long)b * D + d) * N + n0;
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) hp[j] = h[j];
+  }
+}
+
+template <int NPT, int L, bool FUSED, typename XT>
+int run(const Args& g, dim3 grid, cudaStream_t s) {
+  selective_scan_kernel<NPT, L, FUSED, XT><<<grid, kChannels * L, 0, s>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// NPT = min(kStates, N) states a thread on L = N / NPT lanes
+template <bool FUSED, typename XT>
+int launch(const Args& g, int B, cudaStream_t s) {
+  static_assert(kStates == 2, "the cases below spell out kStates = 2");
+  const dim3 grid((g.D + kChannels - 1) / kChannels, B);
+  switch (g.N) {
+    case 1: return run<1, 1, FUSED, XT>(g, grid, s);
+    case 2: return run<2, 1, FUSED, XT>(g, grid, s);
+    case 4: return run<2, 2, FUSED, XT>(g, grid, s);
+    case 8: return run<2, 4, FUSED, XT>(g, grid, s);
+    case 16: return run<2, 8, FUSED, XT>(g, grid, s);
+    case 32: return run<2, 16, FUSED, XT>(g, grid, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// N a power of two ≤ 32
+bool bad_shape(int B, int S, int D, int N) {
+  return B < 0 || S < 0 || D < 0 || N < 1 || N > 32 || (N & (N - 1)) != 0 || B > 65535;
 }
 
 }  // namespace
 
 // a, bx: [B, S, D, N]; c: [B, S, N]; y: [B, S, D]; h0, h_last: [B, D, N]
-// or null; all float32 and contiguous.  N must divide 32 (a power of two).
-// Returns cudaGetLastError() after the launch.
+// or null; all float32 and contiguous.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int selective_scan_launch(const void* a, const void* bx, const void* c,
                                      const void* h0, void* y, void* h_last, int B, int S,
                                      int D, int N, void* stream) {
-  if (B < 0 || S < 0 || D < 0 || N < 1 || N > 32 || (N & (N - 1)) != 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, D, N)) return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return (int)cudaGetLastError();
-  const int per_block = kThreads / N;
-  const dim3 grid((D + per_block - 1) / per_block, B);
+  Args g{(const float*)a, (const float*)bx, nullptr, nullptr, nullptr, nullptr,
+         (const float*)c, (const float*)h0, (float*)y, (float*)h_last, S, D, N};
+  return launch<false, float>(g, B, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// dt: [B, S, D] float32 (after softplus); A: [D, N] float32 (-exp(a_log));
+// Bm, Cm: [B, S, N] float32; x: [B, S, D], bf16 when x_bf16 else float32;
+// y: [B, S, D] float32; h0, h_last: [B, D, N] float32 or null; all
+// contiguous.  Returns cudaGetLastError() after the launch.
+extern "C" int selective_scan_fused_launch(const void* dt, const void* A, const void* Bm,
+                                           const void* Cm, const void* x, int x_bf16,
+                                           const void* h0, void* y, void* h_last, int B,
+                                           int S, int D, int N, void* stream) {
+  if (bad_shape(B, S, D, N)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || D == 0) return (int)cudaGetLastError();
+  Args g{nullptr, nullptr, (const float*)dt, (const float*)A, (const float*)Bm, x,
+         (const float*)Cm, (const float*)h0, (float*)y, (float*)h_last, S, D, N};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  selective_scan_kernel<<<grid, kThreads, 0, s>>>(
-      (const float*)a, (const float*)bx, (const float*)c, (const float*)h0, (float*)y,
-      (float*)h_last, S, D, N);
-  return (int)cudaGetLastError();
+  return x_bf16 ? launch<true, __nv_bfloat16>(g, B, s) : launch<true, float>(g, B, s);
 }
 
 extern "C" const char* selective_scan_error_string(int code) {

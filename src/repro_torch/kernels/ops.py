@@ -5,15 +5,16 @@ PyTorch version for CPU tensors.  Each counts its launches in a plain
 integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
 `flash_attention.launches`, `selective_scan.launches`; the packed entry
 `tile_matmul_packed` launches the same kernel and counts in
-`tile_matmul.launches`), so a run can show that it went through the
-kernels.
+`tile_matmul.launches`; the scan kernel's fused entry
+`selective_scan_fused` counts in `selective_scan_fused.launches`), so a
+run can show that it went through the kernels.
 """
 from __future__ import annotations
 
 from ._build import build_all
 from .flash_attention import flash_attention
 from .segment_reduce import segment_reduce, segment_sum
-from .selective_scan import selective_scan
+from .selective_scan import selective_scan, selective_scan_fused
 from .tile_matmul import tile_matmul, tile_matmul_packed
 
 KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
@@ -21,15 +22,20 @@ KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
            "selective_scan": selective_scan}
 
 
+# every counting wrapper: the kernels and the scan's second entry
+COUNTED = {**KERNELS, "selective_scan_fused": selective_scan_fused}
+
+
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in COUNTED.values():
         fn.launches = 0
 
 
 __all__ = ["build_all", "segment_reduce", "segment_sum", "tile_matmul",
            "tile_matmul_packed", "flash_attention", "selective_scan",
+           "selective_scan_fused",
            "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -3,18 +3,28 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel `segment_reduce` in
 src/repro/kernels/segment_reduce.py (`_kernel`, a one-hot block reduced on
-the MXU).  The Hopper kernel (csrc/segment_reduce.cu) is a scatter with
-atomics: shared-memory privatised copies of the output when [K, D] fits
-(≤ 48K cells), global atomics otherwise.  It is bound by device-memory
-bytes — ids and values read once, the [K, D] output filled and written —
-and reads no value of a dropped row at all.
+the MXU in a fixed grid order).  The Hopper kernel (csrc/segment_reduce.cu)
+is deterministic like it: the same inputs give the same bits on every
+launch, float sums too.  It uses no atomics on device memory and runs no
+separate fill: a small [K, D] is reduced into warp-private copies in
+shared memory merged in a fixed order, a large one by a partitioned
+reduction (rows counted and scattered, stable, into buckets of ids, then
+one block a bucket).  It is bound by device-memory bytes — ids and values
+read once, the [K, D] output written once — and reads no value of a
+dropped row at all.
+
+The order of the sums is fixed by the rows alone, not by N: rows are
+reduced in ranges of `RANGE_ROWS` rows, each range in an order fixed by
+its own ids and size (`_plan`), and the ranges' results are combined with
+⊕ in row order.  So reducing the same rows range by range, and folding the
+results in order, gives the same bits as one call over all of them (a
+chunked, out-of-core run whose chunks are ranges).
 
 Contract (the JAX kernel's): ids [N] int; values [N] or [N, D] →
 [K] or [K, D].  Ids < 0 or ≥ K contribute nothing.  Integer values
 accumulate exactly in int32, floats in float32; the result has the
 accumulator's dtype.  A NaN in a kept row propagates through min/max, as
-jnp.min/jnp.max do.  Float sums use atomics, so their last bits change
-from run to run; compare them with a tolerance.
+jnp.min/jnp.max do.  int32 and int64 ids are read as they are.
 """
 from __future__ import annotations
 
@@ -72,6 +82,55 @@ def segment_reduce_plain(ids, values, num_segments: int, op: str = "+"):
     return out[:, 0] if squeeze else out
 
 
+# the kernel's work split (csrc/segment_reduce.cu: kWarps, kSmallCells,
+# kSliceCells, kStageBuckets, kScanChunk); a [K, D] of at most _SMALL_CELLS
+# cells takes the small path
+_WARPS, _SMALL_CELLS, _SCAN_CHUNK = 8, 2048, 4096
+_SLICE_CELLS, _STAGE_BUCKETS = 8192, 600
+_ROWS_PER_BLOCK = 16384
+_SMALL_BLOCKS, _LARGE_BLOCKS = 528, 264   # 4 and 2 blocks an SM of an H100
+_MIN_BUCKETS, _MAX_BUCKETS = 512, 4096
+RANGE_ROWS = 2 ** 26       # rows one launch takes; the unit of the order
+_COMBINE = {"+": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def _a256(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
+def _plan(n: int, d: int, k: int, vstride: int):
+    """(blocks, shift, scratch bytes) of one launch, from the sizes alone,
+    so that the same inputs are reduced in the same order on every launch.
+
+    `blocks` blocks of 8 warps each walk a fixed contiguous range of rows.
+    shift = -1 takes the small path, whose scratch holds the blocks'
+    partial [K, D]s; otherwise ids are bucketed 2^shift at a time: slices
+    of at most _SMALL_CELLS cells (8 warps' copies in a block's shared
+    memory) and at least _MIN_BUCKETS buckets where K allows (blocks of
+    the last pass); then slices of up to _SLICE_CELLS (4 warps' copies)
+    until at most _STAGE_BUCKETS buckets (whose sectors the scatter can
+    stage); at most _MAX_BUCKETS (the counters of the first pass).  The
+    large path's scratch holds the [bucket, warp range] counts, the scan's
+    chunk sums and the kept rows' ids and (unless broadcast) values."""
+    cells = k * d
+    if cells <= _SMALL_CELLS:
+        blocks = max(1, min(_SMALL_BLOCKS, -(-n // _ROWS_PER_BLOCK)))
+        return blocks, -1, blocks * cells * 4 if blocks > 1 else 0
+    blocks = max(1, min(_LARGE_BLOCKS, -(-n // _ROWS_PER_BLOCK)))
+    shift = 0
+    while (2 << shift) * d <= _SMALL_CELLS and k >> (shift + 1) >= _MIN_BUCKETS:
+        shift += 1
+    while -(-k >> shift) > _STAGE_BUCKETS and (2 << shift) * d <= _SLICE_CELLS:
+        shift += 1
+    while -(-k >> shift) > _MAX_BUCKETS:
+        shift += 1
+    length = -(-k >> shift) * blocks * _WARPS + 1
+    chunks = -(-length // _SCAN_CHUNK)
+    scratch = _a256(4 * length) + _a256(4 * chunks) + _a256(4 * n) \
+        + (4 * n * d if vstride else 0)
+    return blocks, shift, scratch
+
+
 def segment_reduce(ids, values, num_segments: int, *, op: str = "+"):
     """ids: [N] int; values: [N] or [N, D] -> [num_segments(, D)].
 
@@ -94,6 +153,18 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+"):
     k = int(num_segments)
     if k < 0 or k * max(d, 1) >= 2 ** 31 or n >= 2 ** 62:
         raise ValueError(f"segment_reduce: unsupported sizes n={n} k={k}")
+    if k == 0 or d == 0:     # nothing to write: no launch
+        out = torch.empty((k, d), dtype=_acc_dtype(vals.dtype),
+                          device=vals.device)
+        return out[:, 0] if squeeze else out
+    if n > RANGE_ROWS:
+        # range by range, the results combined in row order
+        out = None
+        for i in range(0, n, RANGE_ROWS):
+            part = segment_reduce(ids[i:i + RANGE_ROWS],
+                                  values[i:i + RANGE_ROWS], k, op=op)
+            out = part if out is None else _COMBINE[op](out, part)
+        return out
     acc = _acc_dtype(vals.dtype)
     vals = vals.to(acc)
     if vals.stride(0) == 0 and (d == 1 or vals.stride(1) == 1):
@@ -101,13 +172,20 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+"):
     else:
         vals = vals.contiguous()
         vstride = d
-    ids32 = ids.to(torch.int32).contiguous()
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int64)
+    ids = ids.contiguous()
+    blocks, shift, scratch_bytes = _plan(n, d, k, vstride)
     out = torch.empty((k, d), dtype=acc, device=vals.device)
+    scratch = torch.empty(max(scratch_bytes, 1), dtype=torch.uint8,
+                          device=vals.device)
     lib = _build.load("segment_reduce")
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     code = lib.segment_reduce_launch(
-        0 if acc == torch.float32 else 1, _OPS[op], ids32.data_ptr(),
-        vals.data_ptr(), out.data_ptr(), n, d, vstride, k, stream)
+        0 if acc == torch.float32 else 1, _OPS[op], ids.data_ptr(),
+        vals.data_ptr(), out.data_ptr(), n, d, vstride, k, stream,
+        int(ids.dtype == torch.int64), scratch.data_ptr(), scratch_bytes,
+        blocks, shift)
     _build.check("segment_reduce", code)
     segment_reduce.launches += 1
     return out[:, 0] if squeeze else out

@@ -1,20 +1,24 @@
 """Mamba-1 selective SSM block (falcon-mamba-7b), as the reference's
 `models/ssm.py` computes it.
 
-The prefill keeps the reference's chunking: the [B, C, d_inner, N]
-discretized tensors exist one chunk of `scan_chunk` steps at a time (the
-whole sequence when `scan_chunk` does not divide it), and each chunk runs
-the hand-written `selective_scan` kernel from the state the previous chunk
-left.  The reference scans a chunk with `associative_scan`; the kernel
-walks it in order, which is the same recurrence summed in another order.
-Decode is one plain step.
+The prefill hands the scan's small inputs (dt [B, S, di], A [di, N], B and
+C [B, S, N], the conv'd activations x) to `selective_scan_fused`, which
+forms the discretised a_t = exp(dt·A) and bx_t = (dt·x)·B itself.  On the
+card the hand-written kernel forms them in registers, so it takes the
+whole prompt in one call per layer and nothing [B, S, di, N]-sized is
+allocated.  On the CPU its plain version materialises them, so there the
+reference's chunking bounds memory: one chunk of `scan_chunk` steps at a
+time (the whole sequence when `scan_chunk` does not divide it), each from
+the state the previous chunk left.  The reference scans a chunk with
+`associative_scan`; the port walks it in order, which is the same
+recurrence summed in another order.  Decode is one plain step.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.selective_scan import selective_scan
+from ..kernels.selective_scan import selective_scan_fused
 from .common import ParamDef, dense
 
 
@@ -56,13 +60,20 @@ def _causal_conv(x, w, b, init_state=None):
     return out + b.to(x.dtype), xp[:, -(k - 1):] if k > 1 else pad
 
 
-def _ssm_params(cfg, p, x):
-    """Per-step SSM tensors from conv'd activations x: [B, C, di]."""
+def _ssm_inputs(cfg, p, x):
+    """The scan's inputs before discretisation, from conv'd activations x:
+    [B, C, di] -> dt [B, C, di], A [di, N], B and C [B, C, N], float32."""
     n, dtr = cfg.ssm_state, cfg.ssm_dt_rank
     proj = dense(x, p["x_proj"]).float()
     dt_r, bt, ct = torch.split(proj, [dtr, n, n], dim=-1)
     dt = F.softplus(dense(dt_r, p["dt_proj"].float()) + p["dt_bias"])
     a = -torch.exp(p["a_log"])                                # [di, N]
+    return dt, a, bt, ct
+
+
+def _ssm_params(cfg, p, x):
+    """Per-step SSM tensors from conv'd activations x: [B, C, di]."""
+    dt, a, bt, ct = _ssm_inputs(cfg, p, x)
     da = torch.exp(dt[..., None] * a)                         # [B,C,di,N]
     db_x = (dt * x.float())[..., None] * bt[..., None, :]
     return da, db_x, ct
@@ -76,17 +87,21 @@ def mamba_forward(cfg, p, x, *, h0=None, conv0=None, return_state=False):
     xc, conv_tail = _causal_conv(xin, p["conv_w"], p["conv_b"], conv0)
     xc = F.silu(xc)
 
-    chunk = min(cfg.scan_chunk, s)
-    if s % chunk != 0:
-        chunk = s  # fallback: single chunk for odd lengths
+    if xc.device.type == "cuda":
+        chunk = s     # the kernel materialises nothing N-wide: one call
+    else:
+        chunk = min(cfg.scan_chunk, s)
+        if s % chunk != 0:
+            chunk = s  # fallback: single chunk for odd lengths
     h = h0
     ys = []
     for c0 in range(0, s, chunk):
-        da, db, ct = _ssm_params(cfg, p, xc[:, c0:c0 + chunk])
-        y_c, h = selective_scan(da, db, ct, h, return_state=True)
-        del da, db
+        xc_c = xc[:, c0:c0 + chunk]
+        dt, a, bt, ct = _ssm_inputs(cfg, p, xc_c)
+        y_c, h = selective_scan_fused(dt, a, bt, ct, xc_c, h,
+                                      return_state=True)
         ys.append(y_c)
-    y = torch.cat(ys, dim=1)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     y = y + xc.float() * p["d_skip"]
     y = (y * F.silu(z.float())).to(x.dtype)
     out = dense(y, p["out_proj"])

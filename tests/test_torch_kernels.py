@@ -9,6 +9,8 @@ none, they run alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -33,11 +35,16 @@ from repro_torch.kernels.segment_reduce import (segment_reduce,
                                                 segment_reduce_plain,
                                                 segment_sum)
 from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_fused,
+                                                selective_scan_fused_plain,
                                                 selective_scan_plain)
 from repro_torch.core.tiles import pack
 from repro_torch.kernels.tile_matmul import (tile_matmul, tile_matmul_packed,
                                              tile_matmul_packed_plain,
                                              tile_matmul_plain)
+
+# the modules themselves (the package's names are the wrappers)
+segment_module = importlib.import_module("repro_torch.kernels.segment_reduce")
 
 rng = np.random.default_rng(0)
 
@@ -336,8 +343,12 @@ def test_cpu_wrappers_count_no_launches():
     flash_attention(q, q, q)
     a = torch.ones(1, 3, 4, 2)
     selective_scan(a, a, torch.ones(1, 3, 2), return_state=True)
+    dt = torch.ones(1, 3, 4)
+    selective_scan_fused(dt, -torch.ones(4, 2), torch.ones(1, 3, 2),
+                         torch.ones(1, 3, 2), dt.bfloat16())
     assert ops.launch_counts() == {"segment_reduce": 0, "tile_matmul": 0,
-                                   "flash_attention": 0, "selective_scan": 0}
+                                   "flash_attention": 0, "selective_scan": 0,
+                                   "selective_scan_fused": 0}
 
 
 def test_every_source_has_its_ctypes_signatures():
@@ -487,6 +498,94 @@ def test_selective_scan_bad_shapes_raise():
         selective_scan(a, a, torch.ones(1, 3, 2), torch.ones(1, 2, 4))
 
 
+def _fused_inputs(r, b, s, d, n):
+    """dt, A, Bm, Cm, x as the model hands them to the fused entry: dt
+    after softplus, A = -exp(a_log)."""
+    dt = np.log1p(np.exp(r.uniform(-5.0, -1.0, (b, s, d)))).astype(np.float32)
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float32), (d, 1)) \
+        * r.uniform(0.5, 1.5, (d, 1)).astype(np.float32)
+    bm, cm = (r.standard_normal((b, s, n)).astype(np.float32)
+              for _ in range(2))
+    x = r.standard_normal((b, s, d)).astype(np.float32)
+    return dt, a, bm, cm, x
+
+
+@pytest.mark.parametrize("b,s,d,n", [(2, 13, 16, 4), (1, 40, 24, 16),
+                                     (3, 1, 5, 2)])
+def test_selective_scan_fused_plain_is_the_recurrence(b, s, d, n):
+    # a = exp(dt·A), bx = (dt·x)·B into the same recurrence, from h0, with
+    # the final state; checked in float64
+    r = np.random.default_rng(s)
+    dt, a, bm, cm, x = _fused_inputs(r, b, s, d, n)
+    h0 = r.standard_normal((b, d, n)).astype(np.float32)
+    y, h = selective_scan_fused(*(_t(v) for v in (dt, a, bm, cm, x, h0)),
+                                return_state=True)
+    da = np.exp(dt[..., None].astype(np.float64) * a)
+    dbx = (dt.astype(np.float64) * x)[..., None] * bm[:, :, None, :]
+    want_y, want_h = _scan_f64(da, dbx, cm, h0)
+    np.testing.assert_allclose(y.numpy(), want_y, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), want_h, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        selective_scan_fused(*(_t(v) for v in (dt, a, bm, cm, x))).numpy(),
+        selective_scan_fused_plain(*(_t(v) for v in (dt, a, bm, cm,
+                                                       x))).numpy())
+
+
+def test_selective_scan_fused_bad_shapes_raise():
+    dt = torch.ones(1, 3, 4)
+    a, bm = -torch.ones(4, 2), torch.ones(1, 3, 2)
+    with pytest.raises(ValueError):
+        selective_scan_fused(dt, a, bm, bm, torch.ones(1, 3, 5))
+    with pytest.raises(ValueError):
+        selective_scan_fused(dt, -torch.ones(5, 2), bm, bm, dt)
+    with pytest.raises(ValueError):
+        selective_scan_fused(dt, a, torch.ones(1, 3, 4), bm, dt)
+    with pytest.raises(ValueError):
+        selective_scan_fused(dt, a, bm, bm, dt, torch.ones(1, 4, 3))
+
+
+@pytest.mark.parametrize("op", ["+", "min", "max"])
+def test_segment_reduce_plain_reads_int64_ids_as_int32(op):
+    r = np.random.default_rng(3)
+    ids = r.integers(-4, 40, 500)
+    vals = _t(r.standard_normal((500, 3)).astype(np.float32))
+    a = segment_reduce_plain(_t(ids.astype(np.int64)), vals, 37, op)
+    b = segment_reduce_plain(_t(ids.astype(np.int32)), vals, 37, op)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,k,d,path", [
+    (2 ** 24, 64, 1, "small"), (2 ** 26, 256, 1, "small"),
+    (2 ** 26, 2 ** 17, 1, "staged"), (2 ** 26, 2 ** 20, 1, "staged"),
+    (2 ** 26, 4_847_571, 1, "staged"), (1_884_909, 4_847_571, 1, "staged"),
+    (2 ** 24, 4096, 8, "large"), (100_000, 9_000_000, 1, "large"),
+    (100_000, 40_000_000, 1, "global"), (0, 300, 1, "small")])
+def test_segment_plan(n, k, d, path):
+    # one range's work split (the main paths' ranges, pagerank's last of
+    # 1,884,909 rows among them) is a function of the sizes alone; buckets
+    # fit a block's shared memory and pass 1's counters, there are enough
+    # of them to fill the card where K allows, and few enough for the
+    # scatter to stage its sectors at the main paths' shapes
+    plan = segment_module._plan
+    blocks, shift, scratch = plan(n, d, k, d)
+    assert plan(n, d, k, d) == (blocks, shift, scratch) and blocks >= 1
+    if path == "small":
+        assert shift == -1 and k * d <= segment_module._SMALL_CELLS
+        assert scratch == (blocks * k * d * 4 if blocks > 1 else 0)
+        return
+    nb = -(-k >> shift)
+    assert nb <= segment_module._MAX_BUCKETS
+    assert ((1 << shift) * d <= segment_module._SLICE_CELLS) == \
+        (path != "global")
+    if path == "staged":
+        assert d == 1 and nb <= segment_module._STAGE_BUCKETS
+    if path != "global":
+        assert nb >= min(segment_module._MIN_BUCKETS, k * d // 2048)
+    # the rows' ids and values and the counts fit the scratch
+    assert scratch >= 4 * n + 4 * n * d + 4 * nb * blocks * 8
+    assert plan(n, d, k, 0)[2] == scratch - 4 * n * d
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -583,6 +682,228 @@ def test_cuda_selective_scan_matches_plain(cuda, with_h0, b, s, d, n):
         assert float((got - want).abs().max()) <= 1e-4 * scale
     torch.testing.assert_close(selective_scan(a, bx, c) if h0 is None
                                else y, wy, rtol=1e-4, atol=1e-4)
+
+
+def _scan_err(got, want):
+    """Largest error over the largest |value| of the plain version."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,d,n", [(1, 256, 512, 16), (2, 77, 300, 16),
+                                     (1, 1, 64, 16), (1, 13, 40, 4),
+                                     (1, 130, 96, 32)])
+def test_cuda_selective_scan_fused_matches_plain(cuda, x_dtype, with_h0, b, s,
+                                                 d, n):
+    # ragged S (tiles of 64 steps) and D (blocks of 32 channels), S = 1,
+    # h0 and h_last, bf16 x widened in registers; expf against torch.exp
+    r = np.random.default_rng(s + d)
+    dt, a, bm, cm, x = (_t(v).to(cuda) for v in _fused_inputs(r, b, s, d, n))
+    x = x.to(x_dtype)
+    h0 = _t(r.standard_normal((b, d, n)).astype(np.float32)).to(cuda) \
+        if with_h0 else None
+    before = ops.launch_counts()
+    y, h = selective_scan_fused(dt, a, bm, cm, x, h0, return_state=True)
+    after = ops.launch_counts()
+    assert after["selective_scan"] == before["selective_scan"]
+    assert after["selective_scan_fused"] == \
+        before["selective_scan_fused"] + 1
+    wy, wh = selective_scan_fused_plain(dt, a, bm, cm, x, h0,
+                                        return_state=True)
+    assert _scan_err(y, wy) <= 1e-4 and _scan_err(h, wh) <= 1e-4
+    assert torch.equal(selective_scan_fused(dt, a, bm, cm, x, h0), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_selective_scan_every_state_count(cuda, n, fused):
+    # each N takes its own template instance (two states a thread on N / 2
+    # lanes; one state on one lane at N = 1): all give the plain scan
+    r = np.random.default_rng(n)
+    b, s, d = 1, 100, 200
+    h0 = _t(r.standard_normal((b, d, n)).astype(np.float32)).to(cuda)
+    if fused:
+        ins = [_t(v).to(cuda) for v in _fused_inputs(r, b, s, d, n)]
+        got = selective_scan_fused(*ins, h0, return_state=True)
+        want = selective_scan_fused_plain(*ins, h0, return_state=True)
+    else:
+        ins = [_t(v).to(cuda) for v in _scan_inputs(r, b, s, d, n)]
+        got = selective_scan(*ins, h0, return_state=True)
+        want = selective_scan_plain(*ins, h0, return_state=True)
+    for g_, w_ in zip(got, want):
+        assert _scan_err(g_, w_) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_prefill_allocates_nothing_n_wide(cuda):
+    # one fused call per layer over the whole prompt: the prefill's peak
+    # stays below one [B, S, d_inner, N] float32 tensor above its start
+    # (discretising the prompt as one chunk would hold two), and its output
+    # matches the CPU's plain path
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.ssm import mamba_forward, ssm_defs
+    cfg = smoke_config("falcon-mamba-7b").replace(d_model=512, ssm_state=16,
+                                                  scan_chunk=1024)
+    r = np.random.default_rng(0)
+    defs = ssm_defs(cfg)
+    p = {}
+    for name, pd in defs.items():
+        v = r.standard_normal(pd.shape) * (pd.shape[0] ** -0.5)
+        if name == "a_log":
+            v = np.log(np.tile(np.arange(1, cfg.ssm_state + 1),
+                               (cfg.d_inner, 1)))
+        elif name == "dt_bias":
+            v = r.uniform(-4.0, -2.0, pd.shape)
+        p[name] = _t(v.astype(np.float32))
+    s = 1024
+    x = _t(r.standard_normal((1, s, cfg.d_model)).astype(np.float32))
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    xc = x.to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = selective_scan_fused.launches
+    out, state = mamba_forward(cfg, pc, xc, return_state=True)
+    torch.cuda.synchronize()
+    n_wide = 4 * s * cfg.d_inner * cfg.ssm_state
+    assert torch.cuda.max_memory_allocated() - base < n_wide
+    assert selective_scan_fused.launches == before + 1
+    ref, ref_state = mamba_forward(cfg, p, x, return_state=True)
+    assert _scan_err(out.cpu(), ref) <= 1e-4
+    assert _scan_err(state["h"].cpu(), ref_state["h"]) <= 1e-4
+
+
+def _segment_inputs(cuda, n, k, d, id_dtype=torch.int32, seed=0):
+    r = np.random.default_rng(seed)
+    ids = _t(r.integers(-3, k + 3, n)).to(cuda, id_dtype)
+    vals = _t(r.standard_normal((n, d) if d > 1 else n)
+              .astype(np.float32)).to(cuda)
+    return ids, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(1 << 20, 256, 1), (1 << 20, 64, 1),
+                                   (1 << 20, 70_000, 1), (300_000, 4096, 8),
+                                   (1 << 20, (1 << 20) + 3, 1),
+                                   (1 << 20, 4_847_571, 1)])
+def test_cuda_segment_reduce_deterministic(cuda, n, k, d):
+    # float + gives the same bits on three launches, small and large K
+    ids, vals = _segment_inputs(cuda, n, k, d)
+    runs = [segment_reduce(ids, vals, k) for _ in range(3)]
+    assert all(torch.equal(runs[0], x) for x in runs[1:])
+    want = segment_reduce_plain(ids, vals, k)
+    scale = segment_reduce_plain(ids, vals.abs(), k)
+    assert bool(((runs[0] - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [0.25, 1.0])
+@pytest.mark.parametrize("k,d", [(64, 1), (70_000, 1), (4_847_571, 1),
+                                 (4096, 8)])
+def test_cuda_segment_reduce_hot_key(cuda, hot, k, d):
+    # a share of the rows on one id crowds whole 32-row groups: the same
+    # bits on two launches, and the plain version's sums within tolerance
+    ids, vals = _segment_inputs(cuda, 1 << 20, k, d, seed=k)
+    ids = torch.where(torch.rand(ids.shape, device=cuda) < hot, 7, ids)
+    ids = ids.to(torch.int32)
+    for op in ("+", "max"):
+        got = segment_reduce(ids, vals, k, op=op)
+        assert torch.equal(got, segment_reduce(ids, vals, k, op=op))
+        want = segment_reduce_plain(ids, vals, k, op)
+        if op == "+":
+            scale = segment_reduce_plain(ids, vals.abs(), k)
+            assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["+", "min", "max"])
+@pytest.mark.parametrize("n,k,d", [(100_000, 256, 1), (100_000, 70_001, 1),
+                                   (50_000, 300, 8), (100_000, 9_000_000, 1),
+                                   (100_000, 40_000_000, 1),
+                                   (300_000, 4_847_571, 1)])
+def test_cuda_segment_reduce_int64_ids(cuda, op, n, k, d):
+    # int64 ids are read as they are, and give the int32 ids' bits; K not a
+    # multiple of the bucket size, more buckets than the scatter can stage,
+    # a K too large for shared memory, pagerank's K
+    ids, vals = _segment_inputs(cuda, n, k, d, torch.int64, seed=k)
+    got = segment_reduce(ids, vals, k, op=op)
+    assert torch.equal(got, segment_reduce(ids.to(torch.int32), vals, k,
+                                           op=op))
+    want = segment_reduce_plain(ids, vals, k, op)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["+", "min", "max"])
+@pytest.mark.parametrize("k", [5, 70_001])
+def test_cuda_segment_reduce_edges(cuda, op, k):
+    # no rows, every row dropped, no segments
+    empty_ids = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = segment_reduce(empty_ids, torch.zeros(0, device=cuda), k, op=op)
+    assert torch.equal(got, segment_reduce_plain(empty_ids.cpu(),
+                                                 torch.zeros(0), k, op)
+                       .to(cuda))
+    ids = torch.tensor([-1, k, k + 7, -9] * 1000, dtype=torch.int32,
+                       device=cuda)
+    vals = torch.full((4000, 2), float("nan"), device=cuda)
+    got = segment_reduce(ids, vals, k, op=op)
+    assert torch.equal(got, segment_reduce_plain(ids, vals, k, op))
+    before = segment_reduce.launches
+    none = segment_reduce(ids, vals, 0, op=op)
+    assert tuple(none.shape) == (0, 2) and segment_reduce.launches == before
+    ints = segment_reduce(ids, vals.to(torch.int32), k, op=op)
+    assert torch.equal(ints, segment_reduce_plain(ids, vals.to(torch.int32),
+                                                  k, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["+", "min", "max"])
+@pytest.mark.parametrize("k", [256, 70_000])
+def test_cuda_segment_reduce_rows_in_parts(cuda, op, k):
+    # rows are reduced a range of RANGE_ROWS at a time and the ranges
+    # combined in row order, so a chunked run (range by range, folded in
+    # order) gives the whole run's bits; the plain version's result, the
+    # same bits twice
+    rows = segment_module.RANGE_ROWS
+    n = 2 * rows + 12_345
+    ids, vals = _segment_inputs(cuda, n, k, 1, seed=3)
+    before = segment_reduce.launches
+    got = segment_reduce(ids, vals, k, op=op)
+    assert segment_reduce.launches == before + 3
+    assert torch.equal(got, segment_reduce(ids, vals, k, op=op))
+    combine = {"+": torch.add, "min": torch.minimum, "max": torch.maximum}
+    chunked = None
+    for i in range(0, n, rows):
+        part = segment_reduce(ids[i:i + rows], vals[i:i + rows], k, op=op)
+        chunked = part if chunked is None else combine[op](chunked, part)
+    assert torch.equal(got.view(torch.int32), chunked.view(torch.int32))
+    if op != "+":
+        assert torch.equal(got, segment_reduce_plain(ids, vals, k, op))
+        return
+    # float32 sums of ~n/k values each: against float64 sums, within 1e-5
+    # of each segment's sum of |v|
+    idx = torch.where((ids >= 0) & (ids < k), ids.long(), k)
+    exact, scale = (torch.zeros(k + 1, dtype=torch.float64, device=cuda)
+                    .index_add_(0, idx, v)[:k]
+                    for v in (vals.double(), vals.double().abs()))
+    assert bool(((got.double() - exact).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [256, 70_000, 4_847_571])
+def test_cuda_segment_reduce_broadcast_row(cuda, k):
+    # a value expanded from one row (vstride 0) is read, never copied
+    r = np.random.default_rng(k)
+    ids = _t(r.integers(-2, k + 2, 200_000).astype(np.int32)).to(cuda)
+    vals = torch.ones(1, device=cuda).expand(200_000)
+    got = segment_reduce(ids, vals, k)
+    assert torch.equal(got, segment_reduce_plain(ids, vals, k))
 
 
 # the edges of the tensor-core flash kernel (64-row query tiles, 64-key

@@ -40,16 +40,19 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def pair(request):
+def _make_pair(arch):
     """(port cfg, JAX model, JAX params, port model with JAX's weights)."""
-    arch = request.param
     jcfg = jax_smoke_config(arch)
     jm = jax_get_model(jcfg)
     params = jm.init(0)
     tree = jax.tree.map(np.asarray, params)
     cfg = smoke_config(arch)
     return cfg, jm, params, lm_params_from_numpy(cfg, tree, device="cpu")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return _make_pair(request.param)
 
 
 def test_configs_read_the_same():
@@ -194,3 +197,66 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model(smoke_config("llama3-8b"))
+
+
+def _ssm_case(x_dtype):
+    """Seeded SSM weights and conv'd activations for the smoke mamba
+    layer, as numpy (x rounded to bf16 when asked, so both packages see
+    the same values)."""
+    cfg = smoke_config("falcon-mamba-7b")
+    di, n, dtr = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    r = np.random.default_rng(11)
+    p = {"x_proj": r.standard_normal((di, dtr + 2 * n)) * di ** -0.5,
+         "dt_proj": r.standard_normal((dtr, di)) * dtr ** -0.5,
+         "dt_bias": r.uniform(-4.0, -2.0, di),
+         "a_log": np.log(np.tile(np.arange(1, n + 1), (di, 1)))}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = torch.from_numpy(r.standard_normal((2, 24, di)).astype(np.float32))
+    if x_dtype == "bfloat16":
+        x = x.bfloat16()
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_fused_scan_matches_discretise_then_scan(x_dtype):
+    """The fused entry (the model's prefill path) equals the port's
+    `_ssm_params` followed by the plain scan, and the JAX package's
+    `_ssm_params` followed by its Pallas `selective_scan` (interpret mode),
+    to 1e-5·max|ref|."""
+    from repro.kernels.selective_scan import selective_scan as jax_scan
+    from repro.models.ssm import _ssm_params as jax_ssm_params
+    from repro_torch.kernels.selective_scan import (selective_scan_fused,
+                                                    selective_scan_plain)
+    from repro_torch.models.ssm import _ssm_inputs, _ssm_params
+    cfg, p, x = _ssm_case(x_dtype)
+    pt = {k: torch.from_numpy(v) for k, v in p.items()}
+    dt, a, bt, ct = _ssm_inputs(cfg, pt, x)
+    got = selective_scan_fused(dt, a, bt, ct, x)
+    want = selective_scan_plain(*_ssm_params(cfg, pt, x))
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    xj = jnp.asarray(x.float().numpy())
+    if x_dtype == "bfloat16":
+        xj = xj.astype(jnp.bfloat16)
+    da, db, cj = jax_ssm_params(jax_smoke_config("falcon-mamba-7b"),
+                                {k: jnp.asarray(v) for k, v in p.items()}, xj)
+    ref = np.asarray(jax_scan(da, db, cj, bd=64, bk=8))
+    tol = 1e-5 * float(np.abs(ref).max())
+    assert float(np.abs(got.numpy() - ref).max()) <= tol
+
+
+@pytest.mark.parametrize("plen", [21, 24])
+def test_mamba_forward_chunks_carry_the_state(plen):
+    """The CPU prefill scans in chunks of `scan_chunk` (8) carried through
+    the state, or in one when 8 does not divide the prompt; both match the
+    JAX layer."""
+    cfg, jm, params, model = _make_pair("falcon-mamba-7b")
+    rng = np.random.default_rng(plen)
+    tokens = rng.integers(0, cfg.vocab_size, (2, plen)).astype(np.int32)
+    jl, jc = jm.prefill(params, jnp.asarray(tokens), MAX_SEQ)
+    pl, pc = model.prefill(torch.as_tensor(tokens), MAX_SEQ)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+    ref_cache = dict(_flat(jax.tree.map(np.asarray, jc)))
+    ours_cache = dict(_flat(lm_cache_to_numpy(cfg, pc)))
+    for k, v in ref_cache.items():
+        np.testing.assert_allclose(ours_cache[k], v, **TOL, err_msg=k)

@@ -15,8 +15,9 @@ from repro.core import compile_program as jax_compile
 from repro.core.op_select import OpSelector as JaxOpSelector
 from repro.core.programs import ALL as JAX_ALL
 from repro_torch.core import compile_program
-from repro_torch.core.op_select import (PROBE_ROWS, SEGMENT_CANDIDATES,
-                                        OpSelector, probe_hot_fraction)
+from repro_torch.core.op_select import (DETERMINISTIC, PROBE_ROWS,
+                                        SEGMENT_CANDIDATES, OpSelector,
+                                        probe_hot_fraction)
 from repro_torch.core.programs import ALL
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -90,6 +91,26 @@ def test_cuda_cost_row_picks_the_segment_kernel(n, k, d, op):
                              dest_dist="ONED_ROW")
     want = "pallas" if "pallas" in SEGMENT_CANDIDATES[op] else "scatter"
     assert (dec.backend, dec.source) == (want, "cost")
+
+
+@pytest.mark.parametrize("mode", ["cost", "cache", "force:scatter"])
+def test_cuda_float_sums_stay_deterministic(mode):
+    # on the card a float + group-by takes only a backend whose sums do not
+    # depend on the order of atomics: not a cached or forced scatter
+    sel = OpSelector(mode="cost" if mode == "cache" else mode,
+                     cache_path=None, platform="cuda")
+    kw = dict(n=2 ** 26, k=2 ** 20, d=1, op="+", dest_dist="ONED_ROW")
+    if mode == "cache":
+        sel._cache[sel.segment_class(**kw, dtype="float32")] = \
+            {"backend": "scatter"}
+    dec = sel.choose_segment(**kw, dtype="float32")
+    assert dec.backend in DETERMINISTIC
+    # integer sums and min/max add in any order to the same bits: the
+    # measured cost row sends the large K to index_add_ / scatter_reduce_
+    for op, dtype in (("+", "int32"), ("min", "float32")):
+        dec = OpSelector(mode="cost", cache_path=None, platform="cuda") \
+            .choose_segment(**dict(kw, op=op), dtype=dtype)
+        assert (dec.backend, dec.source) == ("scatter", "cost")
 
 
 def test_cuda_cost_row_picks_the_tile_kernel():

@@ -135,7 +135,7 @@ def test_cpu_serving_counts_no_kernel_launches():
     eng = ServeEngine(cfg, model, slots=2, max_seq=32)
     eng.submit(np.arange(9, dtype=np.int32), 3)
     eng.run()
-    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert ops.launch_counts() == dict.fromkeys(ops.COUNTED, 0)
 
 
 def test_engine_refuses_the_audio_family():

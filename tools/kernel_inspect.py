@@ -9,8 +9,9 @@ and tile_matmul) is compiled once more with the package's own nvcc command
 line plus `-Xptxas -v`, and for each kernel function the script prints its
 registers, stack frame and spill bytes, then the count of the instructions
 of interest in its SASS (`cuobjdump -sass`): HMMA (tensor-core products),
-FFMA, LDSM (ldmatrix), LDGSTS (cp.async), LDL and STL (local memory:
-spills).  To time one version of the sources against another, use
+FFMA, LDSM (ldmatrix), LDGSTS (cp.async), MUFU (exp2 and the other
+special functions), SHFL (shuffles), MATCH (match-any), LDL and STL (local
+memory: spills).  To time one version of the sources against another, use
 `chip_smoke.py --parent DIR`.
 """
 from __future__ import annotations
@@ -28,7 +29,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 from chip_smoke import card_line  # noqa: E402
 
-SASS_OPS = ("HMMA", "FFMA", "LDSM", "LDGSTS", "LDL", "STL")
+SASS_OPS = ("HMMA", "FFMA", "LDSM", "LDGSTS", "MUFU", "SHFL", "MATCH", "LDL",
+            "STL")
 
 
 def _demangle(names):

@@ -22,11 +22,18 @@ first mismatch:
              against a run range by range (the same bits);
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
-             sizes below, each held against a numpy float64 reference of the
-             program, with the kernels' launch counts read around the run;
-             the programs the kernels serve, and the slowest, run once more
-             under torch.profiler for the device's busy time and idle share;
-             the group-by programs run again with the segment kernel pinned;
+             sizes below, in eager mode and in whole mode (the default:
+             CUDA graphs captured on the first call, replayed after), each
+             held against a numpy float64 reference of the program, with
+             the kernels' launch counts read around the runs: run() ms of
+             both modes and of the first whole call, the compile cache's
+             counters, graphs, loop flag reads, host syncs, input staging
+             ms and peak memory; whole outputs bit-equal to eager's for the
+             group-by programs, and launches equal in both modes; the
+             programs the kernels serve, and the slowest, run once more in
+             whole mode under torch.profiler for the device's busy time and
+             idle share; the group-by programs run again with the segment
+             kernel pinned;
 4. serve   — serve llama3-8b and falcon-mamba-7b at full width and full
              depth (bf16, random weights from --seed, one model on the card
              at a time) through `repro_torch.serve.ServeEngine`: 4 slots,
@@ -859,9 +866,9 @@ DEFAULT_TOL = 1e-4
 
 
 def _run_program(torch, cp, inputs, reps):
-    """One warm-up run (allocator, cuBLAS), then `reps` timed runs, each by
-    the host clock around run() and a synchronize; returns the last
-    outputs and the per-run ms, sorted."""
+    """One warm-up run (allocator, cuBLAS; in whole mode a cache hit), then
+    `reps` timed runs, each by the host clock around run() and a
+    synchronize; returns the last outputs and the per-run ms, sorted."""
     out = cp.run(inputs)
     times = []
     for _ in range(reps):
@@ -878,11 +885,17 @@ def _ms_text(times):
             f"min {times[0]:.3f}, max {times[-1]:.3f})")
 
 
-# the programs whose run() the smoke also traces: those the kernels serve
-# and the slowest ones
+# the programs whose run() the smoke also traces, in whole mode: those the
+# kernels serve, the slowest ones, and the slowest of those that launch no
+# kernel (the dense 8192^3 product, about 22 ms a run on an H100)
 PROFILED = ("word_count", "histogram", "group_by",
             "matrix_multiplication[packed]", "pagerank", "kmeans_step",
-            "matrix_factorization_step")
+            "matrix_factorization_step", "matrix_multiplication")
+
+# whole-mode outputs equal to eager's bit for bit: the same plan, and the
+# segment kernel gives the same bits on every launch
+BIT_EQUAL = ("word_count", "histogram", "group_by", "pagerank",
+             "kmeans_step")
 
 
 def _profile(torch, name, fn, run_ms, top=5):
@@ -904,18 +917,45 @@ def _profile(torch, name, fn, run_ms, top=5):
             per[e.name] = (ms + e.device_time_total / 1e3, c + 1)
     if not per:
         log(f"[profile] {name}: the profiler recorded no device time")
-        return None
+        return per
     busy = sum(ms for ms, _ in per.values())
     rows = sorted(((ms, k, c) for k, (ms, c) in per.items()), reverse=True)
     log(f"[profile] {name}: device busy {busy:.3f} ms of a {run_ms:.3f} ms "
         f"run (unprofiled median), idle share "
         f"{max(0.0, 1.0 - busy / run_ms):.3f}; top kernels: "
         + "; ".join(f"{k[:70]} x{c} {ms:.3f} ms" for ms, k, c in rows[:top]))
-    return busy
+    return per
 
 
-def _check(name, out, ref_fn, rows=None):
-    ref = ref_fn()
+def _kernel_functions():
+    """Each program kernel's device functions: the `__global__` functions
+    of its source."""
+    from repro_torch.kernels import _build
+    out = {}
+    for k in PROGRAM_KERNELS:
+        text = (_build.CSRC / f"{k}.cu").read_text()
+        out[k] = re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                            r"\([^)]*\)\s*)?(\w+)\s*\(", text)
+    return out
+
+
+def _profiled_launches(torch, ops, fns, name, fn, run_ms):
+    """One call of `fn` under the profiler: the kernel events of each
+    program kernel that the device ran (by the names of its functions) and
+    the launches its wrapper counted in that call."""
+    before = ops.launch_counts()
+    per = _profile(torch, name, fn, run_ms)
+    after = ops.launch_counts()
+    pats = {k: re.compile(r"::(?:%s)[<(]" % "|".join(v))
+            for k, v in fns.items()}
+    ran = {k: sum(c for e, (_, c) in per.items() if p.search(e))
+           for k, p in pats.items()}
+    return ran, {k: after[k] - before[k] for k in fns}
+
+
+def _check(name, out, ref, rows=None):
+    """Worst relative error of `out` against the reference outputs `ref`;
+    fails beyond the program's tolerance."""
     tol = TOLS.get(name, DEFAULT_TOL)
     errs = {}
     for k, r in ref.items():
@@ -928,43 +968,182 @@ def _check(name, out, ref_fn, rows=None):
     return worst, tol
 
 
+def _count_syncs(torch, fn):
+    """Host syncs of one call of `fn`: the synchronizing CUDA operations
+    (a read of a device value, a copy to the host) that torch's sync debug
+    mode reports."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+# profiled calls a program gets for its two modes to agree: the profiler
+# can drop a kernel's event (seen once on the H100: the packed product's
+# 16 ms tile kernel missing from its trace), while graphs that lack a
+# kernel disagree on every try
+PROFILE_TRIES = 3
+
+
+def _same_kernels_on_device(torch, ops, fns, name, whole, eager, inputs,
+                            ms_w, ms_e):
+    """One whole and one eager call under the profiler: the device must
+    run the same program kernels' functions in both, and run them exactly
+    where their wrappers counted launches."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        ran_w, counted_w = _profiled_launches(
+            torch, ops, fns, name, lambda: whole.run(inputs), ms_w)
+        ran_e, counted_e = _profiled_launches(
+            torch, ops, fns, f"{name} eager", lambda: eager.run(inputs), ms_e)
+        what = (f"program kernels' device functions run in one profiled "
+                f"call whole {ran_w} eager {ran_e}; launches counted whole "
+                f"{counted_w} eager {counted_e}")
+        log(f"[main] {name}: {what} (try {attempt})")
+        if ran_w == ran_e and counted_w == counted_e and all(
+                (n > 0) == (ran_w[k] > 0) and ran_w[k] >= n
+                for k, n in counted_w.items()):
+            return
+    require(False, f"{name}: in {PROFILE_TRIES} tries, never the same "
+            f"kernels on the device in both modes: {what}")
+
+
+def _mode_runs(torch, ops, cp, inputs, on_first=None):
+    """A mode's first call (in whole mode: warm-up, capture, replay), its
+    warm-up and 5 timed runs.  Returns the last outputs, the timed runs'
+    ms, the first call's ms, the kernel launches of the 6 later runs, the
+    peak device memory of all of them above what was allocated before
+    (GB), what stays allocated after them with the outputs dropped (GB:
+    an entry's static inputs and the values its graphs share), the host
+    syncs of one more run and what `on_first` made of the first call's
+    outputs (which are dropped before the later runs)."""
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cp.run(inputs)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    seen = on_first(out) if on_first is not None else None
+    del out
+    before = ops.launch_counts()
+    out, times = _run_program(torch, cp, inputs, reps=5)
+    after = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    syncs = _count_syncs(torch, lambda: cp.run(inputs))
+    storages = {v.untyped_storage().data_ptr(): v.untyped_storage().nbytes()
+                for v in out.values()}
+    held = (torch.cuda.memory_allocated() - base
+            - sum(storages.values())) / 1e9
+    return (out, times, first, {k: after[k] - before[k] for k in after
+                                if after[k] != before[k]},
+            peak, held, syncs, seen)
+
+
 def phase_main(torch, seed):
     import numpy as np
+    from repro_torch.convert import inputs_from_numpy
     from repro_torch.core import compile_program
     from repro_torch.kernels import ops
     rng = np.random.default_rng(seed)
     ALL, progs = _programs(np, rng, torch)
-    medians = {}
     log(f"[main] sizes: bags N={N_ROWS} rows, word_count vocabulary "
         f"{VOCAB}, group_by {GROUPS} groups, matrices {MAT}x{MAT}, pagerank "
         f"{PR_VERTICES} vertices {PR_EDGES} edges {PR_STEPS} steps, kmeans "
         f"{KM_POINTS} points K={KM_K}, matrix factorization n=m={MF_N} "
-        f"l={MF_L}; no cuts")
+        f"l={MF_L}; no cuts.  Each program runs in eager mode, then in "
+        f"whole mode (the default: CUDA graphs captured once, replayed); "
+        f"launches are a run's, peak memory is above the inputs already "
+        f"on the card")
+    fns = _kernel_functions()
+    log(f"[main] program kernels' device functions: {fns}")
     ops.reset_launch_counts()
-    before = ops.launch_counts()
     for item in progs:
         name, inputs, ref_fn = item[:3]
         rows = item[3] if len(item) > 3 else None
         pname = name.split("[")[0]
+        packed = "packed" in name
+        ref = ref_fn()
+        eager = compile_program(ALL[pname], compile_mode="eager")
+        out_e, t_e, _, l_e, peak_e, _, syncs_e, _ = _mode_runs(
+            torch, ops, eager, inputs)
+        err_e, tol = _check(name, out_e, ref, rows)
+
+        def first_call(o):
+            # the call that captures: within tolerance, and eager's bits
+            return (_check(name, o, ref, rows)[0],
+                    all(torch.equal(o[k], out_e[k]) for k in out_e))
         cp = compile_program(ALL[pname])
-        out, times = _run_program(torch, cp, inputs, reps=5)
-        counts = ops.launch_counts()
-        worst, tol = _check(name, out, ref_fn, rows)
+        out, times, first, l_w, peak_w, held, syncs_w, (err_1, same_1) = \
+            _mode_runs(torch, ops, cp, inputs, first_call)
+        err_w, _ = _check(name, out, ref, rows)
+        same = all(torch.equal(out[k], out_e[k]) for k in out_e)
+        del out_e
+        runs = 1 + 6 + 1                   # first call, _mode_runs' runs
         sel = [ln.strip() for ln in cp.explain(
-            tiled={"M"} if "packed" in name else ()).splitlines()
+            tiled={"M"} if packed else ()).splitlines()
             if ln.strip().startswith("selected:")]
-        delta = {k: counts[k] - before[k] for k in counts}
-        before = counts
-        log(f"[main] {name}: {_ms_text(times)}  rel_err={worst:.3g} "
-            f"(tol {tol})  launches={delta}  " + "; ".join(sel))
-        medians[name] = (cp, times[len(times) // 2])
+        log(f"[main] {name}: whole {_ms_text(times)}; eager "
+            f"{_ms_text(t_e)}; first whole call {first:.3f} ms  rel_err "
+            f"whole {err_w:.3g} first whole call {err_1:.3g} eager "
+            f"{err_e:.3g} (tol {tol})  whole==eager bits: {same} (first "
+            f"whole call: {same_1})  launches a run: "
+            f"{ {k: v / 6 for k, v in l_w.items()} }  " + "; ".join(sel))
+        if packed:
+            entry_text = ("runs eagerly in whole mode (a §5 packed input "
+                          "takes the eager path, the reference's rule)")
+            require(cp.trace_count == 0 and cp.cache_hits == 0,
+                    f"{name}: a packed input built a whole-program entry")
+        else:
+            (entry, _), = cp._whole_cache.values()
+            env = inputs_from_numpy(inputs, None, ALL[pname].program.params)
+            stage = time_ms(torch, lambda: entry._stage(env))
+            entry_text = (f"graphs {entry.graphs}, loop flag reads a run "
+                          f"{entry.syncs}, input staging {stage:.3f} ms")
+            require(cp.trace_count == 1 and cp.trace_failures == 0,
+                    f"{name}: whole mode traced {cp.trace_count} times, "
+                    f"{cp.trace_failures} failures")
+            require(cp.cache_hits == runs - 1,
+                    f"{name}: {cp.cache_hits} cache hits in {runs} calls")
+            if pname == "pagerank":
+                require(entry.syncs == PR_STEPS + 1,
+                        f"{name}: {entry.syncs} loop flag reads a run")
+        for mode, c in (("whole", cp), ("eager", eager)):
+            require(c.faults.counters["descend"] == 0,
+                    f"{name}: {mode} mode descended: {c.explain_faults()}")
+        log(f"[main] {name} whole: traced {cp.trace_count}, cache hits "
+            f"{cp.cache_hits} of {runs} calls, trace failures "
+            f"{cp.trace_failures}; {entry_text}; host syncs a run whole "
+            f"{syncs_w} eager {syncs_e}; peak memory whole {peak_w:.3f} GB "
+            f"eager {peak_e:.3f} GB; whole keeps {held:.3f} GB allocated "
+            f"between calls")
+        require(l_w == l_e, f"{name}: whole-mode launches {l_w} != "
+                f"eager's {l_e}")
+        if pname in BIT_EQUAL:
+            require(same and same_1,
+                    f"{name}: whole-mode outputs differ from eager's (first "
+                    f"call: {same_1}, later calls: {same})")
         if pname in ("word_count", "histogram", "group_by"):
-            require(delta["segment_reduce"] > 0,
+            require(l_w.get("segment_reduce", 0) > 0,
                     f"{name}: segment_reduce kernel was not launched")
-        if "packed" in name:
-            require(delta["tile_matmul"] > 0,
+        if packed:
+            require(l_w.get("tile_matmul", 0) > 0,
                     f"{name}: tile_matmul kernel was not launched")
-        del out
+        # traced here, so that no entry's graph pool outlives its program;
+        # the kernels the device ran in whole mode (inside the graphs)
+        # against those it ran in eager mode, and the counted launches
+        if name in PROFILED:
+            _same_kernels_on_device(torch, ops, fns, name, cp, eager, inputs,
+                                    times[len(times) // 2],
+                                    t_e[len(t_e) // 2])
+        out = cp = eager = entry = env = None    # the entry and its pool
+        gc.collect()
         torch.cuda.empty_cache()
     launches = {k: ops.launch_counts()[k] for k in PROGRAM_KERNELS}
     log(f"[main] kernel launches on the main path: {json.dumps(launches)}")
@@ -980,7 +1159,7 @@ def phase_main(torch, seed):
         ops.reset_launch_counts()
         out, times = _run_program(torch, cp, inputs, reps=1)
         forced = ops.launch_counts()
-        worst, tol = _check(name, out, ref_fn)
+        worst, tol = _check(name, out, ref_fn())
         sel = sorted({ln.strip() for ln in cp.explain().splitlines()
                       if "segment:" in ln})
         log(f"[main] {name} op_select=force:pallas: {times[0]:.3f} ms  "
@@ -989,14 +1168,12 @@ def phase_main(torch, seed):
         require(forced["segment_reduce"] > 0,
                 f"{name} op_select=force:pallas: segment_reduce kernel was "
                 "not launched")
-        del out
+        require(cp.trace_count == 1 and cp.faults.counters["descend"] == 0,
+                f"{name} op_select=force:pallas: traced {cp.trace_count} "
+                f"times: {cp.explain_faults()}")
+        del out, cp
+        gc.collect()
         torch.cuda.empty_cache()
-    # traced last, so that the profiler cannot slow a timed run
-    for item in progs:
-        name, inputs = item[:2]
-        if name in PROFILED:
-            cp, run_ms = medians[name]
-            _profile(torch, name, lambda: cp.run(inputs), run_ms)
     return launches
 
 

@@ -44,18 +44,27 @@ executor compensates:
     64-bit-off canonicalisation does (convert.py); constants stay python
     scalars, which PyTorch, like JAX, does not let widen a tensor's dtype.
 
-Only the eager path is here.  Whole-program compilation, the fault
-ladder, out-of-core streaming and the batched serving entry are later
-work (ROADMAP.md); a failure surfaces as an exception.
+run() is the reference's: whole-program mode by default (graphs.py: the
+plan captured into CUDA graphs, one entry per compile-cache signature for
+the WHOLE_ENTRIES latest signatures, a signature whose entry fails to build
+sitting out `policy.disable_ttl` runs), the per-node eager path under it,
+and, for a program the caller put on the CPU, the sequential interpreter at
+the bottom of the fault ladder (faults.py, a copy of the reference's; on
+the card an error that persists at the eager level surfaces).  The
+out-of-core tier, buffer donation, checkpointed stepwise runs and the
+batched serving entry are later work (ROADMAP.md): the ladder is the
+reference's with out_of_core="off".
 """
 from __future__ import annotations
 
 import numbers
 import operator
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import torch
 
+from . import faults as F
 from . import plan as P
 from .analysis import check as check_restrictions
 from .comprehension import Get
@@ -324,20 +333,25 @@ def collect_salts(nodes, env, selector, skew_salting: str, *,
     """dest → salt factor for every probe-decided group-by in the plan
     (walks SeqLoop bodies and fused regions)."""
     out: dict = {}
-
-    def walk(ns):
-        for n in ns:
-            if isinstance(n, P.SeqLoop):
-                walk(n.body)
-            elif isinstance(n, (P.Fused, P.FusedRound)):
-                walk(n.parts)
-            else:
-                s = salt_for_node(n, env, selector, skew_salting,
-                                  nshards=nshards, bag_limits=bag_limits)
-                if s > 1:
-                    out[n.dest] = s
-    walk(nodes)
+    for n in _leaf_nodes(nodes):
+        s = salt_for_node(n, env, selector, skew_salting, nshards=nshards,
+                          bag_limits=bag_limits)
+        if s > 1:
+            out[n.dest] = s
     return out
+
+
+def _leaf_nodes(nodes):
+    # a module-level generator, not a closure that calls itself: such a
+    # closure is a reference cycle, and one that holds `env` would keep a
+    # run's every value alive until the cyclic garbage collector runs
+    for n in nodes:
+        if isinstance(n, P.SeqLoop):
+            yield from _leaf_nodes(n.body)
+        elif isinstance(n, (P.Fused, P.FusedRound)):
+            yield from _leaf_nodes(n.parts)
+        else:
+            yield n
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +367,13 @@ class PlanExecutor:
         # CompiledProgram.explain() reads it
         self.decisions: dict = {}
         self._selector = selector
+        # the `lower.node` injection site fires (off while graphs.py replays
+        # a region on the CPU or warms up before a capture)
+        self.sites = True
+        # while a set: the ids of the stores that replaced their whole
+        # destination without reading its old value (graphs.py stages no
+        # input that such a store writes before anything reads it)
+        self.replaced = None
 
     @property
     def selector(self):
@@ -364,6 +385,11 @@ class PlanExecutor:
 
     def note(self, node, tag: str) -> None:
         self.decisions[id(node)] = tag
+
+    def _replace(self, node, val):
+        if self.replaced is not None:
+            self.replaced.add(id(node))
+        return val
 
     def _t(self, x) -> torch.Tensor:
         return as_tensor(x, self.device)
@@ -526,6 +552,10 @@ class PlanExecutor:
                 env[node.dest] = self.run_node(node, env, ctx)
 
     def run_node(self, node, env, ctx: ExecContext = _EMPTY_CTX):
+        # per-node guard site: under a capture it fires at capture time only
+        # (graphs.py), as the reference's fires at trace time only
+        if self.sites:
+            F.site("lower.node", node=type(node).__name__)
         if isinstance(node, P.Rebalance):
             # single device: one shard holds every row — the identity
             self.note(node, "rebalance:noop[single-device]")
@@ -611,7 +641,7 @@ class PlanExecutor:
             return None
         val = self._full(val, ax.shape()).to(dest.dtype)
         self.note(node, "dense-store")
-        return val
+        return self._replace(node, val)
 
     def _exec_map(self, node: P.MapExpr, env, ctx):
         ax, binding, conds, base = self.build_space(node.space, env, ctx)
@@ -624,7 +654,7 @@ class PlanExecutor:
                 old = env.get(node.dest)
                 old = torch.zeros_like(val) if old is None else self._t(old)
                 return torch.where(m, val, old)
-            return val
+            return self._replace(node, val)
 
         dest = env[node.dest]
         masks = list(base)
@@ -642,7 +672,7 @@ class PlanExecutor:
         static0 = all(l == 0 for l in los)
         if tuple(exts) == tuple(dest.shape) and static0 and m is None \
                 and dest_lim is None:
-            return val.to(dest.dtype)                      # full replace
+            return self._replace(node, val.to(dest.dtype))  # full replace
         grids = list(torch.meshgrid(
             *[los[i] + self._arange(exts[i]) for i in range(len(exts))],
             indexing="ij"))
@@ -1031,11 +1061,18 @@ class PlanExecutor:
         while True:
             e2 = dict(env)
             e2.update(carry)
-            if not bool(self.eval(node.cond, e2, Axes(), {}, [], ctx)):
+            if not bool(self.loop_cond(node, e2, ctx)):
                 break
             self.execute(node.body, e2, ctx)
             carry = {n: self._t(e2[n]) for n in node.carry}
         env.update(carry)
+
+    def loop_cond(self, node: P.SeqLoop, env,
+                  ctx: ExecContext = _EMPTY_CTX) -> torch.Tensor:
+        """A SeqLoop's condition as a 0-d bool tensor, not read on the
+        host."""
+        c = self._t(self.eval(node.cond, env, Axes(), {}, [], ctx))
+        return (c if c.dtype == torch.bool else c != 0).reshape(())
 
     def eval_scalar(self, e, env):
         """Evaluate an expression outside any iteration space."""
@@ -1045,6 +1082,10 @@ class PlanExecutor:
 # ---------------------------------------------------------------------------
 # program compilation
 # ---------------------------------------------------------------------------
+
+# signatures whose whole-program entries a CompiledProgram keeps (LRU)
+WHOLE_ENTRIES = 2
+
 
 def resolve_device(device) -> torch.device:
     """The device a program runs on.  CUDA is the default; without a card
@@ -1061,17 +1102,12 @@ def resolve_device(device) -> torch.device:
 class CompiledProgram:
     def __init__(self, prog: Program, target, optimize_contractions=True,
                  op_select="cost", autotune_cache=None,
-                 compile_mode="eager", skew_salting="auto", device="cuda"):
-        if compile_mode == "whole":
-            raise NotImplementedError(
-                "compile_mode='whole' is not ported yet (ROADMAP.md, "
-                "'Modules to port', whole-program compilation); use 'eager'")
-        if compile_mode != "eager":
+                 compile_mode="whole", skew_salting="auto", device="cuda"):
+        if compile_mode not in ("whole", "eager"):
             raise ValueError(f"unknown compile_mode {compile_mode!r}")
         self.program = prog
         self.target = target
         self.device = resolve_device(device)
-        self.compile_mode = compile_mode
         from .op_select import CACHE_FILE, OpSelector
         if autotune_cache is None:
             autotune_cache = CACHE_FILE
@@ -1086,16 +1122,53 @@ class CompiledProgram:
                                    platform=self.device.type,
                                    device=str(self.device))
         self.executor = PlanExecutor(prog, self.selector, self.device)
+        # ---- whole-program compilation (graphs.py) ----
+        # run() captures the ENTIRE plan into one cached entry of CUDA
+        # graphs per (static dims, shapes, dtypes, salts) signature and
+        # replays it on every later call.  compile_mode="eager" keeps the
+        # per-node path (the fallback, also taken when an entry fails to
+        # build or an input arrives §5-packed)
+        self.compile_mode = compile_mode
+        # signature → (entry, decisions), the most recently used last; an
+        # entry holds its inputs' buffers and its graphs' pool, so only the
+        # WHOLE_ENTRIES latest signatures keep theirs
+        self._whole_cache: OrderedDict = OrderedDict()
+        # per-SIGNATURE failure memo: an entry that failed to build
+        # disables only ITS signature, for policy.disable_ttl runs; then it
+        # is re-attempted
+        self._whole_bad: dict = {}     # signature key → remaining ttl
+        self.trace_count = 0           # entries built (test probe)
+        self.cache_hits = 0
+        self.trace_failures = 0        # entries that failed to build
+        self.whole_retries = 0         # expired disables re-attempted
+        self.faults = F.FaultLedger(prog.name)   # failure ledger
+        self.policy = F.RetryPolicy()
+        self._last_whole_exc = None    # why the LAST _run_whole descended
+
+    @property
+    def _whole_disabled(self) -> bool:
+        """True while ANY signature is sitting out its disable ttl."""
+        return bool(self._whole_bad)
 
     def explain(self, tiled=()) -> str:
         """Spark-EXPLAIN-style dump of the chosen physical operator per
         statement.  `tiled` names params assumed to arrive §5-packed.
         After a run(), nodes whose backend the operator-selection
         subsystem resolved carry a `selected:` line (e.g.
-        ``selected: segment:pallas[cost]``)."""
+        ``selected: segment:pallas[cost]``).  The trailing
+        `whole-program:` line reports the compile-cache state — how many
+        signatures were captured and how many run() calls hit the cache."""
         text = P.explain(self.plan, self.program.name, tiled,
                          decisions=self.executor.decisions)
-        return text + f"\nwhole-program: mode={self.compile_mode}"
+        mode = "eager" if self.compile_mode != "whole" or \
+            self._whole_disabled else "whole"
+        text += (f"\nwhole-program: mode={mode}, {self.trace_count} traced, "
+                 f"{self.cache_hits} cache hits"
+                 + (f", {self.trace_failures} trace failures "
+                    f"({len(self._whole_bad)} signatures sitting out ttl, "
+                    f"{self.whole_retries} re-attempted)"
+                    if self.trace_failures or self.whole_retries else ""))
+        return text
 
     # -- public execution interface --
     def execute(self, env: dict, *, bag_limits=None, array_limits=None,
@@ -1109,18 +1182,179 @@ class CompiledProgram:
         from ..convert import inputs_from_numpy
         return inputs_from_numpy(inputs, self.device, self.program.params)
 
+    # ---- whole-program path ----
+    def _signature(self, env):
+        """Compile-cache key: static dims by VALUE (they define shapes),
+        arrays by shape+dtype.  None = this env cannot take the whole-
+        program path (§5 packed inputs execute eagerly)."""
+        from .tiles import TiledMatrix
+        sig = []
+        for name, t in self.program.params.items():
+            v = env[name]
+            if t.kind == "dim":
+                sig.append((name, "dim", v))
+            elif t.kind == "bag":
+                sig.append((name, "bag", tuple(
+                    (tuple(c.shape), _dtype_name(c)) for c in v)))
+            elif isinstance(v, TiledMatrix):
+                return None
+            else:
+                sig.append((name, t.kind, tuple(v.shape), _dtype_name(v)))
+        return tuple(sig)
+
+    def _run_whole(self, inputs: dict):
+        # the call's inputs in their canonical dtypes where the caller put
+        # them: the entry copies them into its own buffers
+        from ..convert import inputs_from_numpy
+        env = inputs_from_numpy(inputs, None, self.program.params)
+        sig = self._signature(env)
+        if sig is None:
+            return None                       # packed inputs: eager path
+        # run-time hot-key probe (skew salting): the resolved factors are
+        # part of the cache key, and the probe's host copy runs before any
+        # graph
+        salts = collect_salts(self.plan, env, self.selector,
+                              self.config.skew_salting)
+        key = (sig, tuple(sorted(salts.items())))
+        left = self._whole_bad.get(key)
+        if left is not None:
+            # this signature's entry failed recently: sit out the rest of
+            # its disable ttl at the eager level, then re-attempt
+            if left > 1:
+                self._whole_bad[key] = left - 1
+                return None
+            del self._whole_bad[key]
+            self.whole_retries += 1
+            self.faults.record("retry", "whole",
+                               "signature disable ttl expired: "
+                               "re-attempting whole-program trace")
+        ent = self._whole_cache.get(key)
+        if ent is None:
+            from .graphs import Entry
+
+            def attempt():
+                F.site("lower.whole_trace", program=self.program.name)
+                entry = Entry(self.executor, self.plan, self.program.outputs,
+                              ExecContext(salts=salts), env)
+                return entry, entry.run(env)  # captures, then replays
+            try:
+                entry, out = F.run_with_retries(
+                    attempt, policy=self.policy, ledger=self.faults,
+                    label="whole")
+            except Exception as ex:           # noqa: BLE001 — ladder
+                self.trace_failures += 1
+                self._whole_bad[key] = self.policy.disable_ttl
+                self._last_whole_exc = _without_traceback(ex)
+                self.faults.descend("whole", "eager", ex)
+                return None                   # run() picks the rung
+            self.trace_count += 1
+            self._whole_cache[key] = (entry, dict(self.executor.decisions))
+            while len(self._whole_cache) > WHOLE_ENTRIES:
+                self._whole_cache.popitem(last=False)[1][0].free()
+            return out
+        entry, notes = ent
+        self._whole_cache.move_to_end(key)
+        self.cache_hits += 1
+        out = entry.run(env)
+        # restore the decisions noted when this signature was captured, so
+        # explain() stays accurate
+        self.executor.decisions.update(notes)
+        return out
+
     def run(self, inputs: dict) -> dict:
-        """Run the plan eagerly on this program's device.  A failure
-        surfaces as an exception; nothing descends to another rung."""
-        env = self.prepare_env(inputs)
-        self.execute(env, salts=collect_salts(
-            self.plan, env, self.selector, self.config.skew_salting))
-        return {n: env[n] for n in self.program.outputs}
+        whole_failed = False
+        if self.compile_mode == "whole":
+            self._last_whole_exc = None
+            out = self._run_whole(inputs)
+            if out is not None:
+                return out
+            whole_failed = self._last_whole_exc is not None
+
+        def eager():
+            env = self.prepare_env(inputs)
+            self.execute(env, salts=collect_salts(
+                self.plan, env, self.selector, self.config.skew_salting))
+            return {n: env[n] for n in self.program.outputs}
+
+        # degradation ladder: whole → eager per-node (the executor's own
+        # node fallback chains live inside) → the interpreter oracle (on
+        # the CPU only).
+        # Transients retry at each level with bounded backoff;
+        # deterministic errors get AT MOST one descent before surfacing
+        try:
+            out = F.run_with_retries(eager, policy=self.policy,
+                                     ledger=self.faults, label="eager")
+            if whole_failed:
+                self.faults.recover("eager")
+            return out
+        except Exception as ex:               # noqa: BLE001 — ladder
+            if F.classify(ex) == "deterministic" or \
+                    self.device.type != "cpu":
+                # a user error reproduces at every level: surface it, never
+                # fall through to the oracle (which would mask it).  On the
+                # card the oracle is no rung: it runs on the host, where
+                # the caller did not ask the program to run
+                raise
+            # a transient (or capacity error) persisting past the eager
+            # retries: the interpreter is the bottom rung — correct results
+            # from float64 numpy, not bit-identical (the ledger says so)
+            return self._run_interp(inputs, "eager", ex)
+
+    def _run_interp(self, inputs: dict, from_level: str, ex) -> dict:
+        self.faults.descend(from_level, "interp", ex)
+        from ..convert import to_tensor
+        from .interp import run as _oracle
+        out = _oracle(self.program, _host_inputs(inputs))
+        self.faults.recover("interp")
+        return {n: to_tensor(out[n], self.device)
+                for n in self.program.outputs}
+
+    def explain_faults(self) -> str:
+        """Render the failure ledger next to explain(): retry/descent/
+        recovery events plus the per-signature whole-program disable
+        state."""
+        text = self.faults.explain()
+        text += (f"\nwhole-program: {self.trace_failures} trace failures, "
+                 f"{len(self._whole_bad)} signatures sitting out ttl "
+                 f"(budget {self.policy.disable_ttl} runs), "
+                 f"{self.whole_retries} re-attempted")
+        return text
+
+
+def _without_traceback(ex: BaseException) -> BaseException:
+    """`ex` and the exceptions chained to it, without their tracebacks: a
+    kept traceback's frames would keep a failed entry's graphs, pool and
+    buffers alive."""
+    seen = set()
+    e = ex
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        e.__traceback__ = None
+        e = e.__cause__ or e.__context__
+    return ex
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _host_inputs(inputs: dict) -> dict:
+    """The interpreter's inputs: tensors as numpy arrays on the host."""
+    return {k: _host(v) for k, v in inputs.items()}
+
+
+def _host(v):
+    from .tiles import TiledMatrix, unpack
+    if isinstance(v, TiledMatrix):
+        v = unpack(v)
+    if isinstance(v, tuple):
+        return tuple(_host(c) for c in v)
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else v
 
 
 def compile_program(fn_or_prog, *, optimize_contractions=True,
                     op_select="cost", autotune_cache=None,
-                    compile_mode="eager", skew_salting="auto",
+                    compile_mode="whole", skew_salting="auto",
                     device="cuda") -> CompiledProgram:
     """Front door: loop program → restrictions check (Def. 3.1) →
     comprehension translation (Fig. 2) → pass pipeline (passes.py) →
@@ -1135,8 +1369,17 @@ def compile_program(fn_or_prog, *, optimize_contractions=True,
     everywhere its candidate set allows ("force:pallas" pins the CUDA
     segment kernel).  optimize_contractions=False is the paper-faithful
     plan (no einsum recognition).  skew_salting picks the hot-key salting
-    policy: "auto", "off" or "force:<S>".  compile_mode: only "eager" is
-    ported.  The planner's other switches keep the reference's defaults."""
+    policy: "auto", "off" or "force:<S>".
+
+    compile_mode picks the execution strategy of run(): "whole" (default)
+    captures the entire plan into ONE cached entry of CUDA graphs per
+    (dims, shapes, dtypes) signature and replays it (graphs.py; on the CPU
+    the same entry runs its regions eagerly); "eager" keeps the per-node
+    dispatch path, also the automatic fallback when an entry fails to build
+    or inputs arrive §5-packed.  A failure descends whole → eager, and on
+    the CPU on to the interpreter (faults.py); on the card an error that
+    persists at the eager level surfaces.  The planner's other switches
+    keep the reference's defaults."""
     prog = fn_or_prog if isinstance(fn_or_prog, Program) \
         else fn_or_prog.program
     check_restrictions(prog)

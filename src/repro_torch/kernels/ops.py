@@ -8,8 +8,15 @@ integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
 `tile_matmul.launches`; the scan kernel's fused entry
 `selective_scan_fused` counts in `selective_scan_fused.launches`), so a
 run can show that it went through the kernels.
+
+The counts are of launches that ran on the device.  A CUDA graph capture
+calls the wrappers, but launches nothing: `captured()` takes the counts the
+capture added back out and hands them to the caller, who `credit()`s them
+again on each replay of that graph.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 from ._build import build_all
 from .flash_attention import flash_attention
@@ -35,7 +42,32 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+@contextmanager
+def captured():
+    """Around a CUDA graph capture: yields a dict that, on exit, holds the
+    launches the captured work made by kernel, and leaves the counters as
+    they were before the capture (nothing ran on the device)."""
+    before = launch_counts()
+    took: dict = {}
+    try:
+        yield took
+    finally:
+        for name, fn in COUNTED.items():
+            added = fn.launches - before[name]
+            fn.launches = before[name]
+            if added:
+                took[name] = added
+
+
+def credit(counts: dict) -> None:
+    """Count `counts` launches (a replay of a graph that `captured()`
+    measured)."""
+    for name, n in counts.items():
+        COUNTED[name].launches += n
+
+
 __all__ = ["build_all", "segment_reduce", "segment_sum", "tile_matmul",
            "tile_matmul_packed", "flash_attention", "selective_scan",
            "selective_scan_fused",
-           "launch_counts", "reset_launch_counts", "KERNELS"]
+           "launch_counts", "reset_launch_counts", "captured", "credit",
+           "KERNELS"]

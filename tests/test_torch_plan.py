@@ -170,6 +170,17 @@ def test_device_defaults_to_cuda_and_refuses_the_cpu_silently():
         compile_program(ALL["count"])
 
 
-def test_whole_program_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_program(ALL["count"], compile_mode="whole", device="cpu")
+def test_whole_program_mode_is_the_default_and_eager_still_runs():
+    from test_core_programs import data_for
+    ins = data_for("count")
+    cp = compile_program(ALL["count"], device="cpu")
+    assert cp.compile_mode == "whole"
+    out = cp.run(ins)
+    assert cp.trace_count == 1
+    eager = compile_program(ALL["count"], compile_mode="eager", device="cpu")
+    assert float(eager.run(ins)["cnt"]) == float(out["cnt"])
+    assert eager.trace_count == 0
+    assert eager.explain().endswith(
+        "whole-program: mode=eager, 0 traced, 0 cache hits")
+    with pytest.raises(ValueError, match="compile_mode"):
+        compile_program(ALL["count"], compile_mode="jit", device="cpu")

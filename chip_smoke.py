@@ -33,7 +33,24 @@ first mismatch:
              programs the kernels serve, and the slowest, run once more in
              whole mode under torch.profiler for the device's busy time and
              idle share; the group-by programs run again with the segment
-             kernel pinned;
+             kernel pinned; memest's estimate beside each program's
+             measured peak (it must not be lower);
+5. ooc     — out-of-core and resume: group_by over 2^29 rows (4 GiB
+             pinned on the host) under budgets of memest's all-resident
+             estimate / 2 (whole-range chunks, bit-equal to all-resident
+             eager run()) and / 10 (sub-range chunks, within 1e-4, the
+             ledger says so), each with run ms, chunks, segment
+             launches, host -> device GB/s beside a bare pinned copy's,
+             device busy (the union of the copies' and kernels' profiled
+             intervals, and their overlap) and idle share, peak memory
+             under the budget, and the first run's bits unchanged by a
+             run queued behind it with no sync; pagerank on LiveJournal's shape streamed in 2
+             range-aligned chunks a pass, bit-equal to eager run() and
+             run_stepwise; pagerank under LoopRunner(every=2) killed at
+             iteration 5 and the stream killed at chunk 6, each resumed
+             bit-equal (snapshot save and restore ms); group_by in whole
+             mode under a process memory cap, a real out-of-memory error
+             descending to chunked with the same bits;
 4. serve   — serve llama3-8b and falcon-mamba-7b at full width and full
              depth (bf16, random weights from --seed, one model on the card
              at a time) through `repro_torch.serve.ServeEngine`: 4 slots,
@@ -46,7 +63,9 @@ first mismatch:
              card against the same weights on the CPU (the kernels' plain
              versions).
 
-The line before the last is a JSON object with one entry per kernel; the
+Phase 5 runs after phase 3 and before phase 4.  The line before the last
+is a JSON object with one entry per kernel (segment_reduce's launches
+count phases 3 and 5); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 
@@ -898,11 +917,28 @@ BIT_EQUAL = ("word_count", "histogram", "group_by", "pagerank",
              "kmeans_step")
 
 
+def _union_ms(spans) -> float:
+    """The time covered by the (start, end) intervals, in ms: work that
+    ran at the same time (a copy under a kernel) is counted once."""
+    total, end = 0.0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            total += hi - lo
+            end = hi
+        elif hi > end:
+            total += hi - end
+            end = hi
+    return total / 1e3
+
+
 def _profile(torch, name, fn, run_ms, top=5):
     """One more call of `fn` under torch.profiler: the device's busy time
-    (the sum of the durations of the kernels and copies it ran), its idle
-    share of `run_ms` (the unprofiled median of the same call), and the
-    kernels that took the most device time."""
+    (the union of the intervals of the kernels and copies it ran, so work
+    that overlapped counts once), its idle share of `run_ms` (the
+    unprofiled median of the same call; a negative share would mean the
+    profiled call kept the device busier than the unprofiled run lasted),
+    and the kernels that took the most device time.  Returns the device
+    time and count by name, and the intervals (start, end, name) in us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -911,20 +947,22 @@ def _profile(torch, name, fn, run_ms, top=5):
         fn()
         torch.cuda.synchronize()
     per: dict = {}
+    spans = []
     for e in prof.events():
         if e.device_type != DeviceType.CPU:
             ms, c = per.get(e.name, (0.0, 0))
             per[e.name] = (ms + e.device_time_total / 1e3, c + 1)
+            spans.append((e.time_range.start, e.time_range.end, e.name))
     if not per:
         log(f"[profile] {name}: the profiler recorded no device time")
-        return per
-    busy = sum(ms for ms, _ in per.values())
+        return per, spans
+    busy = _union_ms((lo, hi) for lo, hi, _ in spans)
     rows = sorted(((ms, k, c) for k, (ms, c) in per.items()), reverse=True)
     log(f"[profile] {name}: device busy {busy:.3f} ms of a {run_ms:.3f} ms "
         f"run (unprofiled median), idle share "
-        f"{max(0.0, 1.0 - busy / run_ms):.3f}; top kernels: "
+        f"{1.0 - busy / run_ms:.3f}; top kernels: "
         + "; ".join(f"{k[:70]} x{c} {ms:.3f} ms" for ms, k, c in rows[:top]))
-    return per
+    return per, spans
 
 
 def _kernel_functions():
@@ -944,7 +982,7 @@ def _profiled_launches(torch, ops, fns, name, fn, run_ms):
     program kernel that the device ran (by the names of its functions) and
     the launches its wrapper counted in that call."""
     before = ops.launch_counts()
-    per = _profile(torch, name, fn, run_ms)
+    per, _ = _profile(torch, name, fn, run_ms)
     after = ops.launch_counts()
     pats = {k: re.compile(r"::(?:%s)[<(]" % "|".join(v))
             for k, v in fns.items()}
@@ -1117,6 +1155,18 @@ def phase_main(torch, seed):
         for mode, c in (("whole", cp), ("eager", eager)):
             require(c.faults.counters["descend"] == 0,
                     f"{name}: {mode} mode descended: {c.explain_faults()}")
+        # memest's estimate of the temporaries above the resident inputs
+        # (peak - resident: the worst node's temps and destination copy),
+        # beside the peaks measured above the inputs already on the card
+        est = eager.estimate_memory(inputs)
+        est_temps = (est.peak_bytes - est.resident) / 1e9
+        log(f"[main] {name} memest: peak {est.peak_bytes / 1e9:.3f} GB = "
+            f"resident {est.resident / 1e9:.3f} + temps {est_temps:.3f} GB; "
+            f"measured peak above the inputs eager {peak_e:.3f} GB, whole "
+            f"{peak_w:.3f} GB")
+        require(est_temps >= peak_e,
+                f"{name}: memest's temps {est_temps:.3f} GB are under the "
+                f"measured eager peak {peak_e:.3f} GB")
         log(f"[main] {name} whole: traced {cp.trace_count}, cache hits "
             f"{cp.cache_hits} of {runs} calls, trace failures "
             f"{cp.trace_failures}; {entry_text}; host syncs a run whole "
@@ -1174,6 +1224,337 @@ def phase_main(torch, seed):
         del out, cp
         gc.collect()
         torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: out-of-core and resume
+# ---------------------------------------------------------------------------
+
+# group_by streamed from the host: 2^29 rows (keys and float32 values, 4 GiB
+# on the host) into 2^20 groups; budgets of the all-resident estimate / 2
+# and / 10, the ratios of benchmarks/outofcore_bench.py
+OOC_ROWS = 2 ** 29
+OOC_DIVS = (2, 10)
+# the process cap of the real out-of-memory case: below what group_by's
+# all-resident whole mode needs (4.3 GB of staged inputs and ~11 GB of
+# temporaries), above what one streamed range needs (~2.5 GB)
+OOC_CAP = 7e9
+# the injected kills: pagerank's loop at iteration 5, the stream at chunk 5
+KILL_ITER = KILL_CHUNK = 5
+
+
+def _device_split(torch, name, fn, run_ms):
+    """One profiled call: the device's busy ms (the union of its copies'
+    and kernels' intervals), the copies' and the kernels' own busy ms, and
+    the ms in which a copy ran under a kernel."""
+    _, spans = _profile(torch, name, fn, run_ms)
+    copies = [(lo, hi) for lo, hi, k in spans if "memcpy" in k.lower()]
+    kernels = [(lo, hi) for lo, hi, k in spans if "memcpy" not in k.lower()]
+    busy = _union_ms((lo, hi) for lo, hi, _ in spans)
+    copy, kern = _union_ms(copies), _union_ms(kernels)
+    return busy, copy, kern, copy + kern - busy
+
+
+def _timed_runs(torch, fn, reps=3):
+    """One warm-up call, then `reps` calls timed by the host clock ending in
+    a synchronize; the last output and the sorted ms."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(times)
+
+
+def _counted(ops, fn):
+    """`fn()` with the launch counts set to 0 just before it; the output
+    and the segment kernel launches it made."""
+    ops.reset_launch_counts()
+    out = fn()
+    return out, ops.launch_counts()["segment_reduce"]
+
+
+def _ooc_group_by(torch, np, ops, rng, tmp):
+    from repro_torch.core import compile_program
+    from repro_torch.core import faults as F
+    from repro_torch.core.programs import ALL
+    from repro_torch.kernels.segment_reduce import RANGE_ROWS
+    from repro_torch.runtime import LoopRunner
+    t0 = time.perf_counter()
+    keys = rng.integers(0, GROUPS, OOC_ROWS, dtype=np.int32).astype(
+        np.float32)
+    vals = rng.standard_normal(OOC_ROWS, dtype=np.float32)
+    host = (torch.from_numpy(keys).pin_memory(),
+            torch.from_numpy(vals).pin_memory())
+    ref64 = np.bincount(keys.astype(np.int64), weights=vals.astype(
+        np.float64), minlength=GROUPS)
+    del keys, vals
+    inputs = dict(S=host, C=torch.zeros(GROUPS, device="cuda"))
+    bag_bytes = sum(c.numel() * c.element_size() for c in host)
+    log(f"[ooc] group_by: {OOC_ROWS} rows into {GROUPS} groups, "
+        f"{bag_bytes / 2 ** 30:.2f} GiB pinned on the host, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # a bare pinned host → device copy of the same bytes: the rate to beat
+    dev = [torch.empty_like(c, device="cuda") for c in host]
+    bare_ms = time_ms(torch, lambda: [d.copy_(c, non_blocking=True)
+                                      for d, c in zip(dev, host)], reps=3)
+    bare_gbs = bag_bytes / bare_ms / 1e6
+    del dev
+    log(f"[ooc] bare pinned host -> device copy: {bare_gbs:.2f} GB/s "
+        f"({bare_ms:.3f} ms for the bag)")
+    # the all-resident reference: eager run() of the same host inputs
+    eager = compile_program(ALL["group_by"], compile_mode="eager")
+    est = eager.estimate_memory(inputs)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref, t_ref = _timed_runs(torch, lambda: eager.run(inputs))
+    peak_ref = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ref = ref["C"]
+    err64 = _rel_err(ref.cpu().numpy(), ref64)
+    require(err64 <= DEFAULT_TOL, f"group_by all-resident: rel err {err64} "
+            "against the numpy float64 reference")
+    del ref64
+    log(f"[ooc] group_by all-resident eager run(): {_ms_text(t_ref)}; rel "
+        f"err {err64:.3g} against numpy float64; peak "
+        f"{peak_ref:.3f} GB above the start; memest peak "
+        f"{est.peak_bytes / 1e9:.3f} GB, per row "
+        f"{est.per_row('S')} B, fixed {est.fixed_bytes / 1e9:.3f} GB")
+    launches = 0
+    for div in OOC_DIVS:
+        budget = est.peak_bytes // div
+        cp = compile_program(ALL["group_by"], memory_budget=budget)
+        rows = cp._initial_chunk_rows(inputs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first, n = _counted(ops, lambda: cp.run(inputs))
+        launches += n
+        peak = torch.cuda.max_memory_allocated() - base
+        # the warm-up run is queued right behind the counted one, with no
+        # host sync between them: the counted run's bits must survive it
+        out, times = _timed_runs(torch, lambda: cp.run(inputs))
+        require(torch.equal(first["C"], out["C"]),
+                f"group_by / {div}: a run's output changed when the next "
+                "run was queued behind it with no sync")
+        del first
+        med = times[len(times) // 2]
+        busy, copy_ms, kern_ms, both_ms = _device_split(
+            torch, f"group_by chunked / {div}", lambda: cp.run(inputs), med)
+        chunks = -(-OOC_ROWS // rows)
+        whole = rows % RANGE_ROWS == 0
+        err = float((out["C"] - ref).abs().max()) / float(ref.abs().max())
+        same = torch.equal(out["C"], ref)
+        text = cp.explain_faults()
+        log(f"[ooc] group_by budget = estimate / {div} = "
+            f"{budget / 1e9:.3f} GB: run() {_ms_text(times)} against "
+            f"all-resident eager {t_ref[len(t_ref) // 2]:.3f} ms; chunk rows "
+            f"{rows} ({'whole ranges' if whole else 'sub-range'}), "
+            f"{chunks} chunks, {n} segment launches a run; host -> device "
+            f"{bag_bytes / med / 1e6:.2f} GB/s of the run (bare copy "
+            f"{bare_gbs:.2f}); device busy {busy:.3f} ms (copies "
+            f"{copy_ms:.3f}, kernels {kern_ms:.3f}, both at once "
+            f"{both_ms:.3f}) of {med:.3f}, idle share "
+            f"{1.0 - busy / med:.3f}; peak {peak / 1e9:.3f} GB "
+            f"above the start, budget {budget / 1e9:.3f}, memest for the "
+            f"tile {(est.fixed_bytes + rows * est.per_row('S')) / 1e9:.3f} "
+            f"GB; rel err {err:.3g}, bits equal {same}")
+        require(cp.faults.counters["admission"] >= 1,
+                f"group_by / {div}: not admitted to the chunked tier")
+        require(peak <= budget, f"group_by / {div}: peak {peak} B above the "
+                f"budget {budget} B")
+        require(n == -(-OOC_ROWS // min(rows, RANGE_ROWS)),
+                f"group_by / {div}: {n} segment launches for {chunks} "
+                f"chunks of {rows} rows")
+        if whole:
+            require(same, f"group_by / {div}: whole-range chunks are not "
+                    "bit-equal to the all-resident run")
+            require("inexact" not in text, f"group_by / {div}: {text}")
+        else:
+            require(err <= 1e-4, f"group_by / {div}: rel err {err}")
+            require("not bit-identical" in text,
+                    f"group_by / {div}: the ledger does not say the "
+                    f"sub-range tiles are not bit-identical: {text}")
+        del out, cp
+    # killed at chunk 5 and resumed: the uninterrupted stream's bits, fewer
+    # chunks run
+    d = tmp / "group_by"
+
+    def streamed():
+        c = compile_program(ALL["group_by"], out_of_core="force",
+                            chunk_rows=RANGE_ROWS)
+        c.faults.sleep = lambda s: None
+        return c
+    runner = LoopRunner(streamed(), str(d), every=1)
+    try:
+        with F.inject(F.FaultSpec("lower.chunk_step", "deterministic",
+                                  nth=KILL_CHUNK + 1, times=10 ** 6)):
+            _counted(ops, lambda: runner.run(inputs, resume=False))
+        require(False, "group_by: the injected kill did not fire")
+    except F.DeterministicFault:
+        launches += ops.launch_counts()["segment_reduce"]
+    cp = streamed()
+    resumed = LoopRunner(cp, str(d), every=1)
+    t0 = time.perf_counter()
+    out, n = _counted(ops, lambda: resumed.run(inputs, resume=True))
+    torch.cuda.synchronize()
+    res_ms = (time.perf_counter() - t0) * 1e3
+    launches += n
+    cold = -(-OOC_ROWS // RANGE_ROWS)
+    log(f"[ooc] group_by killed at chunk {KILL_CHUNK + 1} of {cold} and "
+        f"resumed from checkpoint step {resumed.resumed_from}: "
+        f"{cp.chunker.chunks_run} chunks run (cold {cold}), {res_ms:.1f} ms, "
+        f"bits equal {torch.equal(out['C'], ref)}")
+    require(torch.equal(out["C"], ref) and cp.chunker.chunks_run < cold,
+            f"group_by resume: bits equal {torch.equal(out['C'], ref)}, "
+            f"{cp.chunker.chunks_run} chunks of {cold}")
+    del out, cp, runner, resumed
+    # a real out-of-memory error: the process capped below the
+    # all-resident whole mode's need, which descends to chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    frac = (torch.cuda.memory_allocated() + OOC_CAP) / total
+    torch.cuda.set_per_process_memory_fraction(frac)
+    try:
+        cp = compile_program(ALL["group_by"])
+        cp.faults.sleep = lambda s: None
+        out, n = _counted(ops, lambda: cp.run(inputs))
+        launches += n
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    text = cp.explain_faults()
+    log(f"[ooc] group_by whole mode under a cap of {OOC_CAP / 1e9:.1f} GB "
+        f"(fraction {frac:.4f}): level reached "
+        f"{cp.faults.level_reached!r}, {n} segment launches, bits equal "
+        f"{torch.equal(out['C'], ref)}; ledger: "
+        + " | ".join(ln.strip() for ln in text.splitlines()[1:3]))
+    require(cp.faults.level_reached == "chunked"
+            and "whole->chunked" in text and "out of memory" in text.lower(),
+            f"group_by under the cap did not descend whole -> chunked on a "
+            f"real out-of-memory error: {text}")
+    require(torch.equal(out["C"], ref),
+            "group_by under the cap: not bit-equal to all-resident")
+    del out, cp, inputs, host, ref
+    return launches
+
+
+def _ooc_pagerank(torch, np, ops, rng, tmp):
+    from repro_torch.core import compile_program
+    from repro_torch.core import faults as F
+    from repro_torch.core.programs import ALL
+    from repro_torch.kernels.segment_reduce import RANGE_ROWS
+    from repro_torch.runtime import LoopRunner
+    src = rng.integers(0, PR_VERTICES, PR_EDGES, dtype=np.int32).astype(
+        np.float32)
+    dst = rng.integers(0, PR_VERTICES, PR_EDGES, dtype=np.int32).astype(
+        np.float32)
+    inputs = dict(E=(torch.from_numpy(src).pin_memory(),
+                     torch.from_numpy(dst).pin_memory()),
+                  P=np.full(PR_VERTICES, 1.0 / PR_VERTICES, np.float32),
+                  NP=np.zeros(PR_VERTICES, np.float32),
+                  C=np.zeros(PR_VERTICES, np.float32), N=PR_VERTICES,
+                  num_steps=float(PR_STEPS), steps=0.0, b=0.85)
+    del src, dst
+    eager = compile_program(ALL["pagerank"], compile_mode="eager")
+    ref, t_ref = _timed_runs(torch, lambda: eager.run(inputs), reps=1)
+    step = eager.run_stepwise(inputs)
+    require(all(torch.equal(step[k], ref[k]) for k in ref),
+            "pagerank: run_stepwise is not bit-equal to eager run()")
+    require(all(torch.isfinite(v).all().item() for v in ref.values()),
+            "pagerank: non-finite output")
+    # a budget that fits one range of edges a chunk: E streams in 2
+    # range-aligned chunks a step
+    est = eager.estimate_memory(inputs)
+    budget = est.fixed_bytes + RANGE_ROWS * est.per_row("E")
+    cp = compile_program(ALL["pagerank"], out_of_core="force",
+                         memory_budget=budget)
+    rows = cp._initial_chunk_rows(inputs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, n = _counted(ops, lambda: cp.run(inputs))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    chunks = cp.chunker.chunks_run
+    same = all(torch.equal(out[k], ref[k]) for k in ref)
+    log(f"[ooc] pagerank {PR_VERTICES} vertices {PR_EDGES} edges "
+        f"{PR_STEPS} steps, budget {budget / 1e9:.3f} GB: chunk rows {rows}, "
+        f"{chunks} chunks a run ({chunks // (PR_STEPS + 1)} a pass), {n} "
+        f"segment launches; run() {ms:.1f} ms against all-resident eager "
+        f"{t_ref[0]:.1f} ms; peak {peak / 1e9:.3f} GB above the start; bits "
+        f"equal to eager run() and run_stepwise {same}")
+    require(rows == RANGE_ROWS and chunks == 2 * (PR_STEPS + 1),
+            f"pagerank: {rows} rows, {chunks} chunks")
+    require(same, "pagerank chunked: not bit-equal to all-resident")
+    require(peak <= budget, f"pagerank: peak {peak} B above {budget} B")
+    launches = n
+    # LoopRunner every 2, killed at iteration 5, resumed
+    d = tmp / "pagerank"
+    cpk = compile_program(ALL["pagerank"], compile_mode="eager")
+    cpk.faults.sleep = lambda s: None
+    runner = LoopRunner(cpk, str(d), every=2)
+    saves = []
+    mgr_save = runner.mgr.save
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        mgr_save(*a, **kw)
+        saves.append((time.perf_counter() - t) * 1e3)
+    runner.mgr.save = timed_save
+    try:
+        with F.inject(F.FaultSpec("lower.loop_iter", "deterministic",
+                                  nth=KILL_ITER + 1)):
+            _counted(ops, lambda: runner.run(inputs, resume=False))
+        require(False, "pagerank: the injected kill did not fire")
+    except F.DeterministicFault:
+        launches += ops.launch_counts()["segment_reduce"]
+    resumed = LoopRunner(cpk, str(d), every=2)
+    t0 = time.perf_counter()
+    latest = resumed.mgr.latest()
+    resumed.mgr.restore_flat(latest)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    out, n = _counted(ops, lambda: resumed.run(inputs, resume=True))
+    launches += n
+    same = all(torch.equal(out[k], step[k]) for k in step)
+    log(f"[ooc] pagerank LoopRunner(every=2) killed at iteration "
+        f"{KILL_ITER}, resumed from checkpoint step {resumed.resumed_from}: "
+        f"bits equal to the uninterrupted run_stepwise {same}; snapshot save "
+        f"ms {[round(x, 1) for x in saves]}, restore {restore_ms:.1f} ms "
+        f"(3 carries of {PR_VERTICES} float32)")
+    require(same and resumed.resumed_from is not None,
+            "pagerank resume: not bit-equal to the uninterrupted run")
+    return launches
+
+
+def phase_ooc(torch, seed):
+    """Out-of-core and resume; returns the segment kernel's launches on
+    this phase's path (the streamed runs, the killed and resumed ones)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed + 5)
+    # the checkpoints live in the checkout's git-ignored output directory
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp = Path(tmp)
+        launches = _ooc_group_by(torch, np, ops, rng, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches += _ooc_pagerank(torch, np, ops, rng, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ooc] segment_reduce launches on the out-of-core path: {launches}")
+    require(launches > 0, "segment_reduce was not launched out of core")
+    ops.reset_launch_counts()
     return launches
 
 
@@ -1395,6 +1776,9 @@ def main(argv=None) -> int:
         phase_build(torch, args.parent)
         per_kernel = phase_kernels(torch, args.seed)
         launches = phase_main(torch, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["segment_reduce"] += phase_ooc(torch, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
         launches.update(phase_serve(torch, args.seed))

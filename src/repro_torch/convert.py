@@ -42,8 +42,9 @@ def to_tensor(v, device, dtype=None) -> torch.Tensor:
         t = torch.tensor(float(v), dtype=torch.float32)
     else:
         a = np.asarray(v)
-        a = np.ascontiguousarray(a.astype(_NP_CANON.get(a.dtype, a.dtype),
-                                          copy=False))
+        a = a.astype(_NP_CANON.get(a.dtype, a.dtype), copy=False)
+        if not a.flags.c_contiguous:   # (ascontiguousarray makes 0-d 1-d)
+            a = np.ascontiguousarray(a)
         if not a.flags.writeable:    # torch tensors are always writable
             a = a.copy()
         t = torch.from_numpy(a)

@@ -50,10 +50,12 @@ the WHOLE_ENTRIES latest signatures, a signature whose entry fails to build
 sitting out `policy.disable_ttl` runs), the per-node eager path under it,
 and, for a program the caller put on the CPU, the sequential interpreter at
 the bottom of the fault ladder (faults.py, a copy of the reference's; on
-the card an error that persists at the eager level surfaces).  The
-out-of-core tier, buffer donation, checkpointed stepwise runs and the
-batched serving entry are later work (ROADMAP.md): the ladder is the
-reference's with out_of_core="off".
+the card an error that persists at the eager level surfaces).  A capacity
+error takes the out-of-core rung (chunked.py), whole → chunked and eager →
+chunked, and a call whose memest estimate exceeds `memory_budget` streams
+from the start; `run_stepwise` is the checkpointable entry (host loops
+numbered, an observer after each iteration or chunk).  Buffer donation
+(`donate=`) and the batched serving entry are later work (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -271,19 +273,34 @@ class Axes:
 class ExecContext:
     """Per-call plan parameters.
 
+      bag_offsets   bag → global index of the first row its columns hold
+                    (a chunk of an out-of-core stream is a window of the
+                    bag): the bag index var is global, so a store keyed by
+                    it writes the window's own rows
       bag_limits    bag → logical row count when its columns were padded
-                    (a serving bucket): rows at or beyond it are masked
+                    (a serving bucket): rows whose GLOBAL index is at or
+                    beyond it are masked
       array_limits  array → logical dim-0 length of a padded dense array:
                     reads beyond it are masked and writes dropped, so pad
                     rows never change a result (paper §3.4)
       salts         group-by dest → salt factor the run-time hot-key probe
                     chose (op_select.probe_hot_fraction + choose_salt)
+      partials      group-by dest → its running [K] partial (None before
+                    the first range), for the chunk steps of an
+                    out-of-core run on the card (chunked.py): a node of a
+                    flattened backend folds its segment results into the
+                    partial range by range, in row order, and leaves the
+                    destination as it is, so that the stream's fold is the
+                    all-resident one (the segment kernel's order is fixed
+                    by ranges of RANGE_ROWS rows)
 
-    The reference's per-shard fields (bag/row offsets, axis overrides,
+    The reference's per-shard fields (row offsets, axis overrides,
     alignment certificates) come with the distributed slice."""
+    bag_offsets: dict = field(default_factory=dict)
     bag_limits: dict = field(default_factory=dict)
     array_limits: dict = field(default_factory=dict)
     salts: dict = field(default_factory=dict)
+    partials: dict = field(default_factory=dict)
 
 
 _EMPTY_CTX = ExecContext()
@@ -429,7 +446,8 @@ class PlanExecutor:
                 cols = bagv if isinstance(bagv, tuple) else (bagv,)
                 n = int(cols[0].shape[0])
                 ax.add(a.var, n)
-                binding[a.var] = ("range", a.var, 0)
+                binding[a.var] = ("range", a.var,
+                                  int(ctx.bag_offsets.get(a.bag, 0)))
         base_masks = []
         for a in space.axes:
             if a.kind == "range":
@@ -440,8 +458,9 @@ class PlanExecutor:
                 binding[v] = ("bagval", a.var, cols[j])
             lim = ctx.bag_limits.get(a.bag)
             if lim is not None:
+                off = binding[a.var][2]
                 base_masks.append(ax.expand(
-                    self._arange(ax.extent[a.var]) < lim, a.var))
+                    (off + self._arange(ax.extent[a.var])) < lim, a.var))
         return ax, binding, list(space.conds), base_masks
 
     # ---- expression evaluation over the iteration space ----
@@ -541,6 +560,13 @@ class PlanExecutor:
     def execute(self, nodes, env, ctx: ExecContext = _EMPTY_CTX):
         for node in nodes:
             if isinstance(node, P.SeqLoop):
+                if node.cond is None and getattr(node, "chunk_bag", None):
+                    # a ChunkLoop (chunked.py) reaching the plain executor:
+                    # the whole bag is resident here, so the stream
+                    # degrades to one all-resident "tile" — plain
+                    # sequencing of the body, same results
+                    self.execute(node.body, env, ctx)
+                    continue
                 self._exec_seq_loop(node, env, ctx)
             elif isinstance(node, P.FusedRound):
                 # round-fusion region: plain sequencing on a single device
@@ -746,7 +772,13 @@ class PlanExecutor:
                                          dest.shape, limit0=lim0)
             if m is not None:
                 flat = torch.where(m.reshape(-1), flat, num)
-            salt = self._arange(flat.shape[0]) % salt_s
+            # the GLOBAL row index keeps the assignment independent of how
+            # the bag was cut into windows
+            off = 0
+            lead = node.space.axes[0] if node.space.axes else None
+            if lead is not None and lead.kind == "bag":
+                off = int(ctx.bag_offsets.get(lead.bag, 0))
+            salt = (off + self._arange(flat.shape[0])) % salt_s
             salted = torch.where(flat < num, flat * salt_s + salt,
                                  num * salt_s)
             vflat = val.reshape(-1).to(dest.dtype)
@@ -768,6 +800,15 @@ class PlanExecutor:
             if m is not None:
                 flat = torch.where(m.reshape(-1), flat, num)  # dropped
             vflat = val.reshape(-1).to(dest.dtype)
+            if node.dest in ctx.partials:
+                # a chunk step (segment kernel): fold into the running
+                # partial, range by range; the destination takes it after
+                # the last chunk
+                from ..kernels import ops as kops
+                ctx.partials[node.dest] = kops.segment_reduce(
+                    flat, vflat, num, op=node.op,
+                    init=ctx.partials[node.dest])
+                return dest
             seg = segment_flat(backend, flat, vflat, num, node.op)
             return COMBINE[node.op](
                 dest, seg.reshape(dest.shape).to(dest.dtype))
@@ -1052,19 +1093,34 @@ class PlanExecutor:
         return COMBINE[node.op](dest, total.to(dest.dtype))
 
     # ---- sequential loop ----
-    def _exec_seq_loop(self, node: P.SeqLoop, env, ctx):
+    def _exec_seq_loop(self, node: P.SeqLoop, env, ctx, *, li=None, it=0,
+                       observer=None, body=None):
         """A host loop: the condition costs one device sync per iteration.
         Each iteration sees the env as it was before the loop plus the
         current carry; only the carry leaves the loop (the reference's
-        while_loop semantics)."""
+        while_loop semantics).
+
+        The stepwise entries number the loop (`li`, plan.seq_loops order):
+        then every iteration passes the `lower.loop_iter` site, counts
+        from `it` (a resumed loop's), and calls ``observer(li, it,
+        carry)`` after it.  `body(env)` replaces the body's execution (the
+        out-of-core runner streams it)."""
         carry = {n: self._t(env[n]) for n in node.carry}
         while True:
             e2 = dict(env)
             e2.update(carry)
             if not bool(self.loop_cond(node, e2, ctx)):
                 break
-            self.execute(node.body, e2, ctx)
+            if li is not None:
+                F.site("lower.loop_iter", loop=li, iteration=it)
+            if body is None:
+                self.execute(node.body, e2, ctx)
+            else:
+                body(e2)
             carry = {n: self._t(e2[n]) for n in node.carry}
+            it += 1
+            if observer is not None:
+                observer(li, it, dict(carry))
         env.update(carry)
 
     def loop_cond(self, node: P.SeqLoop, env,
@@ -1102,9 +1158,13 @@ def resolve_device(device) -> torch.device:
 class CompiledProgram:
     def __init__(self, prog: Program, target, optimize_contractions=True,
                  op_select="cost", autotune_cache=None,
-                 compile_mode="whole", skew_salting="auto", device="cuda"):
+                 compile_mode="whole", skew_salting="auto",
+                 out_of_core="auto", memory_budget=None, chunk_rows=None,
+                 device="cuda"):
         if compile_mode not in ("whole", "eager"):
             raise ValueError(f"unknown compile_mode {compile_mode!r}")
+        if out_of_core not in ("auto", "force", "off"):
+            raise ValueError(f"unknown out_of_core {out_of_core!r}")
         self.program = prog
         self.target = target
         self.device = resolve_device(device)
@@ -1114,7 +1174,10 @@ class CompiledProgram:
         self.config = PlanConfig(optimize_contractions=optimize_contractions,
                                  op_select=op_select,
                                  autotune_cache=autotune_cache,
-                                 skew_salting=skew_salting)
+                                 skew_salting=skew_salting,
+                                 out_of_core=out_of_core,
+                                 memory_budget=memory_budget,
+                                 chunk_rows=chunk_rows)
         self.plan = plan_program(target, prog, self.config)
         from .dist_analysis import collect
         self.dists = collect(self.plan)   # array → Dist (pass-8 annotations)
@@ -1144,6 +1207,18 @@ class CompiledProgram:
         self.faults = F.FaultLedger(prog.name)   # failure ledger
         self.policy = F.RetryPolicy()
         self._last_whole_exc = None    # why the LAST _run_whole descended
+        # ---- out-of-core capacity tier (chunked.py) ----
+        # out_of_core: "auto" = admit against memory_budget when set, and
+        # descend to chunked streaming on classified capacity errors;
+        # "force" = every run() streams; "off" = capacity bottoms out at
+        # the eager (on the CPU, interp) rung.  chunk_rows pins the tile;
+        # None derives it from the budget via memest/choose_chunk_rows
+        self.out_of_core = out_of_core
+        self.memory_budget = memory_budget
+        self.chunk_rows = chunk_rows
+        self._chunker = None           # lazy chunked.ChunkRunner
+        self._mem_last = None          # last memest.MemEstimate (explain)
+        self._mem_cache: dict = {}     # shape key → MemEstimate
 
     @property
     def _whole_disabled(self) -> bool:
@@ -1168,12 +1243,98 @@ class CompiledProgram:
                     f"({len(self._whole_bad)} signatures sitting out ttl, "
                     f"{self.whole_retries} re-attempted)"
                     if self.trace_failures or self.whole_retries else ""))
+        if self._mem_last is not None:
+            text += "\n" + self._mem_last.summary(self.memory_budget)
         return text
 
+    # ---- out-of-core capacity tier (chunked.py) ----
+    @property
+    def chunker(self):
+        if self._chunker is None:
+            from .chunked import ChunkRunner
+            self._chunker = ChunkRunner(self)
+        return self._chunker
+
+    def estimate_memory(self, inputs: dict):
+        """Peak-device-bytes estimate for this call's shapes (memest.py),
+        the admission check's input; cached per shape class and shown by
+        explain() and explain_memory()."""
+        from . import memest
+        senv = memest.shape_env(self.program, inputs)
+        key = tuple(sorted((n, repr(e)) for n, e in senv.items()))
+        est = self._mem_cache.get(key)
+        if est is None:
+            est = memest.estimate(self.plan, self.program, senv)
+            self._mem_cache[key] = est
+        self._mem_last = est
+        return est
+
+    def explain_memory(self, inputs: dict) -> str:
+        return self.estimate_memory(inputs).explain(self.memory_budget)
+
+    def explain_chunked(self) -> str:
+        """The chunked (out-of-core) form of the plan, ChunkLoops shown."""
+        return self.chunker.explain()
+
+    def _ooc_admits(self, inputs: dict) -> bool:
+        """True when this call must take the chunked tier up front: forced,
+        or its estimated peak exceeds the memory budget (the hard
+        admission check: stream instead of running out of memory)."""
+        if self.out_of_core == "force":
+            return True
+        if self.out_of_core == "off" or self.memory_budget is None:
+            return False
+        est = self.estimate_memory(inputs)
+        if est.peak_bytes > self.memory_budget:
+            from .memest import fmt_bytes
+            self.faults.record(
+                "admission", "chunked",
+                f"estimated peak {fmt_bytes(est.peak_bytes)} > budget "
+                f"{fmt_bytes(self.memory_budget)}: streaming chunked")
+            return True
+        return False
+
+    def _initial_chunk_rows(self, inputs: dict) -> int:
+        if self.chunk_rows:
+            return int(self.chunk_rows)
+        from .chunked import choose_chunk_rows, default_chunk_rows
+        if self.memory_budget is not None:
+            return choose_chunk_rows(self.estimate_memory(inputs),
+                                     self.memory_budget)
+        return default_chunk_rows(self.device)
+
+    def _run_chunked(self, inputs: dict, *, observer=None, loop_state=None,
+                     recovering=False):
+        """The chunked rung: stream bag tiles through resident
+        accumulators (chunked.py).  A capacity error INSIDE the stream
+        halves the tile and retries (descending the memory curve, never
+        ascending it) until a 1-row tile fails too."""
+        rows = self._initial_chunk_rows(inputs)
+        while True:
+            try:
+                out = self.chunker.run(inputs, chunk_rows=rows,
+                                       observer=observer,
+                                       loop_state=loop_state)
+                if recovering:
+                    self.faults.recover("chunked")
+                return out
+            except Exception as ex:           # noqa: BLE001 — ladder
+                if F.classify(ex) != "capacity" or rows <= 1:
+                    raise
+                # the failed stream's buffers die with its frames
+                _without_traceback(ex)
+                self.faults.descend(f"chunked[{rows}]",
+                                    f"chunked[{rows // 2}]", ex)
+                rows //= 2
+                recovering = True
+
     # -- public execution interface --
-    def execute(self, env: dict, *, bag_limits=None, array_limits=None,
-                nodes=None, salts=None) -> None:
-        ctx = ExecContext(bag_limits or {}, array_limits or {}, salts or {})
+    def execute(self, env: dict, *, bag_offsets=None, bag_limits=None,
+                array_limits=None, nodes=None, salts=None) -> None:
+        ctx = ExecContext(bag_offsets=bag_offsets or {},
+                          bag_limits=bag_limits or {},
+                          array_limits=array_limits or {},
+                          salts=salts or {})
         self.executor.execute(self.plan if nodes is None else nodes, env, ctx)
 
     def prepare_env(self, inputs: dict) -> dict:
@@ -1245,7 +1406,12 @@ class CompiledProgram:
                 self.trace_failures += 1
                 self._whole_bad[key] = self.policy.disable_ttl
                 self._last_whole_exc = _without_traceback(ex)
-                self.faults.descend("whole", "eager", ex)
+                # capacity never ascends the memory curve: the chunked
+                # tier is the rung, not eager (the same all-resident
+                # buffers, the same out-of-memory error)
+                to = "chunked" if (F.classify(ex) == "capacity"
+                                   and self.out_of_core != "off") else "eager"
+                self.faults.descend("whole", to, ex)
                 return None                   # run() picks the rung
             self.trace_count += 1
             self._whole_cache[key] = (entry, dict(self.executor.decisions))
@@ -1262,13 +1428,22 @@ class CompiledProgram:
         return out
 
     def run(self, inputs: dict) -> dict:
+        # hard admission check: a call whose estimated peak exceeds the
+        # memory budget streams chunked from the start
+        if self._ooc_admits(inputs):
+            return self._run_chunked(inputs)
         whole_failed = False
         if self.compile_mode == "whole":
             self._last_whole_exc = None
             out = self._run_whole(inputs)
             if out is not None:
                 return out
-            whole_failed = self._last_whole_exc is not None
+            ex = self._last_whole_exc
+            whole_failed = ex is not None
+            if whole_failed and F.classify(ex) == "capacity" \
+                    and self.out_of_core != "off":
+                # whole → chunked: the capacity rung
+                return self._run_chunked(inputs, recovering=True)
 
         def eager():
             env = self.prepare_env(inputs)
@@ -1277,10 +1452,12 @@ class CompiledProgram:
             return {n: env[n] for n in self.program.outputs}
 
         # degradation ladder: whole → eager per-node (the executor's own
-        # node fallback chains live inside) → the interpreter oracle (on
-        # the CPU only).
+        # node fallback chains live inside) → chunked streaming for
+        # capacity, the interpreter oracle (on the CPU only) for the rest.
         # Transients retry at each level with bounded backoff;
-        # deterministic errors get AT MOST one descent before surfacing
+        # deterministic errors get AT MOST one descent before surfacing.
+        # On the card the oracle is no rung: it runs on the host, where
+        # the caller did not ask the program to run
         try:
             out = F.run_with_retries(eager, policy=self.policy,
                                      ledger=self.faults, label="eager")
@@ -1288,12 +1465,23 @@ class CompiledProgram:
                 self.faults.recover("eager")
             return out
         except Exception as ex:               # noqa: BLE001 — ladder
-            if F.classify(ex) == "deterministic" or \
-                    self.device.type != "cpu":
+            if F.classify(ex) == "deterministic":
                 # a user error reproduces at every level: surface it, never
-                # fall through to the oracle (which would mask it).  On the
-                # card the oracle is no rung: it runs on the host, where
-                # the caller did not ask the program to run
+                # fall through to the oracle (which would mask it)
+                raise
+            if F.classify(ex) == "capacity" and self.out_of_core != "off":
+                # eager → chunked: stream tiles; the eager run's buffers
+                # die with its frames first
+                _without_traceback(ex)
+                self.faults.descend("eager", "chunked", ex)
+                try:
+                    return self._run_chunked(inputs, recovering=True)
+                except Exception as ex2:      # noqa: BLE001 — ladder
+                    if F.classify(ex2) == "deterministic" or \
+                            self.device.type != "cpu":
+                        raise
+                    return self._run_interp(inputs, "chunked", ex2)
+            if self.device.type != "cpu":
                 raise
             # a transient (or capacity error) persisting past the eager
             # retries: the interpreter is the bottom rung — correct results
@@ -1319,6 +1507,55 @@ class CompiledProgram:
                  f"(budget {self.policy.disable_ttl} runs), "
                  f"{self.whole_retries} re-attempted")
         return text
+
+    # ---- checkpointable execution ----
+    def run_stepwise(self, inputs: dict, *, loop_state=None, observer=None):
+        """Eager execution with the top-level sequential loops numbered
+        (plan.seq_loops order) — the checkpoint/resume entry.  After every
+        iteration of loop `li`, ``observer(li, iteration, carry)`` gets
+        the loop carry as live tensors: runtime/ft.LoopRunner snapshots it
+        through CheckpointManager.
+
+        ``loop_state`` maps li → (iteration, {carry: array}) and fast-
+        forwards that loop: the nodes before it run again (pure and
+        deterministic from the same inputs), the carry is restored in the
+        inputs' canonical dtypes (convert.to_tensor), and iteration goes
+        on from there.  A resumed run is bit-identical to an uninterrupted
+        one: both run the same per-iteration computations on the same
+        carry values.  The loop is the eager path's own host loop, so a
+        stepwise run has eager run()'s bits too.
+
+        Out-of-core runs route to the chunked plan, whose top-level
+        ChunkLoops are SeqLoops in this numbering: the observer fires once
+        per CHUNK with the accumulator carry, so LoopRunner checkpoints
+        resume a killed stream at its last chunk."""
+        if self._ooc_admits(inputs):
+            return self._run_chunked(inputs, observer=observer,
+                                     loop_state=loop_state)
+        env = self.prepare_env(inputs)
+        ctx = ExecContext(salts=collect_salts(
+            self.plan, env, self.selector, self.config.skew_salting))
+        loop_state = dict(loop_state or {})
+        li = 0
+        for node in P.flatten(self.plan):
+            if not isinstance(node, P.SeqLoop):
+                self.executor.execute([node], env, ctx)
+                continue
+            it = 0
+            st = loop_state.get(li)
+            if st is not None:
+                it, carry = st
+                env.update(self.carry_in(node.carry, carry))
+            self.executor._exec_seq_loop(node, env, ctx, li=li, it=it,
+                                         observer=observer)
+            li += 1
+        return {n: env[n] for n in self.program.outputs}
+
+    def carry_in(self, names, carry: dict) -> dict:
+        """A restored loop carry on this program's device, in the
+        canonical dtypes the inputs take (either package's snapshot)."""
+        from ..convert import to_tensor
+        return {c: to_tensor(carry[c], self.device) for c in names}
 
 
 def _without_traceback(ex: BaseException) -> BaseException:
@@ -1355,7 +1592,8 @@ def _host(v):
 def compile_program(fn_or_prog, *, optimize_contractions=True,
                     op_select="cost", autotune_cache=None,
                     compile_mode="whole", skew_salting="auto",
-                    device="cuda") -> CompiledProgram:
+                    out_of_core="auto", memory_budget=None,
+                    chunk_rows=None, device="cuda") -> CompiledProgram:
     """Front door: loop program → restrictions check (Def. 3.1) →
     comprehension translation (Fig. 2) → pass pipeline (passes.py) →
     executable physical plan on `device` ("cuda" by default; "cpu" must be
@@ -1379,10 +1617,25 @@ def compile_program(fn_or_prog, *, optimize_contractions=True,
     or inputs arrive §5-packed.  A failure descends whole → eager, and on
     the CPU on to the interpreter (faults.py); on the card an error that
     persists at the eager level surfaces.  The planner's other switches
-    keep the reference's defaults."""
+    keep the reference's defaults.
+
+    Out-of-core (chunked.py): memory_budget (bytes) turns on the hard
+    admission check — a call whose memest peak estimate exceeds it
+    streams bag tiles through resident accumulators instead of running
+    all-resident; a classified capacity error (torch.OutOfMemoryError, or
+    an injected one) descends whole → chunked and eager → chunked.
+    out_of_core: "auto" (default) = admit and descend as above; "force" =
+    every run streams; "off" = no chunked rung.  chunk_rows pins the tile;
+    None derives it from the budget, else takes the default (4096 rows on
+    the CPU as in the reference; on the card the segment kernel's range,
+    2^26 rows, the unit its order is fixed by).
+
+    `run_stepwise(inputs, loop_state=, observer=)` is the checkpointable
+    entry (runtime.LoopRunner drives it)."""
     prog = fn_or_prog if isinstance(fn_or_prog, Program) \
         else fn_or_prog.program
     check_restrictions(prog)
     target = translate(prog)
     return CompiledProgram(prog, target, optimize_contractions, op_select,
-                           autotune_cache, compile_mode, skew_salting, device)
+                           autotune_cache, compile_mode, skew_salting,
+                           out_of_core, memory_budget, chunk_rows, device)

@@ -131,14 +131,22 @@ def _plan(n: int, d: int, k: int, vstride: int):
     return blocks, shift, scratch
 
 
-def segment_reduce(ids, values, num_segments: int, *, op: str = "+"):
+def segment_reduce(ids, values, num_segments: int, *, op: str = "+",
+                   init=None):
     """ids: [N] int; values: [N] or [N, D] -> [num_segments(, D)].
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel or
-    raise; there is no fallback."""
+    CPU tensors take the plain version, in the kernel's ranges of
+    RANGE_ROWS rows folded in row order.  CUDA tensors launch the kernel
+    or raise; there is no fallback.  `init` (a result of an earlier call)
+    starts the fold: init ⊕ range 1 ⊕ range 2 …, so that rows reduced in
+    calls of whole ranges fold as one call over all of them does."""
     if op not in _OPS:
         raise ValueError(f"segment_reduce: unsupported op {op!r}")
+    if init is not None:
+        return _by_ranges(ids, values, num_segments, op, init)
     if values.device.type == "cpu" and ids.device.type == "cpu":
+        if values.shape[0] > RANGE_ROWS:
+            return _by_ranges(ids, values, num_segments, op)
         return segment_reduce_plain(ids, values, num_segments, op)
     if values.device.type != "cuda" or ids.device != values.device:
         raise ValueError("segment_reduce: ids and values must lie on one "
@@ -158,13 +166,7 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+"):
                           device=vals.device)
         return out[:, 0] if squeeze else out
     if n > RANGE_ROWS:
-        # range by range, the results combined in row order
-        out = None
-        for i in range(0, n, RANGE_ROWS):
-            part = segment_reduce(ids[i:i + RANGE_ROWS],
-                                  values[i:i + RANGE_ROWS], k, op=op)
-            out = part if out is None else _COMBINE[op](out, part)
-        return out
+        return _by_ranges(ids, values, k, op)
     acc = _acc_dtype(vals.dtype)
     vals = vals.to(acc)
     if vals.stride(0) == 0 and (d == 1 or vals.stride(1) == 1):
@@ -192,6 +194,15 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+"):
 
 
 segment_reduce.launches = 0
+
+
+def _by_ranges(ids, values, k: int, op: str, out=None):
+    """Range by range, the results combined in row order (after `out`)."""
+    for i in range(0, values.shape[0], RANGE_ROWS):
+        part = segment_reduce(ids[i:i + RANGE_ROWS],
+                              values[i:i + RANGE_ROWS], k, op=op)
+        out = part if out is None else _COMBINE[op](out, part)
+    return out
 
 
 def segment_sum(ids, values, num_segments: int):

@@ -7,9 +7,11 @@ descend whole → eager exactly once (a deterministic fault with a level left
 below it), surface (a deterministic fault at every level), or reach the
 interpreter (a transient that persists); a failed signature sits out its
 disable ttl alone and is re-attempted after it.  Where a schedule is
-deterministic, the port's ledger text equals the JAX package's.
-
-`run_stepwise` and mid-loop resume are not ported yet.
+deterministic, the port's ledger text equals the JAX package's, both with
+out_of_core="off" and with "auto" (where a capacity error descends to the
+chunked rung).  Mid-loop checkpoint/resume rides the same harness: a
+SeqLoop run by `run_stepwise` under `runtime.LoopRunner` and killed at
+iteration k resumes bit-identically.
 """
 import numpy as np
 import pytest
@@ -20,7 +22,9 @@ from repro.core import faults as JF
 from repro.core.programs import ALL as JAX_ALL
 from repro_torch.core import compile_program, interpret
 from repro_torch.core import faults as F
+from repro_torch.core import plan as P
 from repro_torch.core.programs import ALL
+from repro_torch.runtime import LoopRunner
 from test_core_programs import data_for
 
 
@@ -306,9 +310,11 @@ def test_explain_faults_renders_ledger():
 # ---------------------------------------------------------------------------
 
 # (site, kind, nth, times, mode): one scripted schedule, then three clean
-# runs of the same signature (the ttl, its expiry and the cache).  The port
-# has no out-of-core tier: it is held against the reference with
-# out_of_core="off", where a capacity error descends whole → eager → interp
+# runs of the same signature (the ttl, its expiry and the cache).  Both
+# packages run with out_of_core="off", where a capacity error descends
+# whole → eager → interp, and with "auto", where it descends to the chunked
+# rung (and a capacity error at every node halves the tile down to 1 row
+# and surfaces: both packages raise the same error)
 SCHEDULES = [
     ("lower.whole_trace", "capacity", 1, 1, "whole"),
     ("lower.node", "capacity", 1, 10 ** 6, "whole"),
@@ -326,24 +332,102 @@ def _ledger(pkg, cp, ins, spec):
     site, kind, nth, times, _ = spec
     cp.faults.sleep = lambda s: None
     cp.policy.disable_ttl = 2
+    raised = None
     with pkg.inject(pkg.FaultSpec(site, kind, nth=nth, times=times)):
-        cp.run(_fresh(ins))
+        try:
+            cp.run(_fresh(ins))
+        except pkg.FaultError as ex:
+            raised = f"{type(ex).__name__}: {ex}"
     for _ in range(3):
         cp.run(_fresh(ins))
-    return cp.explain_faults(), cp.explain().splitlines()[-1]
+    return cp.explain_faults(), cp.explain().splitlines()[-1], raised
+
+
+def _schedule_id(s):
+    return "-".join(map(str, s[:3])) + f"x{s[3]}-{s[4]}"
 
 
 @pytest.mark.parametrize("name", ("group_by", "word_count", "pagerank"))
-@pytest.mark.parametrize("spec", SCHEDULES,
-                         ids=["-".join(map(str, s[:3])) + f"x{s[3]}-{s[4]}"
-                              for s in SCHEDULES])
-def test_ledger_text_equals_the_reference(name, spec):
+@pytest.mark.parametrize(
+    "spec,out_of_core",
+    [(s, "off") for s in SCHEDULES] + [(s, "auto") for s in SCHEDULES],
+    ids=[_schedule_id(s) for s in SCHEDULES]
+    + [_schedule_id(s) + "-auto" for s in SCHEDULES])
+def test_ledger_text_equals_the_reference(name, spec, out_of_core):
     ins = data_for(name)
     mode = spec[4]
     ours = _ledger(F, compile_program(ALL[name], compile_mode=mode,
-                                      device="cpu"), ins, spec)
+                                      out_of_core=out_of_core, device="cpu"),
+                   ins, spec)
     ref = _ledger(JF, jax_compile(JAX_ALL[name], compile_mode=mode,
-                                  out_of_core="off"), ins, spec)
+                                  out_of_core=out_of_core), ins, spec)
     assert ours == ref
-    if spec[1] == "capacity":
+    if spec[1] == "capacity" and out_of_core == "off":
         assert "chunked" not in ours[0]
+    if spec[1] == "capacity" and out_of_core == "auto":
+        assert "whole->chunked" in ours[0]
+
+
+# ---------------------------------------------------------------------------
+# mid-loop checkpoint/resume
+# ---------------------------------------------------------------------------
+
+def test_seq_loops_numbering():
+    cp = compile_program(ALL["pagerank"], device="cpu")
+    loops = P.seq_loops(cp.plan)
+    assert loops and all(isinstance(n, P.SeqLoop) for _, n in loops)
+    assert [i for i, _ in loops] == list(range(len(loops)))
+
+
+@pytest.mark.parametrize("every", (1, 2))
+def test_midloop_kill_resumes_bitidentical(every, tmp_path):
+    """An iterative plan killed at iteration k resumes from the latest
+    carry snapshot with BIT-IDENTICAL final outputs vs an uninterrupted
+    stepwise run — whether every iteration was snapshotted or only every
+    other one."""
+    ins = data_for("pagerank")
+    ins["num_steps"] = 6.0
+    cp = _cp("pagerank")
+    assert P.seq_loops(cp.plan), "pagerank must have a top-level SeqLoop"
+    ref = cp.run_stepwise(_fresh(ins))
+    runner = LoopRunner(cp, str(tmp_path / "ck"), every=every)
+    with F.inject(F.FaultSpec("lower.loop_iter", "deterministic", nth=4,
+                              message="kill -9")):
+        with pytest.raises(F.DeterministicFault):
+            runner.run(_fresh(ins), resume=False)
+    at_kill = runner.mgr.latest()
+    assert at_kill is not None and runner.saves >= 1
+    resumed = LoopRunner(cp, str(tmp_path / "ck"), every=every)
+    out = resumed.run(_fresh(ins), resume=True)
+    assert resumed.resumed_from == at_kill
+    assert _bitident(out, ref)
+
+
+def test_stepwise_matches_run_bitwise():
+    """In the port a stepwise run and run() execute the same host loop on
+    the same nodes: the same bits, eager and whole mode (the reference's
+    differ within float tolerance: a host loop against lax.while_loop) —
+    and a stepwise run repeats itself exactly."""
+    ins = data_for("pagerank")
+    a = _cp("pagerank").run_stepwise(_fresh(ins))
+    assert _bitident(a, _cp("pagerank", compile_mode="eager").run(
+        _fresh(ins)))
+    assert _bitident(a, _cp("pagerank").run(_fresh(ins)))
+    assert _bitident(a, _cp("pagerank").run_stepwise(_fresh(ins)))
+
+
+@pytest.mark.parametrize("name", ("pagerank", "group_by", "kmeans_step"))
+def test_stepwise_matches_the_reference(name):
+    """The port's run_stepwise against the JAX package's on the same
+    inputs, with an observer that sees every iteration's carry."""
+    ins = data_for(name)
+    seen, jseen = [], []
+    ours = _cp(name).run_stepwise(
+        _fresh(ins), observer=lambda li, it, c: seen.append((li, it)))
+    ref = jax_compile(JAX_ALL[name]).run_stepwise(
+        _fresh(ins), observer=lambda li, it, c: jseen.append((li, it)))
+    assert seen == jseen
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy().astype(np.float64),
+                                   np.asarray(ref[k], np.float64),
+                                   rtol=2e-3, atol=1e-4, err_msg=k)

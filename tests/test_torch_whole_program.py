@@ -494,14 +494,19 @@ def test_cuda_evicted_entries_free_their_memory(cuda):
 @pytest.mark.cuda
 def test_cuda_a_persisting_fault_surfaces_on_the_card(cuda):
     # on the card the interpreter is no rung: a capacity error that persists
-    # at the eager level reaches the caller, and nothing ran on the host
+    # reaches the caller, and nothing ran on the host — without the
+    # out-of-core tier from the eager level; with it (the default) once the
+    # chunked rung has halved its tile down to one row
     from repro_torch.core import faults as F
     ins = _card_inputs("group_by", np.random.default_rng(8))
-    cp = compile_program(ALL["group_by"], device=cuda)
-    cp.faults.sleep = lambda s: None
-    with F.inject(F.FaultSpec("lower.node", "capacity", nth=1,
-                              times=10 ** 6)):
-        with pytest.raises(F.CapacityFault):
-            cp.run(_on(ins, cuda))
-    assert cp.faults.level_reached == "eager"
-    assert cp.faults.counters["descend"] == 1
+    for ooc, level in (("off", "eager"), ("auto", "chunked[1]")):
+        cp = compile_program(ALL["group_by"], out_of_core=ooc, device=cuda)
+        cp.faults.sleep = lambda s: None
+        with F.inject(F.FaultSpec("lower.node", "capacity", nth=1,
+                                  times=10 ** 6)):
+            with pytest.raises(F.CapacityFault):
+                cp.run(_on(ins, cuda))
+        assert cp.faults.level_reached == level
+        assert "interp" not in cp.explain_faults()
+        if ooc == "off":
+            assert cp.faults.counters["descend"] == 1

@@ -19,7 +19,12 @@ first mismatch:
              (a, bx) entry and its fused entry (a 2048- and a 1531-token
              prefill's dt, A, B, C and bf16 x), the fused one also timed
              against the unfused path; the segment kernel's whole run
-             against a run range by range (the same bits);
+             against a run range by range (the same bits); its
+             device-count entry (a served lane's rows counted on the
+             device, n < L, small and bucketed paths) bit-equal to a
+             launch over the first n rows and timed against it, and one
+             flush's 16 lanes against one `index_add_` over lane-offset
+             ids;
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, in eager mode and in whole mode (the default:
@@ -51,6 +56,31 @@ first mismatch:
              bit-equal (snapshot save and restore ms); group_by in whole
              mode under a process memory cap, a real out-of-memory error
              descending to chunked with the same bits;
+6. plans   — buffer donation and plan serving: kmeans_step, pagerank,
+             word_count and matrix_addition at phase 3's sizes with
+             donate=True, each output fed back as the next call's donated
+             input (bit-equal to whole mode; donated names staged 0 B,
+             cloned 0 B, no recapture; a fresh donated tensor consumed; a
+             held output unchanged; run() ms of donate / whole / eager);
+             then `repro_torch.serve.PlanServer(max_batch=16,
+             flush_ms=1.0)` serving two mixes, (a) the reference bench's
+             own tiny requests and (b) requests with real work (group_by
+             2^20 / 3·2^18 rows into 2^16 groups, pagerank 2^16 vertices
+             with 2^20 / 3·2^18 edges and 10 steps, kmeans_step 2^18 /
+             3·2^16 points, K = 64), 192 requests at 1, 8 and 64
+             closed-loop clients (a warm pass, then the measured one):
+             requests/s, p50 and p99, occupancy, padded rows, flushes,
+             batch entries built and hit, sequential fallbacks, peak
+             memory, and every lane of every flush bit-equal to its
+             request's solo run(); one flush of 16 lanes of each program
+             against 16 solo run()s, traced for device busy and idle, and
+             two flushes (the second stacked while the first computes)
+             traced for their host-to-device copies and the share of them
+             that ran under a kernel; then ragged
+             average and linear_regression requests (float sums over the
+             bag: bucketed at their own rows on the card) and hot-key
+             group_by requests (salted as their solo runs), each lane
+             bit-equal to its solo run();
 4. serve   — serve llama3-8b and falcon-mamba-7b at full width and full
              depth (bf16, random weights from --seed, one model on the card
              at a time) through `repro_torch.serve.ServeEngine`: 4 slots,
@@ -63,9 +93,9 @@ first mismatch:
              card against the same weights on the CPU (the kernels' plain
              versions).
 
-Phase 5 runs after phase 3 and before phase 4.  The line before the last
-is a JSON object with one entry per kernel (segment_reduce's launches
-count phases 3 and 5); the
+Phases 5 and 6 run after phase 3 and before phase 4.  The line before the
+last is a JSON object with one entry per kernel (segment_reduce's launches
+count phases 3, 5 and 6); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 
@@ -381,6 +411,100 @@ def _segment_ranges_check(torch, g):
         "are bit-equal")
 
 
+def _segment_rows_case(torch, g, L, n, k, op="+", reps=5):
+    """The device-count entry (`n_rows=`, a served lane padded to L rows):
+    bit-equal to the host-count launch over the first n rows, within the
+    plain version's tolerance, and timed against that launch."""
+    from repro_torch.kernels.segment_reduce import (segment_reduce,
+                                                     segment_reduce_plain)
+    ids = torch.randint(0, k, (L,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    vals = torch.randn(L, generator=g, device="cuda")
+    count = torch.tensor(n, dtype=torch.int32, device="cuda")
+    got = segment_reduce(ids, vals, k, op=op, n_rows=count)
+    host = segment_reduce(ids[:n], vals[:n], k, op=op)
+    want = segment_reduce_plain(ids[:n], vals[:n], k, op)
+    torch.cuda.synchronize()
+    require(torch.equal(got.view(torch.int32), host.view(torch.int32)),
+            f"segment_reduce n_rows={n} of L={L}, K={k}, {op}: the device "
+            "count's bits differ from a launch over the first rows")
+    diff = torch.where(got == want, 0.0, (got - want).abs())
+    err = float(diff.max()) if diff.numel() else 0.0
+    if op == "+":
+        scale = segment_reduce_plain(ids[:n], vals[:n].abs(), k, "+")
+        require(bool((diff <= 1e-4 * scale + 1e-6).all()),
+                f"segment_reduce n_rows={n}: err {err} against the plain "
+                "version")
+    else:
+        require(err == 0.0, f"segment_reduce n_rows={n} {op}: err {err}")
+    kernel_ms = time_ms(torch, lambda: segment_reduce(ids, vals, k, op=op,
+                                                      n_rows=count), reps)
+    host_ms = time_ms(torch, lambda: segment_reduce(ids[:n], vals[:n], k,
+                                                    op=op), reps)
+    plain_ms = time_ms(torch, lambda: segment_reduce_plain(ids[:n], vals[:n],
+                                                           k, op), reps)
+    bound_ms = (8 * n + 4 * k) / HBM_BYTES_S * 1e3
+    path = "small" if k <= 2048 else "bucketed"
+    rec = dict(case=f"segment_reduce device count n={n} of L={L} K={k} "
+               f"op={op} ({path} path)", max_abs_err=err, kernel_ms=kernel_ms,
+               host_count_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes", bit_equal_to_host_count=True)
+    log("[kernels] " + json.dumps(rec))
+    return rec
+
+
+def _segment_lanes_case(torch, g, lens, L, k, reps=5):
+    """One served flush's group-by: B lanes of L padded rows, each lane's
+    device-count launch reading its own count from a [B] tensor, each
+    bit-equal to a launch over its own rows; against the plain version lane
+    by lane and one library call (`index_add_` of lane-offset ids into
+    [B·K], pad rows to a sentinel)."""
+    from repro_torch.kernels.segment_reduce import (segment_reduce,
+                                                     segment_reduce_plain)
+    B = len(lens)
+    ids = torch.randint(0, k, (B, L), generator=g, device="cuda",
+                        dtype=torch.int32)
+    vals = torch.randn(B, L, generator=g, device="cuda")
+    counts = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def kern():
+        return [segment_reduce(ids[b], vals[b], k, n_rows=counts[b])
+                for b in range(B)]
+
+    def plain():
+        return [segment_reduce_plain(ids[b, :n], vals[b, :n], k, "+")
+                for b, n in enumerate(lens)]
+    got, want = kern(), plain()
+    err = 0.0
+    for b, n in enumerate(lens):
+        host = segment_reduce(ids[b, :n], vals[b, :n], k)
+        require(torch.equal(got[b].view(torch.int32), host.view(torch.int32)),
+                f"segment_reduce lane {b} (n={n} of {L}): bits differ from "
+                "a launch over its rows")
+        err = max(err, float((got[b] - want[b]).abs().max()))
+    rows = torch.arange(L, device="cuda")[None, :]
+    flat = torch.where(rows < counts[:, None],
+                       ids.to(torch.int64)
+                       + k * torch.arange(B, device="cuda")[:, None],
+                       B * k).reshape(-1)
+    vflat = vals.reshape(-1)
+
+    def lib():
+        return torch.zeros(B * k + 1, device="cuda").index_add_(0, flat,
+                                                                vflat)
+    kernel_ms = time_ms(torch, kern, reps)
+    plain_ms = time_ms(torch, plain, reps)
+    library_ms = time_ms(torch, lib, reps)
+    bound_ms = (8 * sum(lens) + 4 * B * k) / HBM_BYTES_S * 1e3
+    rec = dict(case=f"segment_reduce device count, one flush: B={B} lanes "
+               f"of L={L} padded rows ({min(lens)}..{max(lens)} counted), "
+               f"K={k}, +", max_abs_err=err, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by="bytes", launches_a_flush=B)
+    log("[kernels] " + json.dumps(rec))
+    return rec
+
+
 def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
     """One product through the dense entry `tile_matmul`, or through
     `tile_matmul_packed` on the tiles of `pack(a, bm, bm)` (the main
@@ -648,6 +772,20 @@ def phase_kernels(torch, seed):
     log("[kernels] segment_reduce int32 exact at 2^24+1: "
         f"sum={int(s[0])} max={int(mx[0])}")
     _segment_ranges_check(torch, g)
+    # the device-count entry (a served lane padded to its batch's rows):
+    # mix (b)'s kmeans (small path) and group_by / pagerank (bucketed)
+    # shapes, n < L
+    for L, n, k in ((MIX_B_KM[0], MIX_B_KM[1], 64),
+                    (MIX_B_ROWS[0], MIX_B_ROWS[1], MIX_B_GROUPS),
+                    (MIX_B_ROWS[0], 1, MIX_B_GROUPS)):
+        _segment_rows_case(torch, g, L, n, k)
+    _segment_rows_case(torch, g, MIX_B_ROWS[0], MIX_B_ROWS[1], MIX_B_GROUPS,
+                       op="max")
+    lanes = _segment_lanes_case(torch, g, [MIX_B_ROWS[i % 2]
+                                           for i in range(SERVE_MAX_BATCH)],
+                                MIX_B_ROWS[0], MIX_B_GROUPS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     tile = [
         _tile_case(torch, g, MAT, MAT, MAT, 128, "float32", True, True),
         _tile_case(torch, g, MAT, MAT, MAT, 128, "bfloat16", True, True),
@@ -680,7 +818,8 @@ def phase_kernels(torch, seed):
     # the serve path calls it; the (a, bx) entry, which no path calls, is
     # checked and timed above)
     return {"segment_reduce": seg[0], "tile_matmul": tile[0],
-            "flash_attention": flash[0], "selective_scan": fused[0]}
+            "flash_attention": flash[0], "selective_scan": fused[0],
+            "segment_reduce[lanes]": lanes}
 
 
 # ---------------------------------------------------------------------------
@@ -1559,6 +1698,426 @@ def phase_ooc(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: plans — buffer donation and plan serving
+# ---------------------------------------------------------------------------
+
+# the programs run with donate=True at phase 3's sizes
+DONATED = ("kmeans_step", "pagerank", "word_count", "matrix_addition")
+# the serving runs: closed-loop clients, requests a level, the server's knobs
+SERVE_CLIENTS, SERVE_REQUESTS = (1, 8, 64), 192
+SERVE_MAX_BATCH, SERVE_FLUSH_MS = 16, 1.0
+POOL = 4            # distinct requests of each (program, rows); the 192 cycle
+# (a) the reference's own mix (benchmarks/serve_bench.py): pagerank on 64
+# vertices, 3 steps; group_by into 16 groups; kmeans_step K = 4
+MIX_A = dict(pagerank=(256, 192), group_by=(256, 192), kmeans_step=(128, 96))
+# (b) a tenant mix with real work a request; each pair of sizes shares one
+# power-of-two bucket, so padding is on the measured path: group_by rows and
+# pagerank edges, kmeans points
+MIX_B_ROWS = (2 ** 20, 3 * 2 ** 18)
+MIX_B_KM = (2 ** 18, 3 * 2 ** 16)
+MIX_B_GROUPS = MIX_B_VERTICES = 2 ** 16
+MIX_B = dict(pagerank=MIX_B_ROWS, group_by=MIX_B_ROWS, kmeans_step=MIX_B_KM)
+SERVED = ("pagerank", "group_by", "kmeans_step")
+
+
+def _mix_request(np, mix, name, m, seed):
+    """One request of a serving mix, its bag `m` rows long (numpy: the
+    server canonicalizes and stacks on the host)."""
+    rng = np.random.default_rng(seed)
+    if mix == "a":               # the reference bench's own inputs
+        nv, groups, K, steps, ft = 64, 16, 4, 3.0, np.float64
+    else:
+        nv, groups, K, steps, ft = MIX_B_VERTICES, MIX_B_GROUPS, 64, 10.0, \
+            np.float32
+    if name == "pagerank":
+        return dict(E=(rng.integers(0, nv, m).astype(ft),
+                       rng.integers(0, nv, m).astype(ft)),
+                    P=np.full(nv, 1.0 / nv, ft), NP=np.zeros(nv, ft),
+                    C=np.zeros(nv, ft), N=nv, num_steps=steps, steps=0.0,
+                    b=0.85)
+    if name == "group_by":
+        return dict(S=(rng.integers(0, groups, m).astype(ft),
+                       rng.standard_normal(m).astype(ft)),
+                    C=np.zeros(groups, ft))
+    return dict(P=((rng.standard_normal(m) * 3).astype(ft),
+                   (rng.standard_normal(m) * 3).astype(ft)),
+                CX=rng.standard_normal(K).astype(ft),
+                CY=rng.standard_normal(K).astype(ft), K=K,
+                D=np.zeros((m, K), ft), MinD=np.full(m, 1e30, ft),
+                Cl=np.zeros(m, ft), SX=np.zeros(K, ft), SY=np.zeros(K, ft),
+                CN=np.zeros(K, ft), NX=np.zeros(K, ft), NY=np.zeros(K, ft))
+
+
+def _bits(a, b):
+    import torch
+    return all(bool(torch.equal(a[k], b[k])) for k in b)
+
+
+def _donate_inputs(torch, name, seed):
+    """Phase 3's sizes for a donated program, made on the card from the
+    seed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def ints(hi, n):
+        return torch.randint(0, hi, (n,), generator=g,
+                             device="cuda").to(torch.float32)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    def zeros(*shape):
+        return torch.zeros(*shape, device="cuda")
+    if name == "word_count":
+        return dict(W=(ints(VOCAB, N_ROWS),), C=zeros(VOCAB))
+    if name == "matrix_addition":
+        return dict(M=normal(MAT, MAT), N=normal(MAT, MAT),
+                    R=zeros(MAT, MAT), n=MAT, m=MAT)
+    if name == "pagerank":
+        return dict(E=(ints(PR_VERTICES, PR_EDGES),
+                       ints(PR_VERTICES, PR_EDGES)),
+                    P=torch.full((PR_VERTICES,), 1.0 / PR_VERTICES,
+                                 device="cuda"),
+                    NP=zeros(PR_VERTICES), C=zeros(PR_VERTICES),
+                    N=PR_VERTICES, num_steps=float(PR_STEPS), steps=0.0,
+                    b=0.85)
+    return dict(P=(normal(KM_POINTS) * 3, normal(KM_POINTS) * 3),
+                CX=normal(KM_K), CY=normal(KM_K), K=KM_K,
+                D=zeros(KM_POINTS, KM_K),
+                MinD=torch.full((KM_POINTS,), 1e30, device="cuda"),
+                Cl=zeros(KM_POINTS),
+                **{a_: zeros(KM_K) for a_ in ("SX", "SY", "CN", "NX", "NY")})
+
+
+def _donate_runs(torch, np, seed):
+    """kmeans_step, pagerank, word_count and matrix_addition at phase 3's
+    sizes with donate=True, each output fed back as the next call's donated
+    input: bit-equal to whole mode, no byte of a donated name copied in or
+    out and no recapture on the feed-back pattern, a fresh donated tensor
+    consumed, a held output unchanged by the next call; run() ms of
+    donate / whole / eager."""
+    from repro_torch.core import compile_program
+    from repro_torch.core.programs import ALL
+    for name in DONATED:
+        inputs = _donate_inputs(torch, name, seed)
+        whole = compile_program(ALL[name])
+        outs = tuple(whole.program.outputs)
+
+        def fresh():          # the donated names as new tensors on the card
+            return {k: v.clone() if k in outs and torch.is_tensor(v) else v
+                    for k, v in inputs.items()}
+
+        def fed(prev, restart=False):
+            x = dict(inputs)
+            x.update(prev)
+            if restart and name == "pagerank":
+                x["steps"] = 0.0      # the same work each call: 10 steps
+            return x
+        w1 = whole.run(inputs)
+        w2 = whole.run(fed(w1))
+        _, t_w = _run_program(torch, whole, inputs, 5)
+        del whole
+        eager = compile_program(ALL[name], compile_mode="eager")
+        _, t_e = _run_program(torch, eager, inputs, 5)
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        don = compile_program(ALL[name], donate=True)
+        f = fresh()
+        given = [f[k] for k in outs if torch.is_tensor(f[k])]
+        d1 = don.run(f)
+        torch.cuda.synchronize()
+        require(all(t.numel() == 0 for t in given),
+                f"donate {name}: a donated tensor on the card was not "
+                "consumed")
+        require(_bits(d1, w1), f"donate {name}: bits differ from whole mode")
+        (entry, _), = don._whole_cache.values()
+        s0, c0, r0 = dict(entry.staged), entry.cloned_bytes, entry.rebinds
+        d2 = don.run(fed(d1))
+        torch.cuda.synchronize()
+        require(_bits(d2, w2), f"donate {name}: the fed-back call's bits "
+                "differ from whole mode's")
+        staged = sum(entry.staged[k] - s0.get(k, 0) for k in outs)
+        cloned = entry.cloned_bytes - c0
+        rebinds = entry.rebinds - r0
+        require(staged == 0 and cloned == 0 and rebinds == 0,
+                f"donate {name}: the feed-back pattern staged {staged} and "
+                f"cloned {cloned} bytes of donated names, {rebinds} rebinds")
+        del w2
+        keep = {k: v.clone() for k, v in d2.items()}
+        d3 = don.run(fresh())
+        torch.cuda.synchronize()
+        require(_bits(d2, keep), f"donate {name}: a later call overwrote an "
+                "output the caller held")
+        require(_bits(d3, w1), f"donate {name}: bits differ from whole mode")
+        held_clone = entry.cloned_bytes - c0
+        del keep, d1, d2, w1
+        prev, times = d3, []
+        for i in range(6):
+            x = fed(prev, restart=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prev = don.run(x)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        times.sort()
+        direct = sorted(entry._direct)
+        log(f"[plans] donate {name}: run() ms donate {_ms_text(times)}; "
+            f"whole {_ms_text(t_w)}; eager {_ms_text(t_e)}; feed-back: "
+            f"donated names staged 0 B, cloned 0 B, rebinds 0 (all "
+            f"names staged {sum(entry.staged.values()) - sum(s0.values())} "
+            f"B); bit-equal to whole; fresh donated tensors consumed; a "
+            f"held output unchanged (the caller's tensors took "
+            f"{held_clone} B of copies); written back in the graph: "
+            f"{sorted(entry.wb - set(direct))}, lent from the graphs' "
+            f"memory: {direct}; rebinds {entry.rebinds}")
+        del don, prev, entry, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _closed_loop(srv, pool, order, clients):
+    """`clients` closed-loop clients on one thread: each submits a request
+    (pool[order[i]]), waits for its answer and submits the next, until all
+    of `order` was submitted; the server pumps in between.  Returns
+    [(ticket, pool index)] and the run's seconds."""
+    nxt, live, done = 0, [], []
+    t0 = time.perf_counter()
+
+    def submit():
+        nonlocal nxt
+        i = order[nxt]
+        nxt += 1
+        name, _, ins = pool[i]
+        live.append((srv.submit(name, ins), i))
+    while nxt < min(clients, len(order)):
+        submit()
+    while live:
+        if srv.pump() == 0:
+            time.sleep(2e-5)
+        still = [(t, i) for t, i in live if not t.done()]
+        fin = [(t, i) for t, i in live if t.done()]
+        live[:] = still
+        for item in fin:
+            done.append(item)
+            if nxt < len(order):
+                submit()
+    return done, time.perf_counter() - t0
+
+
+def _serve_mix(torch, np, mix, sizes, seed):
+    """One serving mix through PlanServer(max_batch=16, flush_ms=1.0) at
+    1, 8 and 64 closed-loop clients, 192 requests a level (a warm pass,
+    then the measured one), every lane held bit-equal to its request's
+    solo whole run().  Then one flush of 16 lanes of each program against
+    16 solo run()s of the same requests, traced."""
+    from repro_torch.core import compile_program
+    from repro_torch.core.programs import ALL
+    from repro_torch.serve import PlanServer
+    pool = [(name, m, _mix_request(np, mix, name, m,
+                                   seed + 1000 * j + 10 * i + r))
+            for j, name in enumerate(SERVED)
+            for i, m in enumerate(sizes[name]) for r in range(POOL)]
+    solo_cp = {n: compile_program(ALL[n]) for n in SERVED}
+    solo = [{k: v.cpu().numpy() for k, v in solo_cp[n].run(ins).items()}
+            for n, _, ins in pool]
+    order = [int(i) for i in np.random.default_rng(seed).integers(
+        0, len(pool), SERVE_REQUESTS)]
+    cps = {n: compile_program(ALL[n]) for n in SERVED}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lanes = 0
+    for clients in SERVE_CLIENTS:
+        for measured in (False, True):
+            srv = PlanServer(cps, max_batch=SERVE_MAX_BATCH,
+                             flush_ms=SERVE_FLUSH_MS)
+            done, secs = _closed_loop(srv, pool, order, clients)
+            for t, i in done:
+                require(t.state == "done", f"plans mix ({mix}): request "
+                        f"{t.rid} {t.state}: {t.error!r}")
+                for k, v in solo[i].items():
+                    require(np.array_equal(t.output[k], v),
+                            f"plans mix ({mix}) {pool[i][0]} rows "
+                            f"{pool[i][1]}: lane output {k} differs from "
+                            "its solo run()")
+            lanes += len(done)
+            st = srv.stats()
+            if not measured:
+                built = st["batch_traced"]
+                continue
+            pad = sum(b.pad_rows for b in srv._buckets.values())
+            rows = sum(b.bag_rows for b in srv._buckets.values())
+            log(f"[plans] mix ({mix}) clients={clients}: "
+                f"{len(done) / secs:.1f} req/s ({len(done)} requests in "
+                f"{secs * 1e3:.1f} ms), p50 {st['p50_ms']:.3f} ms, p99 "
+                f"{st['p99_ms']:.3f} ms, occupancy {st['occupancy']:.1f}%, "
+                f"padded rows {100.0 * pad / max(rows, 1):.1f}%, flushes "
+                f"{st['flushes']}, batch entries built {st['batch_traced']} "
+                f"hit {st['batch_hits']} (the warm pass built {built}), "
+                f"sequential fallbacks "
+                f"{st['seq_fallbacks']}, failed {st['failed']}; every lane "
+                "bit-equal to its solo run()")
+            require(st["failed"] == 0 and st["seq_fallbacks"] == 0,
+                    f"plans mix ({mix}): failed or sequential flushes")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[plans] mix ({mix}): {lanes} lanes bit-equal to solo run(); "
+        f"peak device memory {peak:.3f} GB")
+    for name in SERVED:
+        reqs = [ins for n, _, ins in pool if n == name]
+        reqs = [reqs[i % len(reqs)] for i in range(SERVE_MAX_BATCH)]
+        srv = PlanServer(cps, max_batch=SERVE_MAX_BATCH,
+                         flush_ms=SERVE_FLUSH_MS)
+
+        def flush():
+            ts = [srv.submit(name, r) for r in reqs]
+            srv.drain()
+            return ts
+
+        def solo_runs():
+            return [solo_cp[name].run(r) for r in reqs]
+        flush()
+        solo_runs()
+        f_ms, s_ms = [], []
+        for _ in range(3):
+            for fn, acc in ((flush, f_ms), (solo_runs, s_ms)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                acc.append((time.perf_counter() - t0) * 1e3)
+        f_ms.sort()
+        s_ms.sort()
+        log(f"[plans] mix ({mix}) {name}: one flush of {SERVE_MAX_BATCH} "
+            f"lanes {_ms_text(f_ms)} against {SERVE_MAX_BATCH} solo whole "
+            f"run()s {_ms_text(s_ms)}")
+        _profile(torch, f"plans mix ({mix}) {name} flush of "
+                 f"{SERVE_MAX_BATCH}", flush, f_ms[1])
+
+        def two_flushes():
+            ts = [srv.submit(name, r) for r in reqs + reqs]
+            srv.drain()
+            return ts
+        two_flushes()
+        t_ms = sorted(time_ms(torch, two_flushes, reps=1, warmup=0)
+                      for _ in range(3))
+        _, spans = _profile(torch, f"plans mix ({mix}) {name} two flushes "
+                            f"of {SERVE_MAX_BATCH}, the second prefetched",
+                            two_flushes, t_ms[1])
+        h2d, under = _h2d_overlap(spans)
+        log(f"[plans] mix ({mix}) {name}: two flushes {_ms_text(t_ms)}; "
+            f"host-to-device copies {h2d:.3f} ms, {under:.3f} ms of it "
+            "while a kernel ran")
+    del cps, solo_cp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _h2d_overlap(spans):
+    """The ms that a trace's host-to-device copies took, and the ms of
+    them during which a kernel ran."""
+    kern = sorted((lo, hi) for lo, hi, n in spans
+                  if not n.startswith(("Memcpy", "Memset")))
+    merged = []
+    for lo, hi in kern:
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    total = under = 0.0
+    for lo, hi, n in spans:
+        if "HtoD" in n:
+            total += hi - lo
+            under += sum(max(0.0, min(hi, b) - max(lo, a))
+                         for a, b in merged)
+    return total / 1e3, under / 1e3
+
+
+def _serve_exact(torch, np, seed):
+    """Requests whose lanes the card must not pad, and hot keys: ragged
+    average and linear_regression requests (float sums over the bag, so
+    each is bucketed at its own rows) and group_by requests whose solo
+    runs salt a hot key (their lanes salted alike), through one
+    PlanServer(max_batch=16, flush_ms=1.0); every lane bit-equal to its
+    request's solo whole run()."""
+    from repro_torch.core import compile_program
+    from repro_torch.core.programs import ALL
+    from repro_torch.serve import PlanServer
+    names = ("average", "linear_regression", "group_by")
+    cps = {n: compile_program(ALL[n]) for n in names}
+    solo_cp = {n: compile_program(ALL[n]) for n in names}
+    require(not cps["average"].pads_exactly
+            and not cps["linear_regression"].pads_exactly
+            and cps["group_by"].pads_exactly,
+            "plans: the card pads average or linear_regression, or does "
+            "not pad group_by")
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for m in MIX_B_ROWS:
+        for _ in range(2):
+            v = rng.standard_normal(m).astype(np.float32)
+            reqs.append(("average", m, dict(V=v, s=0.0, cnt=0.0, avg=0.0)))
+            x = rng.standard_normal(m).astype(np.float32)
+            y = (2 * x + 1 + 0.1 * rng.standard_normal(m)).astype(np.float32)
+            reqs.append(("linear_regression", m, dict(
+                P=(x, y), n=m, sum_x=0.0, sum_y=0.0, x_bar=0.0, y_bar=0.0,
+                xx_bar=0.0, xy_bar=0.0, slope=0.0, intercept=0.0)))
+            keys = rng.integers(0, MIX_B_GROUPS, m)
+            keys[rng.random(m) < 0.6] = 7
+            reqs.append(("group_by", m, dict(
+                S=(keys.astype(np.float32),
+                   rng.standard_normal(m).astype(np.float32)),
+                C=np.zeros(MIX_B_GROUPS, np.float32))))
+    for name, _, ins in reqs:
+        if name == "group_by":
+            require(cps[name].request_salts(cps[name].canonical_inputs(ins)),
+                    "plans: a hot-key group_by request does not salt")
+    srv = PlanServer(cps, max_batch=SERVE_MAX_BATCH, flush_ms=SERVE_FLUSH_MS)
+    ts = [srv.submit(n, ins) for n, _, ins in reqs]
+    srv.drain()
+    for (name, m, ins), t in zip(reqs, ts):
+        require(t.state == "done", f"plans exact: {name} request {t.rid} "
+                f"{t.state}: {t.error!r}")
+        for k, v in solo_cp[name].run(ins).items():
+            require(np.array_equal(t.output[k], v.cpu().numpy()),
+                    f"plans exact: {name} rows {m}: lane output {k} "
+                    "differs from its solo run()")
+    st = srv.stats()
+    for b in srv._buckets.values():
+        require(b.program == "group_by" or not b.limit_bags,
+                f"plans exact: bucket {b.label} is padded")
+    log(f"[plans] unpadded and hot-key lanes: {len(reqs)} requests in "
+        f"{st['flushes']} flushes over {len(srv._buckets)} buckets ("
+        + ", ".join(f"{b.label} salts {b.salts or '-'}"
+                    for b in srv._buckets.values())
+        + f"), sequential fallbacks {st['seq_fallbacks']}; every lane "
+        "bit-equal to its solo run()")
+    require(st["failed"] == 0 and st["seq_fallbacks"] == 0,
+            "plans exact: failed or sequential flushes")
+    del cps, solo_cp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_plans(torch, seed):
+    import numpy as np
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    _donate_runs(torch, np, seed)
+    _serve_mix(torch, np, "a", MIX_A, seed)
+    _serve_mix(torch, np, "b", MIX_B, seed)
+    _serve_exact(torch, np, seed)
+    counts = ops.launch_counts()
+    log(f"[plans] kernel launches in phase 6: {json.dumps(counts)}; "
+        f"phase 6 took {time.perf_counter() - t0:.1f} s")
+    require(counts["segment_reduce"] > 0,
+            "phase 6 launched no segment kernel")
+    ops.reset_launch_counts()
+    return counts["segment_reduce"]
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving the two LM families
 # ---------------------------------------------------------------------------
 
@@ -1781,6 +2340,9 @@ def main(argv=None) -> int:
         launches["segment_reduce"] += phase_ooc(torch, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
+        launches["segment_reduce"] += phase_plans(torch, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
         launches.update(phase_serve(torch, args.seed))
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
@@ -1799,6 +2361,11 @@ def main(argv=None) -> int:
                "selective_scan": ("src/repro_torch/kernels/csrc/"
                                   "selective_scan.cu",
                                   "src/repro/kernels/selective_scan.py:60")}
+    lanes = per_kernel.pop("segment_reduce[lanes]")
+    log(f"[kernels] segment_reduce device-count entry, one flush: kernel "
+        f"{lanes['kernel_ms']:.4f} ms, plain {lanes['plain_ms']:.4f} ms, "
+        f"library {lanes['library_ms']:.4f} ms, bound "
+        f"{lanes['bound_ms']:.4f} ms")
     kernels = []
     for name, rec in per_kernel.items():
         src, repl = sources[name]

@@ -52,6 +52,19 @@ def to_tensor(v, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=want)
 
 
+def canonical_numpy(v) -> np.ndarray:
+    """One value as a numpy array in its canonical dtype: the host-side
+    mirror of `to_tensor` (no device, no copy where none is needed)."""
+    if isinstance(v, bool):
+        return np.asarray(v)
+    if isinstance(v, (int, np.integer)) and not isinstance(v, np.bool_):
+        return np.asarray(int(v), np.int32)
+    if isinstance(v, (float, np.floating)):
+        return np.asarray(float(v), np.float32)
+    a = np.asarray(v)
+    return a.astype(_NP_CANON.get(a.dtype, a.dtype), copy=False)
+
+
 def tiled_from_arrays(tiles, mask, shape, device) -> TiledMatrix:
     """A packed matrix from numpy (or torch) tiles [Mt, Nt, bm, bn], its
     presence mask [Mt, Nt] and its logical shape."""

@@ -54,8 +54,20 @@ the card an error that persists at the eager level surfaces).  A capacity
 error takes the out-of-core rung (chunked.py), whole → chunked and eager →
 chunked, and a call whose memest estimate exceeds `memory_budget` streams
 from the start; `run_stepwise` is the checkpointable entry (host loops
-numbered, an observer after each iteration or chunk).  Buffer donation
-(`donate=`) and the batched serving entry are later work (ROADMAP.md).
+numbered, an observer after each iteration or chunk).
+
+`donate=True` donates the mutated destinations and loop carries of the
+whole-program path: a caller's tensor on the program's device given for one
+is consumed, and the output that takes its place is the entry's buffer,
+costing no copy when the caller feeds it back (graphs.py).  The serving
+hooks (`canonical_inputs`, `entry_signature`, `bag_row_aligned`,
+`batched_call`) are the reference's: the batched call runs B padded
+requests of one signature as the lanes of one entry of CUDA graphs
+(graphs.BatchEntry), each lane bit-identical to its request's solo run():
+a row count on the host cuts a lane's rows (the CPU), one on the device
+masks them and the segment kernel reads it there (the card), where
+`pads_exactly` says which programs may be padded at all; `request_salts`
+salts a lane's hot keys as its solo run does.
 """
 from __future__ import annotations
 
@@ -64,6 +76,7 @@ import operator
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from . import faults as F
@@ -210,10 +223,16 @@ def scatter_drop(dest: torch.Tensor, keys: list, vals, op=None):
     return buf[:num].reshape(dest.shape)
 
 
-def segment_flat(backend: str, ids, vals, num: int, op: str):
+def segment_flat(backend: str, ids, vals, num: int, op: str, rows=None):
     """[N]-flat segment-⊕ partial via the chosen backend.  `ids` == `num`
     marks dropped rows; the partial's row i is the ⊕ of all vals whose
-    id == i, with the ⊕ identity for empty segments."""
+    id == i, with the ⊕ identity for empty segments.
+
+    `rows` (a lane padded on the card, its count on the device): the
+    segment kernel reduces the first `rows` rows alone, with the bits of a
+    call over them; the padded rows are routed to the sentinel already, so
+    every other backend, which takes only sums whose order does not show
+    (integer sums, min, max), ignores it."""
     dev = vals.device
     if backend == "scatter":
         # ⊕ into an identity-filled [num+1] partial; sentinel rows land in
@@ -241,7 +260,7 @@ def segment_flat(backend: str, ids, vals, num: int, op: str):
         return res.to(vals.dtype) if is_int else res
     if backend == "pallas":
         from ..kernels import ops as kops
-        return kops.segment_reduce(ids, vals, num, op=op)
+        return kops.segment_reduce(ids, vals, num, op=op, n_rows=rows)
     raise RejectionError(f"unknown segment backend {backend!r}")
 
 
@@ -371,6 +390,67 @@ def _leaf_nodes(nodes):
             yield n
 
 
+def _on_device(count) -> bool:
+    """A row count that lies on a device (a served lane's on the card),
+    which the executor masks by instead of cutting the rows."""
+    return _is_t(count) and count.device.type != "cpu"
+
+
+def _lane_rows(space: P.IterSpace, ax: "Axes", ctx: ExecContext):
+    """The flattened rows of a lane padded on the card (its count on the
+    device): None unless the space's leading axis is a bag under such a
+    count and every other axis is a range; then the lane's own rows are
+    the first count · (the other extents) rows of the flattened space, in
+    the order of its solo run's."""
+    if not ctx.bag_limits or not space.axes:
+        return None
+    lead = space.axes[0]
+    if lead.kind != "bag" or not _on_device(ctx.bag_limits.get(lead.bag)) \
+            or ctx.bag_offsets.get(lead.bag) \
+            or any(a.kind == "bag" for a in space.axes[1:]):
+        return None
+    rest = 1
+    for a in ax.order[1:]:
+        rest *= ax.extent[a]
+    lim = ctx.bag_limits[lead.bag]
+    return lim * rest if rest != 1 else lim
+
+
+def pads_exactly(plan, program: Program, device) -> bool:
+    """Whether a served lane padded past its rows keeps the bits of its
+    solo run on `device`.  On the CPU the executor cuts a lane's rows (its
+    count is known on the host), so it always does.  On the card a lane
+    runs over the padded rows, masked by its count on the device: maps,
+    stores, min and max, and integer sums give the bits of the unpadded
+    rows in any order, and a float + group-by whose space leads with the
+    bag reduces through the segment kernel's device-count entry.  A float
+    sum or product over a bag reduced any other way (a total or an axis
+    reduction, a contraction) adds in an order that follows the padded
+    length: the serving layer runs such a program at its requests' own
+    shapes."""
+    if torch.device(device).type == "cpu":
+        return True
+    for n in _leaf_nodes(plan):
+        space = getattr(n, "space", None)
+        if space is None or not any(a.kind == "bag" for a in space.axes) \
+                or isinstance(n, (P.MapExpr, P.DenseMap, P.Scatter,
+                                  P.Rebalance)):
+            continue
+        op = getattr(n, "op", None)
+        t = program.params.get(getattr(n, "dest", None))
+        if op in ("min", "max") or (t is not None and t.dtype != "float"):
+            continue
+        if isinstance(n, P.SegmentReduce) and op == "+" \
+                and space.axes[0].kind == "bag" \
+                and not any(a.kind == "bag" for a in space.axes[1:]) \
+                and (n.backend == "pallas" or (
+                    n.backend == "auto"
+                    and "pallas" in (n.candidates or ()))):
+            continue
+        return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # plan executor
 # ---------------------------------------------------------------------------
@@ -445,22 +525,30 @@ class PlanExecutor:
                 bagv = env[a.bag]
                 cols = bagv if isinstance(bagv, tuple) else (bagv,)
                 n = int(cols[0].shape[0])
+                off = int(ctx.bag_offsets.get(a.bag, 0))
+                lim = ctx.bag_limits.get(a.bag)
+                if lim is not None and not _on_device(lim):
+                    # a count the host knows cuts the rows: the space is
+                    # the unpadded bag's, and so is every reduction's order
+                    n = max(0, min(n, int(lim) - off))
                 ax.add(a.var, n)
-                binding[a.var] = ("range", a.var,
-                                  int(ctx.bag_offsets.get(a.bag, 0)))
+                binding[a.var] = ("range", a.var, off)
         base_masks = []
         for a in space.axes:
             if a.kind == "range":
                 continue
             bagv = env[a.bag]
             cols = bagv if isinstance(bagv, tuple) else (bagv,)
+            n = ax.extent[a.var]
             for j, v in enumerate(a.vals):
-                binding[v] = ("bagval", a.var, cols[j])
+                c = cols[j]
+                binding[v] = ("bagval", a.var,
+                              c if c.shape[0] == n else c[:n])
             lim = ctx.bag_limits.get(a.bag)
-            if lim is not None:
+            if _on_device(lim):          # a count on the device masks them
                 off = binding[a.var][2]
                 base_masks.append(ax.expand(
-                    (off + self._arange(ax.extent[a.var])) < lim, a.var))
+                    (off + self._arange(n)) < lim, a.var))
         return ax, binding, list(space.conds), base_masks
 
     # ---- expression evaluation over the iteration space ----
@@ -762,6 +850,7 @@ class PlanExecutor:
         n_rows = 1
         for d_ in shape:
             n_rows *= d_
+        rows = _lane_rows(node.space, ax, ctx)
         backend = self._segment_backend(node, n_rows, dest)
         salt_s, salt_src = self._segment_salt(node, ctx, dest)
         if salt_s > 1:
@@ -783,7 +872,7 @@ class PlanExecutor:
                                  num * salt_s)
             vflat = val.reshape(-1).to(dest.dtype)
             part = segment_flat(backend, salted, vflat, num * salt_s,
-                                node.op)
+                                node.op, rows)
             part = REDUCE[node.op](part.reshape(num, salt_s), (1,))
             self.note(node, self.decisions.get(id(node), "")
                       + f" salt={salt_s}x[{salt_src}]")
@@ -809,7 +898,7 @@ class PlanExecutor:
                     flat, vflat, num, op=node.op,
                     init=ctx.partials[node.dest])
                 return dest
-            seg = segment_flat(backend, flat, vflat, num, node.op)
+            seg = segment_flat(backend, flat, vflat, num, node.op, rows)
             return COMBINE[node.op](
                 dest, seg.reshape(dest.shape).to(dest.dtype))
         # scatter-⊕ straight into the destination; rows dropped for any
@@ -907,10 +996,12 @@ class PlanExecutor:
 
     # ---- contractions (runtime guards; fall back on failure) ----
     def _mxu_masks_ok(self, space: P.IterSpace, key_axes, ctx) -> bool:
-        """A product contraction has no masks: a padded bag would let its
-        pad rows contribute, so it takes the masked dense-grid path."""
-        return not any(a.kind == "bag" and ctx.bag_limits.get(a.bag)
-                       is not None for a in space.axes)
+        """A product contraction has no masks: a bag padded under a count
+        on the device would let its pad rows contribute, so it takes the
+        masked dense-grid path (a count on the host cut the rows)."""
+        return not any(a.kind == "bag"
+                       and _on_device(ctx.bag_limits.get(a.bag))
+                       for a in space.axes)
 
     def _sliced_operand(self, arr, faxes, ax, binding):
         """Slice a contraction operand to the iteration extents along each
@@ -1141,6 +1232,9 @@ class PlanExecutor:
 
 # signatures whose whole-program entries a CompiledProgram keeps (LRU)
 WHOLE_ENTRIES = 2
+# batch signatures (bucket, lanes) whose batched entries it keeps (LRU): a
+# served bucket meets a few lane counts (powers of two up to max_batch)
+BATCH_ENTRIES = 8
 
 
 def resolve_device(device) -> torch.device:
@@ -1158,7 +1252,7 @@ def resolve_device(device) -> torch.device:
 class CompiledProgram:
     def __init__(self, prog: Program, target, optimize_contractions=True,
                  op_select="cost", autotune_cache=None,
-                 compile_mode="whole", skew_salting="auto",
+                 compile_mode="whole", donate=False, skew_salting="auto",
                  out_of_core="auto", memory_budget=None, chunk_rows=None,
                  device="cuda"):
         if compile_mode not in ("whole", "eager"):
@@ -1190,8 +1284,13 @@ class CompiledProgram:
         # graphs per (static dims, shapes, dtypes, salts) signature and
         # replays it on every later call.  compile_mode="eager" keeps the
         # per-node path (the fallback, also taken when an entry fails to
-        # build or an input arrives §5-packed)
+        # build or an input arrives §5-packed).  `donate` additionally
+        # donates the mutated destinations and SeqLoop carries (graphs.py):
+        # a caller's tensor on the device given for one is consumed, and
+        # the output is the entry's own buffer (numpy inputs are copied in
+        # per call, so donation is always safe for them)
         self.compile_mode = compile_mode
+        self.donate = donate
         # signature → (entry, decisions), the most recently used last; an
         # entry holds its inputs' buffers and its graphs' pool, so only the
         # WHOLE_ENTRIES latest signatures keep theirs
@@ -1219,6 +1318,10 @@ class CompiledProgram:
         self._chunker = None           # lazy chunked.ChunkRunner
         self._mem_last = None          # last memest.MemEstimate (explain)
         self._mem_cache: dict = {}     # shape key → MemEstimate
+        self._donate_names = frozenset(
+            d for n in self.plan for d in P.dests_of(n)
+            if prog.params.get(d) is not None
+            and prog.params[d].kind != "dim")
 
     @property
     def _whole_disabled(self) -> bool:
@@ -1239,6 +1342,7 @@ class CompiledProgram:
             self._whole_disabled else "whole"
         text += (f"\nwhole-program: mode={mode}, {self.trace_count} traced, "
                  f"{self.cache_hits} cache hits"
+                 + (", donate=on" if self.donate else "")
                  + (f", {self.trace_failures} trace failures "
                     f"({len(self._whole_bad)} signatures sitting out ttl, "
                     f"{self.whole_retries} re-attempted)"
@@ -1264,7 +1368,8 @@ class CompiledProgram:
         key = tuple(sorted((n, repr(e)) for n, e in senv.items()))
         est = self._mem_cache.get(key)
         if est is None:
-            est = memest.estimate(self.plan, self.program, senv)
+            est = memest.estimate(self.plan, self.program, senv,
+                                  donate=self.donate)
             self._mem_cache[key] = est
         self._mem_last = est
         return est
@@ -1376,7 +1481,12 @@ class CompiledProgram:
         # graph
         salts = collect_salts(self.plan, env, self.selector,
                               self.config.skew_salting)
-        key = (sig, tuple(sorted(salts.items())))
+        key = (sig, self.donate, tuple(sorted(salts.items())))
+        # the caller's tensors on the device given for donated names: the
+        # call consumes them
+        donated = {n: inputs[n] for n in self._donate_names
+                   if self.donate and torch.is_tensor(inputs.get(n))
+                   and inputs[n].device.type == self.device.type}
         left = self._whole_bad.get(key)
         if left is not None:
             # this signature's entry failed recently: sit out the rest of
@@ -1396,8 +1506,11 @@ class CompiledProgram:
             def attempt():
                 F.site("lower.whole_trace", program=self.program.name)
                 entry = Entry(self.executor, self.plan, self.program.outputs,
-                              ExecContext(salts=salts), env)
-                return entry, entry.run(env)  # captures, then replays
+                              ExecContext(salts=salts), env,
+                              donate=self._donate_names if self.donate
+                              else ())
+                # captures, then replays
+                return entry, entry.run(env, donated)
             try:
                 entry, out = F.run_with_retries(
                     attempt, policy=self.policy, ledger=self.faults,
@@ -1415,15 +1528,149 @@ class CompiledProgram:
                 return None                   # run() picks the rung
             self.trace_count += 1
             self._whole_cache[key] = (entry, dict(self.executor.decisions))
-            while len(self._whole_cache) > WHOLE_ENTRIES:
-                self._whole_cache.popitem(last=False)[1][0].free()
+            self._evict(batched=False)
             return out
         entry, notes = ent
         self._whole_cache.move_to_end(key)
         self.cache_hits += 1
-        out = entry.run(env)
+        out = entry.run(env, donated)
         # restore the decisions noted when this signature was captured, so
         # explain() stays accurate
+        self.executor.decisions.update(notes)
+        return out
+
+    def _evict(self, batched: bool) -> None:
+        """Keep the latest WHOLE_ENTRIES solo entries (or BATCH_ENTRIES
+        batched ones), freeing the least recently used."""
+        cap = BATCH_ENTRIES if batched else WHOLE_ENTRIES
+        keys = [k for k in self._whole_cache
+                if (k[0] == "batched") == batched]
+        for k in keys[:max(0, len(keys) - cap)]:
+            self._whole_cache.pop(k)[0].free()
+
+    # ---- batchable entry (the serving layer, serve/plans.py) ----
+    # The PlanServer coalesces concurrent invocations of one program into
+    # one batched call.  These hooks are its contract, the reference's: a
+    # host-side mirror of prepare_env (requests canonicalize without
+    # touching the device), the signature key that doubles as the shape-
+    # bucketing function, and the batched call itself, cached in the SAME
+    # whole-program cache.
+
+    def canonical_inputs(self, inputs: dict) -> dict:
+        """Numpy mirror of prepare_env: the same dtype rules
+        (convert.inputs_from_numpy), on the host.  §5 packed inputs are
+        rejected: they execute eagerly and cannot batch."""
+        from ..convert import canonical_numpy
+        from .tiles import TiledMatrix
+        out = {}
+        for name, t in self.program.params.items():
+            v = inputs[name]
+            if isinstance(v, TiledMatrix):
+                raise ValueError(
+                    f"param '{name}': packed (TiledMatrix) inputs cannot "
+                    "take the batched serving path")
+            if t.kind == "dim":
+                out[name] = int(v)
+            elif t.kind == "bag":
+                cols = v if isinstance(v, tuple) else (v,)
+                out[name] = tuple(canonical_numpy(_host(c)) for c in cols)
+            elif t.kind in ("vector", "matrix", "map"):
+                out[name] = np.asarray(
+                    _host(v), np.float32 if t.dtype == "float" else np.int32)
+            else:
+                out[name] = canonical_numpy(_host(v))
+        return out
+
+    def entry_signature(self, cinputs: dict) -> tuple:
+        """The whole-program compile-cache key of one canonicalized
+        request: static dims BY VALUE, arrays by shape+dtype — exactly
+        `_signature`, computed host-side.  This IS the serving layer's
+        bucketing function."""
+        sig = []
+        for name, t in self.program.params.items():
+            v = cinputs[name]
+            if t.kind == "dim":
+                sig.append((name, "dim", int(v)))
+            elif t.kind == "bag":
+                sig.append((name, "bag", tuple(
+                    (tuple(c.shape), str(c.dtype)) for c in v)))
+            else:
+                sig.append((name, t.kind, tuple(np.shape(v)),
+                            str(np.asarray(v).dtype)))
+        return tuple(sig)
+
+    @property
+    def bag_row_aligned(self) -> dict:
+        """array → bag for dense params whose dim-0 rides a bag's row
+        count (plan.bag_row_arrays): the arrays a shape bucket must pad in
+        lockstep with that bag, under a matching `array_limits` mask."""
+        if not hasattr(self, "_bag_row_aligned"):
+            self._bag_row_aligned = P.bag_row_arrays(self.plan)
+        return self._bag_row_aligned
+
+    @property
+    def pads_exactly(self) -> bool:
+        """Whether a served lane of this program may be padded past its
+        rows and keep its solo run's bits on this device (pads_exactly)."""
+        if not hasattr(self, "_pads_exactly"):
+            self._pads_exactly = pads_exactly(self.plan, self.program,
+                                              self.device)
+        return self._pads_exactly
+
+    def request_salts(self, cinputs: dict) -> tuple:
+        """The hot-key salts a solo run() of one canonicalized request
+        takes, as sorted (dest, factor) pairs: the same probe over its host
+        values, so that a served lane salts as its solo run does."""
+        env = {}
+        for name, v in cinputs.items():
+            if isinstance(v, tuple):
+                env[name] = tuple(torch.from_numpy(c) for c in v)
+            elif isinstance(v, np.ndarray):
+                env[name] = torch.from_numpy(v)
+            else:
+                env[name] = v
+        return tuple(sorted(collect_salts(
+            self.plan, env, self.selector, self.config.skew_salting).items()))
+
+    def batched_call(self, key, static: dict, arrays, lengths: dict = None,
+                     limit_bags=(), limit_arrays=(), salts=None):
+        """Run the plan over a leading request axis: `arrays` maps every
+        non-dim param to a [B, ...]-stacked value (bags as tuples of [B, N]
+        columns) and `lengths` each padded bag / bag-aligned array to its
+        [B] logical row counts, threaded per lane through
+        ExecContext.{bag,array}_limits so pad rows never change a result;
+        or `arrays` is the batch already staged on the device
+        (graphs.Batch, the serving layer's), its row counts inside.  `key`
+        is the caller's padded bucket signature (it must determine shapes,
+        B and the limit sets); entries (graphs.BatchEntry) live in the SAME
+        `_whole_cache` as single-request signatures and count toward
+        trace_count / cache_hits.  Mutated destinations are donated: each
+        lane's output is written back over its input in the entry's
+        buffer.  Returns the outputs [B, ...] as numpy arrays (one copy to
+        the host).  `salts` (dest → factor, the lanes' request_salts, which
+        `key` must determine) salts every lane's hot-key group-bys as their
+        solo runs do.  Raises on failure — the serving layer falls back to
+        sequential run() per request."""
+        from .graphs import Batch, BatchEntry, HostBatch
+        batch = arrays
+        if not isinstance(batch, Batch):
+            batch = HostBatch.of(arrays, lengths or {}, self.program.outputs,
+                                 self.device).to_device()
+        ck = ("batched", key)
+        ent = self._whole_cache.get(ck)
+        if ent is None:
+            entry = BatchEntry(self.executor, self.plan, self.program.outputs,
+                               dict(static), batch.layout, limit_bags,
+                               limit_arrays, dict(salts or {}))
+            out = entry.run(batch)       # captures, then replays
+            self.trace_count += 1
+            self._whole_cache[ck] = (entry, dict(self.executor.decisions))
+            self._evict(batched=True)
+            return out
+        entry, notes = ent
+        self._whole_cache.move_to_end(ck)
+        self.cache_hits += 1
+        out = entry.run(batch)
         self.executor.decisions.update(notes)
         return out
 
@@ -1591,7 +1838,7 @@ def _host(v):
 
 def compile_program(fn_or_prog, *, optimize_contractions=True,
                     op_select="cost", autotune_cache=None,
-                    compile_mode="whole", skew_salting="auto",
+                    compile_mode="whole", donate=False, skew_salting="auto",
                     out_of_core="auto", memory_budget=None,
                     chunk_rows=None, device="cuda") -> CompiledProgram:
     """Front door: loop program → restrictions check (Def. 3.1) →
@@ -1616,7 +1863,11 @@ def compile_program(fn_or_prog, *, optimize_contractions=True,
     dispatch path, also the automatic fallback when an entry fails to build
     or inputs arrive §5-packed.  A failure descends whole → eager, and on
     the CPU on to the interpreter (faults.py); on the card an error that
-    persists at the eager level surfaces.  The planner's other switches
+    persists at the eager level surfaces.  donate=True additionally
+    donates mutated destinations and SeqLoop carries to the whole-program
+    entry: a tensor on the device given for one is consumed (left without
+    elements), and the output returned for it is the entry's buffer,
+    which a caller feeds back at no copy.  The planner's other switches
     keep the reference's defaults.
 
     Out-of-core (chunked.py): memory_budget (bytes) turns on the hard
@@ -1637,5 +1888,6 @@ def compile_program(fn_or_prog, *, optimize_contractions=True,
     check_restrictions(prog)
     target = translate(prog)
     return CompiledProgram(prog, target, optimize_contractions, op_select,
-                           autotune_cache, compile_mode, skew_salting,
-                           out_of_core, memory_budget, chunk_rows, device)
+                           autotune_cache, compile_mode, donate,
+                           skew_salting, out_of_core, memory_budget,
+                           chunk_rows, device)

@@ -38,10 +38,13 @@ Two modes, one interface:
 `use_kernels=True` flag, which maps to `force:pallas`).
 
 Determinism is owned here.  On the card, scatter and sort end in
-`index_add_`, whose float atomics add in another order on every launch;
-so a float + group-by on "cuda" chooses only among the backends that give
-the same bits every time (`DETERMINISTIC`).  min, max and integer sums
-do not depend on the order, and keep every candidate.
+`index_add_`, whose float atomics add in another order on every launch,
+and onehot's product sums in an order that follows the padded row count
+(a served lane is padded to its batch's rows); so a float + group-by on
+"cuda" takes only the segment kernel (`DETERMINISTIC`), whose bits are the
+same on every launch and, through its device-count entry, for every
+padding of the rows.  min, max and integer sums do not depend on the
+order, and keep every candidate.
 
 Decisions are made when a node runs — concrete shapes are known there, and
 a decision changes only the computation, never its result (every backend
@@ -66,9 +69,11 @@ SEGMENT_CANDIDATES = {
     "*": ("scatter", "sort"),
 }
 
-# the backends whose float sums on the card do not depend on the order of
-# atomics: the deterministic segment kernel, and the one-hot product
-DETERMINISTIC = ("onehot", "pallas")
+# the backends whose float sums on the card depend neither on the order of
+# atomics nor on the rows' padding: the deterministic segment kernel (the
+# one-hot product is deterministic, but a cuBLAS product's sum order
+# follows its padded length)
+DETERMINISTIC = ("pallas",)
 
 CONTRACT_CANDIDATES = ("pallas-tiled", "unpack-einsum")
 

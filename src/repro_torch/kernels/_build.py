@@ -40,6 +40,13 @@ SIGNATURES = {
                                   ctypes.c_longlong, ctypes.c_int, _P,
                                   ctypes.c_int, _P, ctypes.c_longlong,
                                   ctypes.c_int, ctypes.c_int],
+        "segment_reduce_launch_rows": [ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                                       ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_longlong, ctypes.c_int, _P,
+                                       ctypes.c_int, _P, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_int, _P,
+                                       ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int],
     },
     "tile_matmul": {
         "tile_matmul_launch": [ctypes.c_int, _P, *[ctypes.c_longlong] * 4,

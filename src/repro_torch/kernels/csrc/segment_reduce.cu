@@ -36,6 +36,14 @@
 //     (one value a row, or none, and at most kStageBuckets buckets: every
 //     main path) stages each bucket's open sector in shared memory and
 //     stores it whole.
+// The device-count entry (`segment_reduce_launch_rows`) takes the row count
+// from device memory: a lane of a served batch whose rows were padded to
+// the batch's length, counted on the device.  The grid and the scratch are
+// sized for the padded length; every block derives the blocks and warp
+// ranges of the counted rows exactly as the host's plan derives them for a
+// count it knows (`rows_of`), blocks and ranges past them reduce nothing,
+// and the fold reads the same count.  So a padded launch gives the bits of
+// a launch over the counted rows alone, and reads no padded row.
 // Within 32 rows, lanes that share an id commit to the warp's copy one at a
 // time in lane order for a few rounds (`lane_rounds`), and the rest of a
 // crowded id (a hot key) together, combined in a fixed tree
@@ -91,6 +99,31 @@ __device__ __forceinline__ void warp_range(long long n, long long per, long long
                                            long long* begin, long long* end) {
   *begin = min(n, wt * per);
   *end = min(n, *begin + per);
+}
+
+// Where the rows of a launch come from: none (the host's count and plan),
+// or a row count in device memory, `*n_rows - base` clamped to [0, n]
+// (`base`: the launch's first row in the caller's rows), whose plan is
+// clamp(ceil(m / rpb), 1, cap) blocks, as kernels/segment_reduce.py::_plan
+// makes it on the host
+struct Count {
+  const int* n_rows;
+  long long base;
+  int cap, rpb;
+};
+
+// The rows a launch reduces and their split: m rows, `blocks` blocks of
+// kWarps warp ranges of `per` rows
+struct Rows {
+  long long m, per;
+  int blocks;
+};
+__device__ __forceinline__ Rows rows_of(long long n, long long per, int blocks, Count c) {
+  if (c.n_rows == nullptr) return {n, per, blocks};
+  const long long m = max(0LL, min((long long)*c.n_rows - c.base, n));
+  const int b = (int)max(1LL, min((long long)c.cap, (m + c.rpb - 1) / c.rpb));
+  const long long ranges = (long long)b * kWarps;
+  return {m, ((m + ranges - 1) / ranges + 31) / 32 * 32, b};
 }
 
 // The rows of one 32-row group that share a tag slot commit one a round,
@@ -232,16 +265,18 @@ __device__ __forceinline__ void merge_warps(const T* copies, int warps, int stri
 template <typename T, int OP, typename IdT>
 __global__ void __launch_bounds__(kThreads)
 small_reduce(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n, int d,
-             long long vstride, int k, long long per, T* __restrict__ dst) {
+             long long vstride, int k, long long per, Count count, T* __restrict__ dst) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ int tags[kWarps * kTags];
+  const Rows r = rows_of(n, per, gridDim.x, count);
+  if ((int)blockIdx.x >= r.blocks) return;            // block-uniform
   T* copies = reinterpret_cast<T*>(smem_raw);
   const int cells = k * d;
   fill<T, OP>(copies, kWarps * cells);
   __syncthreads();
   const int w = threadIdx.x >> 5;
   long long begin, end;
-  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+  warp_range(r.m, r.per, (long long)blockIdx.x * kWarps + w, &begin, &end);
   reduce_rows<T, OP, IdT, kUnroll, kSmallRounds>(ids, 1, vals, vstride, d, begin, end, 0, k,
                                                  copies + w * cells, tags + w * kTags);
   __syncthreads();
@@ -249,11 +284,14 @@ small_reduce(const IdT* __restrict__ ids, const T* __restrict__ vals, long long 
 }
 
 // small path, pass 2: fold the partials [blocks, cells] in block order
+// (the blocks pass 1 used: of n rows, or of the counted ones)
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-fold_partials(const T* __restrict__ part, int blocks, int cells, T* __restrict__ out) {
+fold_partials(const T* __restrict__ part, long long n, long long per, int blocks, Count count,
+              int cells, T* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= cells) return;
+  blocks = rows_of(n, per, blocks, count).blocks;
   T acc = part[i];
   for (int g = 1; g < blocks; ++g) acc = combine<T, OP>(acc, part[(long long)g * cells + i]);
   out[i] = acc;
@@ -264,13 +302,15 @@ fold_partials(const T* __restrict__ part, int blocks, int cells, T* __restrict__
 template <typename IdT>
 __global__ void __launch_bounds__(kThreads)
 bucket_count(const IdT* __restrict__ ids, long long n, int k, int shift, int nb,
-             long long per, int ranges, int* __restrict__ counts) {
+             long long per, Count count, int ranges, int* __restrict__ counts) {
   extern __shared__ int cnt[];                 // [kWarps][nb]
   for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) cnt[i] = 0;
   __syncthreads();
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // every block writes its counts: a range past the counted rows' counts 0
+  const Rows r = rows_of(n, per, gridDim.x, count);
   long long begin, end;
-  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+  warp_range(r.m, r.per, (long long)blockIdx.x * kWarps + w, &begin, &end);
 #pragma unroll 4
   for (long long r = begin + lane; r < end; r += 32) {
     const long long id = __ldcs(ids + r);
@@ -362,8 +402,9 @@ scan_chunks(int* __restrict__ counts, long long len, const int* __restrict__ sum
 template <typename T, typename IdT>
 __global__ void __launch_bounds__(kThreads)
 bucket_scatter(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n, int d,
-               long long vstride, int k, int shift, int nb, long long per, int ranges,
-               const int* __restrict__ offs, int* __restrict__ sid, T* __restrict__ sval) {
+               long long vstride, int k, int shift, int nb, long long per, Count count,
+               int ranges, const int* __restrict__ offs, int* __restrict__ sid,
+               T* __restrict__ sval) {
   extern __shared__ int cur[];                 // [kWarps][nb]: next free place
   __shared__ int tags[kWarps * kTags];
   for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) {
@@ -372,8 +413,9 @@ bucket_scatter(const IdT* __restrict__ ids, const T* __restrict__ vals, long lon
   }
   __syncthreads();
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Rows rw = rows_of(n, per, gridDim.x, count);
   long long begin, end;
-  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+  warp_range(rw.m, rw.per, (long long)blockIdx.x * kWarps + w, &begin, &end);
   for (long long base = begin; base < end; base += 32 * kUnroll) {
     long long id[kUnroll];
     T v0[kUnroll];
@@ -437,7 +479,7 @@ template <> __device__ __forceinline__ unsigned bits<int>(int v) { return (unsig
 template <typename T, typename IdT, int W>
 __global__ void __launch_bounds__(kThreads)
 bucket_scatter_staged(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n,
-                      int k, int shift, int nb, long long per, int ranges,
+                      int k, int shift, int nb, long long per, Count count, int ranges,
                       const int* __restrict__ offs, unsigned* __restrict__ rec) {
   constexpr int R = 8 / W;
   extern __shared__ int smem_int[];
@@ -452,8 +494,9 @@ bucket_scatter_staged(const IdT* __restrict__ ids, const T* __restrict__ vals, l
   }
   __syncthreads();
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Rows rw = rows_of(n, per, gridDim.x, count);
   long long begin, end;
-  warp_range(n, per, (long long)blockIdx.x * kWarps + w, &begin, &end);
+  warp_range(rw.m, rw.per, (long long)blockIdx.x * kWarps + w, &begin, &end);
   for (long long base = begin; base < end; base += 32 * kUnroll) {
     long long id[kUnroll];
     T v0[kUnroll];
@@ -586,7 +629,7 @@ int set_smem(const void* fn, size_t bytes) {
 
 template <typename T, int OP, typename IdT>
 int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long vstride, int k,
-           unsigned char* scratch, long long scratch_bytes, int blocks, int shift,
+           unsigned char* scratch, long long scratch_bytes, int blocks, int shift, Count count,
            cudaStream_t s) {
   const long long cells = (long long)k * d;
   if (cells == 0) return 0;
@@ -601,10 +644,10 @@ int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long 
     int err = set_smem((const void*)small_reduce<T, OP, IdT>, smem);
     if (err) return err;
     small_reduce<T, OP, IdT><<<blocks, kThreads, smem, s>>>(ids, vals, n, d, vstride, k, per,
-                                                            part);
+                                                            count, part);
     if (blocks > 1)
       fold_partials<T, OP><<<(int)((cells + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-          part, blocks, (int)cells, out);
+          part, n, per, blocks, count, (int)cells, out);
     return 0;
   }
   // large path: the scratch holds counts [nb·ranges + 1], chunk sums, the
@@ -636,7 +679,7 @@ int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long 
   if (!err && !staged) err = set_smem((const void*)bucket_scatter<T, IdT>, smem1);
   if (!err) err = set_smem((const void*)bucket_reduce<T, OP>, smem2);
   if (err) return err;
-  bucket_count<IdT><<<blocks, kThreads, smem1, s>>>(ids, n, k, shift, (int)nb, per,
+  bucket_count<IdT><<<blocks, kThreads, smem1, s>>>(ids, n, k, shift, (int)nb, per, count,
                                                     (int)ranges, counts);
   scan_sums<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
   scan_chunk_sums<<<1, kThreads, 0, s>>>(sums, (int)chunks);
@@ -645,19 +688,19 @@ int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long 
   const int threads2 = in_smem ? warps2 * 32 : 32;
   if (staged && vstride == 0) {
     bucket_scatter_staged<T, IdT, 1><<<blocks, kThreads, smem_staged, s>>>(
-        ids, vals, n, k, shift, (int)nb, per, (int)ranges, counts, rec);
+        ids, vals, n, k, shift, (int)nb, per, count, (int)ranges, counts, rec);
     bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
         sid, 1, vals, 0, d, k, shift, (int)ranges, counts, in_smem, out);
   } else if (staged) {
     bucket_scatter_staged<T, IdT, 2><<<blocks, kThreads, smem_staged, s>>>(
-        ids, vals, n, k, shift, (int)nb, per, (int)ranges, counts, rec);
+        ids, vals, n, k, shift, (int)nb, per, count, (int)ranges, counts, rec);
     bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
         sid, 2, reinterpret_cast<const T*>(rec + 1), 2, d, k, shift, (int)ranges, counts,
         in_smem, out);
   } else {
     bucket_scatter<T, IdT><<<blocks, kThreads, smem1, s>>>(ids, vals, n, d, vstride, k, shift,
-                                                           (int)nb, per, (int)ranges, counts,
-                                                           sid, sval);
+                                                           (int)nb, per, count, (int)ranges,
+                                                           counts, sid, sval);
     bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
         sid, 1, vstride != 0 ? sval : vals, vstride != 0 ? d : 0, d, k, shift, (int)ranges,
         counts, in_smem, out);
@@ -668,26 +711,42 @@ int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long 
 template <typename T, typename IdT>
 int launch_op(int op, const IdT* ids, const T* vals, T* out, long long n, int d,
               long long vstride, int k, unsigned char* scratch, long long scratch_bytes,
-              int blocks, int shift, cudaStream_t s) {
+              int blocks, int shift, Count count, cudaStream_t s) {
   if (op == kSum)
     return launch<T, kSum, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
-                                blocks, shift, s);
+                                blocks, shift, count, s);
   if (op == kMin)
     return launch<T, kMin, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
-                                blocks, shift, s);
+                                blocks, shift, count, s);
   return launch<T, kMax, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
-                              blocks, shift, s);
+                              blocks, shift, count, s);
 }
 
 template <typename IdT>
 int launch_dtype(int dtype, int op, const IdT* ids, const void* vals, void* out, long long n,
                  int d, long long vstride, int k, unsigned char* scratch,
-                 long long scratch_bytes, int blocks, int shift, cudaStream_t s) {
+                 long long scratch_bytes, int blocks, int shift, Count count, cudaStream_t s) {
   if (dtype == 0)
     return launch_op<float, IdT>(op, ids, (const float*)vals, (float*)out, n, d, vstride, k,
-                                 scratch, scratch_bytes, blocks, shift, s);
+                                 scratch, scratch_bytes, blocks, shift, count, s);
   return launch_op<int, IdT>(op, ids, (const int*)vals, (int*)out, n, d, vstride, k, scratch,
-                             scratch_bytes, blocks, shift, s);
+                             scratch_bytes, blocks, shift, count, s);
+}
+
+int launch_any(int dtype, int op, const void* ids, const void* vals, void* out, long long n,
+               int d, long long vstride, int k, void* stream, int id64, void* scratch,
+               long long scratch_bytes, int blocks, int shift, Count count) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (op < 0 || op > 2 || d < 1 || k < 0 || n < 0 || blocks < 1 || shift > 30 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  const int err = id64 ? launch_dtype<long long>(dtype, op, (const long long*)ids, vals, out, n,
+                                                 d, vstride, k, sc, scratch_bytes, blocks,
+                                                 shift, count, s)
+                       : launch_dtype<int>(dtype, op, (const int*)ids, vals, out, n, d,
+                                           vstride, k, sc, scratch_bytes, blocks, shift, count, s);
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -704,17 +763,27 @@ extern "C" int segment_reduce_launch(int dtype, int op, const void* ids, const v
                                      void* out, long long n, int d, long long vstride, int k,
                                      void* stream, int id64, void* scratch,
                                      long long scratch_bytes, int blocks, int shift) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (op < 0 || op > 2 || d < 1 || k < 0 || n < 0 || blocks < 1 || shift > 30 ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  unsigned char* sc = static_cast<unsigned char*>(scratch);
-  const int err = id64 ? launch_dtype<long long>(dtype, op, (const long long*)ids, vals, out, n,
-                                                 d, vstride, k, sc, scratch_bytes, blocks,
-                                                 shift, s)
-                       : launch_dtype<int>(dtype, op, (const int*)ids, vals, out, n, d,
-                                           vstride, k, sc, scratch_bytes, blocks, shift, s);
-  return err ? err : (int)cudaGetLastError();
+  return launch_any(dtype, op, ids, vals, out, n, d, vstride, k, stream, id64, scratch,
+                    scratch_bytes, blocks, shift, Count{nullptr, 0, 0, 0});
+}
+
+// The device-count entry: the same launch over ids and values of n rows,
+// of which it reduces the first `*n_rows - base` (clamped to [0, n]), an
+// int32 in device memory that the launch reads on the device.  The plan
+// (blocks, shift, scratch) is the host's for n rows; `cap` and `rpb` are
+// its block cap and rows a block, from which the device derives the
+// counted rows' blocks.  The result has the bits of a launch over the
+// counted rows alone.
+extern "C" int segment_reduce_launch_rows(int dtype, int op, const void* ids, const void* vals,
+                                          void* out, long long n, int d, long long vstride,
+                                          int k, void* stream, int id64, void* scratch,
+                                          long long scratch_bytes, int blocks, int shift,
+                                          const void* n_rows, long long base, int cap,
+                                          int rpb) {
+  if (n_rows == nullptr || cap < 1 || rpb < 1) return (int)cudaErrorInvalidValue;
+  return launch_any(dtype, op, ids, vals, out, n, d, vstride, k, stream, id64, scratch,
+                    scratch_bytes, blocks, shift,
+                    Count{static_cast<const int*>(n_rows), base, cap, rpb});
 }
 
 extern "C" const char* segment_reduce_error_string(int code) {

@@ -132,22 +132,59 @@ def _plan(n: int, d: int, k: int, vstride: int):
 
 
 def segment_reduce(ids, values, num_segments: int, *, op: str = "+",
-                   init=None):
+                   init=None, n_rows=None):
     """ids: [N] int; values: [N] or [N, D] -> [num_segments(, D)].
 
     CPU tensors take the plain version, in the kernel's ranges of
     RANGE_ROWS rows folded in row order.  CUDA tensors launch the kernel
     or raise; there is no fallback.  `init` (a result of an earlier call)
     starts the fold: init ⊕ range 1 ⊕ range 2 …, so that rows reduced in
-    calls of whole ranges fold as one call over all of them does."""
+    calls of whole ranges fold as one call over all of them does.
+
+    `n_rows`, a 0-d int32 tensor on the values' device, reduces the first
+    n_rows rows alone (clamped to [0, N]), with the bits of a call over
+    ids[:n_rows], values[:n_rows].  On the card the kernel reads the count
+    on the device (the device-count entry): the grid and scratch are sized
+    for N, nothing is read on the host, and a CUDA graph that captured the
+    launch reduces whatever count the tensor holds at each replay (a lane
+    of a served batch, padded to the batch's rows).  On the CPU the plain
+    version runs over [:n_rows]."""
     if op not in _OPS:
         raise ValueError(f"segment_reduce: unsupported op {op!r}")
+    if n_rows is not None:
+        if init is not None:
+            raise ValueError("segment_reduce: n_rows= and init= do not "
+                             "combine")
+        _check_count(n_rows, values)
+        if values.device.type == "cuda":
+            return _launch(ids, values, num_segments, op, n_rows)
+        n = max(0, min(int(n_rows), values.shape[0]))
+        return segment_reduce(ids[:n], values[:n], num_segments, op=op)
     if init is not None:
         return _by_ranges(ids, values, num_segments, op, init)
     if values.device.type == "cpu" and ids.device.type == "cpu":
         if values.shape[0] > RANGE_ROWS:
             return _by_ranges(ids, values, num_segments, op)
         return segment_reduce_plain(ids, values, num_segments, op)
+    return _launch(ids, values, num_segments, op)
+
+
+segment_reduce.launches = 0
+
+
+def _check_count(n_rows, values) -> None:
+    if not torch.is_tensor(n_rows) or n_rows.dtype != torch.int32 \
+            or n_rows.dim() != 0 or n_rows.device != values.device:
+        raise ValueError(
+            "segment_reduce: n_rows must be a 0-d int32 tensor on the "
+            f"values' device {values.device} (got {n_rows!r})")
+
+
+def _launch(ids, values, num_segments: int, op: str, n_rows=None,
+            base: int = 0):
+    """One launch of the kernel (ranges of RANGE_ROWS rows, folded in row
+    order, beyond that); with `n_rows`, of the device-count entry, which
+    reduces the first `n_rows - base` rows."""
     if values.device.type != "cuda" or ids.device != values.device:
         raise ValueError("segment_reduce: ids and values must lie on one "
                          f"CUDA device (got {ids.device}, {values.device})")
@@ -166,7 +203,7 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+",
                           device=vals.device)
         return out[:, 0] if squeeze else out
     if n > RANGE_ROWS:
-        return _by_ranges(ids, values, k, op)
+        return _by_ranges(ids, values, k, op, n_rows=n_rows)
     acc = _acc_dtype(vals.dtype)
     vals = vals.to(acc)
     if vals.stride(0) == 0 and (d == 1 or vals.stride(1) == 1):
@@ -183,25 +220,40 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+",
                           device=vals.device)
     lib = _build.load("segment_reduce")
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    code = lib.segment_reduce_launch(
-        0 if acc == torch.float32 else 1, _OPS[op], ids.data_ptr(),
-        vals.data_ptr(), out.data_ptr(), n, d, vstride, k, stream,
-        int(ids.dtype == torch.int64), scratch.data_ptr(), scratch_bytes,
-        blocks, shift)
+    args = (0 if acc == torch.float32 else 1, _OPS[op], ids.data_ptr(),
+            vals.data_ptr(), out.data_ptr(), n, d, vstride, k, stream,
+            int(ids.dtype == torch.int64), scratch.data_ptr(), scratch_bytes,
+            blocks, shift)
+    if n_rows is None:
+        code = lib.segment_reduce_launch(*args)
+    else:
+        # the device derives the counted rows' plan as _plan does: the
+        # same block cap and rows a block
+        cap = _SMALL_BLOCKS if shift < 0 else _LARGE_BLOCKS
+        code = lib.segment_reduce_launch_rows(*args, n_rows.data_ptr(), base,
+                                              cap, _ROWS_PER_BLOCK)
     _build.check("segment_reduce", code)
     segment_reduce.launches += 1
     return out[:, 0] if squeeze else out
 
 
-segment_reduce.launches = 0
-
-
-def _by_ranges(ids, values, k: int, op: str, out=None):
-    """Range by range, the results combined in row order (after `out`)."""
+def _by_ranges(ids, values, k: int, op: str, out=None, n_rows=None):
+    """Range by range, the results combined in row order (after `out`).
+    With a device count, a range that starts at or past it is left out of
+    the fold by a select on the device, as a call over the counted rows
+    has no such range."""
     for i in range(0, values.shape[0], RANGE_ROWS):
-        part = segment_reduce(ids[i:i + RANGE_ROWS],
-                              values[i:i + RANGE_ROWS], k, op=op)
-        out = part if out is None else _COMBINE[op](out, part)
+        rows = slice(i, i + RANGE_ROWS)
+        if n_rows is None:
+            part = segment_reduce(ids[rows], values[rows], k, op=op)
+        else:
+            part = _launch(ids[rows], values[rows], k, op, n_rows, base=i)
+        if out is None:
+            out = part
+        elif n_rows is None:
+            out = _COMBINE[op](out, part)
+        else:
+            out = torch.where(n_rows > i, _COMBINE[op](out, part), out)
     return out
 
 

@@ -10,8 +10,14 @@ run() against the JAX package's on the same seeded numpy inputs, the
 `whole-program:` line equal to the reference's for one call sequence, and
 the regions and host loop of a SeqLoop (pagerank's body, zero iterations,
 nested loops), the inputs an entry does not stage (those no run reads) and
-the bound on the entries a program keeps.  The reference's donation tests
-are not ported: the port has no `donate=`.
+the bound on the entries a program keeps.  Donation (`donate=True`): the
+ports of the reference's two donation tests (results unchanged, the donated
+tensor consumed, SeqLoop carries, numpy inputs safe on repeat), donated
+bits equal to whole mode's on every program, the feed-back pattern (the
+caller hands back what the last call returned) copying no byte of a
+donated name in or out, an output the caller holds never overwritten,
+`donate=on` on the explain line as in the reference's, and memest's donate
+credit equal to the reference's.
 
 Tests marked `cuda` run on the card (the capture itself) and skip here;
 they need no jax, so the card's machine runs them alone:
@@ -265,7 +271,7 @@ def test_the_cache_keeps_the_latest_signatures():
     assert cp.trace_count == 4
 
 
-@pytest.mark.parametrize("mode", ["whole", "eager"])
+@pytest.mark.parametrize("mode", ["whole", "eager", "donate"])
 def test_a_run_leaves_no_reference_cycle(mode):
     # a run's values, and a dropped program's entry, are freed when the
     # last reference goes, not when the cyclic garbage collector runs
@@ -274,13 +280,14 @@ def test_a_run_leaves_no_reference_cycle(mode):
     ins = data_for("pagerank")
     gc.disable()
     try:
-        cp = compile_program(ALL["pagerank"], compile_mode=mode,
-                             device="cpu")
+        cp = compile_program(ALL["pagerank"], device="cpu",
+                             compile_mode="eager" if mode == "eager"
+                             else "whole", donate=mode == "donate")
         out = cp.run(_fresh(ins))
         ref = weakref.ref(out["P"])
         del out
         assert ref() is None
-        if mode == "whole":
+        if mode != "eager":
             ref = weakref.ref(_entry(cp))
         del cp
         assert ref() is None
@@ -382,6 +389,153 @@ def test_nested_loops(k):
     assert entry.syncs == 1 + int(k) * (1 + 2 + 1)
     ref = jax_compile(ref_p).run(_fresh(ins))
     _check_equal(out, ref, ref, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# buffer donation (mutated destinations + SeqLoop carries)
+# ---------------------------------------------------------------------------
+
+def _tensors(ins, device="cpu"):
+    """The inputs as tensors on `device` in their canonical dtypes."""
+    from repro_torch.convert import inputs_from_numpy
+    return inputs_from_numpy(_fresh(ins), device)
+
+
+def test_donation_results_unchanged_and_buffer_freed():
+    ins = data_for("word_count")
+    ref = compile_program(ALL["word_count"], compile_mode="eager",
+                          device="cpu").run(_fresh(ins))
+    cp = compile_program(ALL["word_count"], donate=True, device="cpu")
+    c_in = torch.zeros(10, dtype=torch.float32)   # dest buffer, on-device
+    out = cp.run(dict(W=ins["W"].copy(), C=c_in))
+    _check_equal(out, ref, ["C"])
+    # the destination tensor was donated to the call and consumed
+    assert c_in.numel() == 0
+
+
+def test_donation_seq_loop_carries():
+    ins = data_for("pagerank")
+    ref = compile_program(ALL["pagerank"], compile_mode="eager",
+                          device="cpu").run(_fresh(ins))
+    cp = compile_program(ALL["pagerank"], donate=True, device="cpu")
+    p_in = torch.full((10,), 0.1, dtype=torch.float32)   # loop carry
+    fresh = _fresh(ins)
+    fresh["P"] = p_in
+    out = cp.run(fresh)
+    _check_equal(out, ref, out)
+    assert p_in.numel() == 0
+    # numpy inputs are copied in per call: donation stays safe on repeat
+    # runs with fresh buffers
+    out2 = cp.run(_fresh(ins))
+    _check_equal(out2, ref, out2)
+    assert cp.trace_count == 1 and cp.cache_hits == 1
+
+
+@pytest.mark.parametrize("name", sorted(ALL))
+def test_donated_bits_equal_whole_mode(name):
+    ins = data_for(name)
+    want = compile_program(ALL[name], device="cpu").run(_fresh(ins))
+    cp = compile_program(ALL[name], donate=True, device="cpu")
+    assert _bits_equal(cp.run(_fresh(ins)), want)
+    assert _bits_equal(cp.run(_tensors(ins)), want)
+    assert cp.trace_count == 1 and cp.cache_hits == 1
+
+
+@pytest.mark.parametrize("name", ["kmeans_step", "pagerank", "word_count",
+                                  "matrix_addition"])
+def test_feed_back_copies_no_donated_byte(name):
+    # the caller hands back what the last call returned: the values lie in
+    # the entry's buffers already, and the outputs are those buffers
+    ins = data_for(name)
+    whole = compile_program(ALL[name], device="cpu")
+    cp = compile_program(ALL[name], donate=True, device="cpu")
+    first = cp.run(_fresh(ins))
+    entry = _entry(cp)
+    staged, cloned = entry.staged_bytes, entry.cloned_bytes
+    before = dict(entry.staged)
+    assert cloned == 0
+    nxt = _tensors(ins)
+    nxt.update(first)
+    held = dict(first)
+    want = whole.run(dict(_tensors(ins), **whole.run(_fresh(ins))))
+    out = cp.run(nxt)
+    assert _bits_equal(out, want)
+    donated = set(first)
+    rest = sum(t.nbytes for k, v in nxt.items() if k not in donated
+               and k not in entry.unread
+               for t in (v if isinstance(v, tuple) else (v,))
+               if isinstance(t, torch.Tensor))
+    assert entry.staged_bytes - staged == rest
+    assert all(entry.staged[k] == before[k] for k in donated)
+    assert entry.cloned_bytes == 0 and entry.rebinds == 0
+    for k, v in held.items():               # consumed
+        assert v.numel() == 0, k
+    for k, v in out.items():                # the entry's own buffers
+        assert G._is_view_of(v, entry.inputs[k]), k
+
+
+def test_a_held_output_is_never_overwritten():
+    # every call has other inputs, so an overwrite would change the values
+    # held: the outputs themselves, a view of one and a numpy array on one
+    cp = compile_program(ALL["pagerank"], donate=True, device="cpu")
+    whole = compile_program(ALL["pagerank"], device="cpu")
+    kept = []
+    for i in range(4):
+        ins = data_for("pagerank")
+        out = cp.run(_fresh(ins))           # the previous outputs are held
+        assert _bits_equal(out, whole.run(_fresh(ins)))
+        held = (out, out["P"][2:5], out["P"].numpy())
+        kept.append((held, {k: v.clone() for k, v in out.items()}))
+    for (out, view, arr), copy in kept:
+        assert _bits_equal(out, copy)
+        assert torch.equal(view, copy["P"][2:5])
+        np.testing.assert_array_equal(arr, copy["P"].numpy())
+    # on the CPU the entry moved to fresh buffers: nothing was copied out
+    # and there are no graphs to capture again
+    entry = _entry(cp)
+    assert entry.rebinds == 0 and entry.cloned_bytes == 0
+    # numpy outputs held across the feed-back of another name's output
+    a = cp.run(_fresh(data_for("pagerank")))["P"].numpy()
+    snap = a.copy()
+    cp.run(_fresh(data_for("pagerank")))
+    np.testing.assert_array_equal(a, snap)
+
+
+def test_explain_line_with_donation_equals_the_reference():
+    rng = np.random.default_rng(3)
+    ours = compile_program(ALL["word_count"], donate=True, device="cpu")
+    ref = jax_compile(JAX_ALL["word_count"], donate=True)
+    for n in (40, 40, 64):
+        ins = dict(W=rng.integers(0, 10, n).astype(np.float64),
+                   C=np.zeros(10))
+        ours.run(_fresh(ins))
+        ref.run(_fresh(ins))
+        assert ours.explain().splitlines()[-1] == \
+            ref.explain().splitlines()[-1]
+    assert ours.explain().splitlines()[-1] == \
+        "whole-program: mode=whole, 2 traced, 1 cache hits, donate=on"
+
+
+@pytest.mark.parametrize("name", ["kmeans_step", "pagerank", "word_count"])
+def test_memest_donate_credit_equals_the_reference(monkeypatch, name):
+    # donation credits the donated destinations' buffers, as in the
+    # reference: with the reference's constants, explain_memory() is its
+    # text character for character
+    from repro_torch.core import memest
+    monkeypatch.setattr(memest, "INDEX_BYTES", 4)
+    monkeypatch.setattr(memest, "DENSE_TEMPS", 1)
+    ins = data_for(name)
+    budget = 4096
+    ours = compile_program(ALL[name], donate=True, memory_budget=budget,
+                           device="cpu").explain_memory(ins)
+    ref = jax_compile(JAX_ALL[name], donate=True,
+                      memory_budget=budget).explain_memory(ins)
+    assert ours == ref
+    plain = compile_program(ALL[name], memory_budget=budget,
+                            device="cpu").estimate_memory(ins)
+    donated = compile_program(ALL[name], donate=True, memory_budget=budget,
+                              device="cpu").estimate_memory(ins)
+    assert donated.peak_bytes <= plain.peak_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -510,3 +664,42 @@ def test_cuda_a_persisting_fault_surfaces_on_the_card(cuda):
         assert "interp" not in cp.explain_faults()
         if ooc == "off":
             assert cp.faults.counters["descend"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["group_by", "pagerank"])
+def test_cuda_donation_feed_back_and_held_outputs(cuda, name):
+    # on the card: donated bits equal whole mode's; the feed-back pattern
+    # copies no byte of a donated name and recaptures nothing; a fresh
+    # donated tensor is consumed; a held output survives the next call,
+    # and a held view of one makes the entry recapture its graphs
+    ins = _card_inputs(name, np.random.default_rng(2))
+    whole = compile_program(ALL[name], device=cuda)
+    cp = compile_program(ALL[name], device=cuda, donate=True)
+    want = whole.run(_on(ins, cuda))
+    fresh = _on(ins, cuda)
+    given = {k: fresh[k] for k in want if isinstance(fresh[k], torch.Tensor)}
+    out = cp.run(fresh)
+    assert _bits_equal(out, want)
+    assert all(v.numel() == 0 for v in given.values())
+    entry = _entry(cp)
+    want2 = whole.run(dict(_on(ins, cuda), **want))
+    staged, cloned = entry.staged_bytes, entry.cloned_bytes
+    before = dict(entry.staged)
+    nxt = dict(_on(ins, cuda), **out)
+    out2 = cp.run(nxt)
+    torch.cuda.synchronize()
+    assert _bits_equal(out2, want2)
+    assert entry.staged_bytes > staged          # the bag, as before
+    assert all(entry.staged[k] == before[k] for k in out)
+    assert entry.cloned_bytes == cloned and entry.rebinds == 0
+    kept = {k: v.clone() for k, v in out2.items()}
+    out3 = cp.run(_on(ins, cuda))
+    torch.cuda.synchronize()
+    assert _bits_equal(out2, kept) and _bits_equal(out3, want)
+    view = out3[next(iter(out3))][1:]
+    snap = view.clone()
+    out4 = cp.run(_on(ins, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(view, snap) and entry.rebinds == 1
+    assert _bits_equal(out4, want)

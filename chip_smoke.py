@@ -81,6 +81,27 @@ first mismatch:
              bag: bucketed at their own rows on the card) and hot-key
              group_by requests (salted as their solo runs), each lane
              bit-equal to its solo run();
+7. dist    — distributed rounds (`repro_torch.core.compile_distributed`)
+             for word_count, group_by, pagerank, kmeans_step and
+             matrix_factorization_step at phase 3's sizes: first a world
+             of 1 over NCCL in this process (the op_select cuda row's
+             collective costs measured; each program's run() ms, median
+             of 5, beside single-device whole and eager, bit-equal to
+             eager, its round strategies, the segment and tile kernel
+             launches of the distributed runs, and one distributed and
+             one eager call under torch.profiler: device busy ms, idle
+             share, top kernels); then 4 ranks spawned on
+             the one card over gloo, every collective through pinned host
+             memory (outputs within max |a - b| / (|b| + 1) < 1e-4 of
+             single-device run(), two runs bit-equal, REP-everything
+             within 1e-6 except kmeans_step, whose four whole copies do
+             not fit one card, pagerank's N padded and masked; run() ms,
+             bytes a run through each collective and its transport, peak
+             memory a rank: not scaling numbers, four processes share one
+             card); pagerank with rank 1's block lost after a round inside
+             its loop bit-equal to the fault-free run, no descent, the
+             reference's ledger text; a straggling round's speculative
+             backup;
 4. serve   — serve llama3-8b and falcon-mamba-7b at full width and full
              depth (bf16, random weights from --seed, one model on the card
              at a time) through `repro_torch.serve.ServeEngine`: 4 slots,
@@ -93,9 +114,9 @@ first mismatch:
              card against the same weights on the CPU (the kernels' plain
              versions).
 
-Phases 5 and 6 run after phase 3 and before phase 4.  The line before the
-last is a JSON object with one entry per kernel (segment_reduce's launches
-count phases 3, 5 and 6); the
+Phases 5, 6 and 7 run after phase 3 and before phase 4.  The line before
+the last is a JSON object with one entry per kernel (segment_reduce's
+launches count phases 3, 5, 6 and 7's world of 1); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 
@@ -840,177 +861,195 @@ def _rel_err(out, ref):
     return float(np.max(np.abs(a - b))) / scale if b.size else 0.0
 
 
-def _programs(np, rng, torch):
+def _programs(np, rng, torch, only=None, device="cuda"):
     """(name, inputs, reference() -> {output: array}[, rows]) for each
-    program.  Inputs are made with numpy from the seed and every array is
-    moved to the card once, so that run() times hold no host-to-device
-    copy; references are numpy float64 (a sample of rows for the 8192^3
-    products)."""
+    program (those named in `only`, when given).  Inputs are made with
+    numpy from the seed and every array is moved to `device` once (the
+    card, so that run() times hold no host-to-device copy); references
+    are numpy float64 (a sample of rows for the 8192^3 products)."""
     from repro_torch.core.programs import ALL
     from repro_torch.core.tiles import pack
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     f32 = np.float32
     out = []
-    v = rng.standard_normal(N_ROWS, dtype=f32)
-    v64 = v.astype(np.float64)
-    lim = 0.3
 
-    def scal(x):
-        return np.float32(x)
+    def want(*names):
+        return only is None or any(n in only for n in names)
 
-    out.append(("average", dict(V=(dev(v),), s=0.0, cnt=0.0, avg=0.0),
-                lambda: dict(s=v64.sum(), cnt=float(N_ROWS),
-                             avg=v64.sum() / N_ROWS)))
-    out.append(("count", dict(V=(dev(v),), cnt=0.0),
-                lambda: dict(cnt=float(N_ROWS))))
-    out.append(("conditional_count", dict(V=(dev(v),), cnt=0.0, limit=lim),
-                lambda: dict(cnt=float((v < scal(lim)).sum()))))
-    out.append(("conditional_sum", dict(V=(dev(v),), s=0.0, limit=lim),
-                lambda: dict(s=v64[v < scal(lim)].sum())))
-    w = rng.integers(0, 3, N_ROWS).astype(f32)
-    out.append(("equal", dict(W=(dev(w),), first=float(w[0]), diffs=0.0),
-                lambda: dict(diffs=float((w != w[0]).sum()))))
-    ws = rng.integers(0, 1000, N_ROWS).astype(f32)
-    ks = (1.0, 500.0, 5000.0)
-    out.append(("string_match",
-                dict(W=(dev(ws),), k1=ks[0], k2=ks[1], k3=ks[2],
-                     found=dev(np.zeros(3, f32))),
-                lambda: dict(found=np.array([float((ws == k).any())
-                                             for k in ks]))))
-    toks = rng.integers(0, VOCAB, N_ROWS).astype(f32)
-    out.append(("word_count",
-                dict(W=(dev(toks),), C=dev(np.zeros(VOCAB, f32))),
-                lambda: dict(C=np.bincount(toks.astype(np.int64),
-                                           minlength=VOCAB))))
-    px = [rng.integers(0, 256, N_ROWS).astype(f32) for _ in range(3)]
-    out.append(("histogram",
-                dict(P=tuple(dev(c) for c in px),
-                     **{c: dev(np.zeros(256, f32)) for c in "RGB"}),
-                lambda: {n_: np.bincount(c.astype(np.int64), minlength=256)
-                         for n_, c in zip("RGB", px)}))
-    keys = rng.integers(0, GROUPS, N_ROWS).astype(f32)
-    gv = rng.standard_normal(N_ROWS, dtype=f32)
-    out.append(("group_by",
-                dict(S=(dev(keys), dev(gv)), C=dev(np.zeros(GROUPS, f32))),
-                lambda: dict(C=np.bincount(keys.astype(np.int64),
-                                           weights=gv.astype(np.float64),
-                                           minlength=GROUPS))))
-    x = rng.standard_normal(N_ROWS, dtype=f32)
-    y = (2.0 * x + 1.0 + 0.1 * rng.standard_normal(N_ROWS, dtype=f32)) \
-        .astype(f32)
+    if want("average", "count", "conditional_count", "conditional_sum"):
+        v = rng.standard_normal(N_ROWS, dtype=f32)
+        v64 = v.astype(np.float64)
+        lim = 0.3
 
-    def lr_ref():
-        x64, y64 = x.astype(np.float64), y.astype(np.float64)
-        xb, yb = x64.mean(), y64.mean()
-        xx = ((x64 - xb) ** 2).sum()
-        xy = ((x64 - xb) * (y64 - yb)).sum()
-        return dict(sum_x=x64.sum(), sum_y=y64.sum(), x_bar=xb, y_bar=yb,
-                    xx_bar=xx, xy_bar=xy, slope=xy / xx,
-                    intercept=yb - xy / xx * xb)
-    out.append(("linear_regression",
-                dict(P=(dev(x), dev(y)), n=N_ROWS,
-                     **{k_: 0.0 for k_ in ("sum_x", "sum_y", "x_bar",
-                                           "y_bar", "xx_bar", "xy_bar",
-                                           "slope", "intercept")}),
-                lr_ref))
-    ma = rng.standard_normal((MAT, MAT), dtype=f32)
-    mb = rng.standard_normal((MAT, MAT), dtype=f32)
-    out.append(("matrix_addition",
-                dict(M=dev(ma), N=dev(mb), R=torch.zeros(MAT, MAT,
-                                                         device="cuda"),
-                     n=MAT, m=MAT),
-                lambda: dict(R=ma.astype(np.float64) + mb)))
-    rows = np.sort(rng.choice(MAT, 64, replace=False))
+        def scal(x):
+            return np.float32(x)
 
-    def mm_ref(lhs):
-        return dict(R=lhs[rows].astype(np.float64) @ mb.astype(np.float64))
-    out.append(("matrix_multiplication",
-                dict(M=dev(ma), N=dev(mb), R=torch.zeros(MAT, MAT,
-                                                         device="cuda"),
-                     n=MAT, m=MAT, l=MAT),
-                lambda: mm_ref(ma), rows))
-    # packed lhs: half of the 128x128 tiles zero, packed with pack(M, 128,
-    # 128), so TiledMatmul runs the tile kernel
-    t = MAT // 128
-    zero = rng.permutation(t * t)[: t * t // 2]
-    mz = ma.copy().reshape(t, 128, t, 128)
-    mz[zero // t, :, zero % t, :] = 0.0
-    mz = mz.reshape(MAT, MAT)
-    out.append(("matrix_multiplication[packed]",
-                dict(M=pack(dev(mz), 128, 128), N=dev(mb),
-                     R=torch.zeros(MAT, MAT, device="cuda"), n=MAT, m=MAT,
-                     l=MAT),
-                lambda: mm_ref(mz), rows))
-    src = rng.integers(0, PR_VERTICES, PR_EDGES)
-    dst = rng.integers(0, PR_VERTICES, PR_EDGES)
-    b_ = 0.85
+        out.append(("average", dict(V=(dev(v),), s=0.0, cnt=0.0, avg=0.0),
+                    lambda: dict(s=v64.sum(), cnt=float(N_ROWS),
+                                 avg=v64.sum() / N_ROWS)))
+        out.append(("count", dict(V=(dev(v),), cnt=0.0),
+                    lambda: dict(cnt=float(N_ROWS))))
+        out.append(("conditional_count",
+                    dict(V=(dev(v),), cnt=0.0, limit=lim),
+                    lambda: dict(cnt=float((v < scal(lim)).sum()))))
+        out.append(("conditional_sum", dict(V=(dev(v),), s=0.0, limit=lim),
+                    lambda: dict(s=v64[v < scal(lim)].sum())))
+    if want("equal"):
+        w = rng.integers(0, 3, N_ROWS).astype(f32)
+        out.append(("equal", dict(W=(dev(w),), first=float(w[0]), diffs=0.0),
+                    lambda: dict(diffs=float((w != w[0]).sum()))))
+    if want("string_match"):
+        ws = rng.integers(0, 1000, N_ROWS).astype(f32)
+        ks = (1.0, 500.0, 5000.0)
+        out.append(("string_match",
+                    dict(W=(dev(ws),), k1=ks[0], k2=ks[1], k3=ks[2],
+                         found=dev(np.zeros(3, f32))),
+                    lambda: dict(found=np.array([float((ws == k).any())
+                                                 for k in ks]))))
+    if want("word_count"):
+        toks = rng.integers(0, VOCAB, N_ROWS).astype(f32)
+        out.append(("word_count",
+                    dict(W=(dev(toks),), C=dev(np.zeros(VOCAB, f32))),
+                    lambda: dict(C=np.bincount(toks.astype(np.int64),
+                                               minlength=VOCAB))))
+    if want("histogram"):
+        px = [rng.integers(0, 256, N_ROWS).astype(f32) for _ in range(3)]
+        out.append(("histogram",
+                    dict(P=tuple(dev(c) for c in px),
+                         **{c: dev(np.zeros(256, f32)) for c in "RGB"}),
+                    lambda: {n_: np.bincount(c.astype(np.int64), minlength=256)
+                             for n_, c in zip("RGB", px)}))
+    if want("group_by"):
+        keys = rng.integers(0, GROUPS, N_ROWS).astype(f32)
+        gv = rng.standard_normal(N_ROWS, dtype=f32)
+        out.append(("group_by",
+                    dict(S=(dev(keys), dev(gv)), C=dev(np.zeros(GROUPS, f32))),
+                    lambda: dict(C=np.bincount(keys.astype(np.int64),
+                                               weights=gv.astype(np.float64),
+                                               minlength=GROUPS))))
+    if want("linear_regression"):
+        x = rng.standard_normal(N_ROWS, dtype=f32)
+        y = (2.0 * x + 1.0 + 0.1 * rng.standard_normal(N_ROWS, dtype=f32)) \
+            .astype(f32)
 
-    def pr_ref():
-        nv = PR_VERTICES
-        c = np.bincount(src, minlength=nv).astype(np.float64)
-        p = np.full(nv, 1.0 / nv)
-        for _ in range(PR_STEPS):
-            np_ = np.bincount(dst, weights=p[src] / c[src], minlength=nv)
-            p = (1.0 - b_) / nv + b_ * np_
-        return dict(P=p, NP=np_, C=c, steps=float(PR_STEPS))
-    out.append(("pagerank",
-                dict(E=(dev(src.astype(f32)), dev(dst.astype(f32))),
-                     P=dev(np.full(PR_VERTICES, 1.0 / PR_VERTICES, f32)),
-                     NP=dev(np.zeros(PR_VERTICES, f32)),
-                     C=dev(np.zeros(PR_VERTICES, f32)), N=PR_VERTICES,
-                     num_steps=float(PR_STEPS), steps=0.0, b=b_),
-                pr_ref))
-    kx = (rng.standard_normal(KM_POINTS, dtype=f32) * 3).astype(f32)
-    ky = (rng.standard_normal(KM_POINTS, dtype=f32) * 3).astype(f32)
-    cx = rng.standard_normal(KM_K, dtype=f32)
-    cy = rng.standard_normal(KM_K, dtype=f32)
+        def lr_ref():
+            x64, y64 = x.astype(np.float64), y.astype(np.float64)
+            xb, yb = x64.mean(), y64.mean()
+            xx = ((x64 - xb) ** 2).sum()
+            xy = ((x64 - xb) * (y64 - yb)).sum()
+            return dict(sum_x=x64.sum(), sum_y=y64.sum(), x_bar=xb, y_bar=yb,
+                        xx_bar=xx, xy_bar=xy, slope=xy / xx,
+                        intercept=yb - xy / xx * xb)
+        out.append(("linear_regression",
+                    dict(P=(dev(x), dev(y)), n=N_ROWS,
+                         **{k_: 0.0 for k_ in ("sum_x", "sum_y", "x_bar",
+                                               "y_bar", "xx_bar", "xy_bar",
+                                               "slope", "intercept")}),
+                    lr_ref))
+    if want("matrix_addition", "matrix_multiplication",
+            "matrix_multiplication[packed]"):
+        ma = rng.standard_normal((MAT, MAT), dtype=f32)
+        mb = rng.standard_normal((MAT, MAT), dtype=f32)
+        out.append(("matrix_addition",
+                    dict(M=dev(ma), N=dev(mb), R=torch.zeros(MAT, MAT,
+                                                             device=device),
+                         n=MAT, m=MAT),
+                    lambda: dict(R=ma.astype(np.float64) + mb)))
+        rows = np.sort(rng.choice(MAT, 64, replace=False))
 
-    def km_ref():
-        # D in float32, as the program computes it, so that ties in the
-        # argmin resolve the same way; the sums in float64
-        d = (kx[:, None] - cx[None, :]) * (kx[:, None] - cx[None, :]) \
-            + (ky[:, None] - cy[None, :]) * (ky[:, None] - cy[None, :])
-        mind = np.minimum(np.float32(1e30), d.min(axis=1))
-        cl = (KM_K - 1 - np.argmin(d[:, ::-1], axis=1)).astype(np.int64)
-        sx = np.bincount(cl, weights=kx.astype(np.float64), minlength=KM_K)
-        sy = np.bincount(cl, weights=ky.astype(np.float64), minlength=KM_K)
-        cn = np.bincount(cl, minlength=KM_K).astype(np.float64)
-        return dict(D=d, MinD=mind, Cl=cl.astype(np.float64), SX=sx, SY=sy,
-                    CN=cn, NX=sx / np.maximum(cn, 1.0),
-                    NY=sy / np.maximum(cn, 1.0))
-    out.append(("kmeans_step",
-                dict(P=(dev(kx), dev(ky)), CX=dev(cx), CY=dev(cy), K=KM_K,
-                     D=torch.zeros(KM_POINTS, KM_K, device="cuda"),
-                     MinD=torch.full((KM_POINTS,), 1e30, device="cuda"),
-                     Cl=torch.zeros(KM_POINTS, device="cuda"),
-                     **{a_: dev(np.zeros(KM_K, f32))
-                        for a_ in ("SX", "SY", "CN", "NX", "NY")}),
-                km_ref))
-    n_, l_ = MF_N, MF_L
-    R = rng.standard_normal((n_, n_), dtype=f32)
-    Pm = (rng.standard_normal((n_, l_), dtype=f32) * 0.1).astype(f32)
-    Qm = (rng.standard_normal((l_, n_), dtype=f32) * 0.1).astype(f32)
-    Pp = (rng.standard_normal((n_, l_), dtype=f32) * 0.1).astype(f32)
-    Qp = (rng.standard_normal((l_, n_), dtype=f32) * 0.1).astype(f32)
-    a_, lam = 0.002, 0.02
+        def mm_ref(lhs):
+            return dict(R=lhs[rows].astype(np.float64) @ mb.astype(np.float64))
+        out.append(("matrix_multiplication",
+                    dict(M=dev(ma), N=dev(mb), R=torch.zeros(MAT, MAT,
+                                                             device=device),
+                         n=MAT, m=MAT, l=MAT),
+                    lambda: mm_ref(ma), rows))
+        # packed lhs: half of the 128x128 tiles zero, packed with pack(M, 128,
+        # 128), so TiledMatmul runs the tile kernel
+        t = MAT // 128
+        zero = rng.permutation(t * t)[: t * t // 2]
+        mz = ma.copy().reshape(t, 128, t, 128)
+        mz[zero // t, :, zero % t, :] = 0.0
+        mz = mz.reshape(MAT, MAT)
+        out.append(("matrix_multiplication[packed]",
+                    dict(M=pack(dev(mz), 128, 128), N=dev(mb),
+                         R=torch.zeros(MAT, MAT, device=device), n=MAT, m=MAT,
+                         l=MAT),
+                    lambda: mm_ref(mz), rows))
+    if want("pagerank"):
+        src = rng.integers(0, PR_VERTICES, PR_EDGES)
+        dst = rng.integers(0, PR_VERTICES, PR_EDGES)
+        b_ = 0.85
 
-    def mf_ref():
-        P64, Q64, Pp64, Qp64 = (z.astype(np.float64)
-                                for z in (Pm, Qm, Pp, Qp))
-        pq = Pp64 @ Qp64
-        err = R.astype(np.float64) - pq
-        return dict(pq=pq, err=err,
-                    P=P64 + a_ * (2.0 * err @ Qp64.T - lam * n_ * Pp64),
-                    Q=Q64 + a_ * (2.0 * Pp64.T @ err - lam * n_ * Qp64))
-    out.append(("matrix_factorization_step",
-                dict(R=dev(R), P=dev(Pm), Q=dev(Qm), Pp=dev(Pp), Qp=dev(Qp),
-                     pq=torch.zeros(n_, n_, device="cuda"),
-                     err=torch.zeros(n_, n_, device="cuda"),
-                     n=n_, m=n_, l=l_, a=a_, lam=lam),
-                mf_ref))
+        def pr_ref():
+            nv = PR_VERTICES
+            c = np.bincount(src, minlength=nv).astype(np.float64)
+            p = np.full(nv, 1.0 / nv)
+            for _ in range(PR_STEPS):
+                np_ = np.bincount(dst, weights=p[src] / c[src], minlength=nv)
+                p = (1.0 - b_) / nv + b_ * np_
+            return dict(P=p, NP=np_, C=c, steps=float(PR_STEPS))
+        out.append(("pagerank",
+                    dict(E=(dev(src.astype(f32)), dev(dst.astype(f32))),
+                         P=dev(np.full(PR_VERTICES, 1.0 / PR_VERTICES, f32)),
+                         NP=dev(np.zeros(PR_VERTICES, f32)),
+                         C=dev(np.zeros(PR_VERTICES, f32)), N=PR_VERTICES,
+                         num_steps=float(PR_STEPS), steps=0.0, b=b_),
+                    pr_ref))
+    if want("kmeans_step"):
+        kx = (rng.standard_normal(KM_POINTS, dtype=f32) * 3).astype(f32)
+        ky = (rng.standard_normal(KM_POINTS, dtype=f32) * 3).astype(f32)
+        cx = rng.standard_normal(KM_K, dtype=f32)
+        cy = rng.standard_normal(KM_K, dtype=f32)
+
+        def km_ref():
+            # D in float32, as the program computes it, so that ties in the
+            # argmin resolve the same way; the sums in float64
+            d = (kx[:, None] - cx[None, :]) * (kx[:, None] - cx[None, :]) \
+                + (ky[:, None] - cy[None, :]) * (ky[:, None] - cy[None, :])
+            mind = np.minimum(np.float32(1e30), d.min(axis=1))
+            cl = (KM_K - 1 - np.argmin(d[:, ::-1], axis=1)).astype(np.int64)
+            sx = np.bincount(cl, weights=kx.astype(np.float64), minlength=KM_K)
+            sy = np.bincount(cl, weights=ky.astype(np.float64), minlength=KM_K)
+            cn = np.bincount(cl, minlength=KM_K).astype(np.float64)
+            return dict(D=d, MinD=mind, Cl=cl.astype(np.float64), SX=sx, SY=sy,
+                        CN=cn, NX=sx / np.maximum(cn, 1.0),
+                        NY=sy / np.maximum(cn, 1.0))
+        out.append(("kmeans_step",
+                    dict(P=(dev(kx), dev(ky)), CX=dev(cx), CY=dev(cy), K=KM_K,
+                         D=torch.zeros(KM_POINTS, KM_K, device=device),
+                         MinD=torch.full((KM_POINTS,), 1e30, device=device),
+                         Cl=torch.zeros(KM_POINTS, device=device),
+                         **{a_: dev(np.zeros(KM_K, f32))
+                            for a_ in ("SX", "SY", "CN", "NX", "NY")}),
+                    km_ref))
+    if want("matrix_factorization_step"):
+        n_, l_ = MF_N, MF_L
+        R = rng.standard_normal((n_, n_), dtype=f32)
+        Pm = (rng.standard_normal((n_, l_), dtype=f32) * 0.1).astype(f32)
+        Qm = (rng.standard_normal((l_, n_), dtype=f32) * 0.1).astype(f32)
+        Pp = (rng.standard_normal((n_, l_), dtype=f32) * 0.1).astype(f32)
+        Qp = (rng.standard_normal((l_, n_), dtype=f32) * 0.1).astype(f32)
+        a_, lam = 0.002, 0.02
+
+        def mf_ref():
+            P64, Q64, Pp64, Qp64 = (z.astype(np.float64)
+                                    for z in (Pm, Qm, Pp, Qp))
+            pq = Pp64 @ Qp64
+            err = R.astype(np.float64) - pq
+            return dict(pq=pq, err=err,
+                        P=P64 + a_ * (2.0 * err @ Qp64.T - lam * n_ * Pp64),
+                        Q=Q64 + a_ * (2.0 * Pp64.T @ err - lam * n_ * Qp64))
+        out.append(("matrix_factorization_step",
+                    dict(R=dev(R), P=dev(Pm), Q=dev(Qm), Pp=dev(Pp),
+                         Qp=dev(Qp),
+                         pq=torch.zeros(n_, n_, device=device),
+                         err=torch.zeros(n_, n_, device=device),
+                         n=n_, m=n_, l=l_, a=a_, lam=lam),
+                    mf_ref))
     return ALL, out
 
 
@@ -2118,6 +2157,448 @@ def phase_plans(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: distributed rounds
+# ---------------------------------------------------------------------------
+
+# the reference's distributed benchmark set (BENCH_distributed.json), at
+# phase 3's sizes; the ranks of part 2, sharing the one card
+DIST_PROGRAMS = ("word_count", "group_by", "pagerank", "kmeans_step",
+                 "matrix_factorization_step")
+DIST_RANKS = 4
+# a world of 1 holds the whole bag: the same rows reach the same kernels
+DIST_BIT_EQUAL = ("word_count", "group_by", "pagerank", "kmeans_step")
+# the reference test's limit (tests/test_core_distributed.py): max |a - b|
+# / (|b| + 1) against single-device run(); the REP-everything placement
+# against the sharded one
+DIST_TOL, REP_TOL = 1e-4, 1e-6
+# pagerank's injected shard loss: the 7th post-round site of the unfused
+# plan, the P store of the loop's second iteration (an aligned store: a
+# block-restricted recompute), of rank 1's block
+LOST_NTH, LOST_SHARD = 7, 1
+# the straggling round: the 12th of the unfused plan, the loop's 4th NP
+# reduce, slowed 100x over its own three earlier runs on a fake clock
+SLOW_NTH = 12
+
+
+class FakeClock:
+    """A clock that moves only when a slow fault advances it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def _dist_err(torch, a, b) -> float:
+    """max |a - b| / (|b| + 1) on the card, in slices of 2^26 elements."""
+    a = a.reshape(-1)
+    b = b.reshape(-1)
+    if a.shape != b.shape:
+        raise SmokeFailure(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    worst = 0.0
+    for lo in range(0, a.numel(), 1 << 26):
+        x = a[lo:lo + (1 << 26)].double()
+        y = b[lo:lo + (1 << 26)].double()
+        if not bool(torch.isfinite(x).all()):
+            raise SmokeFailure("non-finite output")
+        worst = max(worst, float(((x - y).abs() / (y.abs() + 1)).max()))
+    return worst
+
+
+def _outputs_err(torch, out, ref) -> float:
+    return max(_dist_err(torch, out[k], ref[k]) for k in ref)
+
+
+def _coll_costs(torch, mesh):
+    """The cuda row's collective costs (op_select), on this card over
+    NCCL, each call synchronized: µs of an all_reduce of one element, µs
+    an element beyond it (2^28 float32 against one; a world of 1 moves
+    nothing between cards, so this is the card's own copy rate), and µs
+    of an all_gather of one element (the output gather a sharded
+    destination adds to a run).  Medians."""
+    from repro_torch.core.collectives import Collectives
+    coll = Collectives(mesh)
+    one = torch.ones(1, device="cuda")
+    big = torch.ones(1 << 28, device="cuda")
+
+    def us(fn, reps):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e6)
+        return sorted(times)[reps // 2]
+    fixed = us(lambda: coll.all_reduce(one), 51)
+    row = max(0.0, us(lambda: coll.all_reduce(big), 11) - fixed) / (1 << 28)
+    gather = us(lambda: coll.all_gather(one), 51)
+    del big
+    return fixed, row, gather
+
+
+def _rung(dp) -> str:
+    """The ladder rung every run of `dp` so far stayed on, or a failure:
+    the rounds, their fused regions run fused (the ledger holds no
+    descent, no fused → per-member fall-back and no divergence)."""
+    ledger = dp.explain_faults()
+    c = dp.faults.counters
+    require(c["descend"] == 0 and c["diverged"] == 0
+            and "per-member" not in ledger,
+            f"dist {dp.cp.program.name}: a run left the rounds "
+            f"rung:\n{ledger}")
+    fused = sum(ln.strip().startswith("round: fused round")
+                for ln in dp.explain_rounds().splitlines())
+    return (f"rung: rounds, {fused} fused region(s) run fused, "
+            f"0 descents, {c['retry']} retries")
+
+
+def _digest(out) -> str:
+    """One hash of a run's outputs: names, shapes, dtypes and bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(out):
+        v = out[k].detach().contiguous().cpu()
+        h.update(f"{k}{tuple(v.shape)}{v.dtype}".encode())
+        h.update(v.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _round_lines(text):
+    return [ln.strip() for ln in text.splitlines()
+            if ln.strip().startswith(("round:", "loop:", "transport:",
+                                      "placement:", "balance["))]
+
+
+def _dist_world1(torch, np, seed):
+    """Part 1: every program through compile_distributed over a NCCL
+    group of one rank (this process), against single-device eager and
+    whole run(); the segment and tile launches of the distributed runs."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import compile_program
+    from repro_torch.core.distributed import compile_distributed
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    tmp = tempfile.mkdtemp(prefix="dist-store-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    launches = {k: 0 for k in PROGRAM_KERNELS}
+    try:
+        mesh = make_test_mesh((1,), ("data",), device="cuda:0")
+        fixed, row, gather = _coll_costs(torch, mesh)
+        log(f"[dist] collectives over NCCL, world of 1, this card, "
+            f"synchronized calls (not op_select's: nothing crosses cards): "
+            f"all_reduce {fixed:.2f} us a call, {row:.3e} us an element; "
+            f"all_gather {gather:.2f} us a call")
+        rng = np.random.default_rng(seed + 7)
+        ALL, progs = _programs(np, rng, torch, only=DIST_PROGRAMS)
+        for name, inputs, *_ in progs:
+            eager = compile_program(ALL[name], compile_mode="eager")
+            out_e, t_e = _run_program(torch, eager, inputs, 5)
+            whole = compile_program(ALL[name])
+            _, t_w = _run_program(torch, whole, inputs, 5)
+            del whole
+            gc.collect()
+            dp = compile_distributed(ALL[name], mesh)
+            ops.reset_launch_counts()
+            out_d, t_d = _run_program(torch, dp, inputs, 5)
+            counts = ops.launch_counts()
+            rung = _rung(dp)
+            for k in launches:
+                launches[k] += counts[k]
+            err = _outputs_err(torch, out_d, out_e)
+            require(err < DIST_TOL, f"dist {name}: world of 1 differs from "
+                    f"eager run() by {err:.3e}")
+            differ = [k for k in out_e if not torch.equal(out_d[k], out_e[k])]
+            if name in DIST_BIT_EQUAL and differ:
+                log(f"[dist] world=1 {name}: NOT bit-equal to eager run() "
+                    f"in {differ}")
+            med = {m: t[len(t) // 2] for m, t in
+                   (("dist", t_d), ("whole", t_w), ("eager", t_e))}
+            log(f"[dist] world=1 {name}: run() {_ms_text(t_d)}; single-"
+                f"device whole {med['whole']:.3f} ms, eager "
+                f"{med['eager']:.3f} ms; overhead over eager "
+                f"{med['dist'] - med['eager']:+.3f} ms; rel_err vs eager "
+                f"{err:.3e}; bits equal to eager "
+                f"{'all' if not differ else 'not ' + ','.join(differ)}; "
+                f"launches {json.dumps(counts)}; collectives "
+                f"{json.dumps(dict(dp.coll.calls))}; {rung}")
+            for line in _round_lines(dp.explain_rounds()):
+                log(f"[dist]   {line}")
+            # where the round machinery's time goes: the device's busy
+            # time in one distributed and one eager call
+            _profile(torch, f"dist world=1 {name}", lambda: dp.run(inputs),
+                     med["dist"])
+            _profile(torch, f"dist eager {name}",
+                     lambda: eager.run(inputs), med["eager"])
+            _rung(dp)
+            del dp, eager, out_d, out_e
+            gc.collect()
+            torch.cuda.empty_cache()
+        require(launches["segment_reduce"] > 0,
+                "the distributed path launched no segment kernel")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _quiet(cp):
+    cp.policy.backoff_s = 0.0
+    cp.policy.max_backoff_s = 0.0
+    cp.faults.sleep = lambda s: None
+    return cp
+
+
+def _rank_case(mesh, name, seed):
+    """Part 2, on one of the ranks that share the card: the program
+    distributed over the group against single-device run() (rank 0 runs
+    it), two runs' bits, REP-everything, bytes a run through each
+    collective, the rank's peak memory and its kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compile_program
+    from repro_torch.core.distributed import compile_distributed
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed + 7)
+    ALL, progs = _programs(np, rng, torch, only=(name,), device="cpu")
+    inputs = progs[0][1]
+    res = {"rank": mesh.rank}
+    # eager: the same bits as whole mode (phase 3), and no graph memory
+    # held beside the ranks' runs
+    single = compile_program(ALL[name], compile_mode="eager").run(inputs) \
+        if mesh.rank == 0 else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dp = compile_distributed(ALL[name], mesh)
+    ops.reset_launch_counts()
+    out = dp.run(inputs)
+    res["bytes"] = dict(dp.coll.bytes)
+    res["calls"] = dict(dp.coll.calls)
+    # kmeans gathers its 4.3 GB D through host memory on every run
+    reps = 1 if name == "kmeans_step" else 3
+    # the straggler agreement's cost: runs with speculation off, each
+    # after one with it on (its launches are not the main path's)
+    launches = ops.launch_counts()
+    off, same = None, True
+    if name != "kmeans_step":
+        off = compile_distributed(ALL[name], mesh, speculative=False)
+        same = _digest(off.run(inputs)) == _digest(out)
+    agreed = dp.coll.calls["agree"]
+    times, times_off = [], []
+    for _ in range(reps):
+        before = ops.launch_counts()
+        t, ok = _rank_times(torch, dp, inputs, out, 1)
+        for k, n in ops.launch_counts().items():
+            launches[k] += n - before[k]
+        times += t
+        same &= ok
+        if off is not None:
+            t, ok = _rank_times(torch, off, inputs, out, 1)
+            times_off += t
+            same &= ok
+    res["agree_a_run"] = (dp.coll.calls["agree"] - agreed) / reps
+    res["launches"] = launches
+    res["times"] = sorted(times)
+    res["same_bits"] = same
+    res["rung"] = _rung(dp)
+    res["digest"] = _digest(out)
+    if off is not None:
+        res["times_spec_off"] = sorted(times_off)
+        _rung(off)
+        del off
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["transport"] = dp.coll.transports()
+    res["rounds"] = dp.explain_rounds()
+    _placed, _bl, res["array_limits"] = dp.place(inputs) \
+        if name == "pagerank" else (None, None, {})
+    del _placed
+    if single is not None:
+        res["err"] = _outputs_err(torch, out, single)
+        del single
+    # REP-everything: four whole copies of kmeans' 4.3 GB D and its
+    # temporaries do not fit beside each other on one card
+    if name != "kmeans_step":
+        rep = compile_distributed(ALL[name], mesh, shard_dense=False)
+        res["rep_err"] = _outputs_err(torch, rep.run(inputs), out)
+        _rung(rep)
+    return res
+
+
+def _rank_times(torch, dp, inputs, out, reps):
+    """`reps` timed runs of dp (host clock around run() and a
+    synchronize), sorted, and whether each gave `out`'s bits."""
+    times, same = [], True
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = dp.run(inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        same &= all(torch.equal(again[k], out[k]) for k in out)
+        del again
+    return sorted(times), same
+
+
+def _rank_pagerank_faults(mesh, seed):
+    """Part 2's recovery runs on one rank: pagerank (unfused, so a round
+    runs inside the loop) with rank LOST_SHARD's block lost after the
+    LOST_NTH round, against the fault-free run; then round SLOW_NTH
+    straggling on a fake clock."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compile_program
+    from repro_torch.core import faults as F
+    from repro_torch.core import plan as P
+    from repro_torch.core.distributed import compile_distributed
+    rng = np.random.default_rng(seed + 7)
+    ALL, progs = _programs(np, rng, torch, only=("pagerank",), device="cpu")
+    inputs = progs[0][1]
+
+    def mk():
+        return compile_distributed(_quiet(compile_program(
+            ALL["pagerank"], round_fusion=False)), mesh)
+    ref_dp = mk()
+    ref = ref_dp.run(inputs)
+    _rung(ref_dp)
+    dp = mk()
+    with F.inject(F.FaultSpec("dist.shard_lost", kind="shard_lost",
+                              nth=LOST_NTH, shard=LOST_SHARD)):
+        out = dp.run(inputs)
+    loop = next(n for n in dp.cp.plan if isinstance(n, P.SeqLoop))
+    lin = next(n for n in loop.body
+               if isinstance(n, P.DenseMap) and n.dest == "P").lineage
+    blk = -(-PR_VERTICES // mesh.size)
+    s = LOST_SHARD * blk
+    reads = ", ".join(f"{a}:{k}" for a, k in lin.reads) or "none"
+    want = (f"  recovered[round:DenseMap] shard {LOST_SHARD}/{mesh.size}: "
+            f"P[{s}:{s + blk}] via block-restricted recompute "
+            f"(1/{mesh.size} of the round); lineage depth={lin.depth} (a "
+            f"from-scratch restart would replay {lin.depth} round(s)); "
+            f"reads[{reads}]; checksum ok")
+    res = {"lost_bits": all(torch.equal(out[k], ref[k]) for k in ref),
+           "lost_descents": dp.faults.counters["descend"],
+           "lost_text": want in dp.explain_faults().splitlines(),
+           "lost_ledger": dp.explain_faults()}
+    dp = mk()
+    clk = FakeClock()
+    dp.faults.clock = clk
+    specs = [F.FaultSpec("dist.round_exec", "slow", nth=1,
+                         times=SLOW_NTH - 1, delay_s=0.01),
+             F.FaultSpec("dist.round_exec", "slow", nth=SLOW_NTH,
+                         delay_s=1.0)]
+    with F.inject(*specs, clock=clk):
+        out = dp.run(inputs)
+    _rung(dp)
+    res.update(spec_bits=all(torch.equal(out[k], ref[k]) for k in ref),
+               speculative=dp.faults.counters["speculative"],
+               spec_text=[ln for ln in dp.explain_faults().splitlines()
+                          if "speculative" in ln and "[round" in ln])
+    return res
+
+
+def _dist_ranks(torch, np, seed):
+    """Part 2: DIST_RANKS ranks spawned on the one card over gloo."""
+    from repro_torch.launch.ranks import RankFailure, RankGroup
+    try:
+        with RankGroup(DIST_RANKS, backend="gloo", device="cuda:0",
+                       timeout_s=300, deadline_s=900) as g:
+            for name in DIST_PROGRAMS:
+                res = g.run(_rank_case, name, seed)
+                r0 = res[0]
+                require(r0["err"] < DIST_TOL, f"dist {name}: {DIST_RANKS} "
+                        f"ranks differ from single-device run() by "
+                        f"{r0['err']:.3e}")
+                require(all(r["same_bits"] for r in res),
+                        f"dist {name}: two runs gave other bits")
+                require(all(r["digest"] == r0["digest"] for r in res),
+                        f"dist {name}: the ranks' outputs differ from rank "
+                        f"0's")
+                if "rep_err" in r0:
+                    require(all(r["rep_err"] < REP_TOL for r in res),
+                            f"dist {name}: REP-everything differs by "
+                            f"{max(r['rep_err'] for r in res):.3e}")
+                seg = [r["launches"]["segment_reduce"] for r in res]
+                if name != "matrix_factorization_step":
+                    require(all(seg), f"dist {name}: a rank launched no "
+                            "segment kernel")
+                if name == "pagerank":
+                    require(r0["array_limits"].get("P") == PR_VERTICES,
+                            "pagerank's N was not padded and masked")
+                med = [r["times"][len(r["times"]) // 2] for r in res]
+                log(f"[dist] ranks={DIST_RANKS} (gloo, one card shared: "
+                    f"not a scaling number) {name}: run() ms by rank "
+                    f"{[round(m, 3) for m in med]} (median of "
+                    f"{len(r0['times'])}); "
+                    f"rel_err vs single-device {r0['err']:.3e}"
+                    + (f", REP-everything vs sharded "
+                       f"{max(r['rep_err'] for r in res):.3e}"
+                       if "rep_err" in r0 else ", REP-everything not run "
+                       "(4 whole copies do not fit one card)")
+                    + f"; two runs bit-equal; every rank's outputs "
+                    f"bit-equal to rank 0's; peak GB by rank "
+                    f"{[round(r['peak_gb'], 3) for r in res]}; segment "
+                    f"launches by rank {seg}; {r0['rung']}")
+                if "times_spec_off" in r0:
+                    off = [r["times_spec_off"][len(r["times_spec_off"]) // 2]
+                           for r in res]
+                    log(f"[dist]   speculation off: run() ms by rank "
+                        f"{[round(m, 3) for m in off]} (median of "
+                        f"{len(r0['times_spec_off'])}); straggler "
+                        f"agreements a run with it on "
+                        f"{r0['agree_a_run']:g}")
+                log(f"[dist]   bytes a run through each collective (rank "
+                    f"0): {json.dumps(r0['bytes'])}; calls "
+                    f"{json.dumps(r0['calls'])}; transport {r0['transport']}")
+                for line in _round_lines(r0["rounds"]):
+                    log(f"[dist]   {line}")
+            res = g.run(_rank_pagerank_faults, seed)
+    except RankFailure as ex:
+        raise SmokeFailure(f"dist ranks: {ex}") from None
+    for r in res:
+        require(r["lost_bits"], "pagerank after a shard loss differs from "
+                "the fault-free run")
+        require(r["lost_descents"] == 0, "the shard loss descended")
+        require(r["lost_text"], "the recovery ledger's text is not the "
+                "reference's:\n" + r["lost_ledger"])
+        require(r["spec_bits"] and r["speculative"] == 1,
+                "the straggling round got no speculative backup")
+    log(f"[dist] ranks={DIST_RANKS} pagerank: shard {LOST_SHARD} lost after "
+        f"round {LOST_NTH}: bit-equal to the fault-free run, 0 descents, "
+        f"ledger text the reference's; straggler: "
+        f"{res[0]['spec_text'][0].strip()}")
+
+
+def phase_dist(torch, seed):
+    """Phase 7: the distributed rounds, a world of 1 over NCCL, then
+    DIST_RANKS ranks sharing the card over gloo.  Returns the program
+    kernels' launches on the world-of-1 distributed path."""
+    import numpy as np
+    t0 = time.perf_counter()
+    launches = _dist_world1(torch, np, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dist_ranks(torch, np, seed)
+    log(f"[dist] launches on the distributed path (world of 1): "
+        f"{json.dumps(launches)}; phase 7 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving the two LM families
 # ---------------------------------------------------------------------------
 
@@ -2341,6 +2822,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         launches["segment_reduce"] += phase_plans(torch, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, n in phase_dist(torch, args.seed).items():
+            launches[k] += n
         gc.collect()
         torch.cuda.empty_cache()
         launches.update(phase_serve(torch, args.seed))

@@ -409,7 +409,10 @@ def run_with_retries(fn, *, policy: RetryPolicy, ledger: FaultLedger,
                 ledger.recover(label)
             return out
         except Exception as ex:            # noqa: BLE001 — policy engine
-            if classify(ex) != "transient" or attempt >= policy.max_retries:
+            # `unpaired`: a distributed round failed after a collective
+            # went out; it is retried only by the whole run, on every rank
+            if classify(ex) != "transient" or attempt >= policy.max_retries \
+                    or getattr(ex, "unpaired", False):
                 raise
             delay = min(policy.backoff_s * (2 ** attempt),
                         policy.max_backoff_s)

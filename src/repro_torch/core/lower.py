@@ -288,36 +288,72 @@ class Axes:
         return torch.reshape(arr, shape)
 
 
+class ShardOffset(int):
+    """A row offset that differs between the ranks of a distributed round
+    (rank × block rows).  It is a python int on each rank, but the
+    executor treats it as the reference treats a traced offset inside a
+    shard_map round: no guard may take a path because of its value (shard
+    0's offset of 0 is not a static 0), so every rank runs the same
+    materialization of a node."""
+
+    __slots__ = ()
+
+
+def _static(lo) -> bool:
+    """An offset every rank shares (a python int that is no ShardOffset)."""
+    return isinstance(lo, int) and not isinstance(lo, ShardOffset)
+
+
 @dataclass(frozen=True)
 class ExecContext:
     """Per-call plan parameters.
 
-      bag_offsets   bag → global index of the first row its columns hold
-                    (a chunk of an out-of-core stream is a window of the
-                    bag): the bag index var is global, so a store keyed by
-                    it writes the window's own rows
-      bag_limits    bag → logical row count when its columns were padded
-                    (a serving bucket): rows whose GLOBAL index is at or
-                    beyond it are masked
-      array_limits  array → logical dim-0 length of a padded dense array:
-                    reads beyond it are masked and writes dropped, so pad
-                    rows never change a result (paper §3.4)
-      salts         group-by dest → salt factor the run-time hot-key probe
-                    chose (op_select.probe_hot_fraction + choose_salt)
-      partials      group-by dest → its running [K] partial (None before
-                    the first range), for the chunk steps of an
-                    out-of-core run on the card (chunked.py): a node of a
-                    flattened backend folds its segment results into the
-                    partial range by range, in row order, and leaves the
-                    destination as it is, so that the stream's fold is the
-                    all-resident one (the segment kernel's order is fixed
-                    by ranges of RANGE_ROWS rows)
+      bag_offsets     bag → global index of the first row its columns hold
+                      (a chunk of an out-of-core stream is a window of the
+                      bag, a rank's block of a sharded bag another): the
+                      bag index var is global, so a store keyed by it
+                      writes the window's own rows
+      bag_limits      bag → logical row count when its columns were padded
+                      (a serving bucket, a bag padded to a multiple of the
+                      ranks): rows whose GLOBAL index is at or beyond it
+                      are masked
+      row_offsets     array → global row index of the rank's block's first
+                      row (distributed.py): the executor subtracts it, so
+                      dim-0 reads and writes of the array target the block
+      array_limits    array → logical dim-0 length of a padded dense array:
+                      reads beyond it are masked and writes dropped, so pad
+                      rows never change a result (paper §3.4)
+      axis_overrides  range-axis var → (offset, extent, limit, total): a
+                      distributed round localizes the axis to the rank's
+                      row block like a sharded bag axis (offset globalizes
+                      the index var, rows beyond `limit` are masked).
+                      `total` is the padded global extent (ranks ×
+                      extent), the bounds certificate for slicing a
+                      replicated operand per rank: offset + extent ≤ total,
+                      so when total ≤ the operand's dim the window cannot
+                      leave it (DESIGN.md §7)
+      aligned         alignment certificates: names whose dim-0 block is
+                      exactly the round axis' window, so the executor may
+                      take its window start as local row 0
+      salts           group-by dest → salt factor the run-time hot-key
+                      probe chose (op_select.probe_hot_fraction +
+                      choose_salt)
+      partials        group-by dest → its running [K] partial (None before
+                      the first range), for the chunk steps of an
+                      out-of-core run on the card (chunked.py): a node of
+                      a flattened backend folds its segment results into
+                      the partial range by range, in row order, and leaves
+                      the destination as it is, so that the stream's fold
+                      is the all-resident one (the segment kernel's order
+                      is fixed by ranges of RANGE_ROWS rows)
 
-    The reference's per-shard fields (row offsets, axis overrides,
-    alignment certificates) come with the distributed slice."""
+    Per-rank offsets are ShardOffsets (see there)."""
     bag_offsets: dict = field(default_factory=dict)
     bag_limits: dict = field(default_factory=dict)
+    row_offsets: dict = field(default_factory=dict)
     array_limits: dict = field(default_factory=dict)
+    axis_overrides: dict = field(default_factory=dict)
+    aligned: frozenset = frozenset()
     salts: dict = field(default_factory=dict)
     partials: dict = field(default_factory=dict)
 
@@ -356,8 +392,11 @@ def salt_for_node(node, env, selector, skew_salting: str, *,
         n = min(n, int(lim))
     if n == 0:
         return 1
+    from ..convert import canonical_numpy
     from .op_select import PROBE_ROWS, probe_hot_fraction
-    hot = probe_hot_fraction(c[:min(n, PROBE_ROWS)].cpu().numpy())
+    # the column may be the caller's host array (distributed.py probes the
+    # global inputs, which every rank holds)
+    hot = probe_hot_fraction(canonical_numpy(_host(c[:min(n, PROBE_ROWS)])))
     dec = selector.choose_salt(n=n, k=int(dest.shape[0]), op=node.op,
                                nshards=nshards, hot_frac=hot)
     return int(dec.backend.split(":", 1)[1]) \
@@ -517,6 +556,12 @@ class PlanExecutor:
         binding: dict[str, tuple] = {}  # var -> ("range", axis, lo)|("bagval", axis, col)
         for a in space.axes:
             if a.kind == "range":
+                ov = ctx.axis_overrides.get(a.var)
+                if ov is not None:      # localized to the rank's row block
+                    off, ext, _lim, _tot = ov
+                    ax.add(a.var, ext)
+                    binding[a.var] = ("range", a.var, off)
+                    continue
                 lo = self.static_int(a.lo, env)
                 hi = self.static_int(a.hi, env)
                 ax.add(a.var, max(hi - lo, 0))
@@ -525,17 +570,22 @@ class PlanExecutor:
                 bagv = env[a.bag]
                 cols = bagv if isinstance(bagv, tuple) else (bagv,)
                 n = int(cols[0].shape[0])
-                off = int(ctx.bag_offsets.get(a.bag, 0))
+                off = ctx.bag_offsets.get(a.bag, 0)
                 lim = ctx.bag_limits.get(a.bag)
                 if lim is not None and not _on_device(lim):
                     # a count the host knows cuts the rows: the space is
                     # the unpadded bag's, and so is every reduction's order
-                    n = max(0, min(n, int(lim) - off))
+                    n = max(0, min(n, int(lim) - int(off)))
                 ax.add(a.var, n)
                 binding[a.var] = ("range", a.var, off)
         base_masks = []
         for a in space.axes:
             if a.kind == "range":
+                ov = ctx.axis_overrides.get(a.var)
+                if ov is not None and ov[2] is not None:
+                    off, ext, lim, _tot = ov  # mask rows ≥ the logical extent
+                    base_masks.append(ax.expand(
+                        (off + self._arange(ext)) < lim, a.var))
                 continue
             bagv = env[a.bag]
             cols = bagv if isinstance(bagv, tuple) else (bagv,)
@@ -571,17 +621,33 @@ class PlanExecutor:
                 arr = unpack(arr)
             # identity-traversal broadcast: statically marked eligible, and
             # the runtime extents cover the array exactly (no gather); a
-            # padded array never qualifies, its extent is not its dim
+            # padded or localized array never qualifies, its extent is not
+            # its dim
             bc_ok = e.broadcast_ok if isinstance(e, P.Gather) else True
-            if bc_ok and len(e.idxs) == arr.dim() and \
-                    e.array not in ctx.array_limits and \
+            window = bc_ok and self._window_read(e, arr, ax, binding, ctx)
+            if bc_ok and len(e.idxs) == arr.dim() and (window or (
+                    e.array not in ctx.row_offsets and
+                    e.array not in ctx.array_limits)) and \
                     all(isinstance(ix, Var) and ix.name in binding
                         and binding[ix.name][0] == "range"
-                        and binding[ix.name][2] == 0
-                        and ax.extent[ix.name] == d
-                        for ix, d in zip(e.idxs, arr.shape)) and \
+                        and ((dim_i == 0 and window) or (
+                            _static(binding[ix.name][2])
+                            and binding[ix.name][2] == 0
+                            and ax.extent[ix.name] == d))
+                        for dim_i, (ix, d) in enumerate(zip(e.idxs,
+                                                           arr.shape))) and \
                     len({ix.name for ix in e.idxs}) == len(e.idxs):
                 names = [ix.name for ix in e.idxs]
+                if window:
+                    # the rank's block read from its first row: the window
+                    # is the array's own leading rows (a view)
+                    v0 = e.idxs[0].name
+                    off = binding[v0][2]
+                    arr = arr.narrow(0, 0, ax.extent[v0])
+                    lim = ctx.array_limits.get(e.array)
+                    if lim is not None:     # logical bound, global coords
+                        masks.append(ax.expand(
+                            (off + self._arange(ax.extent[v0])) < lim, v0))
                 shape = [1] * len(ax.order)
                 perm_src = sorted(names, key=ax.pos)
                 a2 = arr.permute([names.index(a) for a in perm_src])
@@ -590,12 +656,16 @@ class PlanExecutor:
                 return torch.reshape(a2, shape)
             idxs = [self.eval(i, env, ax, binding, masks, ctx)
                     for i in e.idxs]
+            off = ctx.row_offsets.get(e.array)
             lim = ctx.array_limits.get(e.array)
             cooked = []
             for dim_i, (d, ix) in enumerate(zip(arr.shape, idxs)):
                 ix = self._t(ix).to(torch.int32)
-                if dim_i == 0 and lim is not None:   # logical bound
-                    masks.append(ix < lim)
+                if dim_i == 0:
+                    if lim is not None:     # logical bound, global coords
+                        masks.append(ix < lim)
+                    if off is not None:     # localize to the rank's block
+                        ix = ix - off
                 # inRange on int64 (torch has no clip-mode gather and thin
                 # uint32 support): the mask keeps §3.4 semantics, the clamp
                 # keeps the gather in bounds — a dropped row's gathered
@@ -619,6 +689,20 @@ class PlanExecutor:
                                                  masks, ctx))
                                for a in e.args])
         raise RejectionError(f"cannot execute expression {e}")
+
+    @staticmethod
+    def _window_read(e, arr, ax, binding, ctx) -> bool:
+        """A read of a localized array under an alignment certificate whose
+        leading index is an iteration axis starting at the block's own
+        offset: it reads the block's first rows, in order, as they are."""
+        off = ctx.row_offsets.get(e.array)
+        if e.array not in ctx.aligned or not isinstance(off, ShardOffset) \
+                or not e.idxs or not isinstance(e.idxs[0], Var):
+            return False
+        b = binding.get(e.idxs[0].name)
+        return (b is not None and b[0] == "range"
+                and isinstance(b[2], ShardOffset) and int(b[2]) == int(off)
+                and ax.extent[e.idxs[0].name] <= arr.shape[0])
 
     def _mask(self, conds, env, ax, binding, masks,
               ctx: ExecContext = _EMPTY_CTX):
@@ -714,7 +798,10 @@ class PlanExecutor:
                 arr = unpack(arr)
             if arr.dim() != len(key_axes):
                 return None
-            return self._sliced_operand(arr, key_axes, ax, binding)
+            # pad_ok=False: a store must DROP out-of-range writes (keep the
+            # old destination), which zero-padding cannot emulate
+            return self._sliced_operand(arr, e.array, key_axes, ax, binding,
+                                        ctx, pad_ok=False)
         if isinstance(e, BinOp):
             lhs = self._eval_dense(e.lhs, key_axes, ax, binding, env, ctx)
             rhs = self._eval_dense(e.rhs, key_axes, ax, binding, env, ctx)
@@ -745,17 +832,31 @@ class PlanExecutor:
         if isinstance(dest, TiledMatrix):
             return None
         ax, binding, conds, base = self.build_space(node.space, env, ctx)
+        lim = None
+        for pos, a in enumerate(node.space.axes):
+            ov = ctx.axis_overrides.get(a.var)
+            if ov is not None:
+                if pos != 0:     # only the round axis may be localized
+                    return None
+                lim = ov[2]
         if tuple(ax.shape()) != tuple(dest.shape):
             return None          # space must cover the dest exactly
-        if ctx.array_limits.get(node.dest) is not None:
-            return None          # a padded dest needs the drop path
+        if ctx.array_limits.get(node.dest) is not None \
+                and node.dest not in ctx.aligned:
+            return None          # a padded global dest needs the drop path
         val = self._eval_dense(node.value, node.key_axes, ax, binding, env,
                                ctx)
         if val is None:
             return None
         val = self._full(val, ax.shape()).to(dest.dtype)
         self.note(node, "dense-store")
-        return self._replace(node, val)
+        if lim is None:
+            return self._replace(node, val)
+        # keep the (zero) pad rows beyond the limit: the store reads dest
+        ov = ctx.axis_overrides[node.space.axes[0].var]
+        keep = (ov[0] + self._arange(ov[1])) < lim
+        return torch.where(keep.reshape((-1,) + (1,) * (val.dim() - 1)),
+                           val, dest)
 
     def _exec_map(self, node: P.MapExpr, env, ctx):
         ax, binding, conds, base = self.build_space(node.space, env, ctx)
@@ -782,11 +883,27 @@ class PlanExecutor:
             m = m.expand(ax.shape()).permute(perm)
         los = [binding[a][2] for a in key_axes]
         exts = [ax.extent[a] for a in key_axes]
+        dest_off = ctx.row_offsets.get(node.dest)
         dest_lim = ctx.array_limits.get(node.dest)
-        static0 = all(l == 0 for l in los)
+        static0 = all(_static(l) and l == 0 for l in los)
         if tuple(exts) == tuple(dest.shape) and static0 and m is None \
                 and dest_lim is None:
             return self._replace(node, val.to(dest.dtype))  # full replace
+        if self._window_at_row0(node.dest, los, exts, dest, dest_off, ctx):
+            # alignment certificate: the store's window is the first rows
+            # of the rank's block, so it writes them in place of an index
+            # grid (a round of kmeans' D: 2^24 × 64 cells)
+            val = val.to(dest.dtype)
+            keep = m
+            if dest_lim is not None:
+                ok = (los[0] + self._arange(exts[0])) < dest_lim
+                ok = ok.reshape((-1,) + (1,) * (val.dim() - 1))
+                keep = ok if keep is None else keep & ok
+            win = dest[:exts[0]]
+            new = val if keep is None else torch.where(keep, val, win)
+            if exts[0] == dest.shape[0]:
+                return new
+            return torch.cat([new, dest[exts[0]:]])
         grids = list(torch.meshgrid(
             *[los[i] + self._arange(exts[i]) for i in range(len(exts))],
             indexing="ij"))
@@ -794,6 +911,8 @@ class PlanExecutor:
         if dest_lim is not None:          # pad rows: drop (logical bound)
             ok = grids[0] < dest_lim
             keep = ok if keep is None else (keep & ok)
+        if dest_off is not None:          # localize rows to the rank's block
+            grids[0] = grids[0] - dest_off
         if keep is not None:
             grids[0] = torch.where(keep, grids[0], dest.shape[0])  # drop
         return scatter_drop(dest, grids, val)
@@ -808,11 +927,14 @@ class PlanExecutor:
         val = self._full(val, shape)
         kk = [self._t(self.eval(k, env, ax, binding, masks, ctx))
               .to(torch.int32).expand(shape) for k in node.keys]
+        dest_off = ctx.row_offsets.get(node.dest)
         dest_lim = ctx.array_limits.get(node.dest)
         ok = m
         if dest_lim is not None:          # logical bound: pad rows drop
             lim_ok = kk[0] < dest_lim
             ok = lim_ok if ok is None else ok & lim_ok
+        if dest_off is not None:          # localize to the rank's block
+            kk[0] = kk[0] - dest_off
         if ok is not None:                # condition/pad drops: sentinel
             kk[0] = torch.where(ok, kk[0], dest.shape[0])
         return scatter_drop(dest, kk, val)
@@ -940,21 +1062,38 @@ class PlanExecutor:
         return flat, num
 
     def _keyed_combine(self, dest, partial, key_axes, ax, binding, op,
-                       in_key_order, dest_lim=None):
-        """⊕ a partial (indexed by the key axes) into dest.  `dest_lim`
-        drops rows at or beyond the logical row count (padding)."""
+                       in_key_order, dest_lim=None, dest_off=None,
+                       dest_name=None, ctx: ExecContext = _EMPTY_CTX):
+        """⊕ a partial (indexed by the key axes) into dest.  `dest_off`
+        localizes dim-0 rows to the rank's block; `dest_lim` drops rows at
+        or beyond the logical row count (padding)."""
         partial = self._t(partial)
         if not in_key_order:
             cur = [a for a in ax.order if a in key_axes]
             partial = partial.permute([cur.index(a) for a in key_axes])
         los = [binding[a][2] for a in key_axes]
         exts = [ax.extent[a] for a in key_axes]
-        static0 = all(l == 0 for l in los)
+        # alignment certificate: the destination's block IS the round
+        # axis' window, so the window starts at local row 0.  Rows beyond
+        # the logical limit carry the ⊕ identity in the partial (masked
+        # upstream), so the whole-block combine leaves pad rows alone
+        if dest_name is not None and dest_name in ctx.aligned and key_axes \
+                and key_axes[0] in ctx.axis_overrides \
+                and isinstance(los[0], ShardOffset) \
+                and exts[0] == dest.shape[0]:
+            los[0] = 0
+            dest_off = None
+            dest_lim = None
+        static0 = all(_static(l) and l == 0 for l in los)
         if tuple(exts) == tuple(dest.shape) and static0 and dest_lim is None:
             return COMBINE[op](dest, partial.to(dest.dtype))
         rows = los[0] + self._arange(exts[0])
         if dest_lim is not None:
-            rows = torch.where(rows < dest_lim, rows, dest.shape[0])
+            ok = rows < dest_lim
+            local = rows if dest_off is None else rows - dest_off
+            rows = torch.where(ok, local, dest.shape[0])
+        elif dest_off is not None:
+            rows = rows - dest_off
         grids = [
             (rows if i == 0 else los[i] + self._arange(exts[i])).reshape(
                 [-1 if j == i else 1 for j in range(len(exts))])
@@ -972,11 +1111,12 @@ class PlanExecutor:
             partial = self._product_partial(node.product, node.key_axes, ax,
                                             binding, env, ctx)
             if partial is not None:
+                partial = self._limit_mask_partial(partial, node.key_axes,
+                                                   ctx)
                 self.note(node, "mxu-einsum")
                 return self._keyed_combine(
                     dest, partial, node.key_axes, ax, binding, "+",
-                    in_key_order=True,
-                    dest_lim=ctx.array_limits.get(node.dest))
+                    in_key_order=True, **self._dest_args(node, ctx))
         self.note(node, "dense-grid")
         masks = list(base)
         val = self.eval(node.value, env, ax, binding, masks, ctx)
@@ -992,27 +1132,101 @@ class PlanExecutor:
             partial = val
         return self._keyed_combine(dest, partial, node.key_axes, ax, binding,
                                    node.op, in_key_order=False,
-                                   dest_lim=ctx.array_limits.get(node.dest))
+                                   **self._dest_args(node, ctx))
 
     # ---- contractions (runtime guards; fall back on failure) ----
-    def _mxu_masks_ok(self, space: P.IterSpace, key_axes, ctx) -> bool:
-        """A product contraction has no masks: a bag padded under a count
-        on the device would let its pad rows contribute, so it takes the
-        masked dense-grid path (a count on the host cut the rows)."""
-        return not any(a.kind == "bag"
-                       and _on_device(ctx.bag_limits.get(a.bag))
-                       for a in space.axes)
+    @staticmethod
+    def _window_at_row0(name, los, exts, dest, dest_off, ctx) -> bool:
+        """A store's window, under an alignment certificate, starts at the
+        first row of the rank's block of `name` (its leading key starts
+        at the block's own offset) and lies inside it."""
+        return (dest_off is not None and name in ctx.aligned
+                and len(los) == dest.dim() and los
+                and isinstance(los[0], ShardOffset)
+                and int(los[0]) == int(dest_off)
+                and exts[0] <= dest.shape[0]
+                and all(_static(l) and l == 0 for l in los[1:])
+                and tuple(exts[1:]) == tuple(dest.shape[1:]))
 
-    def _sliced_operand(self, arr, faxes, ax, binding):
+    @staticmethod
+    def _dest_args(node, ctx) -> dict:
+        return dict(dest_lim=ctx.array_limits.get(node.dest),
+                    dest_off=ctx.row_offsets.get(node.dest),
+                    dest_name=node.dest, ctx=ctx)
+
+    def _mxu_masks_ok(self, space: P.IterSpace, key_axes, ctx) -> bool:
+        """A product contraction has no masks.  A bag padded under a count
+        on the device would let its pad rows contribute, so it takes the
+        masked dense-grid path (a count on the host cut the rows); of the
+        localized range axes only the LEADING KEY axis may carry a pad
+        limit (its rows beyond it are zeroed by `_limit_mask_partial`)."""
+        for a in space.axes:
+            if a.kind == "bag":
+                if _on_device(ctx.bag_limits.get(a.bag)):
+                    return False
+            else:
+                ov = ctx.axis_overrides.get(a.var)
+                if ov is not None and ov[2] is not None and \
+                        (not key_axes or a.var != key_axes[0]):
+                    return False
+        return True
+
+    def _limit_mask_partial(self, partial, key_axes, ctx):
+        """Zero the partial's leading rows beyond the round axis' limit
+        (padding): zero is the + identity, so the combine never perturbs
+        the destination's pad rows, which stay zero."""
+        ov = ctx.axis_overrides.get(key_axes[0]) if key_axes else None
+        if ov is None or ov[2] is None:
+            return partial
+        off, ext, lim, _tot = ov
+        partial = self._t(partial)
+        keep = (off + self._arange(ext)) < lim
+        keep = keep.reshape((-1,) + (1,) * (partial.dim() - 1))
+        return torch.where(keep, partial,
+                           torch.zeros((), dtype=partial.dtype,
+                                       device=partial.device))
+
+    def _sliced_operand(self, arr, name, faxes, ax, binding,
+                        ctx: ExecContext = _EMPTY_CTX, pad_ok=True):
         """Slice a contraction operand to the iteration extents along each
-        factor axis; None when the window does not fit the operand."""
+        factor axis; None when an offset/extent guard fails.
+
+        A per-rank offset (ShardOffset) is admitted only under a
+        certificate, as the reference admits a traced one:
+
+        * `name in ctx.aligned` (dim 0): the operand's block IS the round
+          axis' window; no slice at all, local rows 0..extent.
+        * a global operand (never localized): the axis' padded global
+          extent `total` is the same on every rank; when total ≤ the dim,
+          every window [offset, offset+extent) ⊆ [0, dim) (the bounds
+          certificate, DESIGN.md §7).  A shorter operand is zero-padded
+          to `total` first where the caller allows it (`pad_ok`: a +
+          contraction, where a zero row is an out-of-range read's empty
+          bag, and rows at or beyond the limit are masked anyway).
+        """
         for dim_i, (d, axn) in enumerate(zip(arr.shape, faxes)):
             lo = binding[axn][2]
             ext = ax.extent[axn]
-            if lo != 0 or ext != d:
-                if lo + ext > d:
-                    return None
-                arr = arr.narrow(dim_i, lo, ext)
+            if _static(lo):
+                if lo != 0 or ext != d:
+                    if lo + ext > d:
+                        return None
+                    arr = arr.narrow(dim_i, lo, ext)
+                continue
+            if dim_i == 0 and name in ctx.aligned:
+                if ext != d:
+                    return None      # certificate requires block == window
+                continue
+            ov = ctx.axis_overrides.get(axn)
+            if ov is not None and name not in ctx.row_offsets \
+                    and ov[3] is not None and (ov[3] <= d or pad_ok):
+                if ov[3] > d:
+                    pad = [0, 0] * arr.dim()
+                    pad[2 * (arr.dim() - 1 - dim_i) + 1] = ov[3] - d
+                    arr = torch.nn.functional.pad(arr, pad)
+                arr = arr.narrow(dim_i, int(lo), ext)
+                continue
+            return None
         return arr
 
     def _product_partial(self, ef: P.EinsumFactors, key_axes, ax, binding,
@@ -1031,7 +1245,8 @@ class PlanExecutor:
                 arr = unpack(arr)
             spec = "".join(letters[axn]
                            for _, axn in zip(arr.shape, faxes))
-            arr = self._sliced_operand(arr, faxes, ax, binding)
+            arr = self._sliced_operand(arr, f.array, faxes, ax, binding,
+                                       ctx)
             if arr is None:
                 return None
             specs.append(spec)
@@ -1100,11 +1315,12 @@ class PlanExecutor:
         if partial is None:
             self.note(node, "fallback:dense-grid")
             return self.run_node(node.fallback, env, ctx)
+        partial = self._limit_mask_partial(partial, node.key_axes, ctx)
         self.note(node, "einsum")
         dest = env[node.dest]
         return self._keyed_combine(dest, partial, node.key_axes, ax, binding,
                                    "+", in_key_order=True,
-                                   dest_lim=ctx.array_limits.get(node.dest))
+                                   **self._dest_args(node, ctx))
 
     def _exec_tiled(self, node: P.TiledMatmul, env, ctx):
         from .tiles import TiledMatrix, matmul_tiled, unpack
@@ -1117,13 +1333,14 @@ class PlanExecutor:
             return self.run_node(ein, env, ctx)
         # packed lhs must be used at full extent (no slicing on tiles)
         for d, axn in zip(lhs.shape, ein.product.factor_axes[0]):
-            if binding[axn][2] != 0 or ax.extent[axn] != d:
+            lo = binding[axn][2]
+            if not _static(lo) or lo != 0 or ax.extent[axn] != d:
                 return self.run_node(ein, env, ctx)
         rhs = env[node.rhs]
         if isinstance(rhs, TiledMatrix):
             rhs = unpack(rhs)
-        rhs = self._sliced_operand(rhs, ein.product.factor_axes[1], ax,
-                                   binding)
+        rhs = self._sliced_operand(rhs, node.rhs, ein.product.factor_axes[1],
+                                   ax, binding, ctx)
         if rhs is None:
             return self.run_node(ein, env, ctx)
         # packed lhs, guards passed: op_select decides whether the
@@ -1146,7 +1363,7 @@ class PlanExecutor:
         dest = env[node.dest]
         return self._keyed_combine(dest, res, ein.key_axes, ax, binding,
                                    "+", in_key_order=True,
-                                   dest_lim=ctx.array_limits.get(node.dest))
+                                   **self._dest_args(node, ctx))
 
     # ---- scalar reductions ----
     def _total_reduce(self, node: P.ScalarReduce, env, ax, binding, conds,
@@ -1254,7 +1471,8 @@ class CompiledProgram:
                  op_select="cost", autotune_cache=None,
                  compile_mode="whole", donate=False, skew_salting="auto",
                  out_of_core="auto", memory_budget=None, chunk_rows=None,
-                 device="cuda"):
+                 device="cuda", round_fusion=True, lineage=True,
+                 speculative=True):
         if compile_mode not in ("whole", "eager"):
             raise ValueError(f"unknown compile_mode {compile_mode!r}")
         if out_of_core not in ("auto", "force", "off"):
@@ -1271,7 +1489,9 @@ class CompiledProgram:
                                  skew_salting=skew_salting,
                                  out_of_core=out_of_core,
                                  memory_budget=memory_budget,
-                                 chunk_rows=chunk_rows)
+                                 chunk_rows=chunk_rows,
+                                 round_fusion=round_fusion,
+                                 lineage=lineage, speculative=speculative)
         self.plan = plan_program(target, prog, self.config)
         from .dist_analysis import collect
         self.dists = collect(self.plan)   # array → Dist (pass-8 annotations)
@@ -1380,6 +1600,13 @@ class CompiledProgram:
     def explain_chunked(self) -> str:
         """The chunked (out-of-core) form of the plan, ChunkLoops shown."""
         return self.chunker.explain()
+
+    def explain_lineage(self) -> str:
+        """The per-round recovery recipes (lineage.py): one `lineage:` line
+        a round naming the shard axis, the write class, each read's
+        surviving source and the depth a restart would replay."""
+        from .lineage import explain_lineage
+        return explain_lineage(self.plan, self.program.name)
 
     def _ooc_admits(self, inputs: dict) -> bool:
         """True when this call must take the chunked tier up front: forced,
@@ -1840,7 +2067,8 @@ def compile_program(fn_or_prog, *, optimize_contractions=True,
                     op_select="cost", autotune_cache=None,
                     compile_mode="whole", donate=False, skew_salting="auto",
                     out_of_core="auto", memory_budget=None,
-                    chunk_rows=None, device="cuda") -> CompiledProgram:
+                    chunk_rows=None, device="cuda", round_fusion=True,
+                    lineage=True, speculative=True) -> CompiledProgram:
     """Front door: loop program → restrictions check (Def. 3.1) →
     comprehension translation (Fig. 2) → pass pipeline (passes.py) →
     executable physical plan on `device` ("cuda" by default; "cpu" must be
@@ -1867,8 +2095,13 @@ def compile_program(fn_or_prog, *, optimize_contractions=True,
     donates mutated destinations and SeqLoop carries to the whole-program
     entry: a tensor on the device given for one is consumed (left without
     elements), and the output returned for it is the entry's buffer,
-    which a caller feeds back at no copy.  The planner's other switches
-    keep the reference's defaults.
+    which a caller feeds back at no copy.
+
+    The distributed switches are the reference's: round_fusion=False
+    keeps one round a node, lineage=False leaves rounds without recovery
+    recipes (a lost shard descends the ladder) and speculative=False keeps
+    the straggler watchdog log-only (core/distributed.py).  On one device
+    they change only the plan's grouping, never a result.
 
     Out-of-core (chunked.py): memory_budget (bytes) turns on the hard
     admission check — a call whose memest peak estimate exceeds it
@@ -1890,4 +2123,5 @@ def compile_program(fn_or_prog, *, optimize_contractions=True,
     return CompiledProgram(prog, target, optimize_contractions, op_select,
                            autotune_cache, compile_mode, donate,
                            skew_salting, out_of_core, memory_budget,
-                           chunk_rows, device)
+                           chunk_rows, device, round_fusion, lineage,
+                           speculative)

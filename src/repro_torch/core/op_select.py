@@ -19,8 +19,12 @@ This module owns that choice.  Candidate backends:
             kernels/csrc/tile_matmul.cu.  On a CPU tensor each runs its
             plain PyTorch version.
 
-plus the §5 packed-matmul choice (`pallas-tiled` vs unpack+einsum) and the
-hot-key salting factor.
+plus the distributed-exchange choice for a sharded group-by round
+(`psum_scatter` — a `reduce_scatter_tensor` — vs allreduce + slice, the
+reference's names; core/collectives.py maps each to torch.distributed),
+whether a group-by destination that only receives unaligned reduces is
+sharded at all (`choose_reduce_dest`), the §5 packed-matmul choice
+(`pallas-tiled` vs unpack+einsum) and the hot-key salting factor.
 
 Two modes, one interface:
 
@@ -75,6 +79,7 @@ SEGMENT_CANDIDATES = {
 # follows its padded length)
 DETERMINISTIC = ("pallas",)
 
+EXCHANGE_CANDIDATES = ("psum_scatter", "allreduce")
 CONTRACT_CANDIDATES = ("pallas-tiled", "unpack-einsum")
 
 # hot-key salting sub-destination factors (the S in key*S + salt); "none"
@@ -96,7 +101,8 @@ def _bucket(x: int) -> int:
 class Decision:
     """One resolved backend choice, with its provenance for explain()."""
     backend: str
-    source: str          # "cost" | "autotune" | "cache" | "forced"
+    source: str          # "cost" | "autotune" | "cache" | "forced" |
+    #                      "construction"
     why: str = ""
 
     def __str__(self) -> str:
@@ -133,6 +139,7 @@ _COSTS = {
     "cpu": dict(fixed=60.0, scatter_row=0.12, sort_row=0.05,
                 onehot_cell=0.002, pallas_cell=0.002, pallas_fixed=2e5,
                 pallas_row=0.0, pallas_kd=0.0,
+                coll_row=0.004, coll_fixed=400.0, dest_shard_fixed=1500.0,
                 tile_mxu=math.inf, einsum_cell=4e-5, unpack_cell=1.5e-3,
                 dup_row=0.0, salt_fold=0.004),
     "cuda": dict(fixed=10.0, scatter_row=1.35e-5,
@@ -145,6 +152,12 @@ _COSTS = {
                  unpack_cell=8 / _HBM_BYTES_PER_US,
                  dup_row=3.7e-3, salt_fold=3e-4),
 }
+# coll_fixed, coll_row, dest_shard_fixed: the cpu row's are the
+# reference's.  The cuda row has none: the one card measured gives a world
+# of 1, where a collective moves nothing between cards (chip_smoke.py's
+# phase 7 prints that measurement), so no number prices traffic between
+# cards yet and `choose_reduce_dest` keeps the reference's construction
+# there (ROADMAP.md, multi-card NCCL numbers).
 # dup_row: extra per-row cost when rows COLLIDE on one destination row.
 # The cuda value is measured: chip_smoke.py's hot-key segment case on an
 # H100 (a quarter of 2^26 rows on one of 2^20 segments) takes the segment
@@ -383,6 +396,66 @@ class OpSelector:
         for s in SALT_FACTORS:
             cost[f"salt:{s}"] = c["fixed"] + dup / s + c["salt_fold"] * k * s
         best = min(cost, key=cost.get)
+        return Decision(best, "cost", key)
+
+    # ---- distributed exchange (sharded group-by rounds) ----
+    def exchange_class(self, k: int, d: int, op: str, nshards: int,
+                       n_local: int) -> str:
+        return (f"exchange|{op}|k{_bucket(k)}|d{_bucket(max(1, d))}"
+                f"|p{nshards}|n{_bucket(max(1, n_local))}")
+
+    def choose_exchange(self, *, k: int, d: int, op: str, nshards: int,
+                        n_local: int = 1, dest_dist: str = "ONED_ROW"
+                        ) -> Decision:
+        """The cross-shard ⊕ of a dense [K(,D)] partial.  For a REP
+        destination (and non-+ monoids, which have no reduce-scatter)
+        allreduce is the only candidate.  For a ONED_ROW `+` destination
+        reduce-scatter moves strictly less data than allreduce + slice
+        (K·D/P received a rank against K·D), so the model picks it by
+        construction, and only a CACHE entry can pin `allreduce` for an
+        exchange class (collectives are not auto-timed: the selector has
+        no process group).  The small-K regime where neither exchange
+        pays is `choose_reduce_dest`'s: it replicates the destination."""
+        if self.forced is not None and self.forced in EXCHANGE_CANDIDATES:
+            return Decision(self.forced, "forced")
+        if dest_dist != "ONED_ROW" or op != "+":
+            return Decision("allreduce", "cost",
+                            "only candidate for this dest/op")
+        key = self.exchange_class(k, d, op, nshards, n_local)
+        hit = self._cache.get(key)
+        if hit is not None:
+            return Decision(hit["backend"], "cache", key)
+        return Decision("psum_scatter", "cost", key)
+
+    # ---- reduce-destination placement (sharded group-by rounds) ----
+    def dest_class(self, k: int, d: int, op: str, nshards: int) -> str:
+        return f"dest|{op}|k{_bucket(k)}|d{_bucket(max(1, d))}|p{nshards}"
+
+    def choose_reduce_dest(self, *, k: int, d: int, op: str, nshards: int,
+                           n_local: int = 1) -> Decision:
+        """Should a group-by DESTINATION that only ever receives unaligned
+        reduces live as ONED_ROW row blocks (partial-⊕ then reduce-
+        scatter; each rank keeps K/P rows) or stay REP (partial-⊕ then
+        allreduce)?  Sharding pays a fixed per-run overhead for the
+        K/P-row layout and wins back K·D·(P-1)/P exchange volume and
+        memory, so it loses where the paper's shuffle loses: small K.
+        distributed.py applies it only to arrays the plan never uses in an
+        aligned round (dist_analysis.demotable_dests)."""
+        if self.forced is not None and self.forced in ("shard", "replicate"):
+            return Decision(self.forced, "forced")
+        key = self.dest_class(k, d, op, nshards)
+        hit = self._cache.get(key)
+        if hit is not None:
+            return Decision(hit["backend"], "cache", key)
+        c = self._costs()
+        if "dest_shard_fixed" not in c:
+            # no collective costs measured between this device's cards:
+            # the reference's construction, the destination shards
+            return Decision("shard", "construction", key)
+        kd = k * max(1, d)
+        shard = c["dest_shard_fixed"] + c["coll_fixed"] + c["coll_row"] * kd
+        rep = c["coll_fixed"] + 2.0 * c["coll_row"] * kd
+        best = "shard" if shard <= rep else "replicate"
         return Decision(best, "cost", key)
 
     # ---- §5 packed contraction ----

@@ -1,3 +1,3 @@
-from .ft import LoopRunner, SimulatedFailure, TrainRunner
+from .ft import LoopRunner, PeerReplica, SimulatedFailure, TrainRunner
 
-__all__ = ["LoopRunner", "SimulatedFailure", "TrainRunner"]
+__all__ = ["LoopRunner", "PeerReplica", "SimulatedFailure", "TrainRunner"]

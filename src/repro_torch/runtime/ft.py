@@ -7,21 +7,109 @@ reference's src/repro/runtime/ft.py.
 * **straggler watchdog**: per-iteration wall times feed the program's
   `FaultLedger.note_time` (the trailing-median watchdog the executor and
   the serving layer share), visible in `explain_faults()`;
+* **peer-replicated carry snapshots** (DESIGN.md §13): an in-memory tier
+  ABOVE the disk checkpoints — every `peer_every` iterations the loop
+  carries are ring-copied to the neighbouring rank (`batch_isend_irecv`,
+  core/collectives.py) and checksummed, so a lost rank restores its carry
+  from the peer without touching disk; a torn replica fails its checksum
+  and the previous good one is used instead (`PeerReplica`);
 * simulated failure for tests (`SimulatedFailure`).
 
-Still to come (ROADMAP.md): the peer-replica carry tier (`peer_every`),
-which ring-copies carries across shards, waits for the distributed rounds
-(Queue 1 item 5); `TrainRunner` waits for the training step (item 6).
+Still to come (ROADMAP.md): `TrainRunner` waits for the training step
+(Queue 1 item 6).
 """
 from __future__ import annotations
 
 import time
 
+import numpy as np
+import torch
+
 from ..checkpoint import CheckpointManager
+from ..core.faults import FaultLedger, checksum
+from ..core.lower import _host
 
 
 class SimulatedFailure(Exception):
     pass
+
+
+class PeerReplica:
+    """In-memory peer-replicated snapshot tier (DESIGN.md §13).
+
+    Disk checkpoints survive a full-job restart but cost serialization and
+    I/O a save; losing ONE rank should not need them.  This tier keeps the
+    last `depth` carry snapshots in memory, each of this rank's arrays
+    ring-copied to the next rank (one `batch_isend_irecv` shift over the
+    mesh's group: rank k's values live on rank k+1, so rank k dying leaves
+    every one of them on a survivor) and stamped with the shared crc32
+    `core.faults.checksum`.  `latest_good()` shifts the newest snapshot
+    back and verifies the stamp; a torn replica (a write interrupted by
+    the very failure it protects against) fails its checksum and the
+    PREVIOUS good snapshot is returned instead — the ranks agree on the
+    verdict, so all of them return the same snapshot.  Without a mesh (one
+    process) the "copy" is a host-side mirror: same protocol, same
+    stamps, no collective."""
+
+    def __init__(self, mesh=None, dp=("data",), depth: int = 2,
+                 ledger: FaultLedger | None = None):
+        self.mesh = mesh
+        self.dp = tuple(dp)
+        self.depth = int(depth)
+        self.ledger = ledger
+        self.snaps: list[dict] = []     # oldest → newest
+        self.torn: list[int] = []       # steps whose replica failed verify
+        self.dp_n = 1
+        self._coll = None
+        if mesh is not None:
+            for a in self.dp:
+                self.dp_n *= mesh.shape[a]
+            if self.dp_n > 1:
+                from ..core.collectives import Collectives
+                self._coll = Collectives(mesh)
+
+    # ------------------------- ring copy -------------------------
+    def _ring(self, x, inverse: bool):
+        """This rank's array one rank along the ring (back with
+        `inverse`); without a group, a host mirror (a defensive copy)."""
+        if self._coll is None:
+            return np.array(_host(x))
+        return self._coll.ring_shift(
+            torch.as_tensor(x).to(self.mesh.device), inverse=inverse)
+
+    # ------------------------- write / read -------------------------
+    def mirror(self, li: int, it: int, step: int, carry: dict) -> None:
+        snap = {"li": int(li), "it": int(it), "step": int(step),
+                "data": {}, "crc": {}}
+        for name, v in carry.items():
+            snap["crc"][name] = checksum(_host(v))
+            snap["data"][name] = self._ring(v, inverse=False)
+        self.snaps.append(snap)
+        del self.snaps[:-self.depth]
+
+    def latest_good(self):
+        """(li, it, step, carry) from the newest snapshot whose every
+        array verifies against its stamp; torn snapshots are skipped to
+        the previous good one.  None when nothing usable remains."""
+        for snap in reversed(self.snaps):
+            carry = {}
+            ok = True
+            for name, v in snap["data"].items():
+                back = self._ring(v, inverse=True)
+                if checksum(_host(back)) != snap["crc"][name]:
+                    ok = False
+                carry[name] = back
+            if self._coll is not None:
+                ok = not self._coll.agree(not ok)
+            if ok:
+                return snap["li"], snap["it"], snap["step"], carry
+            self.torn.append(snap["step"])
+            if self.ledger is not None:
+                self.ledger.record(
+                    "escalate", f"loop{snap['li']}",
+                    f"peer replica at iteration {snap['it']} is torn "
+                    f"(checksum mismatch) — previous good snapshot used")
+        return None
 
 
 class TrainRunner:
@@ -54,22 +142,28 @@ class LoopRunner:
     fast-forwarding past completed tiles (on the card the carry includes
     each running partial of chunked.py).
 
-    ``peer_every`` > 0 (the reference's in-memory peer-replica tier)
-    raises NotImplementedError: it waits for the distributed rounds."""
+    With ``peer_every`` > 0 the carries ADDITIONALLY mirror to the
+    in-memory peer-replica tier (`PeerReplica`, ring copies over `mesh`'s
+    group, or a host mirror without one) every ``peer_every`` iterations:
+    resume prefers the newest GOOD peer snapshot over the disk tier when
+    the peer is fresher (memory beats disk on recency AND latency; disk
+    survives what memory cannot — a full-job restart still restores from
+    npz).  Both tiers verify the shared crc32 stamp and skip torn
+    snapshots to the previous good one."""
 
     def __init__(self, cp, ckpt_dir: str, every: int = 1, keep: int = 3,
-                 async_write: bool = False, peer_every: int = 0):
-        if peer_every:
-            raise NotImplementedError(
-                "the peer-replica carry tier (peer_every > 0) needs "
-                "ring copies across shards: ROADMAP.md, Queue 1 item 5, "
-                "'Distributed rounds, skew and surgical recovery'")
+                 async_write: bool = False, peer_every: int = 0,
+                 mesh=None, dp=("data",)):
         self.cp = cp
         self.mgr = CheckpointManager(ckpt_dir, keep=keep,
                                      async_write=async_write)
         self.every = int(every)
         self.saves = 0
         self.resumed_from = None       # checkpoint step of the last resume
+        self.peer_every = int(peer_every)
+        self.peer = PeerReplica(mesh=mesh, dp=dp, ledger=cp.faults) \
+            if peer_every else None
+        self.peer_restores = 0
         self._step = 0
         self._t_last = 0.0
 
@@ -88,6 +182,24 @@ class LoopRunner:
                     loop_state[li] = (int(it), carry)
                 self.resumed_from = step
                 self._step = step
+            good = self.peer.latest_good() if self.peer is not None \
+                else None
+            if good is not None:
+                li, it, step, carry = good
+                disk_it = loop_state.get(li, (-1, None))[0] \
+                    if loop_state else -1
+                if it > disk_it:
+                    loop_state = loop_state or {}
+                    loop_state[li] = (it, {c: _host(v)
+                                           for c, v in carry.items()})
+                    self.resumed_from = step
+                    self._step = max(self._step, step)
+                    self.peer_restores += 1
+                    self.cp.faults.recovered(
+                        f"loop{li}",
+                        f"carry restored from peer replica (iteration "
+                        f"{it}, ring copy verified against checksum; disk "
+                        f"tier was at iteration {max(disk_it, 0)})")
         self._t_last = time.perf_counter()
         out = self.cp.run_stepwise(inputs, loop_state=loop_state,
                                    observer=self._observer)
@@ -104,3 +216,5 @@ class LoopRunner:
                           {f"loop{li}/{c}": v for c, v in carry.items()},
                           extra={"loops": {str(li): int(it)}})
             self.saves += 1
+        if self.peer is not None and it % self.peer_every == 0:
+            self.peer.mirror(li, it, self._step, dict(carry))

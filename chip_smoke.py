@@ -24,7 +24,15 @@ first mismatch:
              device, n < L, small and bucketed paths) bit-equal to a
              launch over the first n rows and timed against it, and one
              flush's 16 lanes against one `index_add_` over lane-offset
-             ids;
+             ids; the two backward kernels at phase 8's shapes (flash
+             [128, 2048, 128] bf16 causal against the backward of
+             `scaled_dot_product_attention`, the scan [4, 2048, 8192, 16]
+             with bf16 x), each held against its plain version, which
+             takes nothing from a kernel under test, and launched twice
+             with the same bits, and the forward kernels' training
+             entries (flash with its lse, held against the plain
+             version's; the scan with its checkpoint states) bit-equal to
+             the serving ones;
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, in eager mode and in whole mode (the default:
@@ -112,13 +120,31 @@ first mismatch:
              torch.profiler trace of a prefill and a decode tick; then a
              2-layer float32 copy of each model (full width) run on the
              card against the same weights on the CPU (the kernels' plain
-             versions).
+             versions); the served tokens' crc32 (tools/serve_tokens.py
+             prints the same digest from another tree's sources);
+8. train   — train llama3-8b (8 of 32 layers) and falcon-mamba-7b (16 of
+             64) at full width, bf16 with float32 moments, remat "full",
+             ce_chunk 512, through `repro_torch.runtime.TrainRunner` on
+             `SyntheticLMData` batches of 4 x 2048 tokens: loss and
+             grad_norm a step, step ms (median after the first), tokens/s,
+             peak memory, the launches of each kernel (a forward kernel
+             twice a layer and step, a backward once), one profiled step
+             (device busy, idle share, top kernels, the hand-written
+             kernels' share), and 10 steps on one fixed batch whose loss
+             must fall; then at 2 layers (full width) six steps against a
+             run failed at step 5 and resumed from its step-4 snapshot,
+             bit-equal leaf by leaf; then a 2-layer float32 copy of each
+             takes one step on the card and on the CPU (B 1, S 1024, so
+             that the chunked cross-entropy runs): loss and grad_norm
+             within 1e-4, every gradient leaf within 1e-3 of its max |ref|.
 
-Phases 5, 6 and 7 run after phase 3 and before phase 4.  The line before
-the last is a JSON object with one entry per kernel (segment_reduce's
-launches count phases 3, 5, 6 and 7's world of 1); the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-outside a checkout, the script exits non-zero and prints no result.
+Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4.
+The line before the last is a JSON object with one entry per kernel
+(segment_reduce's launches count phases 3, 5, 6 and 7's world of 1;
+flash_attention's and selective_scan's phases 4 and 8; the backward
+kernels' phase 8); the last line is {"ok": true, "device": {...}}.
+Without a CUDA device, or outside a checkout, the script exits non-zero
+and prints no result.
 
     python3 chip_smoke.py --parent DIR
 
@@ -136,6 +162,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -176,6 +203,21 @@ SERVE_ARCHS = {"llama3-8b": ("flash_attention",),
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 4, 2112, 32
 PROMPT_LENS = (2048, 1531, 1024, 777, 512, 300)
 CHECK_LAYERS, CHECK_PROMPT, CHECK_NEW = 2, 300, 8
+
+
+def serve_prompts(np, cfg, seed):
+    """Phase 4's prompts: one of each of PROMPT_LENS, random tokens of the
+    config's vocabulary from `seed`."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in PROMPT_LENS]
+
+
+def served_digest(np, reqs):
+    """(count, crc32) of the tokens the requests were served, in order."""
+    import zlib
+    toks = np.asarray([t for r in reqs for t in r.out], np.int64)
+    return int(toks.size), zlib.crc32(toks.tobytes()) & 0xFFFFFFFF
 
 
 class SmokeFailure(Exception):
@@ -727,7 +769,7 @@ def _fused_scan_case(torch, g, b, s, d, n, x_dtype, with_h0=False, reps=5):
         a = torch.exp(dt[..., None] * A)
         bx = (dt * x.float())[..., None] * Bm[..., None, :]
         return scan.selective_scan(a, bx, Cm, h0, return_state=True)
-    kernel_ms = time_ms(torch, fused, reps)
+    kern = _kernel_ms(torch, "selective_scan", fused, reps)
     unfused_ms = time_ms(torch, unfused, 2)
     plain_ms = time_ms(torch, lambda: scan.selective_scan_fused_plain(
         dt, A, Bm, Cm, x, h0, return_state=True), 1, warmup=0)
@@ -745,8 +787,165 @@ def _fused_scan_case(torch, g, b, s, d, n, x_dtype, with_h0=False, reps=5):
     rec = dict(case=f"selective_scan_fused [{b}, {s}, {d}, {n}] x {x_dtype}"
                + (", h0 and h_last" if with_h0 else ", h_last"),
                max_abs_err=err, tol="1e-4*max|ref| (y and h_last)",
-               kernel_ms=kernel_ms, unfused_ms=unfused_ms, plain_ms=plain_ms,
+               **kern, unfused_ms=unfused_ms, plain_ms=plain_ms,
                library_ms=None, library="none (no single PyTorch call)",
+               bound_parts_ms=dict(bytes=t_bytes, float32=t_flops,
+                                   exp=t_exp),
+               bound_ms=bound,
+               bound_by="bytes" if bound == t_bytes else "operations")
+    return _rates(rec, flops)
+
+
+def _grad_errs(what, got, want, tols):
+    """max |got − want| of each named gradient, each within its tolerance
+    times max |want|; returns the largest error."""
+    worst = 0.0
+    for name, g, w, tol in zip(tols, got, want, tols.values()):
+        e = float((g.float() - w.float()).abs().max())
+        bound = tol * float(w.float().abs().max())
+        require(e <= bound, f"{what} {name}: err {e:.4g} > {tol:g}*max|ref| "
+                            f"= {bound:.4g}")
+        worst = max(worst, e)
+    return worst
+
+
+def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5):
+    """The backward of causal attention at the training shape [B·Hq, S,
+    hd]: the kernel (from the forward kernel's lse) against the plain
+    formula, a second launch bit-equal, and one backward of PyTorch's
+    scaled_dot_product_attention as the library call."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(bh, s, hd, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    # the training entry writes the serving entry's output bits
+    require(torch.equal(o, flash_attention(q, k, v, causal=True)),
+            f"flash_attention [{bh}, {s}, {hd}] {dtype}: the lse entry's "
+            "output differs from the serving entry's")
+    # the kernel's lse against the plain version's: both float32 sums of
+    # the same products, so they differ in summation order only
+    wo, wlse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    lse_tol = 1e-3
+    lse_err = float((lse - wlse).abs().max())
+    log(f"[kernels] flash_attention lse [{bh}, {s}, {hd}] {dtype}: max abs "
+        f"err {lse_err:.3g} against the plain version (tol {lse_tol:g})")
+    require(lse_err <= lse_tol,
+            f"flash_attention [{bh}, {s}, {hd}] {dtype}: lse err "
+            f"{lse_err:.4g} > {lse_tol:g}")
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    # the reference takes nothing from the kernels under test
+    want = flash_attention_bwd_plain(q, k, v, wo, wlse, do, causal=True)
+    del wo, wlse
+    torch.cuda.synchronize()
+    # bf16: the kernel rounds P and dS to bf16 for the tensor cores (the
+    # plain formula keeps them float32), then rounds the sums to bf16
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    err = _grad_errs(f"flash_attention_bwd [{bh}, {s}, {hd}] {dtype}", got,
+                     want, dict(dq=tol, dk=tol, dv=tol))
+    del want
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"flash_attention_bwd [{bh}, {s}, {hd}] {dtype}: a second "
+            "launch gave other bits")
+    del got, again
+    torch.cuda.empty_cache()
+    kernel_ms = time_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, causal=True), reps)
+    plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), 2)
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+    out4 = sdpa(q4, k4, v4, is_causal=True)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do[None], retain_graph=True), reps)
+    del out4, q4, k4, v4
+    esize = 2 if dtype == "bfloat16" else 4
+    # 5 products over the causal pairs: S = QKᵀ (recomputed), dP = dO Vᵀ,
+    # dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q
+    flops = 5 * 2.0 * bh * hd * s * (s + 1) / 2
+    # q, k, v, o, dO read and dq, dk, dv written; lse read
+    bytes_ = 8.0 * bh * s * hd * esize + 4.0 * bh * s
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    rec = dict(case=f"flash_attention_bwd causal [{bh}, {s}, {hd}] {dtype}",
+               max_abs_err=err, tol=f"{tol:g}*max|ref| (dq, dk, dv)",
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library="autograd of scaled_dot_product_attention"
+                       "(is_causal=True): its backward alone",
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return _rates(rec, flops)
+
+
+def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
+    """The fused scan's backward at a falcon-mamba-7b training step's
+    shape: the kernel (from the forward's checkpoint states) against the
+    plain reverse walk, a second launch bit-equal."""
+    import importlib
+    scan = importlib.import_module("repro_torch.kernels.selective_scan")
+    dev = "cuda"
+    dt = torch.nn.functional.softplus(
+        torch.rand(b, s, d, generator=g, device=dev) * 4 - 6)
+    A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(
+        d, 1) * (0.5 + torch.rand(d, 1, generator=g, device=dev))
+    Bm, Cm = (torch.randn(b, s, n, generator=g, device=dev) for _ in range(2))
+    x = torch.randn(b, s, d, generator=g, device=dev).to(
+        getattr(torch, x_dtype))
+    dy = torch.randn(b, s, d, generator=g, device=dev)
+    y, _, states = scan._fused_launch(dt, A, Bm, Cm, x, None, True, True)
+    # the training entry writes the serving entry's output bits
+    require(torch.equal(y, scan.selective_scan_fused(dt, A, Bm, Cm, x)),
+            f"selective_scan_fused [{b}, {s}, {d}, {n}]: the checkpoint "
+            "entry's y differs from the serving entry's")
+    del y
+    got = scan.selective_scan_fused_bwd(dt, A, Bm, Cm, x, None, dy,
+                                        states=states)
+    want = scan.selective_scan_fused_bwd_plain(dt, A, Bm, Cm, x, None, dy)
+    torch.cuda.synchronize()
+    # exp2f of a pre-scaled argument (as the forward) against exp, and the
+    # sums over D and B·S in another order; dx in bf16: one rounding
+    tol = 1e-4
+    dx_tol = 8e-3 if x_dtype == "bfloat16" else tol
+    err = _grad_errs(f"selective_scan_bwd [{b}, {s}, {d}, {n}] x {x_dtype}",
+                     got, want, dict(ddt=tol, dA=tol, dBm=tol, dCm=tol,
+                                     dx=dx_tol, dh0=tol))
+    del want
+    torch.cuda.empty_cache()
+    again = scan.selective_scan_fused_bwd(dt, A, Bm, Cm, x, None, dy,
+                                          states=states)
+    require(all(torch.equal(p, q) for p, q in zip(got, again)),
+            f"selective_scan_bwd [{b}, {s}, {d}, {n}]: a second launch gave "
+            "other bits")
+    del got, again
+    kernel_ms = time_ms(torch, lambda: scan.selective_scan_fused_bwd(
+        dt, A, Bm, Cm, x, None, dy, states=states), reps)
+    plain_ms = time_ms(torch, lambda: scan.selective_scan_fused_bwd_plain(
+        dt, A, Bm, Cm, x, None, dy), 1, warmup=0)
+    torch.cuda.empty_cache()
+    esize = 2 if x_dtype == "bfloat16" else 4
+    elems = b * s * d
+    # read once: dt, x, dy [B, S, D], A, Bm, Cm; written once: ddt, dx
+    # [B, S, D], dA, dBm, dCm, dh0.  The forward's checkpoint states are
+    # this kernel's design, not the function's: not counted
+    bytes_ = (4 + esize + 4) * elems + (4 + esize) * elems \
+        + 2 * 4 * d * n + 4 * 4 * b * s * n + 4 * b * d * n
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    # one exponential a (t, d, n) (a_t, needed by the reverse walk), ~16
+    # float32 operations a (t, d, n) (g, g·B, dz, the four partial sums,
+    # the carry)
+    t_exp = elems * n / EXP_PER_S * 1e3
+    flops = 16.0 * elems * n
+    t_flops = flops / PEAK_FLOPS["float32"] * 1e3
+    bound = max(t_bytes, t_exp, t_flops)
+    rec = dict(case=f"selective_scan_bwd [{b}, {s}, {d}, {n}] x {x_dtype}",
+               max_abs_err=err,
+               tol=f"{tol:g}*max|ref| (dx in bf16: {dx_tol:g})",
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               library="none (no single PyTorch call)",
                bound_parts_ms=dict(bytes=t_bytes, float32=t_flops,
                                    exp=t_exp),
                bound_ms=bound,
@@ -832,6 +1031,14 @@ def phase_kernels(torch, seed):
              _fused_scan_case(torch, g, 1, 2048, 8192, 16, "float32")]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # the backward kernels at the training shapes (phase 8: llama3-8b's
+    # 4 × 2048 tokens, 32 heads of 128; falcon-mamba-7b's d_inner 8192,
+    # N 16); their float32 paths are held against the CPU in phase 8
+    bwd = [_flash_bwd_case(torch, g, 128, 2048, 128, "bfloat16")]
+    torch.cuda.empty_cache()
+    sbwd = [_scan_bwd_case(torch, g, 4, 2048, 8192, 16, "bfloat16")]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     # the entries of the kernel line: the main paths' shapes (the group-by
     # over 2^20 segments, the packed 8192^3 product through the packed
     # entry, the 2048-token llama3-8b prefill's attention, the scan kernel
@@ -840,6 +1047,7 @@ def phase_kernels(torch, seed):
     # checked and timed above)
     return {"segment_reduce": seg[0], "tile_matmul": tile[0],
             "flash_attention": flash[0], "selective_scan": fused[0],
+            "flash_attention_bwd": bwd[0], "selective_scan_bwd": sbwd[0],
             "segment_reduce[lanes]": lanes}
 
 
@@ -1143,12 +1351,12 @@ def _profile(torch, name, fn, run_ms, top=5):
     return per, spans
 
 
-def _kernel_functions():
-    """Each program kernel's device functions: the `__global__` functions
-    of its source."""
+def _kernel_functions(names=PROGRAM_KERNELS):
+    """Each named kernel source's device functions: the `__global__`
+    functions of its source."""
     from repro_torch.kernels import _build
     out = {}
-    for k in PROGRAM_KERNELS:
+    for k in names:
         text = (_build.CSRC / f"{k}.cu").read_text()
         out[k] = re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
                             r"\([^)]*\)\s*)?(\w+)\s*\(", text)
@@ -2627,9 +2835,7 @@ def _serve_model(torch, np, arch, kernels, seed):
         f"{w_bytes / 1e9:.2f} GB of weights ({str(cfg.param_dtype)}), init "
         f"on the card from seed {seed} in {time.perf_counter() - t0:.1f} s; "
         f"full width and full depth")
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in PROMPT_LENS]
+    prompts = serve_prompts(np, cfg, seed)
     # warm-up: one short request (allocator, cuBLAS handles, kernel build)
     warm = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
     warm.submit(prompts[-1][:64], 2)
@@ -2673,6 +2879,10 @@ def _serve_model(torch, np, arch, kernels, seed):
                 f"{arch}: request {r.rid} produced a token out of the "
                 "vocabulary")
     require(full_ticks, f"{arch}: no decode tick ran with every slot busy")
+    # the served tokens' digest: tools/serve_tokens.py computes the same
+    # one from another tree's sources
+    n_toks, crc = served_digest(np, reqs)
+    log(f"[serve] {arch}: served tokens {n_toks}, crc32 {crc}")
     dec_ms = _median(full_ticks)
     log(f"[serve] {arch}: decode {dec_ms:.3f} ms per tick at {SERVE_SLOTS} "
         f"active slots (median of {len(full_ticks)} ticks; min "
@@ -2791,6 +3001,276 @@ def phase_serve(torch, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training the two LM families
+# ---------------------------------------------------------------------------
+
+# full width, depth cut so that bf16 parameters and gradients and float32
+# AdamW moments fit one 80 GB card (PERF.md §4); the configs' own remat
+# ("full") and ce_chunk (512); one model on the card at a time
+TRAIN_ARCHS = {"llama3-8b": (8, ("flash_attention", "flash_attention_bwd")),
+               "falcon-mamba-7b": (16, ("selective_scan_fused",
+                                        "selective_scan_bwd"))}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 6, 3e-4
+LEARN_STEPS = 10
+# the resume check: a copy at this depth (full width), six steps against
+# a run failed at step 5 and resumed from its step-4 snapshot
+RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 2, 6, 5, 4
+# the card-against-CPU check: a float32 copy at this depth, one step
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 1, 1024
+
+
+def _depth(cfg, layers, **over):
+    kind = cfg.layout[0][0][0]
+    return cfg.replace(layout=(((kind,), layers),), **over)
+
+
+def _runner(torch, cfg, seed, ckpt_dir, ckpt_every):
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainRunner
+    from repro_torch.train import make_train_step
+    model = get_model(cfg).init(seed)
+    opt = adamw_init(dict(model.named_leaves()),
+                     torch.bfloat16 if cfg.opt_dtype == "bf16"
+                     else torch.float32)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    step = make_train_step(cfg, lr=TRAIN_LR, compress_grads=False)
+    return TrainRunner(step, model, opt, data, ckpt_dir=str(ckpt_dir),
+                       ckpt_every=ckpt_every)
+
+
+def _train_model(torch, np, arch, layers, kernels, seed, tmp):
+    """Train one model through TrainRunner: TRAIN_STEPS steps with the
+    launch counts read around them, one profiled step, then LEARN_STEPS
+    steps on one fixed batch.  Returns the launch counts of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    full = get_config(arch)
+    cfg = _depth(full, layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = _runner(torch, cfg, seed, tmp / arch, 10 ** 6)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in r.params.parameters())
+    log(f"[train] {arch}: {layers} of {full.num_layers} layers, full width "
+        f"(d_model {cfg.d_model}, vocab {cfg.vocab_size}), "
+        f"{n_params / 1e9:.3f} B parameters ({str(cfg.param_dtype)}, "
+        f"moments {cfg.opt_dtype}), remat {cfg.remat}, ce_chunk "
+        f"{cfg.ce_chunk}, batch {TRAIN_BATCH} x {TRAIN_SEQ}; init from seed "
+        f"{seed} in {time.perf_counter() - t0:.1f} s")
+    # the main path: TRAIN_STEPS steps through the runner, launches counted
+    ops.reset_launch_counts()
+    ms, losses, gnorms = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = r.run(i + 1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = ops.launch_counts()
+    require(all(math.isfinite(x) for x in losses + gnorms),
+            f"{arch}: non-finite loss or grad_norm {losses} {gnorms}")
+    step_ms = _median(ms[1:])
+    log(f"[train] {arch}: loss by step {[round(x, 4) for x in losses]}, "
+        f"grad_norm {[round(x, 4) for x in gnorms]}")
+    log(f"[train] {arch}: step {step_ms:.1f} ms (median of steps 2-"
+        f"{TRAIN_STEPS}; first {ms[0]:.1f}, min {min(ms[1:]):.1f}, max "
+        f"{max(ms[1:]):.1f}), {TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} "
+        f"tokens/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    per_step = {k: counts[k] / TRAIN_STEPS for k in kernels}
+    log(f"[train] {arch}: kernel launches {json.dumps(counts)}; a step "
+        f"{json.dumps(per_step)}")
+    # full remat: a layer's forward runs twice (forward, recompute in
+    # backward), its backward once
+    fwd, bwd = kernels
+    require(counts[fwd] == 2 * layers * TRAIN_STEPS
+            and counts[bwd] == layers * TRAIN_STEPS,
+            f"{arch}: {counts[fwd]} {fwd} and {counts[bwd]} {bwd} launches "
+            f"in {TRAIN_STEPS} steps, expected {2 * layers} and {layers} a "
+            "step")
+    if fwd == "selective_scan_fused":
+        require(counts["selective_scan"] == 0,
+                f"{arch}: scans through the (a, bx) entry")
+    # one more step, profiled: device busy, idle share, the hand kernels'
+    # share of the device time
+    per, spans = _profile(torch, f"train {arch} step", lambda: (
+        r.run(r.step + 1), torch.cuda.synchronize()), step_ms, top=8)
+    from repro_torch.kernels import _build
+    hand = re.compile(r"::(?:%s)[<(]" % "|".join(
+        f for fns in _kernel_functions(_build.SOURCES).values() for f in fns))
+    hand_ms = sum(t for e, (t, _) in per.items() if hand.search(e))
+    dev_ms = sum(t for t, _ in per.values())
+    if dev_ms:
+        log(f"[profile] train {arch} step: hand-written kernels "
+            f"{hand_ms:.3f} ms of {dev_ms:.3f} ms of device time "
+            f"({hand_ms / dev_ms:.3f})")
+    # learning: LEARN_STEPS steps on one fixed batch
+    batch = r.data.next_batch()
+    learn = []
+    for _ in range(LEARN_STEPS):
+        r.params, r.opt_state, m = r.step_fn(r.params, r.opt_state, batch)
+        learn.append(float(m["loss"]))
+    require(learn[-1] < learn[0], f"{arch}: the loss on one fixed batch did "
+                                  f"not fall: {learn}")
+    log(f"[train] {arch}: {LEARN_STEPS} steps on one fixed batch: loss "
+        f"{learn[0]:.4f} -> {learn[-1]:.4f} (every step "
+        f"{[round(x, 3) for x in learn]})")
+    del r, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _state_bits(r):
+    """Every parameter and moment of a runner, on the card."""
+    return [t.detach().clone() for _, t in r.params.named_leaves()] \
+        + [r.opt_state.mu[k].clone() for k in r.opt_state.mu] \
+        + [r.opt_state.nu[k].clone() for k in r.opt_state.nu]
+
+
+def _train_resume(torch, arch, seed, tmp):
+    """RESUME_STEPS uninterrupted steps against a run failed at
+    RESUME_FAIL and resumed from its step-RESUME_EVERY snapshot, at full
+    width and RESUME_LAYERS layers: bit-equal, leaf by leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.ft import SimulatedFailure
+    cfg = _depth(get_config(arch), RESUME_LAYERS)
+    t0 = time.perf_counter()
+    a = _runner(torch, cfg, seed, tmp / f"{arch}-a", 10 ** 6)
+    a.run(RESUME_STEPS)
+    want = _state_bits(a)
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = _runner(torch, cfg, seed, tmp / f"{arch}-b", RESUME_EVERY)
+    t_save = time.perf_counter()
+    try:
+        b.run(RESUME_STEPS, fail_at_step=RESUME_FAIL)
+        require(False, f"{arch}: the injected failure did not fire")
+    except SimulatedFailure:
+        pass
+    b.mgr.wait()
+    t_save = time.perf_counter() - t_save
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = _runner(torch, cfg, seed + 1, tmp / f"{arch}-b", 10 ** 6)
+    t = time.perf_counter()
+    require(c.maybe_resume() and c.step == RESUME_EVERY
+            and c.data.step == RESUME_EVERY
+            and int(c.opt_state.step) == RESUME_EVERY,
+            f"{arch}: resumed at step {c.step}, data {c.data.step}")
+    t_restore = time.perf_counter() - t
+    c.run(RESUME_STEPS)
+    got = _state_bits(c)
+    same = sum(bool(torch.equal(x, y)) for x, y in zip(got, want))
+    require(same == len(want), f"{arch}: the resumed run differs from the "
+                                f"uninterrupted one in {len(want) - same} of "
+                                f"{len(want)} leaves")
+    nbytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                 os.walk(tmp / f"{arch}-b") for f in fs)
+    log(f"[train] {arch} resume: {RESUME_LAYERS} layers (depth cut for this "
+        f"check only), full width, {str(cfg.param_dtype)}: {RESUME_STEPS} "
+        f"steps uninterrupted "
+        f"against a run failed at step {RESUME_FAIL} and resumed from its "
+        f"step-{RESUME_EVERY} snapshot: bit-equal in {same} of {len(want)} "
+        f"leaves (parameters and moments); snapshot {nbytes / 1e9:.2f} GB on "
+        f"disk; the failed run {t_save:.1f} s with its save, resume "
+        f"{t_restore:.1f} s (verify and restore); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del c, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_check(torch, np, arch, seed):
+    """A float32 copy at TRAIN_CHECK_LAYERS layers and full width: one
+    training step on the card against the same weights and batch on the
+    CPU (the kernels' plain versions): loss and grad_norm within 1e-4
+    relative, every gradient leaf within 1e-3 of its leaf's max |ref|."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init, adamw_update
+    full = get_config(arch)
+    cfg = _depth(full, TRAIN_CHECK_LAYERS, param_dtype=torch.float32,
+                 compute_dtype=torch.float32, cache_dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = get_model(cfg, device="cpu").init(seed)
+    gpu = get_model(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = SyntheticLMData(cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S,
+                            seed=seed + 2).next_batch()
+    out = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        model.train_mode()
+        params = dict(model.named_leaves())
+        loss, _ = model.loss(batch)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        _, _, m = adamw_update(params, grads, adamw_init(params),
+                               lr=TRAIN_LR)
+        out[name] = (float(loss.detach()), float(m["grad_norm"]), grads)
+    (l_ref, gn_ref, g_ref), (l_got, gn_got, g_got) = out["cpu"], out["card"]
+    e_loss = abs(l_got - l_ref) / abs(l_ref)
+    e_gn = abs(gn_got - gn_ref) / abs(gn_ref)
+    require(e_loss <= 1e-4 and e_gn <= 1e-4,
+            f"{arch} train check: loss {l_got} vs {l_ref} ({e_loss:.3g}), "
+            f"grad_norm {gn_got} vs {gn_ref} ({e_gn:.3g}), tol 1e-4")
+    worst, where = 0.0, ""
+    for k, ref in g_ref.items():
+        got = g_got[k].double().cpu()
+        e = float((got - ref.double()).abs().max()) \
+            / max(float(ref.abs().max()), 1e-30)
+        if e > worst:
+            worst, where = e, k
+    require(worst <= 1e-3, f"{arch} train check: gradient {where} err "
+                           f"{worst:.3g} of its max |ref| > 1e-3")
+    log(f"[train] {arch} check: {TRAIN_CHECK_LAYERS} of {full.num_layers} "
+        f"layers (depth cut for this check only), full width, float32, "
+        f"batch {TRAIN_CHECK_B} x {TRAIN_CHECK_S}, ce_chunk {cfg.ce_chunk}: "
+        f"one step on the card against the CPU: loss {l_got!r} (CPU "
+        f"{l_ref!r}, rel err {e_loss:.3g}), grad_norm {gn_got!r} (CPU "
+        f"{gn_ref!r}, rel err {e_gn:.3g}), worst "
+        f"gradient leaf {where} {worst:.3g} of its max |ref| (tol 1e-3); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del cpu, gpu, out, g_ref, g_got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, seed):
+    """Train both LM families; returns the launch counts of the main runs
+    (TRAIN_STEPS steps of each model) by kernel."""
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp = Path(tmp)
+        for arch, (layers, kernels) in TRAIN_ARCHS.items():
+            counts = _train_model(torch, np, arch, layers, kernels, seed,
+                                  tmp)
+            launches.update({k: counts[k] for k in kernels})
+        for arch in TRAIN_ARCHS:
+            _train_resume(torch, arch, seed, tmp)
+    for arch in TRAIN_ARCHS:
+        _train_check(torch, np, arch, seed)
+    log(f"[train] kernel launches on the training path: "
+        f"{json.dumps(launches)}; phase 8 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    ops.reset_launch_counts()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2829,6 +3309,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         launches.update(phase_serve(torch, args.seed))
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, n in phase_train(torch, args.seed).items():
+            launches[k] = launches.get(k, 0) + n
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
         return 1
@@ -2845,7 +3329,18 @@ def main(argv=None) -> int:
                                    "src/repro/kernels/flash_attention.py:70"),
                "selective_scan": ("src/repro_torch/kernels/csrc/"
                                   "selective_scan.cu",
-                                  "src/repro/kernels/selective_scan.py:60")}
+                                  "src/repro/kernels/selective_scan.py:60"),
+               # the backwards of those two TPU kernels' functions (the TPU
+               # kernels have none: the reference differentiates the jnp
+               # forms)
+               "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                                       "flash_attention_bwd.cu",
+                                       "src/repro/kernels/flash_attention.py"
+                                       ":70"),
+               "selective_scan_bwd": ("src/repro_torch/kernels/csrc/"
+                                      "selective_scan_bwd.cu",
+                                      "src/repro/kernels/selective_scan.py"
+                                      ":60")}
     lanes = per_kernel.pop("segment_reduce[lanes]")
     log(f"[kernels] segment_reduce device-count entry, one flush: kernel "
         f"{lanes['kernel_ms']:.4f} ms, plain {lanes['plain_ms']:.4f} ms, "

@@ -190,14 +190,20 @@ class CheckpointManager:
                                       {k: of[k] for k in of.files}, device)
         return meta["step"], params, opt, meta["extra"]
 
-    def restore_flat(self, step: int):
-        """Template-free read: (step, {path: np.ndarray}, extra).  The
+    def restore_flat(self, step: int, part: str = "params"):
+        """Template-free read: (step, {path: np.ndarray}, extra) of the
+        snapshot's params (or, with part="opt", its optimizer state).  The
         mid-loop resume path (runtime/ft.LoopRunner) uses this — after a
         crash there is no live tree to unflatten into; the flat keys
-        (``loop<i>/<carry-name>``) are self-describing."""
+        (``loop<i>/<carry-name>``) are self-describing — and so does the
+        LM's TrainRunner, which copies the reference's stacked leaves into
+        its layers."""
+        if part not in ("params", "opt"):
+            raise ValueError(f"restore_flat: part {part!r} is not 'params' "
+                             "or 'opt'")
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
-        with np.load(os.path.join(d, "params.npz")) as pf:
+        with np.load(os.path.join(d, f"{part}.npz")) as pf:
             flat = {k: pf[k] for k in pf.files}
         return meta["step"], flat, meta["extra"]

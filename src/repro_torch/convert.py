@@ -11,9 +11,13 @@ TiledMatrix; the caller does the `np.asarray`.
 
 For the LM stack, `lm_params_from_numpy` loads the reference's parameter
 tree (its `model.init(seed)`, leaves as numpy arrays) into the port's
-`LM`, one stacked leaf `g<gi>/s<i>_<kind>/...[r]` into each layer module;
-`lm_cache_from_numpy` and `lm_cache_to_numpy` carry a cache across in
-both directions, so that caches compare leaf by leaf.
+`LM`, one stacked leaf `g<gi>/s<i>_<kind>/...[r]` into each layer module,
+and `lm_params_to_numpy` is its inverse; `lm_tree_to_numpy` and
+`lm_tree_from_numpy` do the same for any dict keyed like the model's
+parameters (the AdamW moments), so that a training snapshot of either
+package resumes in the other.  `lm_cache_from_numpy` and
+`lm_cache_to_numpy` carry a cache across in both directions, so that
+caches compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -125,34 +129,93 @@ def _at(tree, path: str):
     return tree
 
 
+def lm_slots(cfg) -> list[tuple[str, str, int | None]]:
+    """(the port's parameter path, the reference's leaf key, the index in
+    that stacked leaf or None) of every parameter, in the port's order."""
+    from .models.lm import LM, layer_slots
+    slots = layer_slots(cfg)
+    out = []
+    for path, _ in LM(cfg, device="meta").named_leaves():
+        if path.startswith("layers/"):
+            _, l, sub = path.split("/", 2)
+            g, s, r, _ = slots[int(l)]
+            out.append((path, f"{g}/{s}/{sub}", r))
+        else:
+            out.append((path, path, None))
+    return out
+
+
+def _put(tree: dict, key: str, value):
+    *head, last = key.split("/")
+    for k in head:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
+
+
+def lm_tree_to_numpy(cfg, leaves: dict) -> dict:
+    """The reference's stacked tree (numpy leaves, `g<gi>/s<i>_<kind>/...`
+    [L, ...]) from a dict keyed by the port's parameter paths (an LM's
+    `named_leaves()`, or AdamW moments); bfloat16 comes back as float32
+    (numpy has no bfloat16: the reference casts on restore)."""
+    stacks: dict = {}
+    for path, key, r in lm_slots(cfg):
+        t = leaves[path].detach()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        stacks.setdefault(key, []).append(a if r is None else (r, a))
+    tree: dict = {}
+    for key, parts in stacks.items():
+        if isinstance(parts[0], tuple):
+            value = np.stack([a for _, a in sorted(parts, key=lambda x: x[0])])
+        else:
+            value = parts[0]
+        _put(tree, key, value)
+    return tree
+
+
+def lm_params_to_numpy(cfg, model) -> dict:
+    """The reference's parameter tree from the port's `LM`: the inverse of
+    `lm_params_from_numpy`."""
+    return lm_tree_to_numpy(cfg, dict(model.named_leaves()))
+
+
+@torch.no_grad()
+def lm_tree_from_numpy(cfg, tree: dict, into: dict) -> dict:
+    """Copy the reference's stacked tree into `into`, a dict of tensors
+    keyed by the port's parameter paths (shapes must fit; each tensor
+    keeps its dtype and device).  Every leaf of the tree must be used."""
+    used = set()
+    for path, key, r in lm_slots(cfg):
+        dst = into[path]
+        t = _np_to_tensor(_at(tree, key), dst.device)
+        if r is not None:
+            t = t[r]
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{key}: {tuple(t.shape)} does not fit "
+                             f"{path} {tuple(dst.shape)}")
+        dst.copy_(t.to(dst.dtype))
+        used.add(key)
+    extra = set(_leaf_paths(tree)) - used
+    if extra:
+        raise ValueError(f"leaves of the tree that the port has no place "
+                         f"for: {sorted(extra)}")
+    return into
+
+
 @torch.no_grad()
 def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
     """The port's `LM` holding the reference's parameters: `tree` is the
     reference's `model.init(seed)` with numpy leaves.  Shapes and dtypes
     must be the config's; every leaf of the tree is used exactly once."""
-    from .models.lm import LM, layer_slots
+    from .models.lm import LM
     model = LM(cfg, device=device)
-    used = set()
-
-    def load(param, key, index=None):
-        t = _np_to_tensor(_at(tree, key), param.device)
-        if index is not None:
-            t = t[index]
-        if tuple(t.shape) != tuple(param.shape) or t.dtype != param.dtype:
-            raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype} does not "
-                             f"fit {tuple(param.shape)} {param.dtype}")
-        param.copy_(t)
-        used.add(key)
-
-    for name in ("embed", "final_norm", "lm_head"):
-        load(getattr(model, name), name)
-    for layer, (g, s, r, _) in zip(model.layers, layer_slots(cfg)):
-        for path, p, _ in layer.leaves():
-            load(p, f"{g}/{s}/{path}", r)
-    extra = set(_leaf_paths(tree)) - used
-    if extra:
-        raise ValueError(f"leaves of the tree that the port has no place "
-                         f"for: {sorted(extra)}")
+    params = dict(model.named_leaves())
+    for path, key, r in lm_slots(cfg):
+        a = _at(tree, key)
+        dt = _np_to_tensor(a[:1] if r is not None else a, "cpu").dtype
+        if dt != params[path].dtype:
+            raise ValueError(f"{key}: {dt} does not fit {path} "
+                             f"{params[path].dtype}")
+    lm_tree_from_numpy(cfg, tree, params)
     return model
 
 

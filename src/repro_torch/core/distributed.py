@@ -78,12 +78,12 @@ from functools import partial
 import numpy as np
 import torch
 
+from .. import convert as _convert   # a module: convert imports core
 from . import faults as F
 from . import plan
 from .collectives import Collectives
 from .dist_analysis import (Dist, aligned_reads, leading_key_var,
                             round_axis, shard_slice_certificates)
-from ..convert import to_tensor
 from .lower import (COMBINE, CompiledProgram, ExecContext, ShardOffset,
                     _host, identity, salt_for_node)
 
@@ -243,9 +243,9 @@ class DistributedProgram:
                         array_limits[name] = n
                     out[name] = self._block_of(v, dt)
                 else:
-                    out[name] = to_tensor(v, dev, dt)
+                    out[name] = _convert.to_tensor(v, dev, dt)
             else:
-                out[name] = to_tensor(v, dev, None)
+                out[name] = _convert.to_tensor(v, dev, None)
         return out, bag_limits, array_limits
 
     def _block_of(self, v, dtype) -> torch.Tensor:
@@ -256,7 +256,7 @@ class DistributedProgram:
         blk = -(-n // self.dp_n)
         lo = min(self.shard * blk, n)
         hi = min(lo + blk, n)
-        piece = to_tensor(v[lo:hi], self.mesh.device, dtype)
+        piece = _convert.to_tensor(v[lo:hi], self.mesh.device, dtype)
         if hi - lo < blk:
             pad = torch.zeros((blk - (hi - lo),) + tuple(piece.shape[1:]),
                               dtype=piece.dtype, device=piece.device)

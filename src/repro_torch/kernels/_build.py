@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("segment_reduce", "tile_matmul", "flash_attention",
-           "selective_scan")
+           "selective_scan", "flash_attention_bwd", "selective_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,11 +57,27 @@ SIGNATURES = {
         "flash_attention_launch": [ctypes.c_int, _P, _P, _P, _P,
                                    *[ctypes.c_int] * 4, ctypes.c_float,
                                    ctypes.c_int, _P],
+        "flash_attention_lse_launch": [ctypes.c_int, *[_P] * 5,
+                                       *[ctypes.c_int] * 4, ctypes.c_float,
+                                       ctypes.c_int, _P],
     },
     "selective_scan": {
         "selective_scan_launch": [*[_P] * 6, *[ctypes.c_int] * 4, _P],
         "selective_scan_fused_launch": [*[_P] * 5, ctypes.c_int, *[_P] * 3,
                                         *[ctypes.c_int] * 4, _P],
+        "selective_scan_fused_ckpt_launch": [*[_P] * 5, ctypes.c_int,
+                                             *[_P] * 4, *[ctypes.c_int] * 4,
+                                             _P],
+        "selective_scan_ckpt_steps": [],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": [ctypes.c_int, *[_P] * 10,
+                                       *[ctypes.c_int] * 4, ctypes.c_float,
+                                       ctypes.c_int, _P],
+    },
+    "selective_scan_bwd": {
+        "selective_scan_bwd_launch": [*[_P] * 5, ctypes.c_int, *[_P] * 10,
+                                      *[ctypes.c_int] * 4, _P],
     },
 }
 

@@ -34,6 +34,12 @@
 //   Shared memory: Q 64×hd plus two stages of K and V 64×hd, bf16: 80 KB at
 //   hd 128, two blocks an SM.
 //
+// Training: `flash_attention_lse_launch` also writes each query row's
+// log-sum-exp of its scaled, masked scores (natural log, float32), from the
+// running max and sum the block already holds; the output is computed as
+// in `flash_attention_launch`, bit for bit.  The backward
+// (csrc/flash_attention_bwd.cu) recomputes the weights from it.
+//
 // float32 (the 2-layer float32 model check): float32 FMAs, no tensor cores
 // (float32 has no tensor-core path without TF32):
 //   * one block of 256 threads per (bh, 64-row query tile); the query tile
@@ -65,6 +71,7 @@ constexpr int TQ = 64;            // query rows of a block, 16 a warp
 constexpr int TK = 64;            // keys of a staged tile
 constexpr int kTcThreads = 128;   // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Element offset of the 16-byte chunk `chunk` of row `row` in a [rows][HD]
 // bf16 tile: chunk ^ (a function of row) within each row, so that the same
@@ -97,7 +104,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ Q,
                       const __nv_bfloat16* __restrict__ K,
                       const __nv_bfloat16* __restrict__ V, __nv_bfloat16* __restrict__ O,
-                      int Sq, int Sk, float scale_log2, int causal) {
+                      float* __restrict__ LSE, int Sq, int Sk, float scale_log2, int causal) {
   constexpr int C = HD / 8;    // 16-byte chunks a row
   constexpr int KD = HD / 16;  // k-steps of QKᵀ
   constexpr int NT = TK / 8;   // n-tiles of S (8 keys each)
@@ -256,8 +263,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
-    const float inv = 1.f / fmaxf(quad_sum(l[i]), 1e-30f);
+    const float lsum = quad_sum(l[i]);
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
     if (row >= Sq) continue;
+    // the row's log-sum-exp of the scaled scores, natural log: m is in
+    // log2 units of the scaled scores
+    if (LSE != nullptr && t == 0) LSE[(long long)bh * Sq + row] = (m[i] + log2f(lsum)) * kLn2;
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + (long long)row * HD + 2 * t);
 #pragma unroll
     for (int d = 0; d < DT; ++d)
@@ -266,8 +277,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk,
-                float scale, int causal, cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int Sq,
+                int Sk, float scale, int causal, cudaStream_t s) {
   const size_t bytes = tc_smem_bytes<HD>();
   // above 48 KB a block's shared memory has to be asked for explicitly
   cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<HD>,
@@ -277,7 +288,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, in
   const dim3 grid(BH, (Sq + TQ - 1) / TQ);
   flash_bf16_kernel<HD><<<grid, kTcThreads, bytes, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, Sq, Sk, scale * kLog2e, causal);
+      (__nv_bfloat16*)o, lse, Sq, Sk, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -309,8 +320,8 @@ constexpr size_t smem_floats() {
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                     const float* __restrict__ V, float* __restrict__ O, int Sq, int Sk,
-                     float scale, int causal) {
+                     const float* __restrict__ V, float* __restrict__ O,
+                     float* __restrict__ LSE, int Sq, int Sk, float scale, int causal) {
   constexpr int LD = HD + 1;    // padded row stride of Qs and Ks
   constexpr int LP = BK + 1;    // padded row stride of Ps
   constexpr int CPT = HD / 16;  // output columns per thread
@@ -424,12 +435,14 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) o[(long long)row * HD + tx + 16 * c] = acc[i][c] * inv;
+    // the row's log-sum-exp: m and the scores are in natural units here
+    if (LSE != nullptr && tx == 0) LSE[(long long)bh * Sq + row] = m[i] + logf(l[i]);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk,
-               float scale, int causal, cudaStream_t s) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int Sq,
+               int Sk, float scale, int causal, cudaStream_t s) {
   const size_t bytes = smem_floats<HD>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -437,16 +450,33 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
   flash_f32_kernel<HD><<<grid, kThreads, bytes, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk, scale, causal);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq, Sk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch(int dtype, const void* q, const void* k, const void* v, void* o, int BH, int Sq,
-           int Sk, float scale, int causal, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<HD>(q, k, v, o, BH, Sq, Sk, scale, causal, s);
-  if (dtype == 1) return launch_bf16<HD>(q, k, v, o, BH, Sq, Sk, scale, causal, s);
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+           int Sq, int Sk, float scale, int causal, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
+  if (dtype == 1) return launch_bf16<HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
   return (int)cudaErrorInvalidValue;
+}
+
+int launch_any(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+               int BH, int Sq, int Sk, int hd, float scale, int causal, void* stream) {
+  if (BH < 0 || Sq < 0 || Sk < 1 || (Sq + BQ - 1) / BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  if (BH == 0 || Sq == 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch<16>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
+    case 32: return launch<32>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
+    case 64: return launch<64>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
+    case 128: return launch<128>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -458,19 +488,17 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o, int 
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int BH, int Sq, int Sk,
                                       int hd, float scale, int causal, void* stream) {
-  if (BH < 0 || Sq < 0 || Sk < 1 || (Sq + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
-    return (int)cudaErrorMisalignedAddress;
-  if (BH == 0 || Sq == 0) return (int)cudaGetLastError();
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, out, BH, Sq, Sk, scale, causal, s);
-    case 32: return launch<32>(dtype, q, k, v, out, BH, Sq, Sk, scale, causal, s);
-    case 64: return launch<64>(dtype, q, k, v, out, BH, Sq, Sk, scale, causal, s);
-    case 128: return launch<128>(dtype, q, k, v, out, BH, Sq, Sk, scale, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_any(dtype, q, k, v, out, nullptr, BH, Sq, Sk, hd, scale, causal, stream);
+}
+
+// The same, also writing lse [BH, Sq] float32: each query row's
+// log-sum-exp (natural log) of its scaled, masked scores, what the
+// backward (csrc/flash_attention_bwd.cu) recomputes the weights from.
+extern "C" int flash_attention_lse_launch(int dtype, const void* q, const void* k,
+                                          const void* v, void* out, void* lse, int BH, int Sq,
+                                          int Sk, int hd, float scale, int causal,
+                                          void* stream) {
+  return launch_any(dtype, q, k, v, out, (float*)lse, BH, Sq, Sk, hd, scale, causal, stream);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,0 +1,647 @@
+// The backward of attention with an online softmax (csrc/flash_attention.cu),
+// causal or not, for Hopper (sm_90a), hand-written.
+//
+// The Pallas TPU kernel `flash_attention` (src/repro/kernels/
+// flash_attention.py, `_kernel`) has no backward: the reference trains by
+// jax.value_and_grad through the jnp form (`_attend`, src/repro/models/
+// attention.py).  This is the backward of the port's forward kernel, for
+// the LM training step.  Given q, k, v, the forward's output o and its row
+// log-sum-exp lse (natural log, of the scaled and masked scores), and the
+// output's gradient dO:
+//   P = exp(s - lse), s = q·kᵀ·scale (masked: P = 0);
+//   D_i = Σ_d dO_id · O_id;            dS = P ⊙ (dO·Vᵀ − D);
+//   dV = Pᵀ·dO;  dK = scale·dSᵀ·Q;  dQ = scale·dS·K.
+// P is recomputed from q, k and lse: nothing [Sq, Sk]-sized is stored.
+//
+// Three launches on the caller's stream, no float atomics, so every launch
+// gives the same bits:
+//   1. rowdot: D [BH, Sq] float32, one warp a row;
+//   2. dK/dV: one block per (bh, 64-key tile), which walks the query tiles a
+//      causal mask lets in (those from its first key on) and owns its keys'
+//      rows of dK and dV;
+//   3. dQ: one block per (bh, 64-row query tile), which walks the key tiles
+//      up to its diagonal and owns its rows of dQ.
+// Every output element is summed by one thread in one fixed order.
+//
+// Bound: operations.  Causal, the two kernels do 5 products of
+// 2·BH·hd·(causal pairs) flops each (QKᵀ twice, dO·Vᵀ twice, and one
+// each of PᵀdO, dSᵀQ and dS·K: 7 products, 2.5× the forward's 2·2), far
+// above the card's flop-per-byte line at the training lengths.
+//
+// bfloat16 (the training path): every product on the tensor cores, with
+// mma.sync m16n8k16 (bf16 in, float32 accumulators; csrc/ptx.cuh), tiles
+// staged by 16-byte cp.async in the forward's XOR-swizzled layout so that
+// ldmatrix (row-major operand) and ldmatrix.trans (the transposed one) read
+// eight rows without bank conflicts.
+//   * dK/dV: 4 warps, 16 keys each; K and V stay in shared memory for the
+//     block's life; Q and dO come in 32-row tiles through a two-stage ring
+//     with lse·log2(e) and D beside them.  Per tile a warp forms Sᵀ = K·Qᵀ
+//     and dPᵀ = V·dOᵀ in accumulator fragments, Pᵀ = exp2(Sᵀ·scale·log2 e −
+//     lse·log2 e) and dSᵀ = Pᵀ ⊙ (dPᵀ − D) in float32 there, re-packs them
+//     to bf16 A fragments and accumulates dV += Pᵀ·dO and dK += dSᵀ·Q in
+//     float32 registers (2·16·hd floats a warp);
+//   * dQ: 4 warps, 16 query rows each; Q, dO (and the rows' lse and D) stay
+//     in shared memory; K and V come in 64-key tiles through the ring; per
+//     tile S = Q·Kᵀ, dP = dO·Vᵀ, P, dS as above, dQ += dS·K;
+//   * rows past Sq get lse = +inf, so their P is exactly 0; keys past Sk are
+//     zero-filled and, in dQ, masked to P = 0; causal-masked entries are 0,
+//     as the forward's exp(-1e30 − m).  Only tiles that cross the diagonal
+//     or the ragged end are masked element by element.
+//   Shared memory at hd 128: dK/dV 64 KB (K, V 16 KB each, two stages of
+//   32-row Q and dO tiles); dQ 96 KB (Q and dO 16 KB each, two stages of
+//   64-key K and V tiles).
+//
+// float32 (the 2-layer float32 model check): float32 FMAs, no tensor cores.
+// 256 threads a block, 32 keys (dK/dV) or 32 query rows (dQ) a block,
+// tiles of 32 rows in shared memory padded by one float a row; a thread
+// forms 4 scores and 4 dP of a 32×32 tile (one key, four queries), writes
+// P and dS to shared memory, then owns one row and hd/8 columns of the
+// accumulators.  exp is expf (the accurate one): this path is the check.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cmath>
+#include <cstdint>
+
+#include "ptx.cuh"
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// ---------------------------------------------------------------------------
+// D = rowsum(dO ⊙ O), float32, one warp a row
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void rowdot_kernel(const T* __restrict__ dO, const T* __restrict__ O,
+                              float* __restrict__ D, long long rows, int hd) {
+  const long long r = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < hd; d += 32) s = fmaf(widen(dO[r * hd + d]), widen(O[r * hd + d]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) D[r] = s;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;  // 4 warps
+constexpr int TKB = 64;          // keys of a dK/dV block, 16 a warp
+constexpr int TQB = 32;          // query rows of a tile staged by a dK/dV block
+constexpr int TQ = 64;           // query rows of a dQ block, 16 a warp
+constexpr int TK = 64;           // keys of a tile staged by a dQ block
+
+// Element offset of the 16-byte chunk `chunk` of row `row` in a [rows][HD]
+// bf16 tile, XOR-swizzled within each group of eight rows: the layout of
+// csrc/flash_attention.cu.
+template <int HD>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  constexpr int C = HD / 8;  // chunks a row
+  if constexpr (C >= 8)
+    return (row * C + (chunk ^ (row & 7))) * 8;
+  else
+    return (row * C + (chunk ^ ((row / (8 / C)) & (C - 1)))) * 8;
+}
+
+// A fragment (16 rows × 16 columns kd·16..) of a row-major [rows][HD] tile
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int row0,
+                                       int kd, int lane) {
+  ptx::ldmatrix_x4(a, ptx::smem_addr(tile + swz<HD>(row0 + (lane & 15), kd * 2 + (lane >> 4))));
+}
+// B fragments of two n-tiles (n = rows n0..n0+15 of the tile, k = columns
+// kd·16..+15): the tile is the product's right operand transposed (X·Tᵀ)
+template <int HD>
+__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const __nv_bfloat16* tile, int n0,
+                                            int kd, int lane) {
+  ptx::ldmatrix_x4(b, ptx::smem_addr(tile + swz<HD>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                                                    kd * 2 + ((lane >> 3) & 1))));
+}
+// B fragments of two n-tiles (n = columns dp·16..+15, k = rows k0..k0+15 of
+// the tile): the tile is the product's right operand as it stands (X·T)
+template <int HD>
+__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const __nv_bfloat16* tile, int k0,
+                                            int dp, int lane) {
+  ptx::ldmatrix_x4_trans(b, ptx::smem_addr(tile + swz<HD>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                          dp * 2 + (lane >> 4))));
+}
+
+// rows [r0, r0 + rows) of a [S][HD] matrix into a swizzled tile, by
+// 16-byte cp.async; rows at or past S are zero-filled
+template <int HD>
+__device__ __forceinline__ void stage(__nv_bfloat16* tile, const __nv_bfloat16* src, int r0,
+                                      int rows, int S, int tid, int nthreads) {
+  constexpr int C = HD / 8;
+  for (int i = tid; i < rows * C; i += nthreads) {
+    const int r = i / C, c = i % C, row = r0 + r;
+    const bool ok = row < S;
+    ptx::cp_async16(ptx::smem_addr(tile + swz<HD>(r, c)),
+                    src + (ok ? (long long)row * HD + c * 8 : 0), ok ? 16 : 0);
+  }
+}
+
+// acc[16 rows × 8·NT columns] += A (16 rows × 16·KT, C-fragment values in
+// `p`, packed to bf16) · tile rows [0, 16·KT) as they stand
+template <int HD, int KT>
+__device__ __forceinline__ void acc_pv(float (&acc)[HD / 8][4], const float (&p)[2 * KT][4],
+                                       const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const uint32_t pa[4] = {ptx::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                            ptx::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            ptx::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            ptx::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      uint32_t b[4];
+      load_b_cols<HD>(b, tile, kk * 16, dp, lane);
+      ptx::mma_bf16_16816(acc[2 * dp], pa, b[0], b[1]);
+      ptx::mma_bf16_16816(acc[2 * dp + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// s[16 rows × 8·NT] = A rows (a warp's 16 rows of `left`) · (rows 0..8·NT
+// of `right`)ᵀ
+template <int HD, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* left, int row0,
+                                       const __nv_bfloat16* right, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < HD / 16; ++kd) {
+    uint32_t a[4];
+    load_a<HD>(a, left, row0, kd, lane);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      load_b_rows<HD>(b, right, np * 16, kd, lane);
+      ptx::mma_bf16_16816(s[2 * np], a, b[0], b[1]);
+      ptx::mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// a warp's 16 rows of a float32 accumulator, times `mul`, to bf16 rows
+// row0.. of `out` ([S][HD]); rows at or past S are not written
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[HD / 8][4],
+                                           int row0, int S, float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= S) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (long long)row * HD + 2 * t);
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+      dst[d * 4] = ptx::pack_bf16(acc[d][2 * i] * mul, acc[d][2 * i + 1] * mul);
+  }
+}
+
+template <int HD>
+constexpr size_t dkdv_smem_bytes() {
+  return (size_t)(2 * TKB + 4 * TQB) * HD * sizeof(__nv_bfloat16) + 4 * TQB * sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+    dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                     const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
+                     const float* __restrict__ LSE, const float* __restrict__ Dv,
+                     __nv_bfloat16* __restrict__ dK, __nv_bfloat16* __restrict__ dV, int Sq,
+                     int Sk, float scale, int causal) {
+  constexpr int NT = TQB / 8;  // n-tiles of Sᵀ (8 queries each)
+  constexpr int DT = HD / 8;   // n-tiles of dK, dV (8 columns each)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TKB][HD]
+  __nv_bfloat16* Vs = Ks + TKB * HD;                                // [TKB][HD]
+  __nv_bfloat16* Qs = Vs + TKB * HD;                                // [2][TQB][HD]
+  __nv_bfloat16* dOs = Qs + 2 * TQB * HD;                           // [2][TQB][HD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TQB * HD);         // [2][TQB]
+  float* Ds = Ls + 2 * TQB;                                         // [2][TQB]
+
+  // the first key tiles see the most queries when causal: they go first
+  const int bh = blockIdx.x, k0 = blockIdx.y * TKB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
+
+  const int qstart = causal ? k0 : 0;  // queries before k0 see none of these keys
+  const int nq = Sq > qstart ? (Sq - qstart + TQB - 1) / TQB : 0;
+
+  stage<HD>(Ks, K + koff * HD, k0, TKB, Sk, tid, kTcThreads);
+  stage<HD>(Vs, V + koff * HD, k0, TKB, Sk, tid, kTcThreads);
+  auto load_q = [&](int j, int st) {
+    const int q0 = qstart + j * TQB;
+    stage<HD>(Qs + st * TQB * HD, Q + qoff * HD, q0, TQB, Sq, tid, kTcThreads);
+    stage<HD>(dOs + st * TQB * HD, dO + qoff * HD, q0, TQB, Sq, tid, kTcThreads);
+    for (int i = tid; i < TQB; i += kTcThreads) {
+      const int q = q0 + i;
+      Ls[st * TQB + i] = q < Sq ? LSE[qoff + q] * kLog2e : INFINITY;  // P = 0 past Sq
+      Ds[st * TQB + i] = q < Sq ? Dv[qoff + q] : 0.f;
+    }
+  };
+  if (nq > 0) load_q(0, 0);
+  ptx::cp_async_commit();
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+  const int key_a = k0 + warp * 16 + g;  // this lane's keys: key_a, key_a + 8
+
+  for (int j = 0; j < nq; ++j) {
+    ptx::cp_async_wait<0>();
+    __syncthreads();  // tile j landed everywhere; stage (j+1)&1 is free
+    if (j + 1 < nq) {
+      load_q(j + 1, (j + 1) & 1);
+      ptx::cp_async_commit();
+    }
+    const int st = j & 1, q0 = qstart + j * TQB;
+    const __nv_bfloat16* qs = Qs + st * TQB * HD;
+    const __nv_bfloat16* dos = dOs + st * TQB * HD;
+    const float* ls = Ls + st * TQB;
+    const float* ds = Ds + st * TQB;
+
+    float s[NT][4], dp[NT][4];
+    scores<HD, NT>(s, Ks, warp * 16, qs, lane);    // Sᵀ = K Qᵀ
+    scores<HD, NT>(dp, Vs, warp * 16, dos, lane);  // dPᵀ = V dOᵀ
+    const bool edge = causal && k0 + TKB - 1 > q0;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = n * 8 + 2 * t + (e & 1);
+        float p = exp2f(s[n][e] * scale_log2 - ls[qi]);
+        if (edge && key_a + (e >> 1) * 8 > q0 + qi) p = 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - ds[qi]);
+      }
+    }
+    acc_pv<HD, TQB / 16>(dv, s, dos, lane);   // dV += Pᵀ dO
+    acc_pv<HD, TQB / 16>(dk, dp, qs, lane);   // dK += dSᵀ Q
+  }
+  ptx::cp_async_wait<0>();  // no copy outlives the block (nq = 0 issues K, V only)
+
+  store_rows<HD>(dK + koff * HD, dk, k0 + warp * 16, Sk, scale, lane);
+  store_rows<HD>(dV + koff * HD, dv, k0 + warp * 16, Sk, 1.f, lane);
+}
+
+template <int HD>
+constexpr size_t dq_smem_bytes() {
+  return (size_t)(2 * TQ + 4 * TK) * HD * sizeof(__nv_bfloat16);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+    dq_bf16_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                   const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
+                   const float* __restrict__ LSE, const float* __restrict__ Dv,
+                   __nv_bfloat16* __restrict__ dQ, int Sq, int Sk, float scale, int causal) {
+  constexpr int NT = TK / 8;  // n-tiles of S (8 keys each)
+  constexpr int DT = HD / 8;  // n-tiles of dQ
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TQ][HD]
+  __nv_bfloat16* dOs = Qs + TQ * HD;                                // [TQ][HD]
+  __nv_bfloat16* Ks = dOs + TQ * HD;                                // [2][TK][HD]
+  __nv_bfloat16* Vs = Ks + 2 * TK * HD;                             // [2][TK][HD]
+
+  // the longest causal rows first, so that short blocks fill the tail
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
+  const int kend = causal ? min(Sk, q0 + TQ) : Sk;
+  const int ntiles = (kend + TK - 1) / TK;
+
+  stage<HD>(Qs, Q + qoff * HD, q0, TQ, Sq, tid, kTcThreads);
+  stage<HD>(dOs, dO + qoff * HD, q0, TQ, Sq, tid, kTcThreads);
+  auto load_kv = [&](int j, int st) {
+    stage<HD>(Ks + st * TK * HD, K + koff * HD, j * TK, TK, Sk, tid, kTcThreads);
+    stage<HD>(Vs + st * TK * HD, V + koff * HD, j * TK, TK, Sk, tid, kTcThreads);
+  };
+  if (ntiles > 0) load_kv(0, 0);
+  ptx::cp_async_commit();
+
+  const int row_a = q0 + warp * 16 + g;  // this lane's rows: row_a, row_a + 8
+  float lse2[2], drow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    lse2[i] = row < Sq ? LSE[qoff + row] * kLog2e : INFINITY;  // P = 0 past Sq
+    drow[i] = row < Sq ? Dv[qoff + row] : 0.f;
+  }
+  float dq[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    ptx::cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < ntiles) {
+      load_kv(j + 1, (j + 1) & 1);
+      ptx::cp_async_commit();
+    }
+    const __nv_bfloat16* ks = Ks + (j & 1) * TK * HD;
+    const __nv_bfloat16* vs = Vs + (j & 1) * TK * HD;
+    float s[NT][4], dp[NT][4];
+    scores<HD, NT>(s, Qs, warp * 16, ks, lane);    // S = Q Kᵀ
+    scores<HD, NT>(dp, dOs, warp * 16, vs, lane);  // dP = dO Vᵀ
+    const int k0 = j * TK;
+    const bool edge = k0 + TK > Sk || (causal && k0 + TK - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[n][e] * scale_log2 - lse2[e >> 1]);
+        if (edge) {
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          if (key >= Sk || (causal && key > row_a + (e >> 1) * 8)) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - drow[e >> 1]);
+      }
+    }
+    acc_pv<HD, TK / 16>(dq, dp, ks, lane);  // dQ += dS K
+  }
+  store_rows<HD>(dQ + qoff * HD, dq, q0 + warp * 16, Sq, scale, lane);
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk, float scale,
+                int causal, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const size_t b1 = dkdv_smem_bytes<HD>(), b2 = dq_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(dkdv_bf16_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dq_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)b2);
+  if (e != cudaSuccess) return (int)e;
+  dkdv_bf16_kernel<HD><<<dim3(BH, (Sk + TKB - 1) / TKB), kTcThreads, b1, s>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dk, (bf*)dv, Sq,
+      Sk, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dq_bf16_kernel<HD><<<dim3(BH, (Sq + TQ - 1) / TQ), kTcThreads, b2, s>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dq, Sq, Sk, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int BR = 32;  // rows of a staged tile (keys or queries), and of a block
+
+template <int HD>
+constexpr size_t f32_smem_floats() {
+  return (size_t)4 * BR * (HD + 1) + 2 * BR * (BR + 1) + 2 * BR;
+}
+
+// rows [r0, r0 + BR) of a [S][HD] float32 matrix into a tile with padded
+// rows; rows at or past S are zero-filled
+template <int HD>
+__device__ __forceinline__ void stage_f32(float* tile, const float* src, int r0, int S, int tid) {
+  for (int i = tid; i < BR * HD; i += kThreads) {
+    const int r = i / HD, c = i % HD, row = r0 + r;
+    tile[r * (HD + 1) + c] = row < S ? src[(long long)row * HD + c] : 0.f;
+  }
+}
+
+// the 32×32 tile of P and dS, P ⊙ (dP − D): thread (key kc = tid % 32,
+// queries qr = tid / 32 + 8i) forms 4 entries; Ps/Ss are [query][key]
+template <int HD>
+__device__ __forceinline__ void f32_tile(const float* Qs, const float* dOs, const float* Ks,
+                                         const float* Vs, const float* Ls, const float* Dd,
+                                         float* Ps, float* Ss, int q0, int k0, int Sk,
+                                         float scale, int causal, int tid) {
+  constexpr int LD = HD + 1;
+  const int kc = tid & 31, qr = tid >> 5;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    const float kv = Ks[kc * LD + d], vv = Vs[kc * LD + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = qr + 8 * i;
+      s[i] = fmaf(Qs[qi * LD + d], kv, s[i]);
+      dp[i] = fmaf(dOs[qi * LD + d], vv, dp[i]);
+    }
+  }
+  const int key = k0 + kc;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = qr + 8 * i;
+    float p = expf(s[i] * scale - Ls[qi]);
+    if (key >= Sk || (causal && key > q0 + qi)) p = 0.f;
+    Ps[qi * (BR + 1) + kc] = p;
+    Ss[qi * (BR + 1) + kc] = p * (dp[i] - Dd[qi]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    dkdv_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                    const float* __restrict__ V, const float* __restrict__ dO,
+                    const float* __restrict__ LSE, const float* __restrict__ Dv,
+                    float* __restrict__ dK, float* __restrict__ dV, int Sq, int Sk, float scale,
+                    int causal) {
+  constexpr int LD = HD + 1, CPT = HD / 8;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + BR * LD;
+  float* Qs = Vs + BR * LD;
+  float* dOs = Qs + BR * LD;
+  float* Ps = dOs + BR * LD;    // [BR][BR + 1]
+  float* Ss = Ps + BR * (BR + 1);
+  float* Ls = Ss + BR * (BR + 1);
+  float* Dd = Ls + BR;
+  const int bh = blockIdx.x, k0 = blockIdx.y * BR, tid = threadIdx.x;
+  const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
+  stage_f32<HD>(Ks, K + koff * HD, k0, Sk, tid);
+  stage_f32<HD>(Vs, V + koff * HD, k0, Sk, tid);
+  const int kr = tid >> 3, c0 = tid & 7;  // accumulator row and first column
+  float dk[CPT], dv[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) dk[c] = dv[c] = 0.f;
+  for (int q0 = causal ? k0 : 0; q0 < Sq; q0 += BR) {
+    __syncthreads();  // the previous tile's reads are done
+    stage_f32<HD>(Qs, Q + qoff * HD, q0, Sq, tid);
+    stage_f32<HD>(dOs, dO + qoff * HD, q0, Sq, tid);
+    if (tid < BR) {
+      const int q = q0 + tid;
+      Ls[tid] = q < Sq ? LSE[qoff + q] : INFINITY;  // P = 0 past Sq
+      Dd[tid] = q < Sq ? Dv[qoff + q] : 0.f;
+    }
+    __syncthreads();
+    f32_tile<HD>(Qs, dOs, Ks, Vs, Ls, Dd, Ps, Ss, q0, k0, Sk, scale, causal, tid);
+    __syncthreads();
+#pragma unroll 4
+    for (int qq = 0; qq < BR; ++qq) {
+      const float p = Ps[qq * (BR + 1) + kr], ds = Ss[qq * (BR + 1) + kr];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        dv[c] = fmaf(p, dOs[qq * LD + c0 + 8 * c], dv[c]);
+        dk[c] = fmaf(ds, Qs[qq * LD + c0 + 8 * c], dk[c]);
+      }
+    }
+  }
+  const int key = k0 + kr;
+  if (key < Sk) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      dK[(koff + key) * HD + c0 + 8 * c] = dk[c] * scale;
+      dV[(koff + key) * HD + c0 + 8 * c] = dv[c];
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    dq_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                  const float* __restrict__ V, const float* __restrict__ dO,
+                  const float* __restrict__ LSE, const float* __restrict__ Dv,
+                  float* __restrict__ dQ, int Sq, int Sk, float scale, int causal) {
+  constexpr int LD = HD + 1, CPT = HD / 8;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BR * LD;
+  float* Ks = dOs + BR * LD;
+  float* Vs = Ks + BR * LD;
+  float* Ps = Vs + BR * LD;
+  float* Ss = Ps + BR * (BR + 1);
+  float* Ls = Ss + BR * (BR + 1);
+  float* Dd = Ls + BR;
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
+  stage_f32<HD>(Qs, Q + qoff * HD, q0, Sq, tid);
+  stage_f32<HD>(dOs, dO + qoff * HD, q0, Sq, tid);
+  if (tid < BR) {
+    const int q = q0 + tid;
+    Ls[tid] = q < Sq ? LSE[qoff + q] : INFINITY;
+    Dd[tid] = q < Sq ? Dv[qoff + q] : 0.f;
+  }
+  const int qr = tid >> 3, c0 = tid & 7;
+  float dq[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) dq[c] = 0.f;
+  const int kend = causal ? min(Sk, q0 + BR) : Sk;
+  for (int k0 = 0; k0 < kend; k0 += BR) {
+    __syncthreads();
+    stage_f32<HD>(Ks, K + koff * HD, k0, Sk, tid);
+    stage_f32<HD>(Vs, V + koff * HD, k0, Sk, tid);
+    __syncthreads();
+    f32_tile<HD>(Qs, dOs, Ks, Vs, Ls, Dd, Ps, Ss, q0, k0, Sk, scale, causal, tid);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BR; ++kk) {
+      const float ds = Ss[qr * (BR + 1) + kk];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) dq[c] = fmaf(ds, Ks[kk * LD + c0 + 8 * c], dq[c]);
+    }
+  }
+  const int row = q0 + qr;
+  if (row < Sq) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dQ[(qoff + row) * HD + c0 + 8 * c] = dq[c] * scale;
+  }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk, float scale,
+               int causal, cudaStream_t s) {
+  const size_t bytes = f32_smem_floats<HD>() * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(dkdv_f32_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dq_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  dkdv_f32_kernel<HD><<<dim3(BH, (Sk + BR - 1) / BR), kThreads, bytes, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, D, (float*)dk,
+      (float*)dv, Sq, Sk, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dq_f32_kernel<HD><<<dim3(BH, (Sq + BR - 1) / BR), kThreads, bytes, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, D, (float*)dq,
+      Sq, Sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
+           float scale, int causal, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_f32<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+  if (dtype == 1)
+    return launch_bf16<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike).
+// q, o, dout, dq: [BH, Sq, hd]; k, v, dk, dv: [BH, Sk, hd]; lse and the
+// scratch d: [BH, Sq] float32 (lse as flash_attention_lse_launch writes it;
+// d is overwritten).  All contiguous, bfloat16 ones 16-byte aligned.  hd ∈
+// {16, 32, 64, 128}.  Returns cudaGetLastError() after the launches.
+extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
+                                          const void* v, const void* o, const void* lse,
+                                          const void* dout, void* dq, void* dk, void* dv,
+                                          void* d, int BH, int Sq, int Sk, int hd, float scale,
+                                          int causal, void* stream) {
+  if (BH < 0 || Sq < 0 || Sk < 1 || (Sq + BR - 1) / BR > 65535 || (Sk + BR - 1) / BR > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+                     (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (BH == 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long rows = (long long)BH * Sq;
+  if (rows > 0) {
+    const int warps = 8;
+    const long long blocks = (rows + warps - 1) / warps;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      rowdot_kernel<float><<<(unsigned)blocks, warps * 32, 0, s>>>(
+          (const float*)dout, (const float*)o, (float*)d, rows, hd);
+    else
+      rowdot_kernel<__nv_bfloat16><<<(unsigned)blocks, warps * 32, 0, s>>>(
+          (const __nv_bfloat16*)dout, (const __nv_bfloat16*)o, (float*)d, rows, hd);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const float* L = (const float*)lse;
+  const float* D = (const float*)d;
+  switch (hd) {
+    case 16: return launch<16>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+    case 32: return launch<32>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+    case 64: return launch<64>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* flash_attention_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -8,6 +8,12 @@
 //     [B, S, D] (float32 or bf16) as the model computes them:
 //     a = exp(dt·A), bx = (dt·x)·B.  Nothing [B, S, D, N]-sized exists.
 //
+// For training, `selective_scan_fused_ckpt_launch` also writes the state
+// before every kCkpt steps ([B, ceil(S/kCkpt), D, N] float32, kCkpt = 16 in
+// csrc/selective_scan.cuh), from which
+// the backward (csrc/selective_scan_bwd.cu) recomputes each chunk; y and
+// h_last are the other entries' bits.
+//
 // Replaces the Pallas TPU kernel `selective_scan` (src/repro/kernels/
 // selective_scan.py, `_kernel`): a grid of (B, D/bd) steps that each own a
 // [bd, N] state slice in VMEM and walk the sequence with a fori_loop, so
@@ -46,11 +52,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "selective_scan.cuh"
+
 namespace {
 
 constexpr int kChannels = 32;   // channels d a block owns
 constexpr int kSteps = 64;      // steps t a tile stages
 constexpr int kStates = 2;      // states of a channel a thread holds (at most N)
+static_assert(kSteps % kCkpt == 0, "a tile holds whole checkpoint chunks");
 
 template <typename XT> __device__ __forceinline__ float widen(XT v);
 template <> __device__ __forceinline__ float widen<float>(float v) { return v; }
@@ -69,6 +78,8 @@ struct Args {
   const float* h0;      // [B, D, N] or null
   float* y;             // [B, S, D]
   float* h_last;        // [B, D, N] or null
+  float* ckpt;          // [B, ceil(S / kCkpt), D, N] or null: the state before each
+                        // kCkpt-step chunk (the backward's starting points)
   int S, D, N;
 };
 
@@ -139,6 +150,11 @@ __global__ void __launch_bounds__(kChannels * L) selective_scan_kernel(Args g) {
     __syncthreads();
 #pragma unroll 4
     for (int t = 0; t < tn; ++t) {
+      if (g.ckpt != nullptr && live && (t % kCkpt) == 0) {
+        float* cp = g.ckpt + (((long long)b * ((S + kCkpt - 1) / kCkpt) + (t0 + t) / kCkpt) * D + d) * N + n0;
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) cp[j] = h[j];
+      }
       float av[NPT], bv[NPT];
       if constexpr (FUSED) {
         const float dtv = dt_s[t * kChannels + ch];
@@ -212,6 +228,17 @@ bool bad_shape(int B, int S, int D, int N) {
   return B < 0 || S < 0 || D < 0 || N < 1 || N > 32 || (N & (N - 1)) != 0 || B > 65535;
 }
 
+int launch_fused(const void* dt, const void* A, const void* Bm, const void* Cm, const void* x,
+                 int x_bf16, const void* h0, void* y, void* h_last, void* ckpt, int B, int S,
+                 int D, int N, void* stream) {
+  if (bad_shape(B, S, D, N)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || D == 0) return (int)cudaGetLastError();
+  Args g{nullptr, nullptr, (const float*)dt, (const float*)A, (const float*)Bm, x,
+         (const float*)Cm, (const float*)h0, (float*)y, (float*)h_last, (float*)ckpt, S, D, N};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return x_bf16 ? launch<true, __nv_bfloat16>(g, B, s) : launch<true, float>(g, B, s);
+}
+
 }  // namespace
 
 // a, bx: [B, S, D, N]; c: [B, S, N]; y: [B, S, D]; h0, h_last: [B, D, N]
@@ -223,7 +250,7 @@ extern "C" int selective_scan_launch(const void* a, const void* bx, const void* 
   if (bad_shape(B, S, D, N)) return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return (int)cudaGetLastError();
   Args g{(const float*)a, (const float*)bx, nullptr, nullptr, nullptr, nullptr,
-         (const float*)c, (const float*)h0, (float*)y, (float*)h_last, S, D, N};
+         (const float*)c, (const float*)h0, (float*)y, (float*)h_last, nullptr, S, D, N};
   return launch<false, float>(g, B, reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -235,13 +262,21 @@ extern "C" int selective_scan_fused_launch(const void* dt, const void* A, const 
                                            const void* Cm, const void* x, int x_bf16,
                                            const void* h0, void* y, void* h_last, int B,
                                            int S, int D, int N, void* stream) {
-  if (bad_shape(B, S, D, N)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || D == 0) return (int)cudaGetLastError();
-  Args g{nullptr, nullptr, (const float*)dt, (const float*)A, (const float*)Bm, x,
-         (const float*)Cm, (const float*)h0, (float*)y, (float*)h_last, S, D, N};
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch<true, __nv_bfloat16>(g, B, s) : launch<true, float>(g, B, s);
+  return launch_fused(dt, A, Bm, Cm, x, x_bf16, h0, y, h_last, nullptr, B, S, D, N, stream);
 }
+
+// The same, also writing ckpt [B, ceil(S / 16), D, N] float32: the state
+// before steps 0, 16, 32, ... (ckpt[:, 0] is h0, or zeros), from which the
+// backward recomputes each 16-step chunk's states.
+extern "C" int selective_scan_fused_ckpt_launch(const void* dt, const void* A, const void* Bm,
+                                                const void* Cm, const void* x, int x_bf16,
+                                                const void* h0, void* y, void* h_last,
+                                                void* ckpt, int B, int S, int D, int N,
+                                                void* stream) {
+  return launch_fused(dt, A, Bm, Cm, x, x_bf16, h0, y, h_last, ckpt, B, S, D, N, stream);
+}
+
+extern "C" int selective_scan_ckpt_steps() { return kCkpt; }
 
 extern "C" const char* selective_scan_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

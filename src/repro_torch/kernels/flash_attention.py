@@ -15,6 +15,16 @@ dtype (float32 or bfloat16) → [BH, Sq, hd] in q's dtype.  Scores are
 scaled by hd^-0.5; causal masks key j from query i when j > i (query row i
 aligns with key row i) with a score of -1e30.  Unlike the TPU kernel, any
 Sq and Sk are taken: the kernel masks the ragged last tiles itself.
+`return_lse=True` also returns each query row's log-sum-exp of its scaled,
+masked scores ([BH, Sq] float32, natural log).
+
+The backward (csrc/flash_attention_bwd.cu, `flash_attention_bwd`) is new:
+the TPU kernel has none, and the reference trains through the jnp form.
+It recomputes the weights from q, k and the forward's lse, and sums with
+no float atomics (the same bits on every launch).  `FlashAttention` is the
+autograd Function the training path calls (`flash_attention_grad`): on
+the card both directions launch the kernels, on the CPU both run their
+plain versions.
 """
 from __future__ import annotations
 
@@ -39,56 +49,187 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k and v must share a dtype")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
+def _scores(q, k, causal):
+    """The scaled float32 scores [BH, Sq, Sk] and the causal mask (None
+    when not causal)."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (hd ** -0.5)
+    if not causal:
+        return s, None
+    sq, sk = s.shape[1], s.shape[2]
+    mask = torch.arange(sk, device=q.device)[None, :] \
+        <= torch.arange(sq, device=q.device)[:, None]
+    return s, mask
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          return_lse: bool = False):
     """The same function in plain PyTorch: softmax(q kᵀ·scale + mask) v in
     float32 (the math of the reference's flash_attention_ref)."""
     _check(q, k, v)
-    hd = q.shape[-1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (hd ** -0.5)
-    if causal:
-        sq, sk = s.shape[1], s.shape[2]
-        mask = torch.arange(sk, device=q.device)[None, :] \
-            <= torch.arange(sq, device=q.device)[:, None]
+    s, mask = _scores(q, k, causal)
+    if mask is not None:
         s = torch.where(mask[None], s, torch.full((), NEG, device=q.device))
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: [BH, Sq, hd]; k, v: [BH, Sk, hd] -> [BH, Sq, hd] in q's dtype.
+def _on_card(name, *tensors):
+    """Check that the tensors lie on one CUDA device and share a dtype the
+    kernels take."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs must lie on one CUDA device (got "
+                         f"{[str(t.device) for t in tensors]})")
+    if tensors[0].dtype not in _DTYPES \
+            or any(t.dtype != tensors[0].dtype for t in tensors):
+        raise ValueError(f"{name}: inputs must share a dtype of "
+                         f"{list(_DTYPES)} (got "
+                         f"{[str(t.dtype) for t in tensors]})")
+
+
+def _sizes(name, q, k):
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if sk == 0 or max(bh * sq, bh * sk) * hd >= 2 ** 62:
+        raise ValueError(f"{name}: unsupported sizes bh={bh} sq={sq} "
+                         f"sk={sk}")
+    return bh, sq, sk, hd
+
+
+def _aligned(*tensors):
+    """Contiguous copies where needed: the bf16 kernels copy 16-byte
+    chunks, so a view that starts off a 16-byte boundary is copied to a
+    fresh allocation."""
+    return [x if x.data_ptr() % 16 == 0 else x.clone()
+            for x in (t.contiguous() for t in tensors)]
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    return_lse: bool = False):
+    """q: [BH, Sq, hd]; k, v: [BH, Sk, hd] -> [BH, Sq, hd] in q's dtype,
+    or (out, lse [BH, Sq] float32) with return_lse.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel or
     raise; there is no fallback."""
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     return_lse=return_lse)
     _check(q, k, v)
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
-        raise ValueError("flash_attention: q, k and v must lie on one CUDA "
-                         f"device (got {q.device}, {k.device}, {v.device})")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
-    bh, sq, hd = q.shape
-    sk = k.shape[1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    if sk == 0 or max(bh * sq, bh * sk) * hd >= 2 ** 62:
-        raise ValueError(f"flash_attention: unsupported sizes bh={bh} "
-                         f"sq={sq} sk={sk}")
-    # the bf16 kernel copies 16-byte chunks: a view that starts off a
-    # 16-byte boundary is copied to a fresh allocation
-    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
-               for x in (q.contiguous(), k.contiguous(), v.contiguous()))
+    _on_card("flash_attention", q, k, v)
+    bh, sq, sk, hd = _sizes("flash_attention", q, k)
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.flash_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), bh, sq, sk, hd, hd ** -0.5, int(causal), stream)
+    args = (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr())
+    tail = (bh, sq, sk, hd, hd ** -0.5, int(causal), stream)
+    if return_lse:
+        lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        code = lib.flash_attention_lse_launch(*args, lse.data_ptr(), *tail)
+    else:
+        code = lib.flash_attention_launch(*args, *tail)
     _build.check("flash_attention", code)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
+    """The backward in plain PyTorch, the explicit formula in float32 with
+    the weights materialised: P = exp(s − lse) (masked: 0), D = rowsum(dO ⊙
+    O), dS = P ⊙ (dO·Vᵀ − D), dV = Pᵀ·dO, dK = scale·dSᵀ·Q, dQ =
+    scale·dS·K.  Returns (dq, dk, dv) in the inputs' dtype."""
+    _check(q, k, v)
+    scale = q.shape[-1] ** -0.5
+    s, mask = _scores(q, k, causal)
+    p = torch.exp(s - lse.float()[..., None])
+    if mask is not None:
+        p = torch.where(mask[None], p, torch.zeros((), device=q.device))
+    do32 = do.float()
+    dv = torch.einsum("bqk,bqd->bkd", p, do32)
+    dp = torch.einsum("bqd,bkd->bqk", do32, v.float())
+    d = (do32 * o.float()).sum(-1)
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+    """The gradients (dq, dk, dv) of flash_attention's output `o` given its
+    gradient `do`, from q, k, v and the forward's lse; shapes and dtype
+    as the forward's inputs.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernels
+    or raise; there is no fallback."""
+    tensors = (q, k, v, o, lse, do)
+    if all(t.device.type == "cpu" for t in tensors):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    _check(q, k, v)
+    _on_card("flash_attention_bwd", q, k, v, o, do)
+    bh, sq, sk, hd = _sizes("flash_attention_bwd", q, k)
+    if o.shape != q.shape or do.shape != q.shape \
+            or tuple(lse.shape) != (bh, sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)} and lse {tuple(lse.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
+    if lse.device != q.device:
+        raise ValueError("flash_attention_bwd: lse must lie on q's device")
+    q, k, v, o, do = _aligned(q, k, v, o, do)
+    lse = lse.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    d = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.flash_attention_bwd_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), d.data_ptr(), bh, sq, sk, hd,
+        hd ** -0.5, int(causal), stream)
+    _build.check("flash_attention_bwd", code)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """flash_attention with its backward: the forward keeps q, k, v, the
+    output and its lse; the backward is `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_grad(q, k, v, *, causal: bool = True):
+    """flash_attention, differentiable: through `FlashAttention` when
+    autograd records (grad mode on and an input requires grad), else the
+    plain forward call, which computes no lse."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention(q, k, v, causal=causal)

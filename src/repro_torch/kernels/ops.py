@@ -6,8 +6,10 @@ integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
 `flash_attention.launches`, `selective_scan.launches`; the packed entry
 `tile_matmul_packed` launches the same kernel and counts in
 `tile_matmul.launches`; the scan kernel's fused entry
-`selective_scan_fused` counts in `selective_scan_fused.launches`), so a
-run can show that it went through the kernels.
+`selective_scan_fused` counts in `selective_scan_fused.launches`; the two
+backward kernels count in `flash_attention_bwd.launches` and
+`selective_scan_fused_bwd.launches`), so a run can show that it went
+through the kernels.
 
 The counts are of launches that ran on the device.  A CUDA graph capture
 calls the wrappers, but launches nothing: `captured()` takes the counts the
@@ -19,14 +21,18 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 from ._build import build_all
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .segment_reduce import segment_reduce, segment_sum
-from .selective_scan import selective_scan, selective_scan_fused
+from .selective_scan import (selective_scan, selective_scan_fused,
+                             selective_scan_fused_bwd)
 from .tile_matmul import tile_matmul, tile_matmul_packed
 
+# each kernel source's counting wrapper, by source name
 KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
            "flash_attention": flash_attention,
-           "selective_scan": selective_scan}
+           "selective_scan": selective_scan,
+           "flash_attention_bwd": flash_attention_bwd,
+           "selective_scan_bwd": selective_scan_fused_bwd}
 
 
 # every counting wrapper: the kernels and the scan's second entry
@@ -67,7 +73,8 @@ def credit(counts: dict) -> None:
 
 
 __all__ = ["build_all", "segment_reduce", "segment_sum", "tile_matmul",
-           "tile_matmul_packed", "flash_attention", "selective_scan",
-           "selective_scan_fused",
+           "tile_matmul_packed", "flash_attention", "flash_attention_bwd",
+           "selective_scan", "selective_scan_fused",
+           "selective_scan_fused_bwd",
            "launch_counts", "reset_launch_counts", "captured", "credit",
            "KERNELS"]

@@ -31,6 +31,19 @@ take an optional h0 [B, D, N] that starts the recurrence, and
 `return_state=True` also returns the final state h_last [B, D, N].  Each
 entry counts its own launches (`selective_scan.launches`,
 `selective_scan_fused.launches`).
+
+The fused entry has a backward (csrc/selective_scan_bwd.cu,
+`selective_scan_fused_bwd`), new work: the TPU kernel has none, and the
+reference trains through `associative_scan`.  For it the forward also
+writes the state before every 16 steps ([B, ceil(S/16), D, N] float32;
+the interval is kCkpt of csrc/selective_scan.cuh, which `ckpt_steps()`
+reads from the library), from which the backward recomputes each chunk's
+states in registers and walks them in reverse; its sums over D and over
+B·S are partials reduced in a fixed order, with no float atomics.
+`SelectiveScanFused` is the autograd Function the training path calls
+(`selective_scan_fused_grad`): on the card both directions launch the
+kernels, on the CPU both run their plain versions.  The (a, bx) entry has
+no backward: no path calls it.
 """
 from __future__ import annotations
 
@@ -130,6 +143,46 @@ def selective_scan_fused_plain(dt, A, Bm, Cm, x, h0=None, *,
     return selective_scan_plain(a, bx, Cm, h0, return_state=return_state)
 
 
+def _fused_on_card(name, dt, A, Bm, Cm, x, h0, *rest):
+    """Check the fused entry's inputs (and `rest`, tensors or None) for a
+    launch; returns (b, s, d, n)."""
+    b, s, d, n = _check_fused(dt, A, Bm, Cm, x, h0)
+    tensors = [t for t in (dt, A, Bm, Cm, x, h0, *rest) if t is not None]
+    if dt.device.type != "cuda" or any(t.device != dt.device
+                                       for t in tensors):
+        raise ValueError(f"{name}: inputs must lie on one CUDA device")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x is {x.dtype}, not float32 or bfloat16")
+    _check_sizes(b, s, d, n)
+    return b, s, d, n
+
+
+def _fused_launch(dt, A, Bm, Cm, x, h0, return_state, ckpt):
+    """Launch the fused entry on the card: (y, h_last or None, the
+    checkpoint states or None)."""
+    b, s, d, n = _fused_on_card("selective_scan_fused", dt, A, Bm, Cm, x, h0)
+    dt, A, Bm, Cm = (_f32(t) for t in (dt, A, Bm, Cm))
+    x = _aligned(x.contiguous())
+    h0 = None if h0 is None else _f32(h0)
+    y, h_last = _outputs(b, s, d, n, return_state, dt.device)
+    lib = _build.load("selective_scan")
+    stream = torch.cuda.current_stream(dt.device).cuda_stream
+    args = (dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(h0),
+            y.data_ptr(), _ptr(h_last))
+    if ckpt:
+        states = torch.empty((b, -(-s // ckpt_steps()), d, n),
+                             dtype=torch.float32, device=dt.device)
+        code = lib.selective_scan_fused_ckpt_launch(
+            *args, states.data_ptr(), b, s, d, n, stream)
+    else:
+        states = None
+        code = lib.selective_scan_fused_launch(*args, b, s, d, n, stream)
+    _build.check("selective_scan", code)
+    selective_scan_fused.launches += 1
+    return y, h_last, states
+
+
 def selective_scan_fused(dt, A, Bm, Cm, x, h0=None, *,
                          return_state: bool = False):
     """dt, x: [B, S, D]; A: [D, N]; Bm, Cm: [B, S, N] -> y [B, S, D]
@@ -142,31 +195,155 @@ def selective_scan_fused(dt, A, Bm, Cm, x, h0=None, *,
     if all(t.device.type == "cpu" for t in tensors):
         return selective_scan_fused_plain(dt, A, Bm, Cm, x, h0,
                                           return_state=return_state)
-    b, s, d, n = _check_fused(dt, A, Bm, Cm, x, h0)
-    if dt.device.type != "cuda" or any(t.device != dt.device
-                                       for t in tensors):
-        raise ValueError("selective_scan_fused: inputs must lie on one CUDA "
-                         "device")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"selective_scan_fused: x is {x.dtype}, not "
-                         "float32 or bfloat16")
-    _check_sizes(b, s, d, n)
-    dt, A, Bm, Cm = (_f32(t) for t in (dt, A, Bm, Cm))
-    x = _aligned(x.contiguous())
-    h0 = None if h0 is None else _f32(h0)
-    y, h_last = _outputs(b, s, d, n, return_state, dt.device)
-    lib = _build.load("selective_scan")
-    stream = torch.cuda.current_stream(dt.device).cuda_stream
-    code = lib.selective_scan_fused_launch(
-        dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(h0), y.data_ptr(),
-        _ptr(h_last), b, s, d, n, stream)
-    _build.check("selective_scan", code)
-    selective_scan_fused.launches += 1
+    y, h_last, _ = _fused_launch(dt, A, Bm, Cm, x, h0, return_state, False)
     return (y, h_last) if return_state else y
 
 
 selective_scan_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the fused entry's backward
+# ---------------------------------------------------------------------------
+
+def ckpt_steps() -> int:
+    """Steps between the states the forward keeps for the backward: kCkpt
+    of csrc/selective_scan.cuh, read from the built library (the card
+    alone keeps states)."""
+    return _build.load("selective_scan").selective_scan_ckpt_steps()
+
+
+def selective_scan_fused_bwd_plain(dt, A, Bm, Cm, x, h0, dy, dh_last=None):
+    """The backward in plain PyTorch, float32: the states h_t of a forward
+    loop, then the reverse walk g_t = C_t·dy_t + a_{t+1}·g_{t+1} (from
+    dh_last), with z = dt·A and dz_t = g_t·h_{t-1}·a_t:
+    ddt = Σ_n (g·B·x + dz·A), dx = dt·Σ_n g·B, dB = Σ_d g·dt·x,
+    dC = Σ_d dy·h, dA = Σ_{b,t} dz·dt, dh0 = a_0·g_0.  Returns (ddt, dA,
+    dBm, dCm, dx, dh0), each in its input's dtype (dh0 float32)."""
+    b, s, d, n = _check_fused(dt, A, Bm, Cm, x, h0)
+    dt32, A32, B32, C32 = (t.float() for t in (dt, A, Bm, Cm))
+    x32, dy32 = x.float(), dy.float()
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=dt.device) \
+        if h0 is None else h0.float()
+    hs = [h]
+    for t in range(s):
+        a = torch.exp(dt32[:, t, :, None] * A32)
+        h = a * h + (dt32[:, t] * x32[:, t])[..., None] * B32[:, t, None, :]
+        hs.append(h)
+    g = torch.zeros_like(h) if dh_last is None else dh_last.float().clone()
+    ddt = torch.empty_like(dt32)
+    dx = torch.empty_like(x32)
+    dB = torch.empty_like(B32)
+    dC = torch.empty_like(C32)
+    dA = torch.zeros_like(A32)
+    for t in reversed(range(s)):
+        a = torch.exp(dt32[:, t, :, None] * A32)
+        g = g + C32[:, t, None, :] * dy32[:, t, :, None]
+        gb = g * B32[:, t, None, :]
+        dz = g * hs[t] * a
+        ddt[:, t] = (gb * x32[:, t, :, None] + dz * A32).sum(-1)
+        dx[:, t] = gb.sum(-1) * dt32[:, t]
+        dB[:, t] = (g * (dt32[:, t] * x32[:, t])[..., None]).sum(1)
+        dC[:, t] = (dy32[:, t, :, None] * hs[t + 1]).sum(1)
+        dA += (dz * dt32[:, t, :, None]).sum(0)
+        g = a * g
+    return (ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype),
+            dC.to(Cm.dtype), dx.to(x.dtype), g)
+
+
+def selective_scan_fused_bwd(dt, A, Bm, Cm, x, h0, dy, dh_last=None, *,
+                             states=None):
+    """The gradients (ddt, dA, dBm, dCm, dx, dh0) of selective_scan_fused's
+    y (gradient dy [B, S, D]) and h_last (gradient dh_last [B, D, N], None
+    for zero).  dx is in x's dtype, the rest float32.
+
+    CPU tensors take the plain version, which recomputes the states from
+    h0.  CUDA tensors launch the kernels from `states`, the checkpoint
+    states the forward wrote (`SelectiveScanFused`), or raise; there is no
+    fallback."""
+    tensors = [t for t in (dt, A, Bm, Cm, x, h0, dy, dh_last, states)
+               if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return selective_scan_fused_bwd_plain(dt, A, Bm, Cm, x, h0, dy,
+                                              dh_last)
+    b, s, d, n = _fused_on_card("selective_scan_fused_bwd", dt, A, Bm, Cm,
+                                x, h0, dy, dh_last, states)
+    every = ckpt_steps()
+    if states is None or tuple(states.shape) != (b, -(-s // every), d, n):
+        raise ValueError("selective_scan_fused_bwd: the card's backward "
+                         "needs the forward's checkpoint states [B, "
+                         f"ceil(S/{every}), D, N]")
+    if tuple(dy.shape) != (b, s, d) or (dh_last is not None and tuple(
+            dh_last.shape) != (b, d, n)):
+        raise ValueError("selective_scan_fused_bwd: dy or dh_last does not "
+                         "fit the forward's shapes")
+    dt, A, Bm, Cm, states, dy = (_f32(t) for t in (dt, A, Bm, Cm, states,
+                                                   dy))
+    x = _aligned(x.contiguous())
+    dh_last = None if dh_last is None else _f32(dh_last)
+    ddt, dBm, dCm = (torch.empty_like(t) for t in (dt, Bm, Cm))
+    dA = torch.empty_like(A)
+    dx = torch.empty_like(x)
+    dh0 = torch.empty((b, d, n), dtype=torch.float32, device=dt.device)
+    nblk = -(-d // 32)
+    scratch = torch.empty(b * d * n + 2 * b * nblk * s * n,
+                          dtype=torch.float32, device=dt.device)
+    lib = _build.load("selective_scan_bwd")
+    stream = torch.cuda.current_stream(dt.device).cuda_stream
+    code = lib.selective_scan_bwd_launch(
+        dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        x.data_ptr(), int(x.dtype == torch.bfloat16), states.data_ptr(),
+        dy.data_ptr(), _ptr(dh_last), ddt.data_ptr(), dx.data_ptr(),
+        dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), dh0.data_ptr(),
+        scratch.data_ptr(), b, s, d, n, stream)
+    _build.check("selective_scan_bwd", code)
+    selective_scan_fused_bwd.launches += 1
+    return ddt, dA, dBm, dCm, dx, dh0
+
+
+selective_scan_fused_bwd.launches = 0
+
+
+class SelectiveScanFused(torch.autograd.Function):
+    """selective_scan_fused with its backward: (y, h_last) of (dt, A, Bm,
+    Cm, x, h0); h0 may be None.  On the card the forward also keeps the
+    checkpoint states for `selective_scan_fused_bwd`."""
+
+    @staticmethod
+    def forward(ctx, dt, A, Bm, Cm, x, h0):
+        ctx.set_materialize_grads(False)
+        tensors = [t for t in (dt, A, Bm, Cm, x, h0) if t is not None]
+        if all(t.device.type == "cpu" for t in tensors):
+            y, h_last = selective_scan_fused_plain(dt, A, Bm, Cm, x, h0,
+                                                   return_state=True)
+            states = None
+        else:
+            y, h_last, states = _fused_launch(dt, A, Bm, Cm, x, h0, True,
+                                              True)
+        ctx.save_for_backward(dt, A, Bm, Cm, x, h0, states)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, A, Bm, Cm, x, h0, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
+        ddt, dA, dBm, dCm, dx, dh0 = selective_scan_fused_bwd(
+            dt, A, Bm, Cm, x, h0, dy, dh_last, states=states)
+        return ddt, dA, dBm, dCm, dx, (None if h0 is None else dh0)
+
+
+def selective_scan_fused_grad(dt, A, Bm, Cm, x, h0=None, *,
+                              return_state: bool = False):
+    """selective_scan_fused, differentiable: through `SelectiveScanFused`
+    when autograd records (grad mode on and an input requires grad), else
+    the plain forward call, which keeps no states."""
+    inputs = [t for t in (dt, A, Bm, Cm, x, h0) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        y, h_last = SelectiveScanFused.apply(dt, A, Bm, Cm, x, h0)
+        return (y, h_last) if return_state else y
+    return selective_scan_fused(dt, A, Bm, Cm, x, h0,
+                                return_state=return_state)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 torch.distributed rank each, and run functions on every rank.
 
     from repro_torch.launch.ranks import RankGroup
-    with RankGroup(4, backend="gloo", device="cpu") as g:
+    with RankGroup(4) as g:              # one card a rank (or raises)
         outs = g.run(fn, *args)          # [fn(mesh, *args) on rank r]
+    with RankGroup(4, device="cpu") as g:   # the CPU, over gloo
+        ...
 
 `fn` must be importable by the workers (a module-level function); it gets
 the rank's Mesh (launch/mesh.py) first.  The group meets at a file store in
@@ -12,8 +14,12 @@ group's timeout, and `run` waits for the ranks under a deadline: a rank
 that fails or hangs fails the call (the group is then torn down and the
 next call starts a new one), so a hung collective cannot stall the caller
 for longer than the deadline.  `device` is where every rank computes:
-"cpu", or one card that several ranks share ("cuda:0", with gloo), or
-None for one card a rank over NCCL (`cuda:(rank % device_count)`).
+None (the default) for the card `cuda:(rank % device_count)` — raising
+at construction when there is no card, like every entry point of the
+port that runs on the card unless asked for the CPU — or "cpu", or one
+card that several ranks share ("cuda:0").  `backend` None picks NCCL when
+each rank owns a card (device None and no more ranks than cards) and gloo
+otherwise.
 """
 from __future__ import annotations
 
@@ -29,10 +35,11 @@ def _worker(rank, world, store, backend, device, timeout_s, inq, outq):
     import torch
     import torch.distributed as dist
 
-    from .mesh import make_test_mesh
+    from .mesh import make_test_mesh, rank_device
     torch.set_num_threads(1)
-    if device is not None and str(device).startswith("cuda"):
-        torch.cuda.set_device(torch.device(device))
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method="file://" + store,
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -57,9 +64,20 @@ class RankFailure(RuntimeError):
 
 
 class RankGroup:
-    def __init__(self, world: int, *, backend: str = "gloo", device="cpu",
-                 timeout_s: float = 60.0, deadline_s: float = 240.0):
+    def __init__(self, world: int, *, backend: str | None = None,
+                 device=None, timeout_s: float = 60.0,
+                 deadline_s: float = 240.0):
+        import torch
         self.world = int(world)
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"RankGroup({self.world}): no CUDA device is available for "
+                "one card a rank; pass device='cpu' to run the ranks on the "
+                "CPU")
+        if backend is None:
+            own_card = device is None \
+                and self.world <= torch.cuda.device_count()
+            backend = "nccl" if own_card else "gloo"
         self.backend = backend
         self.device = device
         self.timeout_s = float(timeout_s)

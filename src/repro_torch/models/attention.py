@@ -1,17 +1,20 @@
-"""GQA attention for prefill and decode, as the reference's
+"""GQA attention for training, prefill and decode, as the reference's
 `models/attention.py` computes it, without the mesh constraints.
 
-Prefill attention (causal, no window, queries aligned with keys) runs the
-hand-written `flash_attention` kernel on [B·Hq, S, hd].  Decode attention
-is plain torch, as the reference computes it outside any kernel.  Other
-forms (a local window, non-causal cross-attention) come with the lattn and
-whisper layers (ROADMAP.md, 'Modules to port').
+Training and prefill attention (causal, no window, queries aligned with
+keys) run the hand-written `flash_attention` kernel on [B·Hq, S, hd]; when
+autograd records, through its Function, whose backward is the
+hand-written `flash_attention_bwd` kernel (the repeated K/V heads'
+gradients are summed over each group by autograd of `_repeat_kv`).  Decode
+attention is plain torch, as the reference computes it outside any
+kernel.  Other forms (a local window, non-causal cross-attention) come
+with the lattn and whisper layers (ROADMAP.md, 'Modules to port').
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention_grad
 from .common import ParamDef, apply_rope, dense
 
 NEG_INF = -1e30
@@ -72,8 +75,8 @@ def attention_core(q, k, v, *, causal=True, window=0, q_offset=0):
 
     def heads_first(x, s):
         return x.transpose(1, 2).reshape(b * hq, s, hd)
-    out = flash_attention(heads_first(q, sq), heads_first(k, sk),
-                          heads_first(v, sk), causal=True)
+    out = flash_attention_grad(heads_first(q, sq), heads_first(k, sk),
+                               heads_first(v, sk), causal=True)
     return out.reshape(b, hq, sq, hd).transpose(1, 2)
 
 
@@ -98,6 +101,16 @@ def _rope(cfg, q, k, pos):
                                   "(ROADMAP.md, 'Modules to port')")
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos,
                                                           cfg.rope_theta)
+
+
+def attn_forward(cfg, p, x):
+    """Training forward (no cache), causal. x: [B,S,d]."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x)
+    pos = torch.arange(s, device=x.device)
+    q, k = _rope(cfg, q, k, pos)
+    out = attention_core(q, k, v, causal=True)
+    return dense(out.reshape(b, s, -1), p["wo"])
 
 
 def attn_prefill(cfg, p, x, cache):

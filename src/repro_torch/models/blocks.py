@@ -1,4 +1,4 @@
-"""Layer-kind dispatch: param defs + prefill/decode per block kind.
+"""Layer-kind dispatch: param defs + forward/prefill/decode per block kind.
 
 Ported kinds: "dense" (GQA attn + SwiGLU) and "ssm" (Mamba-1).  The
 reference's "moe", "rec" and "lattn" kinds raise NotImplementedError
@@ -56,6 +56,14 @@ def block_cache_defs(cfg, kind: str, batch: int, max_seq: int):
 
 def _ffn(p, h):
     return swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_in"], p["mlp"]["w_out"])
+
+
+def block_forward(cfg, kind, p, x):
+    """Training-mode block. x: [B,S,d] -> [B,S,d]."""
+    if kind == "ssm":
+        return x + ssm_mod.mamba_forward(cfg, p["ssm"], rms_norm(x, p["ln"]))
+    h = x + attn.attn_forward(cfg, p["attn"], rms_norm(x, p["ln1"]))
+    return h + _ffn(p, rms_norm(h, p["ln2"]))
 
 
 def block_prefill(cfg, kind, p, x, cache):

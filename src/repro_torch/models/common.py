@@ -5,11 +5,13 @@ package; a nested dict (or list) of them becomes a :class:`ParamTree`, an
 `nn.Module` whose submodules and parameters carry the same names, so that
 `p["attn"]["wq"]` reads as it does over the reference's param dicts.
 Weights are stored as the reference stores them (a dense weight [in, out],
-used as `x @ w`), so a weight converts one to one.  Parameters do not
-require gradients: this slice serves and does not train.
+used as `x @ w`), so a weight converts one to one.  Parameters are made
+without gradients, for serving; training turns them on
+(`LM.train_mode()`).
 
-Mesh and sharding helpers (`constrain`, `pspec_for`, `LOGICAL_RULES`) wait
-for the distributed slice.
+Mesh and sharding helpers (`constrain`, `pspec_for`, `LOGICAL_RULES`) are
+not ported: the LM runs on one device (data-parallel training over a
+`RankGroup` is a ROADMAP.md item).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM: embedding -> layers -> head, for serving.
+"""Decoder-only LM: embedding -> layers -> head, for training and serving.
 
 The reference stacks each layout group's layers into [L, ...] leaves
 (`g<gi>/s<i>_<kind>`) and scans over them; the port keeps one module per
@@ -8,14 +8,28 @@ layer of the port is, which is all a weight converter needs.  The cache is
 a list with one dict per layer (dense: k, v [B, max_seq, Hkv, hd]; ssm:
 conv [B, k-1, d_inner], h [B, d_inner, N] float32).
 
-`loss`/`chunked_ce` wait for the training slice.
+Training: `loss(batch)` is the reference's — embedding, the layers (each
+under the config's `remat`: "full" is `torch.utils.checkpoint`, "dots"
+a selective checkpoint that saves the matrix products' outputs, as the
+reference's `dots_with_no_batch_dims_saveable`, "none" none), and
+`chunked_ce`.  The embedding gathers with `F.embedding`, whose backward
+sums a token's rows in a fixed order (no atomics).  Parameters are made
+without gradients (serving); `train_mode()` turns them on.  Serving runs
+under `torch.no_grad` and builds no autograd graph.
 """
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from ..convert import lm_tree_from_numpy, lm_tree_to_numpy
 from ..core.lower import resolve_device
-from .blocks import block_cache_defs, block_decode, block_defs, block_prefill
+from .blocks import (block_cache_defs, block_decode, block_defs,
+                     block_forward, block_prefill)
 from .common import ParamDef, ParamTree, dense, rms_norm
 
 
@@ -41,6 +55,57 @@ def _top_defs(cfg) -> dict:
                                 ("embed", "vocab"), cfg.param_dtype)}
 
 
+def _ce_sum(head_fn, x, labels):
+    """Σ (logsumexp(logits) − logits[label]) over the rows, float32."""
+    logits = head_fn(x)
+    ls = torch.logsumexp(logits, dim=-1)
+    true = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((ls - true).float())
+
+
+def chunked_ce(cfg, head_fn, x, labels):
+    """Fused cross-entropy: a loop over sequence chunks whose [B, chunk, V]
+    logits are recomputed in backward (a checkpoint a chunk) instead of
+    saving [B, S, V] float32.  One chunk when `ce_chunk` does not divide S
+    or equals it, as the reference."""
+    b, s, _ = x.shape
+    chunk = min(cfg.ce_chunk, s)
+    if s % chunk != 0 or s == chunk:
+        logits = head_fn(x)
+        ls = torch.logsumexp(logits, dim=-1)
+        true = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.mean(ls - true)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(_ce_sum, head_fn, x[:, c0:c0 + chunk],
+                                   labels[:, c0:c0 + chunk],
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of the matrix products without
+    batch dimensions (`aten.mm`: every dense projection), recompute the
+    rest."""
+    return CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn, *args):
+    """fn(*args) under the config's remat policy."""
+    if cfg.remat == "none":
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_products))
+    if cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r} is not one of full, dots, "
+                         "none")
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     # "meta" builds a model of shapes alone (no storage)
@@ -60,6 +125,31 @@ class LM(ParamTree):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def named_leaves(self):
+        """(path, parameter) of every parameter, in the order they are
+        made ("embed", ..., "layers/<l>/attn/wq", ...)."""
+        return ((path, p) for path, p, _ in self.leaves())
+
+    def to_tree(self, leaves: dict | None = None) -> dict:
+        """The parameters (or `leaves`, a dict keyed like them: the AdamW
+        moments) as the reference's stacked tree of numpy leaves, the
+        layout of a training snapshot that either package resumes."""
+        if leaves is None:
+            leaves = dict(self.named_leaves())
+        return lm_tree_to_numpy(self.cfg, leaves)
+
+    def load_tree(self, tree: dict, into: dict | None = None) -> None:
+        """Copy a tree of `to_tree`'s layout into the parameters (or into
+        `into`, a dict keyed like them), in place."""
+        if into is None:
+            into = dict(self.named_leaves())
+        lm_tree_from_numpy(self.cfg, tree, into)
+
+    def train_mode(self):
+        """Turn gradients on for every parameter (the training step calls
+        it); returns the model."""
+        return self.requires_grad_(True)
+
     # ---------------- caches ----------------
     def init_cache(self, batch: int, max_seq: int) -> list[dict]:
         return [{k: torch.zeros(shape, dtype=dt, device=self.device)
@@ -71,7 +161,7 @@ class LM(ParamTree):
     def _embed(self, tokens):
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = self.embed[tokens].to(cfg.compute_dtype)
+        x = F.embedding(tokens, self.embed).to(cfg.compute_dtype)
         if cfg.scale_embed:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype)
         return x
@@ -84,7 +174,21 @@ class LM(ParamTree):
             logits = c * torch.tanh(logits / c)
         return logits
 
+    def _forward(self, x):
+        for p, kind in zip(self.layers, self.kinds):
+            x = _remat(self.cfg, block_forward, self.cfg, kind, p, x)
+        return x
+
     # ---------------- public entry points ----------------
+    def loss(self, batch):
+        """batch: {tokens: [B, S], labels: [B, S]} (numpy or tensors) ->
+        (loss, {"loss": loss}), the mean next-token cross-entropy, float32."""
+        x = self._embed(batch["tokens"])
+        x = self._forward(x)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        loss = chunked_ce(self.cfg, self._head, x, labels)
+        return loss, {"loss": loss}
+
     @torch.no_grad()
     def prefill(self, tokens, max_seq: int):
         """tokens: [B, S] -> (last-token logits [B, V] float32, filled

@@ -12,13 +12,19 @@ time (the whole sequence when `scan_chunk` does not divide it), each from
 the state the previous chunk left.  The reference scans a chunk with
 `associative_scan`; the port walks it in order, which is the same
 recurrence summed in another order.  Decode is one plain step.
+
+Training runs the same forward with autograd on: the scan goes through
+`selective_scan_fused_grad`, whose backward is the hand-written
+`selective_scan_bwd` kernel on the card (the chunks of the CPU path chain
+through h, whose gradient the Function carries back).  The dt projection
+stays float32, as the reference's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.selective_scan import selective_scan_fused
+from ..kernels.selective_scan import selective_scan_fused_grad
 from .common import ParamDef, dense
 
 
@@ -98,8 +104,8 @@ def mamba_forward(cfg, p, x, *, h0=None, conv0=None, return_state=False):
     for c0 in range(0, s, chunk):
         xc_c = xc[:, c0:c0 + chunk]
         dt, a, bt, ct = _ssm_inputs(cfg, p, xc_c)
-        y_c, h = selective_scan_fused(dt, a, bt, ct, xc_c, h,
-                                      return_state=True)
+        y_c, h = selective_scan_fused_grad(dt, a, bt, ct, xc_c, h,
+                                           return_state=True)
         ys.append(y_c)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     y = y + xc.float() * p["d_skip"]

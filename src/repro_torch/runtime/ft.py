@@ -1,10 +1,11 @@
-"""Fault-tolerance runtime around iterative plans: the PyTorch port of the
-reference's src/repro/runtime/ft.py.
+"""Fault-tolerance runtime around the train loop and iterative plans: the
+PyTorch port of the reference's src/repro/runtime/ft.py.
 
-* periodic checkpoints of a loop's carry + resume-from-latest
-  (`LoopRunner`, through `checkpoint.CheckpointManager`, whose `.npz`
-  format either package reads);
-* **straggler watchdog**: per-iteration wall times feed the program's
+* periodic checkpoints + resume-from-latest: of the LM's parameters,
+  optimizer state and data position (`TrainRunner`), and of a loop's
+  carry (`LoopRunner`), through `checkpoint.CheckpointManager`, whose
+  `.npz` format either package reads;
+* **straggler watchdog**: per-step and per-iteration wall times feed a
   `FaultLedger.note_time` (the trailing-median watchdog the executor and
   the serving layer share), visible in `explain_faults()`;
 * **peer-replicated carry snapshots** (DESIGN.md §13): an in-memory tier
@@ -14,9 +15,6 @@ reference's src/repro/runtime/ft.py.
   from the peer without touching disk; a torn replica fails its checksum
   and the previous good one is used instead (`PeerReplica`);
 * simulated failure for tests (`SimulatedFailure`).
-
-Still to come (ROADMAP.md): `TrainRunner` waits for the training step
-(Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -112,13 +110,115 @@ class PeerReplica:
         return None
 
 
-class TrainRunner:
-    """The training loop's runner: not ported yet."""
+def _nest(flat: dict, prefix: str = "") -> dict:
+    """{"a/b": x} -> {"a": {"b": x}}, over the keys that start with
+    `prefix` (which is dropped)."""
+    tree: dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix):
+            continue
+        *head, last = key[len(prefix):].split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TrainRunner waits for the training step of the LM stack "
-            "(ROADMAP.md, Queue 1 item 6, 'The training step')")
+
+class TrainRunner:
+    """The train loop's runner: periodic checkpoints (every `ckpt_every`
+    steps, with the data pipeline's position), resume from the latest
+    snapshot that verifies, the shared `FaultLedger` straggler watchdog,
+    and simulated failure — the reference's, with its arguments (no
+    `shardings`: the port trains on one device).
+
+    `step_fn(params, opt_state, batch) -> (params, opt_state, metrics)`.
+    `params` and `opt_state` are saved as they stand and restored like
+    their template, unless `params` gives its own snapshot layout:
+    `params.to_tree(leaves=None)` and `params.load_tree(tree, into=None)`
+    (the port's `LM`: the reference's stacked tree), with `opt_state`'s
+    `to_tree(layout)` and `load_tree(tree, load)` (`AdamWState`: the
+    reference's `.step`, `.mu/<leaf>`, `.nu/<leaf>`).  A resume then
+    copies into the model and the moments in place, and a snapshot of
+    either package resumes in the other."""
+
+    def __init__(self, step_fn, params, opt_state, data, ckpt_dir: str,
+                 ckpt_every: int = 10, straggler_factor: float = 3.0,
+                 ledger: FaultLedger | None = None):
+        self.step_fn = step_fn
+        self.params = params
+        self.opt_state = opt_state
+        self.data = data
+        self.mgr = CheckpointManager(ckpt_dir)
+        self.ckpt_every = ckpt_every
+        self.step = 0
+        # ONE straggler watchdog for the whole system: the shared
+        # FaultLedger trailing-median idiom (same as core rounds and
+        # served batches)
+        self.faults = ledger if ledger is not None else \
+            FaultLedger(name="train")
+        self.faults.straggler_factor = straggler_factor
+        self.straggler_events: list[int] = []   # flagged step indices
+
+    def explain_faults(self) -> str:
+        return self.faults.explain()
+
+    def _trees(self):
+        """(params tree, optimizer tree) in the snapshot's layout."""
+        to_tree = getattr(self.params, "to_tree", None)
+        if to_tree is None:
+            return self.params, self.opt_state
+        opt = None if self.opt_state is None else \
+            self.opt_state.to_tree(to_tree)
+        return to_tree(), opt
+
+    def save(self):
+        """Checkpoint the current step (the data position with it)."""
+        params, opt = self._trees()
+        self.mgr.save(self.step, params, opt,
+                      extra={"data": self.data.state()})
+
+    def _restore(self, latest: int):
+        load_tree = getattr(self.params, "load_tree", None)
+        if load_tree is None:
+            return self.mgr.restore(latest, self.params, self.opt_state)
+        step, flat, extra = self.mgr.restore_flat(latest)
+        load_tree(_nest(flat))
+        if self.opt_state is not None:
+            _, oflat, _ = self.mgr.restore_flat(latest, part="opt")
+            self.opt_state.load_tree(_nest(oflat), load_tree)
+        return step, self.params, self.opt_state, extra
+
+    def maybe_resume(self):
+        latest = self.mgr.latest()
+        if latest is None:
+            return False
+        self.step, self.params, self.opt_state, extra = \
+            self._restore(latest)
+        if "data" in extra:
+            self.data.restore(extra["data"],
+                              host_index=self.data.host,
+                              host_count=self.data.global_batch
+                              // self.data.local_batch)
+        return True
+
+    def run(self, num_steps: int, fail_at_step: int | None = None):
+        metrics = None
+        while self.step < num_steps:
+            if fail_at_step is not None and self.step == fail_at_step:
+                raise SimulatedFailure(f"injected failure at {self.step}")
+            batch = self.data.next_batch()
+            t0 = time.perf_counter()
+            self.params, self.opt_state, metrics = self.step_fn(
+                self.params, self.opt_state, batch)
+            if self.faults.note_time("train.step",
+                                     time.perf_counter() - t0):
+                self.straggler_events.append(self.step)
+            self.step += 1
+            if self.step % self.ckpt_every == 0:
+                self.save()
+        self.mgr.wait()
+        return metrics
 
 
 class LoopRunner:

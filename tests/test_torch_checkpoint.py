@@ -7,9 +7,9 @@ across the two packages in both directions (the `.npz` format is
 shared), a loop carry snapshotted by the JAX package's LoopRunner resumed
 by the port's, and tensors restored onto the template's device.
 
-The reference's restart and straggler tests drive its TrainRunner, which
-waits for the training step here (ROADMAP.md, Queue 1 item 6): the port
-holds the same contracts on LoopRunner, which drives a pagerank loop.
+The reference's restart and straggler tests drive its TrainRunner; here
+the port holds the same contracts on LoopRunner, which drives a pagerank
+loop, and tests/test_torch_train.py holds them on the port's TrainRunner.
 """
 from __future__ import annotations
 
@@ -240,11 +240,23 @@ def test_reference_loop_snapshot_resumes_in_the_port(tmp_path):
 
 def test_unported_tiers_raise(tmp_path):
     # the peer-replica tier came with the distributed rounds (Queue 1 item
-    # 5): it builds; the training runner still waits for item 6
+    # 5): it builds; the training runner came with item 6: it runs (its
+    # tests against the reference's are in test_torch_train.py)
     runner = LoopRunner(_pr(), str(tmp_path), peer_every=1)
     assert runner.peer is not None and runner.peer.snaps == []
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TrainRunner()
+
+    class Data:
+        def next_batch(self):
+            return None
+
+        def state(self):
+            return {"step": 0, "seed": 0}
+
+    tr = TrainRunner(lambda p, o, b: (p, o, {"loss": 0.0}),
+                     {"w": np.ones(3, np.float32)}, None, Data(),
+                     ckpt_dir=str(tmp_path / "train"), ckpt_every=2)
+    assert tr.run(4) == {"loss": 0.0} and tr.step == 4
+    assert tr.mgr.steps() == [2, 4]
 
 
 def test_restore_onto_the_named_device(tmp_path):

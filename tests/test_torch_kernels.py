@@ -30,12 +30,14 @@ except ImportError:     # the card's machine: only the `cuda` tests run there
     pass
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
                                                  flash_attention_plain)
 from repro_torch.kernels.segment_reduce import (segment_reduce,
                                                 segment_reduce_plain,
                                                 segment_sum)
 from repro_torch.kernels.selective_scan import (selective_scan,
                                                 selective_scan_fused,
+                                                selective_scan_fused_bwd,
                                                 selective_scan_fused_plain,
                                                 selective_scan_plain)
 from repro_torch.core.tiles import pack
@@ -346,9 +348,16 @@ def test_cpu_wrappers_count_no_launches():
     dt = torch.ones(1, 3, 4)
     selective_scan_fused(dt, -torch.ones(4, 2), torch.ones(1, 3, 2),
                          torch.ones(1, 3, 2), dt.bfloat16())
+    # the backward kernels' wrappers
+    o, lse = flash_attention(q, q, q, return_lse=True)
+    flash_attention_bwd(q, q, q, o, lse, q)
+    selective_scan_fused_bwd(dt, -torch.ones(4, 2), torch.ones(1, 3, 2),
+                             torch.ones(1, 3, 2), dt, None, dt)
     assert ops.launch_counts() == {"segment_reduce": 0, "tile_matmul": 0,
                                    "flash_attention": 0, "selective_scan": 0,
-                                   "selective_scan_fused": 0}
+                                   "selective_scan_fused": 0,
+                                   "flash_attention_bwd": 0,
+                                   "selective_scan_bwd": 0}
 
 
 def test_every_source_has_its_ctypes_signatures():
@@ -364,7 +373,8 @@ def test_every_source_has_its_ctypes_signatures():
             m = re.search(rf'extern "C" int {fn}\((.*?)\)\s*\{{', src,
                           re.S)
             assert m, fn
-            assert len(m.group(1).split(",")) == len(argtypes), fn
+            params = [a for a in m.group(1).split(",") if a.strip()]
+            assert len(params) == len(argtypes), fn
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,390 @@
+"""The PyTorch port's training path against the JAX package's, on the CPU.
+
+The reference's `model.init(0)` weights are carried across with
+`lm_params_from_numpy`; batches come from the shared `SyntheticLMData`
+(numpy).  The port's `make_train_step` is held against the reference's
+`jax.jit(make_train_step(...))` on both smoke configs with `ce_chunk=8`
+at S = 16, so that the chunked cross-entropy runs: loss, grad_norm and
+every gradient leaf within 1e-4 of max |ref| (float32, the same math
+summed in another order), the parameters after three steps within 1e-5
+absolute.  Then the port's own forms (remat full / dots / none within
+1e-6; microbatch 2 against 1 within 1e-5), the reference's checkpoint,
+recovery and system tests of the train loop, and snapshots that cross
+between the packages.
+"""
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.models import get_model as jax_get_model
+from repro.optim.adamw import adamw_init as jax_adamw_init
+from repro.runtime import TrainRunner as JaxTrainRunner
+from repro.train.step import make_train_step as jax_make_train_step
+from repro_torch.configs import smoke_config
+from repro_torch.convert import (lm_params_from_numpy, lm_params_to_numpy,
+                                 lm_tree_to_numpy)
+from repro_torch.core import faults as F
+from repro_torch.data import SyntheticLMData
+from repro_torch.optim.adamw import adamw_init
+from repro_torch.runtime import TrainRunner
+from repro_torch.runtime.ft import SimulatedFailure
+from repro_torch.train import make_train_step
+
+ARCHS = ["llama3-8b", "falcon-mamba-7b"]
+GRAD_TOL = 1e-4      # loss, grad_norm, every gradient leaf: of max |ref|
+PARAM_TOL = 1e-5     # parameters after three steps, absolute
+B, S = 4, 16
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _pair(arch, **over):
+    """(port cfg, reference cfg, reference params, port LM with them)."""
+    jcfg = jax_smoke_config(arch).replace(ce_chunk=8, **over)
+    cfg = smoke_config(arch).replace(ce_chunk=8, **over)
+    params = jax_get_model(jcfg).init(0)
+    tree = jax.tree.map(np.asarray, params)
+    return cfg, jcfg, params, lm_params_from_numpy(cfg, tree, device="cpu")
+
+
+def _batches(cfg, n, seed=3):
+    data = SyntheticLMData(cfg.vocab_size, B, S, seed=seed)
+    return [data.next_batch() for _ in range(n)]
+
+
+def _port_grads(model, batch):
+    model.train_mode()
+    leaves = dict(model.named_leaves())
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_reference(arch):
+    cfg, jcfg, params, model = _pair(arch)
+    batches = _batches(cfg, 3)
+    jmodel = jax_get_model(jcfg)
+    # the gradients of the first step, leaf by leaf
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p, b: jmodel.loss(p, b), has_aux=True)(params, batches[0])
+    loss, grads = _port_grads(model, batches[0])
+    assert _rel(loss, float(jloss)) <= GRAD_TOL
+    got = dict(_flat(lm_tree_to_numpy(cfg, grads)))
+    want = dict(_flat(jax.tree.map(np.asarray, jgrads)))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert _rel(got[k], want[k]) <= GRAD_TOL, k
+    # three steps of each package's train step
+    jstep = jax.jit(jax_make_train_step(jcfg, None, ("data",),
+                                        compress_grads=False))
+    step = make_train_step(cfg, compress_grads=False)
+    jopt, opt = jax_adamw_init(params), adamw_init(dict(model.named_leaves()))
+    for b in batches:
+        params, jopt, jm = jstep(params, jopt, b)
+        model, opt, m = step(model, opt, b)
+        assert _rel(float(m["loss"]), float(jm["loss"])) <= GRAD_TOL
+        assert _rel(float(m["grad_norm"]), float(jm["grad_norm"])) \
+            <= GRAD_TOL
+    assert int(opt.step) == int(jopt.step) == 3
+    got = dict(_flat(lm_params_to_numpy(cfg, model)))
+    for k, w in _flat(jax.tree.map(np.asarray, params)):
+        np.testing.assert_allclose(got[k], w, rtol=0, atol=PARAM_TOL,
+                                   err_msg=k)
+    for name, tree in (("mu", jopt.mu), ("nu", jopt.nu)):
+        mine = dict(_flat(lm_tree_to_numpy(cfg, getattr(opt, name))))
+        for k, w in _flat(jax.tree.map(np.asarray, tree)):
+            assert _rel(mine[k], w) <= GRAD_TOL, (name, k)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_compress_grads_matches_reference(arch):
+    """bf16 gradient compression before the update, as the reference's."""
+    cfg, jcfg, params, model = _pair(arch)
+    batches = _batches(cfg, 2, seed=5)
+    jstep = jax.jit(jax_make_train_step(jcfg, None, ("data",),
+                                        compress_grads=True))
+    step = make_train_step(cfg, compress_grads=True)
+    jopt, opt = jax_adamw_init(params), adamw_init(dict(model.named_leaves()))
+    for b in batches:
+        params, jopt, jm = jstep(params, jopt, b)
+        model, opt, m = step(model, opt, b)
+        assert _rel(float(m["grad_norm"]), float(jm["grad_norm"])) \
+            <= GRAD_TOL
+    got = dict(_flat(lm_params_to_numpy(cfg, model)))
+    for k, w in _flat(jax.tree.map(np.asarray, params)):
+        np.testing.assert_allclose(got[k], w, rtol=0, atol=PARAM_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_forms_agree(arch):
+    """remat full (a checkpoint a layer), dots (a selective checkpoint
+    that keeps the matrix products) and none: the same loss and gradients
+    within 1e-6 of max |g|."""
+    out = {}
+    for remat in ("full", "dots", "none"):
+        cfg, _, _, model = _pair(arch, remat=remat)
+        out[remat] = _port_grads(model, _batches(cfg, 1)[0])
+    loss, grads = out["none"]
+    for remat in ("full", "dots"):
+        l2, g2 = out[remat]
+        assert abs(l2 - loss) <= 1e-6 * abs(loss), remat
+        for k in grads:
+            assert _rel(g2[k].numpy(), grads[k].numpy()) <= 1e-6, (remat, k)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_microbatch_two_agrees_with_one(arch):
+    """cfg.microbatch = 2 (float32 gradients summed over two half batches,
+    divided by 2) against one whole batch: loss and parameters after two
+    steps within 1e-5."""
+    runs = {}
+    for k in (1, 2):
+        cfg, _, _, model = _pair(arch, microbatch=k)
+        step = make_train_step(cfg, compress_grads=False)
+        opt = adamw_init(dict(model.named_leaves()))
+        for b in _batches(cfg, 2):
+            model, opt, m = step(model, opt, b)
+        runs[k] = (float(m["loss"]), dict(_flat(lm_params_to_numpy(cfg,
+                                                                   model))))
+    assert abs(runs[1][0] - runs[2][0]) <= 1e-5 * abs(runs[1][0])
+    for k, v in runs[1][1].items():
+        np.testing.assert_allclose(runs[2][1][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_mesh_raises_naming_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="RankGroup"):
+        make_train_step(smoke_config("llama3-8b"), mesh=object())
+
+
+def test_serving_builds_no_graph_after_training():
+    cfg, _, _, model = _pair("llama3-8b")
+    model.train_mode()
+    logits, cache = model.prefill(torch.zeros((1, 5), dtype=torch.int32), 8)
+    assert not logits.requires_grad
+    assert all(not t.requires_grad for c in cache for t in c.values())
+
+
+# ---------------------------------------------------------------------------
+# counterparts of the reference's tests of the train loop
+# (tests/test_checkpoint.py, test_recovery.py, test_system.py)
+# ---------------------------------------------------------------------------
+
+def _mk(tmp, arch="llama3-8b", ckpt_every=2):
+    cfg = smoke_config(arch)
+    model = lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jax_get_model(
+            jax_smoke_config(arch)).init(0)), device="cpu")
+    data = SyntheticLMData(cfg.vocab_size, 4, 16, seed=3)
+    step = make_train_step(cfg, None, ("data",), compress_grads=False)
+    return TrainRunner(step, model, adamw_init(dict(model.named_leaves())),
+                       data, ckpt_dir=str(tmp), ckpt_every=ckpt_every)
+
+
+def _state(r):
+    return [t.detach().clone() for _, t in r.params.named_leaves()] \
+        + [r.opt_state.mu[k].clone() for k in r.opt_state.mu] \
+        + [r.opt_state.nu[k].clone() for k in r.opt_state.nu]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_restart_resumes_bit_exact(tmp_path, arch):
+    r_full = _mk(tmp_path / "a", arch)
+    r_full.run(6)
+
+    r1 = _mk(tmp_path / "b", arch)
+    with pytest.raises(SimulatedFailure):
+        r1.run(6, fail_at_step=5)
+    r1.mgr.wait()
+
+    r2 = _mk(tmp_path / "b", arch)
+    assert r2.maybe_resume()
+    assert r2.step == 4
+    assert r2.data.step == 4            # token stream resumes exactly
+    assert int(r2.opt_state.step) == 4
+    r2.run(6)
+    for a, b in zip(_state(r_full), _state(r2)):
+        assert torch.equal(a, b)
+
+
+def test_straggler_watchdog(tmp_path):
+    r = _mk(tmp_path, ckpt_every=100)
+    orig = r.step_fn
+    took = []
+
+    def slow_step(p, o, b):
+        # step 6 sleeps well past 3x the steps before it (the first, which
+        # warms up, aside), however slow a loaded machine makes them
+        if r.step == 6:
+            time.sleep(1.0 + 4 * max(took[1:]))
+        t = time.perf_counter()
+        out = orig(p, o, b)
+        took.append(time.perf_counter() - t)
+        return out
+
+    r.step_fn = slow_step
+    r.run(8)
+    assert 6 in r.straggler_events
+
+
+def test_train_runner_shares_fault_ledger(tmp_path):
+    """The TrainRunner watchdog IS the shared FaultLedger trailing-median
+    idiom — events land in the ledger a caller passed in."""
+    class Data:
+        def next_batch(self):
+            return None
+
+    led = F.FaultLedger(name="shared")
+    calls = {"n": 0}
+
+    def step(p, o, b):
+        calls["n"] += 1
+        if calls["n"] == 7:
+            time.sleep(0.25)
+        return p, o, {}
+
+    r = TrainRunner(step, {}, None, Data(), ckpt_dir=str(tmp_path),
+                    ckpt_every=10 ** 6, ledger=led)
+    assert r.faults is led
+    r.run(9)
+    assert 6 in r.straggler_events
+    assert led.counters["straggler"] >= 1
+    assert "train.step" in r.explain_faults()
+
+
+def test_train_driver_end_to_end(tmp_path):
+    from repro_torch.launch.train import main
+    loss = main(["--arch", "llama3-8b", "--smoke", "--steps", "6",
+                 "--global-batch", "4", "--seq", "16", "--device", "cpu",
+                 "--ckpt", str(tmp_path), "--ckpt-every", "3"])
+    assert np.isfinite(loss)
+    # resume continues from the checkpoint
+    loss2 = main(["--arch", "llama3-8b", "--smoke", "--steps", "8",
+                  "--global-batch", "4", "--seq", "16", "--device", "cpu",
+                  "--ckpt", str(tmp_path), "--resume"])
+    assert np.isfinite(loss2)
+
+
+def test_loss_decreases_on_learnable_data():
+    """Real learning signal: constant-token data should drive CE down."""
+    cfg = smoke_config("llama3-8b")
+    model = lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jax_get_model(
+            jax_smoke_config("llama3-8b")).init(0)), device="cpu")
+    step = make_train_step(cfg, None, ("data",), lr=1e-2,
+                           compress_grads=False)
+    batch = {"tokens": np.full((4, 16), 7, np.int32),
+             "labels": np.full((4, 16), 7, np.int32)}
+    opt = adamw_init(dict(model.named_leaves()))
+    first = None
+    for _ in range(10):
+        model, opt, m = step(model, opt, batch)
+        first = first if first is not None else float(m["loss"])
+    assert float(m["loss"]) < first * 0.5, (first, float(m["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# snapshots that cross between the packages
+# ---------------------------------------------------------------------------
+
+def _jax_runner(tmp, ckpt_every=2):
+    jcfg = jax_smoke_config("llama3-8b")
+    params = jax_get_model(jcfg).init(0)
+    data = SyntheticLMData(jcfg.vocab_size, 4, 16, seed=3)
+    step = jax.jit(jax_make_train_step(jcfg, None, ("data",),
+                                       compress_grads=False))
+    return JaxTrainRunner(step, params, jax_adamw_init(params), data,
+                          ckpt_dir=str(tmp), ckpt_every=ckpt_every)
+
+
+@pytest.fixture(scope="module")
+def reference_run(tmp_path_factory):
+    r = _jax_runner(tmp_path_factory.mktemp("ref"), ckpt_every=10 ** 6)
+    r.run(6)
+    return dict(_flat(jax.tree.map(np.asarray, r.params)))
+
+
+def _check_against(got: dict, want: dict):
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_allclose(np.asarray(got[k], np.float32), w,
+                                   rtol=0, atol=PARAM_TOL, err_msg=k)
+
+
+def test_reference_snapshot_resumes_in_port(tmp_path, reference_run):
+    ref = _jax_runner(tmp_path)
+    ref.run(4)                     # snapshots at steps 2 and 4
+    ref.mgr.wait()
+    r = _mk(tmp_path)              # the same directory, the port's runner
+    assert r.maybe_resume()
+    assert r.step == 4 and r.data.step == 4 and int(r.opt_state.step) == 4
+    r.run(6)
+    _check_against(dict(_flat(lm_params_to_numpy(r.params.cfg, r.params))),
+                   reference_run)
+
+
+def test_port_snapshot_resumes_in_reference(tmp_path, reference_run):
+    r = _mk(tmp_path)
+    r.run(4)
+    r.mgr.wait()
+    ref = _jax_runner(tmp_path)
+    assert ref.maybe_resume()
+    assert ref.step == 4 and ref.data.step == 4
+    assert int(ref.opt_state.step) == 4
+    ref.run(6)
+    _check_against(dict(_flat(jax.tree.map(np.asarray, ref.params))),
+                   reference_run)
+
+
+
+# ---------------------------------------------------------------------------
+# RankGroup runs on the card unless asked for the CPU
+# ---------------------------------------------------------------------------
+
+def test_rank_group_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.launch.ranks import RankGroup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RankGroup(2)
+    g = RankGroup(2, device="cpu")          # nothing starts before run()
+    assert g.backend == "gloo" and g.device == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert RankGroup(2).backend == "nccl"   # one card a rank
+    assert RankGroup(4).backend == "gloo"   # ranks share the cards
+
+
+@pytest.mark.parametrize("module", ["repro_torch.convert",
+                                    "repro_torch.models.lm",
+                                    "repro_torch.runtime.ft",
+                                    "repro_torch.train.step"])
+def test_each_training_module_imports_first(module):
+    """The training path's modules and the weight converter import in a
+    fresh interpreter as its first import: no import cycle between
+    `convert`, `core` and the models."""
+    src = Path(__file__).resolve().parent.parent / "src"
+    r = subprocess.run([sys.executable, "-c", f"import {module}"],
+                       env={**os.environ, "PYTHONPATH": str(src)},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

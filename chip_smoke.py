@@ -27,7 +27,9 @@ first mismatch:
              ids; the two backward kernels at phase 8's shapes (flash
              [128, 2048, 128] bf16 causal against the backward of
              `scaled_dot_product_attention`, the scan [4, 2048, 8192, 16]
-             with bf16 x), each held against its plain version, which
+             with bf16 x) and at the edges of their tilings (flash
+             [128, 1531, 128] and [128, 2048, 64], the scan [4, 1531,
+             8136, 16]), each held against its plain version, which
              takes nothing from a kernel under test, and launched twice
              with the same bits, and the forward kernels' training
              entries (flash with its lse, held against the plain
@@ -154,7 +156,7 @@ src/repro_torch/kernels/csrc` unpacked into the git-ignored `.checkout/`)
 that differ from the current ones, and phase 2 times each such kernel
 through the same wrapper with the earlier library and the current one,
 interleaved (earlier, current, current, earlier): `parent_ms` and
-`change_ms` in its `[kernels]` records.
+`change_ms` in its `[kernels]` records, the backward kernels' too.
 """
 from __future__ import annotations
 
@@ -809,11 +811,12 @@ def _grad_errs(what, got, want, tols):
     return worst
 
 
-def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5):
+def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2):
     """The backward of causal attention at the training shape [B·Hq, S,
     hd]: the kernel (from the forward kernel's lse) against the plain
     formula, a second launch bit-equal, and one backward of PyTorch's
-    scaled_dot_product_attention as the library call."""
+    scaled_dot_product_attention as the library call.  With --parent the
+    kernel is timed against the earlier library, interleaved."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
@@ -852,10 +855,12 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5):
             "launch gave other bits")
     del got, again
     torch.cuda.empty_cache()
-    kernel_ms = time_ms(torch, lambda: flash_attention_bwd(
-        q, k, v, o, lse, do, causal=True), reps)
+    timed = _kernel_ms(torch, "flash_attention_bwd",
+                       lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal=True), reps)
     plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
-        q, k, v, o, lse, do, causal=True), 2)
+        q, k, v, o, lse, do, causal=True), plain_reps,
+        warmup=1 if plain_reps > 1 else 0)
     torch.cuda.empty_cache()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
@@ -873,7 +878,7 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5):
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"flash_attention_bwd causal [{bh}, {s}, {hd}] {dtype}",
                max_abs_err=err, tol=f"{tol:g}*max|ref| (dq, dk, dv)",
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               **timed, plain_ms=plain_ms, library_ms=library_ms,
                library="autograd of scaled_dot_product_attention"
                        "(is_causal=True): its backward alone",
                bound_ms=max(t_ops, t_bytes),
@@ -884,7 +889,8 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5):
 def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
     """The fused scan's backward at a falcon-mamba-7b training step's
     shape: the kernel (from the forward's checkpoint states) against the
-    plain reverse walk, a second launch bit-equal."""
+    plain reverse walk, a second launch bit-equal.  With --parent the
+    kernel is timed against the earlier library, interleaved."""
     import importlib
     scan = importlib.import_module("repro_torch.kernels.selective_scan")
     dev = "cuda"
@@ -921,8 +927,9 @@ def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
             f"selective_scan_bwd [{b}, {s}, {d}, {n}]: a second launch gave "
             "other bits")
     del got, again
-    kernel_ms = time_ms(torch, lambda: scan.selective_scan_fused_bwd(
-        dt, A, Bm, Cm, x, None, dy, states=states), reps)
+    timed = _kernel_ms(torch, "selective_scan_bwd",
+                       lambda: scan.selective_scan_fused_bwd(
+                           dt, A, Bm, Cm, x, None, dy, states=states), reps)
     plain_ms = time_ms(torch, lambda: scan.selective_scan_fused_bwd_plain(
         dt, A, Bm, Cm, x, None, dy), 1, warmup=0)
     torch.cuda.empty_cache()
@@ -944,7 +951,7 @@ def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
     rec = dict(case=f"selective_scan_bwd [{b}, {s}, {d}, {n}] x {x_dtype}",
                max_abs_err=err,
                tol=f"{tol:g}*max|ref| (dx in bf16: {dx_tol:g})",
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               **timed, plain_ms=plain_ms, library_ms=None,
                library="none (no single PyTorch call)",
                bound_parts_ms=dict(bytes=t_bytes, float32=t_flops,
                                    exp=t_exp),
@@ -1033,10 +1040,19 @@ def phase_kernels(torch, seed):
     torch.cuda.empty_cache()
     # the backward kernels at the training shapes (phase 8: llama3-8b's
     # 4 × 2048 tokens, 32 heads of 128; falcon-mamba-7b's d_inner 8192,
-    # N 16); their float32 paths are held against the CPU in phase 8
-    bwd = [_flash_bwd_case(torch, g, 128, 2048, 128, "bfloat16")]
+    # N 16); their float32 paths are held against the CPU in phase 8.
+    # Then the edges of their tilings, plain versions timed once: a
+    # sequence no 64-query tile or 128-key block divides, hd 64 (the other
+    # head width of the wgmma path), and a scan whose S and D no chunk or
+    # block of channels divides
+    bwd = [_flash_bwd_case(torch, g, 128, 2048, 128, "bfloat16"),
+           _flash_bwd_case(torch, g, 128, 1531, 128, "bfloat16",
+                           plain_reps=1),
+           _flash_bwd_case(torch, g, 128, 2048, 64, "bfloat16",
+                           plain_reps=1)]
     torch.cuda.empty_cache()
-    sbwd = [_scan_bwd_case(torch, g, 4, 2048, 8192, 16, "bfloat16")]
+    sbwd = [_scan_bwd_case(torch, g, 4, 2048, 8192, 16, "bfloat16"),
+            _scan_bwd_case(torch, g, 4, 1531, 8136, 16, "bfloat16")]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     # the entries of the kernel line: the main paths' shapes (the group-by

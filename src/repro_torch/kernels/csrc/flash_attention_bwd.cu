@@ -12,44 +12,77 @@
 //   D_i = Σ_d dO_id · O_id;            dS = P ⊙ (dO·Vᵀ − D);
 //   dV = Pᵀ·dO;  dK = scale·dSᵀ·Q;  dQ = scale·dS·K.
 // P is recomputed from q, k and lse: nothing [Sq, Sk]-sized is stored.
+// No float atomics anywhere: every launch gives the same bits.
 //
-// Three launches on the caller's stream, no float atomics, so every launch
-// gives the same bits:
-//   1. rowdot: D [BH, Sq] float32, one warp a row;
-//   2. dK/dV: one block per (bh, 64-key tile), which walks the query tiles a
-//      causal mask lets in (those from its first key on) and owns its keys'
-//      rows of dK and dV;
-//   3. dQ: one block per (bh, 64-row query tile), which walks the key tiles
-//      up to its diagonal and owns its rows of dQ.
-// Every output element is summed by one thread in one fixed order.
+// Bound: operations.  Causal, the function needs 5 products of
+// 2·BH·hd·(causal pairs) flops (QKᵀ, dO·Vᵀ, PᵀdO, dSᵀQ, dS·K), far above
+// the card's flop-per-byte line at the training lengths.
 //
-// Bound: operations.  Causal, the two kernels do 5 products of
-// 2·BH·hd·(causal pairs) flops each (QKᵀ twice, dO·Vᵀ twice, and one
-// each of PᵀdO, dSᵀQ and dS·K: 7 products, 2.5× the forward's 2·2), far
-// above the card's flop-per-byte line at the training lengths.
+// bfloat16, hd 64 and 128 (the training path): one pass over the keys on
+// wgmma, two launches.
+//   1. rowdot: D [BH, Sq] float32, one warp a row; it also zeroes the sync
+//      words (a ticket counter and one flag a (bh, 64-row query tile)).
+//   2. One block of two warpgroups (256 threads) a (bh, 128-key block);
+//      each warpgroup owns 64 keys.  K and V stay in shared memory; the
+//      64-row Q and dO tiles the block's keys reach (causal: those from
+//      its first key on) come through a two-stage cp.async ring, in the
+//      128-byte swizzle wgmma reads (csrc/wgmma.cuh), with lse·log2 e and
+//      D beside them.  Per tile a warpgroup forms Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+//      (m64n64k16, both operands in shared memory), P and dS in float32
+//      registers, then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ as bf16
+//      register A operands (m64n{hd}k16; dK and dV stay in registers for
+//      the block's life).  dSᵀ also goes to shared memory, and after one
+//      barrier each warpgroup forms half the columns of the tile's dQ part,
+//      dS·K over all 128 keys (MN-major operands on both sides).
+//   So S and dP are formed once: 5 products where the earlier design (a
+//   dK/dV kernel and a dQ kernel, both on mma.sync) formed 7.
+//   dQ is summed in a fixed order across blocks, FlashAttention-3's
+//   deterministic mode: each (bh, query tile) has a flag; the key blocks
+//   that reach the tile add their parts highest key block first (its
+//   position is top − kb, top the tile's highest reaching block).  A block
+//   waits until the flag reads 8·position (each of the 8 warps of every
+//   block before it has released), prefetches the parts summed so far by
+//   cp.async while its S and dP products run, adds its own in registers
+//   and stores the sum with plain stores into a float32 workspace (the
+//   wrapper's scratch, after D and the flags; each thread's part as whole
+//   16-byte chunks).  Each warp releases the tile (lane 0's release
+//   increment after a __syncwarp) one tile later, after its dK product is
+//   issued, so that the release's fence finds the stores done.  The
+//   first adder stores, the last (key block 0) adds, scales and writes dQ
+//   in bf16 itself: no third pass and no zeroing of the workspace.
+//   Causal, block kb+1 starts two tiles later than kb and is two tiles
+//   ahead on any tile they share, so waits are rare; not causal, every
+//   block starts at tile 0 and each waits on the one before.  Blocks
+//   take their (bh, key block) from a ticket counter (an integer atomic),
+//   bh by bh and the highest key block first: a block only ever waits on
+//   a lower ticket, held by a block that is running or done, so the
+//   order cannot deadlock whatever order the card starts blocks in (a
+//   wait past a second traps).
+//   Rows past Sq get lse = +inf (P = 0); keys past Sk are zero-filled, so
+//   their dS·K adds nothing to dQ and their dK, dV rows are not stored;
+//   causal-masked entries are 0, as the forward's exp(-1e30 − m).
+//   Registers at hd 128: dK, dV 64 floats each, S and dP 32 each, dQ's
+//   part 32 (about 250 in all, no spill).  Shared memory at hd 128: K, V 32 KB
+//   each, two stages of Q and dO 16 KB each, dSᵀ 16 KB, the prefetched
+//   dQ parts 32 KB: 178 KB, one block an SM.  What bounds it on an H100
+//   (PERF.md §6): the tiles' dQ parts cross L2 twice (read and written
+//   back, about 2 GB at the training shape) and the two warpgroups work
+//   in step, so the tensor cores idle while both form P and dS.
+//   dQ's sum runs in another order than the two-kernel design's (a sum of
+//   float32 parts, one a key block), so its last bits differ from it.
 //
-// bfloat16 (the training path): every product on the tensor cores, with
-// mma.sync m16n8k16 (bf16 in, float32 accumulators; csrc/ptx.cuh), tiles
-// staged by 16-byte cp.async in the forward's XOR-swizzled layout so that
-// ldmatrix (row-major operand) and ldmatrix.trans (the transposed one) read
-// eight rows without bank conflicts.
-//   * dK/dV: 4 warps, 16 keys each; K and V stay in shared memory for the
-//     block's life; Q and dO come in 32-row tiles through a two-stage ring
-//     with lse·log2(e) and D beside them.  Per tile a warp forms Sᵀ = K·Qᵀ
-//     and dPᵀ = V·dOᵀ in accumulator fragments, Pᵀ = exp2(Sᵀ·scale·log2 e −
-//     lse·log2 e) and dSᵀ = Pᵀ ⊙ (dPᵀ − D) in float32 there, re-packs them
-//     to bf16 A fragments and accumulates dV += Pᵀ·dO and dK += dSᵀ·Q in
-//     float32 registers (2·16·hd floats a warp);
-//   * dQ: 4 warps, 16 query rows each; Q, dO (and the rows' lse and D) stay
-//     in shared memory; K and V come in 64-key tiles through the ring; per
-//     tile S = Q·Kᵀ, dP = dO·Vᵀ, P, dS as above, dQ += dS·K;
-//   * rows past Sq get lse = +inf, so their P is exactly 0; keys past Sk are
-//     zero-filled and, in dQ, masked to P = 0; causal-masked entries are 0,
-//     as the forward's exp(-1e30 − m).  Only tiles that cross the diagonal
-//     or the ragged end are masked element by element.
-//   Shared memory at hd 128: dK/dV 64 KB (K, V 16 KB each, two stages of
-//   32-row Q and dO tiles); dQ 96 KB (Q and dO 16 KB each, two stages of
-//   64-key K and V tiles).
+// bfloat16, hd 16 and 32: the earlier two-kernel design on mma.sync
+// m16n8k16 (csrc/ptx.cuh) stays.  A 32- or 16-column bf16 row is 64 or 32
+// bytes, under the 128-byte swizzle line the wgmma path is built on, and
+// no model of the repo trains at those widths; three launches:
+//   * dK/dV: one block per (bh, 64-key tile), 4 warps of 16 keys; K and V
+//     stay in shared memory, 32-row Q and dO tiles come through a
+//     two-stage ring; per tile Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, P, dS in float32,
+//     re-packed to bf16 A fragments, dV += Pᵀ·dO, dK += dSᵀ·Q;
+//   * dQ: one block per (bh, 64-row query tile); K and V come in 64-key
+//     tiles; S = Q·Kᵀ, dP = dO·Vᵀ, P, dS as above, dQ += dS·K;
+//   tiles staged by 16-byte cp.async in the forward's XOR-swizzled layout
+//   for ldmatrix.
 //
 // float32 (the 2-layer float32 model check): float32 FMAs, no tensor cores.
 // 256 threads a block, 32 keys (dK/dV) or 32 query rows (dQ) a block,
@@ -63,6 +96,7 @@
 #include <cstdint>
 
 #include "ptx.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -72,12 +106,17 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // ---------------------------------------------------------------------------
-// D = rowsum(dO ⊙ O), float32, one warp a row
+// D = rowsum(dO ⊙ O), float32, one warp a row; the wgmma path's sync words
+// zeroed on the way
 // ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void rowdot_kernel(const T* __restrict__ dO, const T* __restrict__ O,
-                              float* __restrict__ D, long long rows, int hd) {
+                              float* __restrict__ D, long long rows, int hd,
+                              unsigned* __restrict__ sync, long long nsync) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nsync; i += stride)
+    sync[i] = 0u;
   const long long r = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
@@ -89,7 +128,7 @@ __global__ void rowdot_kernel(const T* __restrict__ dO, const T* __restrict__ O,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// bfloat16, hd 16 and 32: mma.sync, a dK/dV kernel and a dQ kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kTcThreads = 128;  // 4 warps
@@ -402,6 +441,336 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, c
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, hd 64 and 128: wgmma, one pass over the keys
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 256;  // two warpgroups
+constexpr int WQ = 64;           // query rows of a tile
+constexpr int WK = 128;          // keys of a block, 64 a warpgroup
+
+// floats of the scratch before the dQ workspace: D [BH, Sq], then the sync
+// words (the ticket counter, one flag a (bh, query tile)), padded to 16
+// bytes.  The workspace holds a float32 part of dQ a (bh, query tile) in
+// the threads' accumulator order: float4 k of thread tid at (k·256 + tid)·4,
+// so that each thread moves whole 16-byte chunks and a warp 512 bytes in a
+// row
+inline long long wg_sync_words(int BH, int Sq) { return 1 + (long long)BH * ((Sq + WQ - 1) / WQ); }
+inline long long wg_acc_offset(int BH, int Sq) {
+  return ((long long)BH * Sq + wg_sync_words(BH, Sq) + 3) / 4 * 4;
+}
+
+template <int HD>
+constexpr size_t wg_smem_bytes() {
+  // 1024 of slack to align the tiles; K, V; two stages of Q and dO; dSᵀ;
+  // the dQ parts read from the workspace; two stages of lse·log2 e and D;
+  // the ticket
+  return 1024 + (size_t)(2 * WK * HD + 4 * WQ * HD + WK * WQ) * 2 + (size_t)WQ * HD * 4 +
+         4 * WQ * 4 + 16;
+}
+
+// rows [r0, r0 + R) of a [S][HD] bf16 matrix into an R-row swizzled tile
+// at shared address `tile`, by 16-byte cp.async; rows at or past S are
+// zero-filled
+template <int HD, int R>
+__device__ __forceinline__ void stage_sw(uint32_t tile, const __nv_bfloat16* src, int r0, int S,
+                                         int tid) {
+  constexpr int C = HD / 8;
+  static_assert(R * C % kWgThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int k = 0; k < R * C / kWgThreads; ++k) {
+    const int i = tid + k * kWgThreads, r = i / C, c = i % C, row = r0 + r;
+    const bool ok = row < S;
+    ptx::cp_async16(tile + wg::sw128<R>(r, c), src + (ok ? (long long)row * HD + c * 8 : 0),
+                    ok ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_wgmma_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
+                     const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
+                     const float* __restrict__ LSE, const float* __restrict__ Dv,
+                     __nv_bfloat16* __restrict__ dQ, __nv_bfloat16* __restrict__ dK,
+                     __nv_bfloat16* __restrict__ dV, float* __restrict__ acc,
+                     unsigned* __restrict__ sync, int Sq, int Sk, float scale, int causal) {
+  static_assert(HD == 64 || HD == 128, "the wgmma path takes hd 64 and 128");
+  constexpr int NQ = HD / 2;      // dQ columns of a warpgroup
+  constexpr int TILE = WQ * HD * 2;  // bytes of a Q or dO tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (ptx::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = ptx::smem_addr(base);  // [WK][HD]
+  const uint32_t sV = sK + WK * HD * 2;      // [WK][HD]
+  const uint32_t sQ = sV + WK * HD * 2;      // [2][WQ][HD]
+  const uint32_t sO = sQ + 2 * TILE;         // [2][WQ][HD]
+  const uint32_t sS = sO + 2 * TILE;         // dSᵀ [WK][WQ]
+  unsigned char* dSp = base + (sS - sK);
+  float4* accS = reinterpret_cast<float4*>(dSp + WK * WQ * 2);  // [NQ / 8][256]
+  const uint32_t sA = sS + WK * WQ * 2;
+  float* Ls = reinterpret_cast<float*>(accS + WQ * HD / 4);  // [2][WQ] lse·log2 e
+  float* Ds = Ls + 2 * WQ;                                   // [2][WQ]
+  int* slot = reinterpret_cast<int*>(Ds + 2 * WQ);
+
+  const int tid = threadIdx.x, w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nkb = (Sk + WK - 1) / WK, nq = (Sq + WQ - 1) / WQ;
+  // the ticket: bh by bh, the highest key block first
+  if (tid == 0) *slot = (int)atomicAdd(sync, 1u);
+  __syncthreads();
+  const int ticket = *slot;
+  const int bh = ticket / nkb, kb = nkb - 1 - ticket % nkb, k0 = kb * WK;
+  const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
+  unsigned* flags = sync + 1 + (long long)bh * nq;
+  const float scale_log2 = scale * kLog2e;
+  const int jstart = causal ? k0 / WQ : 0;  // queries before k0 see none of these keys
+
+  stage_sw<HD, WK>(sK, K + koff * HD, k0, Sk, tid);
+  stage_sw<HD, WK>(sV, V + koff * HD, k0, Sk, tid);
+  auto load = [&](int j, int st) {
+    const int q0 = j * WQ;
+    stage_sw<HD, WQ>(sQ + st * TILE, Q + qoff * HD, q0, Sq, tid);
+    stage_sw<HD, WQ>(sO + st * TILE, dO + qoff * HD, q0, Sq, tid);
+    if (tid < WQ) {
+      const int q = q0 + tid;
+      Ls[st * WQ + tid] = q < Sq ? LSE[qoff + q] * kLog2e : INFINITY;  // P = 0 past Sq
+      Ds[st * WQ + tid] = q < Sq ? Dv[qoff + q] : 0.f;
+    }
+  };
+  if (jstart < nq) load(jstart, 0);
+  ptx::cp_async_commit();
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  const int krow = 64 * w + 16 * warp + g;  // this thread's keys: k0 + krow, k0 + krow + 8
+  int pending = -1;  // the tile whose dQ part this block stored and has not released
+
+  for (int j = jstart; j < nq; ++j) {
+    ptx::cp_async_wait<0>();
+    wg::fence_async_shared();
+    __syncthreads();  // tile j landed everywhere; the other stage and dSᵀ are free
+    if (j + 1 < nq) load(j + 1, (j + 1 - jstart) & 1);
+    ptx::cp_async_commit();
+    const int st = (j - jstart) & 1, q0 = j * WQ;
+    const uint32_t q_s = sQ + st * TILE, o_s = sO + st * TILE;
+    // the key blocks that add to this tile's dQ before this one: the
+    // highest key block reaching the tile adds first
+    const int pos = (causal ? min(nkb - 1, q0 / WK) : nkb - 1) - kb;
+
+    // Sᵀ = K Qᵀ, then dPᵀ = V dOᵀ, over the warpgroup's 64 keys and the
+    // tile's 64 queries: two commit groups, so that P is formed while dPᵀ
+    // is still on the tensor cores
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wg::hold(s);
+    wg::hold(dp);
+    wg::fence();
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd) {
+      const uint32_t ko = (kd >> 2) * WK * 128 + 64 * w * 128 + (kd & 3) * 32;
+      const uint32_t qo = (kd >> 2) * WQ * 128 + (kd & 3) * 32;
+      wg::mma_m64n64k16_ss<0, 0>(s, wg::desc(sK + ko, 16, 1024), wg::desc(q_s + qo, 16, 1024), 1);
+    }
+    wg::commit();
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd) {
+      const uint32_t ko = (kd >> 2) * WK * 128 + 64 * w * 128 + (kd & 3) * 32;
+      const uint32_t qo = (kd >> 2) * WQ * 128 + (kd & 3) * 32;
+      wg::mma_m64n64k16_ss<0, 0>(dp, wg::desc(sV + ko, 16, 1024), wg::desc(o_s + qo, 16, 1024),
+                                 1);
+    }
+    wg::commit();
+
+    // while they run: wait for this tile's turn and prefetch the parts of
+    // dQ summed so far
+    float* part = acc + ((long long)bh * nq + j) * (WQ * HD);
+    if (pos > 0) {
+      // the blocks waited on hold lower tickets, so they run or are done;
+      // a wait past a second is a fault: trap rather than hang the card
+      for (long long spins = 0; wg::ld_acquire(flags + j) != 8u * pos; ++spins) {
+        if (spins > (1ll << 26)) __trap();
+        __nanosleep(20);
+      }
+#pragma unroll
+      for (int k = 0; k < NQ / 8; ++k)
+        ptx::cp_async16(sA + (k * kWgThreads + tid) * 16, part + (k * kWgThreads + tid) * 4, 16);
+    }
+    ptx::cp_async_commit();
+
+    // Pᵀ = exp(Sᵀ·scale − lse), masked; its bf16 A fragments (k16 step kk
+    // = queries 16kk..16kk+15), and dV += Pᵀ dO (B MN-major: the tile's
+    // rows are the k) while dPᵀ finishes
+    wg::wait<1>();
+    wg::hold(s);
+    const bool edge = causal && k0 + 64 * w + 63 > q0;
+    const float* ls = Ls + st * WQ;
+    const float* ds = Ds + st * WQ;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * jj + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e, qi = 8 * jj + 2 * t + (e & 1);
+        float p = exp2f(s[i] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+        if (edge && k0 + krow + 8 * (e >> 1) > q0 + qi) p = 0.f;
+        s[i] = p;
+      }
+    }
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = ptx::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      wg::hold(pa[kk]);
+    }
+    wg::hold(dv);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bo = wg::desc(o_s + kk * 2048, WQ * 128, 1024);
+      if constexpr (HD == 128)
+        wg::mma_m64n128k16_rs<1>(dv, pa[kk], bo, 1);
+      else
+        wg::mma_m64n64k16_rs<1>(dv, pa[kk], bo, 1);
+    }
+    wg::commit();
+
+    // dSᵀ = Pᵀ ⊙ (dPᵀ − D): bf16 A fragments, also to shared memory ([WK
+    // keys][WQ queries], one swizzled panel); dK += dSᵀ Q
+    wg::wait<1>();
+    wg::hold(dp);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 d2 = *reinterpret_cast<const float2*>(ds + 8 * jj + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        dp[i] = s[i] * (dp[i] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        sa[kk][r] = ptx::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        const int row = krow + 8 * (r & 1), jj = 2 * kk + (r >> 1);
+        *reinterpret_cast<uint32_t*>(dSp + row * 128 + ((jj ^ g) << 4) + 4 * t) = sa[kk][r];
+      }
+      wg::hold(sa[kk]);
+    }
+    wg::hold(dk);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bq = wg::desc(q_s + kk * 2048, WQ * 128, 1024);
+      if constexpr (HD == 128)
+        wg::mma_m64n128k16_rs<1>(dk, sa[kk], bq, 1);
+      else
+        wg::mma_m64n64k16_rs<1>(dk, sa[kk], bq, 1);
+    }
+    wg::commit();
+
+    // release the last tile's dQ part, long stored by now, so that lane
+    // 0's release waits on nothing (each warp, once its lanes' stores are
+    // ordered before lane 0's release)
+    if (pending >= 0) {
+      __syncwarp();
+      if (lane == 0) wg::add_release(flags + pending, 1u);
+      pending = -1;
+    }
+
+    // the tile's dQ part, dS K over the block's 128 keys: this warpgroup's
+    // NQ columns (A = dS from dSᵀ, MN-major; B = K, MN-major)
+    wg::fence_async_shared();
+    __syncthreads();  // both warpgroups' dSᵀ are in shared memory
+    float dq[NQ / 2];
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) dq[i] = 0.f;
+    wg::hold(dq);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) {
+      const uint64_t da = wg::desc(sS + kk * 2048, WK * 128, 1024);
+      const uint64_t db = wg::desc(sK + (HD == 128 ? w * WK * 128 : w * 64) + kk * 2048,
+                                   WK * 128, 1024);
+      if constexpr (HD == 128)
+        wg::mma_m64n64k16_ss<1, 1>(dq, da, db, 1);
+      else
+        wg::mma_m64n32k16_ss<1, 1>(dq, da, db, 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::hold(dq);
+    wg::hold(dv);
+    wg::hold(dk);
+
+    // the ordered add: highest key block first; key block 0 is last and
+    // writes dQ = scale·Σ in bf16
+    ptx::cp_async_wait<0>();  // this thread's prefetched parts are in
+#pragma unroll
+    for (int k = 0; k < NQ / 8; ++k) {
+      float4 v = make_float4(dq[4 * k], dq[4 * k + 1], dq[4 * k + 2], dq[4 * k + 3]);
+      if (pos > 0) {
+        const float4 a = accS[k * kWgThreads + tid];
+        v = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+      }
+      if (kb == 0) {
+        // v holds (row, col), (row, col + 1), (row + 8, col), (row + 8, col + 1)
+        const int r = q0 + 16 * warp + g, c = w * NQ + 8 * k + 2 * t;
+        if (r < Sq)
+          *reinterpret_cast<uint32_t*>(dQ + (qoff + r) * HD + c) =
+              ptx::pack_bf16(v.x * scale, v.y * scale);
+        if (r + 8 < Sq)
+          *reinterpret_cast<uint32_t*>(dQ + (qoff + r + 8) * HD + c) =
+              ptx::pack_bf16(v.z * scale, v.w * scale);
+      } else {
+        __stcg(reinterpret_cast<float4*>(part) + k * kWgThreads + tid, v);
+      }
+    }
+    if (kb != 0) pending = j;
+  }
+  if (pending >= 0) {
+    __syncwarp();
+    if (lane == 0) wg::add_release(flags + pending, 1u);
+  }
+  ptx::cp_async_wait<0>();  // no copy outlives the block
+
+  // dK = scale·Σ dSᵀQ, dV = Σ PᵀdO: rows k0 + krow (+8), bf16
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + krow + 8 * h;
+    if (row >= Sk) continue;
+    uint32_t* kd = reinterpret_cast<uint32_t*>(dK + (koff + row) * HD + 2 * t);
+    uint32_t* vd = reinterpret_cast<uint32_t*>(dV + (koff + row) * HD + 2 * t);
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      kd[jj * 4] = ptx::pack_bf16(dk[4 * jj + 2 * h] * scale, dk[4 * jj + 2 * h + 1] * scale);
+      vd[jj * 4] = ptx::pack_bf16(dv[4 * jj + 2 * h], dv[4 * jj + 2 * h + 1]);
+    }
+  }
+}
+
+template <int HD>
+int launch_bf16_wg(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, float* d, void* dq, void* dk, void* dv, int BH, int Sq,
+                   int Sk, float scale, int causal, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const size_t bytes = wg_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(bwd_wgmma_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)BH * ((Sk + WK - 1) / WK);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  unsigned* sync = reinterpret_cast<unsigned*>(d + (long long)BH * Sq);
+  float* acc = d + wg_acc_offset(BH, Sq);
+  bwd_wgmma_kernel<HD><<<(unsigned)blocks, kWgThreads, bytes, s>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, d, (bf*)dq, (bf*)dk,
+      (bf*)dv, acc, sync, Sq, Sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMAs
 // ---------------------------------------------------------------------------
 
@@ -587,22 +956,27 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
+           const float* lse, float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
            float scale, int causal, cudaStream_t s) {
   if (dtype == 0)
     return launch_f32<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
-  if (dtype == 1)
+  if constexpr (HD >= 64)
+    return launch_bf16_wg<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+  else
     return launch_bf16<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike).
-// q, o, dout, dq: [BH, Sq, hd]; k, v, dk, dv: [BH, Sk, hd]; lse and the
-// scratch d: [BH, Sq] float32 (lse as flash_attention_lse_launch writes it;
-// d is overwritten).  All contiguous, bfloat16 ones 16-byte aligned.  hd ∈
-// {16, 32, 64, 128}.  Returns cudaGetLastError() after the launches.
+// q, o, dout, dq: [BH, Sq, hd]; k, v, dk, dv: [BH, Sk, hd]; lse: [BH, Sq]
+// float32 as flash_attention_lse_launch writes it.  The scratch d (float32,
+// overwritten) holds D [BH, Sq]; for bfloat16 at hd 64 and 128 it goes on
+// with the sync words (1 + BH·ceil(Sq/64) of 32 bits), padded to 16 bytes,
+// then the dQ workspace [BH, ceil(Sq/64), 64·hd]: BH·Sq + 1 + BH·ceil(Sq/64)
+// rounded up to a multiple of 4, plus BH·ceil(Sq/64)·64·hd floats in all.  All contiguous,
+// bfloat16 ones and d 16-byte aligned.  hd ∈ {16, 32, 64, 128}.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                           const void* v, const void* o, const void* lse,
                                           const void* dout, void* dq, void* dk, void* dv,
@@ -611,27 +985,29 @@ extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* 
   if (BH < 0 || Sq < 0 || Sk < 1 || (Sq + BR - 1) / BR > 65535 || (Sk + BR - 1) / BR > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
-                     (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
+                     (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)d) % 16)
     return (int)cudaErrorMisalignedAddress;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (BH == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long rows = (long long)BH * Sq;
-  if (rows > 0) {
+  const long long nsync = dtype == 1 && hd >= 64 ? wg_sync_words(BH, Sq) : 0;
+  unsigned* sync = reinterpret_cast<unsigned*>((float*)d + rows);
+  {
     const int warps = 8;
-    const long long blocks = (rows + warps - 1) / warps;
+    const long long blocks = rows > 0 ? (rows + warps - 1) / warps : 1;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
       rowdot_kernel<float><<<(unsigned)blocks, warps * 32, 0, s>>>(
-          (const float*)dout, (const float*)o, (float*)d, rows, hd);
+          (const float*)dout, (const float*)o, (float*)d, rows, hd, sync, nsync);
     else
       rowdot_kernel<__nv_bfloat16><<<(unsigned)blocks, warps * 32, 0, s>>>(
-          (const __nv_bfloat16*)dout, (const __nv_bfloat16*)o, (float*)d, rows, hd);
+          (const __nv_bfloat16*)dout, (const __nv_bfloat16*)o, (float*)d, rows, hd, sync, nsync);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   const float* L = (const float*)lse;
-  const float* D = (const float*)d;
+  float* D = (float*)d;
   switch (hd) {
     case 16: return launch<16>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
     case 32: return launch<32>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);

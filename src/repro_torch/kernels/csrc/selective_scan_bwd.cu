@@ -16,29 +16,51 @@
 //
 // The states.  The forward's checkpoint entry writes the state before
 // every kCkpt steps ([B, ceil(S/kCkpt), D, N] float32; kCkpt = 16, in
-// csrc/selective_scan.cuh).  A thread walks
-// the chunks last to first: it recomputes its chunk's 16 states from the
-// checkpoint in registers (exactly the forward's arithmetic), then walks
-// them in reverse.  Nothing [B, S, D, N]-sized is stored.
+// csrc/selective_scan.cuh).  A thread walks the chunks last to first: it
+// recomputes its chunk's 16 states from the checkpoint in registers
+// (exactly the forward's arithmetic), keeping each a_t beside its h_t, then
+// walks them in reverse: one exponential a (t, d, n) where the earlier
+// design took two.  a_t·g_t is both the carried gradient and the factor of
+// dz_t = a_t·g_t·h_{t-1}.  Nothing [B, S, D, N]-sized is stored.
 //
-// Layout: the forward's.  A block owns 32 channels d of one batch row b;
-// a channel's N states are spread over L = N / NPT lanes, NPT = 2 states a
-// thread (N = 1: one state on one lane); the chunk's dt, x, dy (32
-// channels) and B, C rows are staged in shared memory.
+// Layout.  A channel's N states are spread over L = N / NPT lanes, NPT =
+// min(kNpt, N) = 2 states a thread; a block of 512 threads owns 512/L
+// channels d of one batch row b (N = 16: 8 lanes a channel, 64 channels:
+// half the dB and dC parts that 32-channel blocks wrote and read back,
+// 268 MB at the falcon-mamba-7b step's shape), at most 128 (N ≤ 8: fewer
+// threads).
+// The chunk's dt, x, dy and B, C rows are staged in shared memory in two
+// stages: each thread loads its share of chunk c − 1 into registers before
+// it walks chunk c and parks it in the other stage after, so the loads'
+// latency hides behind the walk, with two barriers a chunk.
 //
 // Sums, with no float atomics (the same bits on every launch):
-//   * ddt, dx (over n): a shuffle sum over the channel's L lanes;
-//   * dB, dC (over d): a shuffle sum over the warp's channels, then the
-//     block's warps summed in order in shared memory, one partial per
-//     (b, block of 32 channels, t, n); a second launch sums the D/32
-//     partials in order;
-//   * dA (over b and t): each thread sums its t in registers, one partial
-//     per (b, d, n); the second launch sums the B partials in order.
+//   * Σ_n dz·A and Σ_n g·B: each lane's two partial sums go to shared
+//     memory a step (one 8-byte store), and after the walk one thread a (t,
+//     d) sums the channel's L lanes in order and forms ddt = Σ dz·A +
+//     x·Σ g·B and dx = dt·Σ g·B (a butterfly over the L lanes a step cost
+//     ten instructions where the store costs one);
+//   * dB, dC (over d): a reduce-scatter butterfly over the warp's 32/L
+//     channels, each level halving the 2·NPT values in flight, so a lane
+//     ends with whole sums for its share of (n, dB or dC): 3 shuffles a
+//     thread-step at N = 16 where the earlier all-reduce took 8; then the
+//     block's warps in order in shared memory, one part per (b, block of
+//     channels, t, n); a second launch sums the parts in order;
+//   * dA (over b and t): each thread sums its t in registers, one part per
+//     (b, d, n); the second launch sums the B parts in order.
+// The sums over n and d run in another order than the earlier design's,
+// so the last bits of ddt, dx, dB and dC differ from it.
 //
-// Bound: the S·D·N exponentials, twice (the recompute and the reverse
-// walk), or the bytes: dt, x, dy, ddt, dx [B, S, D] and the checkpoints
-// read once.  The shuffles (log2 L for ddt and dx, log2(32/L) for dB and
-// dC, a step) come on top: this first version is not tuned.
+// Bound: the bytes (dt, x, dy, ddt, dx [B, S, D] and the checkpoints read
+// or written once) or the S·D·N exponentials.  It runs far from both: the
+// instructions a (t, d, n) bound it.  Measured on an H100 at the
+// falcon-mamba-7b step's shape (PERF.md §6, tools/kernel_ab.py): of the
+// layouts tried, 2 states a thread on 512 threads is the fastest; 4 states
+// a thread (241 registers, 8 warps an SM), 256-thread blocks of 32
+// channels (twice the parts) and forming a_t again in the reverse walk
+// (fewer registers) were slower.  The shuffles over the warp's channels
+// take about a sixth of the walk's time; its other arithmetic and its
+// shared-memory reads most of the rest.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -46,7 +68,10 @@
 
 namespace {
 
-constexpr int kChannels = 32;   // channels d a block owns
+constexpr int kNpt = 2;          // states of a channel a thread holds (at most N)
+constexpr int kThreads = 512;    // threads of a block (fewer when N is small)
+constexpr int kMaxChannels = 128;  // channels of a block at most (shared memory)
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename XT> __device__ __forceinline__ float widen(XT v);
 template <> __device__ __forceinline__ float widen<float>(float v) { return v; }
@@ -58,6 +83,8 @@ template <> __device__ __forceinline__ float narrow<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+__host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
 
 struct Args {
   const float* dt;       // [B, S, D]
@@ -77,36 +104,100 @@ struct Args {
   int S, D, N, nblk;
 };
 
-template <int NPT, int L>
-constexpr int smem_floats() {
-  // dt, x, dy, ddt, dx [kCkpt][32]; B, C [kCkpt][N]; warp sums [kCkpt][L][N] × 2
-  return kCkpt * (5 * kChannels + 2 * NPT * L + 2 * L * NPT * L);
+// The P lanes idx·STRIDE + (lane % STRIDE) of a group each hold V values; a
+// butterfly over them, level k exchanging with the lane whose idx differs in
+// bit k.  While a lane holds more than one value it keeps the half its bit
+// selects and sends the other (a reduce-scatter: each level halves the
+// values in flight), then it adds what it receives (an all-reduce of the
+// one value left).  Afterwards v[0..R), R = max(V / P, 1), holds the
+// group's sums of the values first .. first + R − 1, first = Σ_k bit_k(idx)
+// · V / 2^(k+1) over the halving levels.  The order of every sum is fixed.
+template <int V, int P, int STRIDE>
+__device__ __forceinline__ void butterfly(float (&v)[V], int idx) {
+#pragma unroll
+  for (int k = 0; k < ilog2(P); ++k) {
+    const int half = V >> (k + 1);
+    const bool up = (idx >> k) & 1;
+    if (half >= 1) {
+#pragma unroll
+      for (int i = 0; i < (half >= 1 ? half : 1); ++i) {
+        const float send = up ? v[i] : v[i + half];
+        const float keep = up ? v[i + half] : v[i];
+        v[i] = keep + __shfl_xor_sync(kFull, send, STRIDE << k);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], STRIDE << k);
+    }
+  }
 }
 
+// the first value a lane holds after butterfly<V, P, .>, and whether it is
+// the one lane of its group that holds it (the all-reduce levels leave
+// copies)
+template <int V, int P>
+__device__ __forceinline__ int butterfly_first(int idx) {
+  int first = 0;
+#pragma unroll
+  for (int k = 0; k < ilog2(P); ++k)
+    if ((V >> (k + 1)) >= 1 && ((idx >> k) & 1)) first += V >> (k + 1);
+  return first;
+}
+template <int V, int P>
+__device__ __forceinline__ bool butterfly_owner(int idx) {
+  constexpr int halving = ilog2(V) < ilog2(P) ? ilog2(V) : ilog2(P);
+  return (idx >> halving) == 0;
+}
+
+template <int NPT, int L>
+struct Cfg {
+  static constexpr int N = NPT * L;  // states of a channel
+  // threads: kThreads, but at least 32 channels (the wrapper's scratch
+  // holds the dB, dC parts of ceil(D/32) blocks) and at most kMaxChannels
+  static constexpr int T0 = kThreads > 32 * L ? kThreads : 32 * L;
+  static constexpr int T = T0 < kMaxChannels * L ? T0 : kMaxChannels * L;
+  static constexpr int W = T / 32;   // warps
+  static constexpr int CH = T / L;   // channels of a block
+  static constexpr int P = 32 / L;   // channels of a warp
+  static constexpr int V = 2 * NPT;  // dB, dC values a thread-step
+  static constexpr int LANES = 2 * L + 2;  // floats of a (t, d)'s lane sums, padded
+  // floats of shared memory: two stages of dt, x, dy [kCkpt][CH] and B, C
+  // [kCkpt][N]; each lane's Σ dz·A, Σ g·B [kCkpt][CH][L][2] (a (t, d) row
+  // padded to LANES floats, so that neither its writes nor its reads meet
+  // in a bank); the warps' dB, dC sums [kCkpt][W][2N]
+  static constexpr int STAGE = kCkpt * (3 * CH + 2 * N);
+  static constexpr int FLOATS = 2 * STAGE + kCkpt * CH * LANES + kCkpt * W * 2 * N;
+};
+
+// what a thread loads of one chunk, held in registers while the chunk
+// before it is walked
 template <int NPT, int L, typename XT>
-__global__ void __launch_bounds__(kChannels * L) scan_bwd_kernel(Args g) {
-  constexpr int N = NPT * L;
-  constexpr int W = L;  // warps a block (32·L threads)
+struct Prefetch {
+  using C = Cfg<NPT, L>;
+  static constexpr int PER = (kCkpt * C::CH + C::T - 1) / C::T;  // of dt, x, dy
+  static constexpr int PERN = (kCkpt * C::N + C::T - 1) / C::T;  // of B, C
+  float dt[PER], dy[PER], b[PERN], c[PERN];
+  XT x[PER];
+};
+
+template <int NPT, int L, typename XT>
+__global__ void __launch_bounds__(Cfg<NPT, L>::T) scan_bwd_kernel(Args g) {
+  using C = Cfg<NPT, L>;
+  constexpr int N = C::N, CH = C::CH, P = C::P, V = C::V, T = C::T, W = C::W;
+  constexpr int R = V / P > 1 ? V / P : 1;  // dB, dC sums a lane holds after the butterfly
   extern __shared__ __align__(16) float sm[];
-  float* dt_s = sm;                         // [kCkpt][32]
-  float* x_s = dt_s + kCkpt * kChannels;    // [kCkpt][32]
-  float* dy_s = x_s + kCkpt * kChannels;    // [kCkpt][32]
-  float* ddt_s = dy_s + kCkpt * kChannels;  // [kCkpt][32]
-  float* dx_s = ddt_s + kCkpt * kChannels;  // [kCkpt][32]
-  float* b_s = dx_s + kCkpt * kChannels;    // [kCkpt][N]
-  float* c_s = b_s + kCkpt * N;             // [kCkpt][N]
-  float* wb_s = c_s + kCkpt * N;            // [kCkpt][W][N]
-  float* wc_s = wb_s + kCkpt * W * N;       // [kCkpt][W][N]
+  float* lane_s = sm + 2 * C::STAGE;        // [kCkpt][CH][LANES]
+  float* w_s = lane_s + kCkpt * CH * C::LANES;  // [kCkpt][W][2N]
 
   const int S = g.S, D = g.D;
   const int b = blockIdx.y, blk = blockIdx.x;
-  const int d0 = blk * kChannels;
+  const int d0 = blk * CH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ch = tid / L;               // channel within the block
-  const int n0 = (tid % L) * NPT;       // first state of the thread
+  const int ch = tid / L;          // channel within the block
+  const int l = tid % L;           // state group within the channel
+  const int n0 = l * NPT;          // first state of the thread
+  const int cw = lane / L;         // channel within the warp
   const int d = d0 + ch;
   const bool live = d < D;
-  const int nthreads = blockDim.x;
   const int nck = (S + kCkpt - 1) / kCkpt;
   const XT* x = static_cast<const XT*>(g.x);
   XT* dx = static_cast<XT*>(g.dx);
@@ -123,40 +214,87 @@ __global__ void __launch_bounds__(kChannels * L) scan_bwd_kernel(Args g) {
     }
   }
 
+  // chunk c's inputs into registers (rows past S and channels past D as 0)
+  using PF = Prefetch<NPT, L, XT>;
+  PF pf;
+  float hs_next[NPT];
+  auto fetch = [&](int c) {
+    const int t0 = c * kCkpt, tn = min(kCkpt, S - t0);
+    const long long row0 = (long long)b * S + t0;
+#pragma unroll
+    for (int k = 0; k < PF::PER; ++k) {
+      const int i = tid + k * T, t = i / CH, dd = d0 + i % CH;
+      const bool ok = i < kCkpt * CH && t < tn && dd < D;
+      const long long off = ok ? (row0 + t) * D + dd : 0;
+      pf.dt[k] = ok ? __ldg(g.dt + off) : 0.f;
+      pf.dy[k] = ok ? __ldg(g.dy + off) : 0.f;
+      pf.x[k] = ok ? x[off] : narrow<XT>(0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < PF::PERN; ++k) {
+      const int i = tid + k * T;
+      const bool ok = i < kCkpt * N && i / N < tn;
+      pf.b[k] = ok ? __ldg(g.Bm + row0 * N + i) : 0.f;
+      pf.c[k] = ok ? __ldg(g.Cm + row0 * N + i) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NPT; ++j)
+      hs_next[j] = live ? __ldg(g.ckpt + (((long long)b * nck + c) * D + d) * N + n0 + j) : 0.f;
+  };
+  auto park = [&](int st) {  // the fetched chunk into stage st
+    float* base = sm + st * C::STAGE;
+#pragma unroll
+    for (int k = 0; k < PF::PER; ++k) {
+      const int i = tid + k * T;
+      if (i < kCkpt * CH) {
+        base[i] = pf.dt[k];
+        base[kCkpt * CH + i] = widen<XT>(pf.x[k]);
+        base[2 * kCkpt * CH + i] = pf.dy[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PF::PERN; ++k) {
+      const int i = tid + k * T;
+      if (i < kCkpt * N) {
+        base[3 * kCkpt * CH + i] = pf.b[k];
+        base[3 * kCkpt * CH + kCkpt * N + i] = pf.c[k];
+      }
+    }
+  };
+
+  if (nck > 0) {
+    fetch(nck - 1);
+    park((nck - 1) & 1);
+  }
   for (int c = nck - 1; c >= 0; --c) {
     const int t0 = c * kCkpt;
     const int tn = min(kCkpt, S - t0);
-    const long long row0 = (long long)b * S + t0;  // first [B, S] row
-    __syncthreads();  // the last chunk's reads of shared memory are done
-    for (int i = tid; i < tn * kChannels; i += nthreads) {
-      const int t = i / kChannels, dd = d0 + i % kChannels;
-      const long long off = (row0 + t) * D + dd;
-      const bool ok = dd < D;
-      dt_s[i] = ok ? __ldg(g.dt + off) : 0.f;
-      x_s[i] = ok ? widen<XT>(x[off]) : 0.f;
-      dy_s[i] = ok ? __ldg(g.dy + off) : 0.f;
-    }
-    for (int i = tid; i < tn * N; i += nthreads) {
-      b_s[i] = __ldg(g.Bm + row0 * N + i);
-      c_s[i] = __ldg(g.Cm + row0 * N + i);
-    }
-    __syncthreads();
+    const long long row0 = (long long)b * S + t0;
+    float hs[NPT];
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) hs[j] = hs_next[j];
+    __syncthreads();  // stage c & 1 is in; last chunk's lane_s and w_s are read
+    if (c > 0) fetch(c - 1);  // in flight while chunk c is walked
+    const float* st = sm + (c & 1) * C::STAGE;
+    const float* dt_s = st;
+    const float* x_s = dt_s + kCkpt * CH;
+    const float* dy_s = x_s + kCkpt * CH;
+    const float* b_s = dy_s + kCkpt * CH;
+    const float* c_s = b_s + kCkpt * N;
 
     // the chunk's states, recomputed from its checkpoint as the forward
-    // computes them
-    float hs[NPT], hist[kCkpt][NPT];
-#pragma unroll
-    for (int j = 0; j < NPT; ++j)
-      hs[j] = live ? g.ckpt[(((long long)b * nck + c) * D + d) * N + n0 + j] : 0.f;
+    // computes them, and their a_t
+    float hist[kCkpt][NPT], av[kCkpt][NPT];
 #pragma unroll
     for (int i = 0; i < kCkpt; ++i) {
+      const float dtv = dt_s[i * CH + ch];
+      const float dxv = dtv * x_s[i * CH + ch];
 #pragma unroll
       for (int j = 0; j < NPT; ++j) {
         const float hp = i == 0 ? hs[j] : hist[i - 1][j];
         if (i < tn) {
-          const float dtv = dt_s[i * kChannels + ch];
-          const float dxv = dtv * x_s[i * kChannels + ch];
-          hist[i][j] = fmaf(exp2f(dtv * A2[j]), hp, dxv * b_s[i * N + n0 + j]);
+          av[i][j] = exp2f(dtv * A2[j]);
+          hist[i][j] = fmaf(av[i][j], hp, dxv * b_s[i * N + n0 + j]);
         } else {
           hist[i][j] = hp;
         }
@@ -167,73 +305,72 @@ __global__ void __launch_bounds__(kChannels * L) scan_bwd_kernel(Args g) {
 #pragma unroll
     for (int i = kCkpt - 1; i >= 0; --i) {
       if (i >= tn) continue;
-      const float dtv = dt_s[i * kChannels + ch];
-      const float xv = x_s[i * kChannels + ch];
-      const float dyv = dy_s[i * kChannels + ch];
-      float sdt = 0.f, sgb = 0.f, pb[NPT], pc[NPT];
+      const float dtv = dt_s[i * CH + ch];
+      const float xv = x_s[i * CH + ch];
+      const float dyv = dy_s[i * CH + ch];
+      const float dtx = dtv * xv;
+      float sum[2] = {0.f, 0.f};  // Σ dz·A, Σ g·B
+      float pv[V];                // dB parts (g·dt·x), then dC parts (dy·h)
 #pragma unroll
       for (int j = 0; j < NPT; ++j) {
-        const float a = exp2f(dtv * A2[j]);
+        const float a = av[i][j];
         const float hp = i == 0 ? hs[j] : hist[i - 1][j];
         const float gj = fmaf(c_s[i * N + n0 + j], dyv, gc[j]);  // g_t
         const float gb = gj * b_s[i * N + n0 + j];
-        const float dz = gj * hp * a;
-        sdt = fmaf(gb, xv, fmaf(dz, A[j], sdt));
-        sgb += gb;
+        gc[j] = a * gj;               // the carry, and dz = a·g·h_{t-1}
+        const float dz = gc[j] * hp;
+        sum[0] = fmaf(dz, A[j], sum[0]);
+        sum[1] += gb;
         dA[j] = fmaf(dz, dtv, dA[j]);
-        pb[j] = gj * (dtv * xv);
-        pc[j] = dyv * hist[i][j];
-        gc[j] = a * gj;
+        pv[j] = gj * dtx;
+        pv[NPT + j] = dyv * hist[i][j];
       }
-      // over the channel's L lanes: ddt and Σ g·B
+      // this lane's Σ dz·A and Σ g·B; the channel's L lanes are summed, and
+      // ddt = Σ dz·A + x·Σ g·B, dx = dt·Σ g·B formed, once a (t, d) after
+      // the walk
+      *reinterpret_cast<float2*>(lane_s + (i * CH + ch) * C::LANES + 2 * l) =
+          make_float2(sum[0], sum[1]);
+      // dB and dC over the warp's P channels
+      butterfly<V, P, L>(pv, cw);
+      if (butterfly_owner<V, P>(cw)) {
+        const int first = butterfly_first<V, P>(cw);
 #pragma unroll
-      for (int off = L >> 1; off > 0; off >>= 1) {
-        sdt += __shfl_xor_sync(0xffffffffu, sdt, off, L);
-        sgb += __shfl_xor_sync(0xffffffffu, sgb, off, L);
-      }
-      if (n0 == 0) {
-        ddt_s[i * kChannels + ch] = sdt;
-        dx_s[i * kChannels + ch] = sgb * dtv;
-      }
-      // over the warp's channels (lanes l, l + L, l + 2L, ...): dB and dC
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-#pragma unroll
-        for (int off = L; off < 32; off <<= 1) {
-          pb[j] += __shfl_xor_sync(0xffffffffu, pb[j], off);
-          pc[j] += __shfl_xor_sync(0xffffffffu, pc[j], off);
-        }
-      }
-      if (lane < L) {
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-          wb_s[(i * W + warp) * N + n0 + j] = pb[j];
-          wc_s[(i * W + warp) * N + n0 + j] = pc[j];
+        for (int r = 0; r < R; ++r) {
+          const int u = first + r;  // < NPT: dB of state n0 + u; else dC of n0 + u − NPT
+          const int slot = u < NPT ? n0 + u : N + n0 + u - NPT;
+          w_s[(i * W + warp) * 2 * N + slot] = pv[r];
         }
       }
     }
-    __syncthreads();
-    for (int i = tid; i < tn * kChannels; i += nthreads) {
-      const int t = i / kChannels, dd = d0 + i % kChannels;
+    __syncthreads();  // the walk is done: lane_s and w_s are whole
+    for (int i = tid; i < tn * CH; i += T) {
+      const int t = i / CH, dd = d0 + i % CH;
       if (dd < D) {
-        const long long off = (row0 + t) * D + dd;
-        g.ddt[off] = ddt_s[i];
-        dx[off] = narrow<XT>(dx_s[i]);
-      }
-    }
-    // the block's partial sums over its 32 channels, warps in order
-    for (int i = tid; i < tn * N; i += nthreads) {
-      const int t = i / N, n = i % N;
-      float sb = 0.f, sc = 0.f;
+        const float2* ls = reinterpret_cast<const float2*>(lane_s + i * C::LANES);
+        float sa = 0.f, sg = 0.f;  // Σ dz·A, Σ g·B over the lanes in order
 #pragma unroll
-      for (int w = 0; w < W; ++w) {
-        sb += wb_s[(t * W + w) * N + n];
-        sc += wc_s[(t * W + w) * N + n];
+        for (int k = 0; k < L; ++k) {
+          sa += ls[k].x;
+          sg += ls[k].y;
+        }
+        const long long off = (row0 + t) * D + dd;
+        g.ddt[off] = fmaf(x_s[i], sg, sa);
+        dx[off] = narrow<XT>(sg * dt_s[i]);
       }
-      const long long off = (((long long)b * g.nblk + blk) * S + t0 + t) * N + n;
-      g.dB_part[off] = sb;
-      g.dC_part[off] = sc;
     }
+    // the block's dB, dC parts over its CH channels: the warps in order
+    for (int i = tid; i < tn * 2 * N; i += T) {
+      const int t = i / (2 * N), u = i % (2 * N);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < W; ++w) s += w_s[(t * W + w) * 2 * N + u];
+      const long long off = (((long long)b * g.nblk + blk) * S + t0 + t) * N;
+      if (u < N)
+        g.dB_part[off + u] = s;
+      else
+        g.dC_part[off + u - N] = s;
+    }
+    if (c > 0) park((c - 1) & 1);  // stage (c − 1) & 1 was last read two chunks ago
   }
   if (live) {
 #pragma unroll
@@ -276,24 +413,45 @@ __global__ void scan_bwd_reduce_kernel(const float* __restrict__ dB_part,
 
 template <int NPT, int L, typename XT>
 int run(const Args& g, int B, cudaStream_t s) {
-  const size_t bytes = smem_floats<NPT, L>() * sizeof(float);
+  const size_t bytes = Cfg<NPT, L>::FLOATS * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(scan_bwd_kernel<NPT, L, XT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  scan_bwd_kernel<NPT, L, XT><<<dim3(g.nblk, B), kChannels * L, bytes, s>>>(g);
+  scan_bwd_kernel<NPT, L, XT><<<dim3(g.nblk, B), Cfg<NPT, L>::T, bytes, s>>>(g);
   return (int)cudaGetLastError();
 }
 
-// NPT = min(2, N) states a thread on L = N / NPT lanes, as the forward
+// NPT = min(kNpt, N) states a thread on L = N / NPT lanes
+template <int N>
+using CfgN = Cfg<(N < kNpt ? N : kNpt), N / (N < kNpt ? N : kNpt)>;
+
+template <int N, typename XT>
+int run_n(const Args& g, int B, cudaStream_t s) {
+  constexpr int NPT = N < kNpt ? N : kNpt;
+  return run<NPT, N / NPT, XT>(g, B, s);
+}
+
+// channels of a block
+inline int block_channels(int N) {
+  switch (N) {
+    case 1: return CfgN<1>::CH;
+    case 2: return CfgN<2>::CH;
+    case 4: return CfgN<4>::CH;
+    case 8: return CfgN<8>::CH;
+    case 16: return CfgN<16>::CH;
+    default: return CfgN<32>::CH;
+  }
+}
+
 template <typename XT>
 int launch(const Args& g, int B, cudaStream_t s) {
   switch (g.N) {
-    case 1: return run<1, 1, XT>(g, B, s);
-    case 2: return run<2, 1, XT>(g, B, s);
-    case 4: return run<2, 2, XT>(g, B, s);
-    case 8: return run<2, 4, XT>(g, B, s);
-    case 16: return run<2, 8, XT>(g, B, s);
-    case 32: return run<2, 16, XT>(g, B, s);
+    case 1: return run_n<1, XT>(g, B, s);
+    case 2: return run_n<2, XT>(g, B, s);
+    case 4: return run_n<4, XT>(g, B, s);
+    case 8: return run_n<8, XT>(g, B, s);
+    case 16: return run_n<16, XT>(g, B, s);
+    case 32: return run_n<32, XT>(g, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -304,9 +462,10 @@ int launch(const Args& g, int B, cudaStream_t s) {
 // [B, S, N] float32; x, dx: [B, S, D], bf16 when x_bf16 else float32;
 // ckpt: [B, ceil(S/16), D, N] float32 as selective_scan_fused_ckpt_launch
 // writes it; dh_last: [B, D, N] float32 or null (zero); dh0: [B, D, N]
-// float32; dA: [D, N] float32; scratch: B·D·N + 2·B·ceil(D/32)·S·N
-// floats.  All contiguous.  N a power of two ≤ 32.  Returns
-// cudaGetLastError() after the launches.
+// float32; dA: [D, N] float32; scratch: B·D·N + 2·B·ceil(D/CH)·S·N
+// floats, CH the channels of a block (block_channels: at least 32, so
+// B·D·N + 2·B·ceil(D/32)·S·N always suffices).  All contiguous.  N a power
+// of two ≤ 32.  Returns cudaGetLastError() after the launches.
 extern "C" int selective_scan_bwd_launch(const void* dt, const void* A, const void* Bm,
                                          const void* Cm, const void* x, int x_bf16,
                                          const void* ckpt, const void* dy, const void* dh_last,
@@ -316,7 +475,7 @@ extern "C" int selective_scan_bwd_launch(const void* dt, const void* A, const vo
   if (B < 0 || S < 0 || D < 0 || N < 1 || N > 32 || (N & (N - 1)) != 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return (int)cudaGetLastError();
-  const int nblk = (D + kChannels - 1) / kChannels;
+  const int nblk = (D + block_channels(N) - 1) / block_channels(N);
   float* part = (float*)scratch;
   Args g{(const float*)dt, (const float*)A, (const float*)Bm, (const float*)Cm, x,
          (const float*)ckpt, (const float*)dy, (const float*)dh_last, (float*)ddt, dx,

@@ -21,7 +21,10 @@ masked scores ([BH, Sq] float32, natural log).
 The backward (csrc/flash_attention_bwd.cu, `flash_attention_bwd`) is new:
 the TPU kernel has none, and the reference trains through the jnp form.
 It recomputes the weights from q, k and the forward's lse, and sums with
-no float atomics (the same bits on every launch).  `FlashAttention` is the
+no float atomics (the same bits on every launch).  In bf16 at hd 64 and
+128 it makes one pass over the keys on wgmma, adding each key block's
+part of dQ into a float32 workspace in a fixed order; hd 16 and 32 keep
+a dK/dV kernel and a dQ kernel on mma.sync.  `FlashAttention` is the
 autograd Function the training path calls (`flash_attention_grad`): on
 the card both directions launch the kernels, on the CPU both run their
 plain versions.
@@ -167,6 +170,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _bwd_scratch_floats(bh, sq, hd, dtype):
+    """Floats of the backward's scratch: D [BH, Sq]; for the bf16 kernel
+    of hd 64 and 128 also its sync words (a ticket counter and a flag a
+    (bh, 64-row query tile)), padded to 16 bytes, and the float32 dQ
+    workspace, a part of 64·hd a (bh, query tile) (flash_attention_bwd.cu's
+    entry point)."""
+    n = bh * sq
+    if dtype == torch.bfloat16 and hd >= 64:
+        tiles = bh * -(-sq // 64)
+        n = -(-(n + 1 + tiles) // 4) * 4 + tiles * 64 * hd
+    return n
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     """The gradients (dq, dk, dv) of flash_attention's output `o` given its
     gradient `do`, from q, k, v and the forward's lse; shapes and dtype
@@ -190,7 +206,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     q, k, v, o, do = _aligned(q, k, v, o, do)
     lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    d = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    d = torch.empty(_bwd_scratch_floats(bh, sq, hd, q.dtype),
+                    dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention_bwd_launch(

@@ -285,6 +285,8 @@ def selective_scan_fused_bwd(dt, A, Bm, Cm, x, h0, dy, dh_last=None, *,
     dA = torch.empty_like(A)
     dx = torch.empty_like(x)
     dh0 = torch.empty((b, d, n), dtype=torch.float32, device=dt.device)
+    # dA's parts, then dB's and dC's for blocks of 32 channels: the most
+    # the kernel takes (its blocks hold 32 to 128 channels)
     nblk = -(-d // 32)
     scratch = torch.empty(b * d * n + 2 * b * nblk * s * n,
                           dtype=torch.float32, device=dt.device)

@@ -352,6 +352,67 @@ def test_cuda_scan_bwd_matches_plain(cuda, b, s, d, n, x_dtype):
         assert torch.equal(g, h)       # no atomics: the same bits
 
 
+def _flash_bwd_check(cuda, seed, bh, sq, sk, hd, causal):
+    """The bf16 backward against its plain version (2e-2 of max|ref|, an
+    absolute floor of 1e-6) and a second launch bit-equal."""
+    q, k, v, do, o, lse = _card_flash(cuda, seed, bh, sq, sk, hd,
+                                      torch.bfloat16, causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        e = float((g.float() - w.float()).abs().max())
+        assert e <= max(2e-2 * float(w.float().abs().max()), 1e-6), (name, e)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)       # the ordered dQ sums: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(129, 257), (257, 129)])
+def test_cuda_flash_bwd_ragged_tiles(cuda, sq, sk, hd, causal):
+    """Sq and Sk that no 64-query tile or 128-key block divides, Sq ≠ Sk,
+    every head width (hd 64 and 128 take the one-pass wgmma kernel, 16
+    and 32 the two mma.sync kernels)."""
+    _flash_bwd_check(cuda, sq + 7 * sk + hd, 2, sq, sk, hd, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_flash_bwd_ordered_dq(cuda, hd, causal):
+    """Five 128-key blocks add to each late query tile of dQ (all of them
+    when not causal), each waiting its turn on the tile's flag: the sum
+    within tolerance and bit-equal on a second launch."""
+    _flash_bwd_check(cuda, 11 + hd, 3, 640, 640, hd, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32])
+def test_cuda_scan_bwd_ragged_chunks(cuda, n):
+    """S (45) no 16-step chunk divides and D (130) no block of channels
+    divides, with h0 and dh_last, every N: 1e-4 of max|ref|, a second
+    launch bit-equal."""
+    b, s, d = 2, 45, 130
+    dt, A, Bm, Cm, x, h0, dy, dh = (
+        _t(a).to(cuda) for a in _scan_inputs(3 * n, b, s, d, n))
+    y, h_last, states = _fused_launch(dt, A, Bm, Cm, x, h0, True, True)
+    got = selective_scan_fused_bwd(dt, A, Bm, Cm, x, h0, dy, dh,
+                                   states=states)
+    want = selective_scan_fused_bwd_plain(dt, A, Bm, Cm, x, h0, dy, dh)
+    for name, g, w in zip(("ddt", "dA", "dBm", "dCm", "dx", "dh0"), got,
+                          want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        e = float((g.float() - w.float()).abs().max())
+        assert e <= 1e-4 * float(w.float().abs().max()), (name, e)
+    again = selective_scan_fused_bwd(dt, A, Bm, Cm, x, h0, dy, dh,
+                                     states=states)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
 @pytest.mark.cuda
 def test_cuda_functions_match_cpu_functions(cuda):
     """The Functions on the card against the same Functions on the CPU

@@ -8,11 +8,13 @@ named source of src/repro_torch/kernels/csrc (by default flash_attention
 and tile_matmul) is compiled once more with the package's own nvcc command
 line plus `-Xptxas -v`, and for each kernel function the script prints its
 registers, stack frame and spill bytes, then the count of the instructions
-of interest in its SASS (`cuobjdump -sass`): HMMA (tensor-core products),
-FFMA, LDSM (ldmatrix), LDGSTS (cp.async), MUFU (exp2 and the other
-special functions), SHFL (shuffles), MATCH (match-any), LDL and STL (local
-memory: spills).  To time one version of the sources against another, use
-`chip_smoke.py --parent DIR`.
+of interest in its SASS (`cuobjdump -sass`): HGMMA (wgmma), HMMA
+(mma.sync), FFMA, LDSM (ldmatrix), LDGSTS (cp.async), MUFU (exp2 and the
+other special functions), SHFL (shuffles), MATCH (match-any), LDL and STL
+(local memory: spills).  ptxas's warnings (a wgmma it had to serialise,
+say) are printed as they come.  To time one version of the sources
+against another, use `chip_smoke.py --parent DIR`, or `tools/kernel_ab.py`
+for edited copies of one backward's source.
 """
 from __future__ import annotations
 
@@ -29,8 +31,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 from chip_smoke import card_line  # noqa: E402
 
-SASS_OPS = ("HMMA", "FFMA", "LDSM", "LDGSTS", "MUFU", "SHFL", "MATCH", "LDL",
-            "STL")
+SASS_OPS = ("HGMMA", "HMMA", "FFMA", "LDSM", "LDGSTS", "MUFU", "SHFL", "MATCH",
+            "LDL", "STL")
 
 
 def _demangle(names):
@@ -54,6 +56,8 @@ def inspect(name: str, tmp: Path) -> None:
     # bytes spill stores, N bytes spill loads" and "Used N registers, ..."
     stats, fn = {}, None
     for line in (proc.stdout + proc.stderr).splitlines():
+        if "warning" in line.lower():
+            print(f"[inspect] {name}: {line.strip()}", flush=True)
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn = m.group(1)

@@ -34,7 +34,11 @@ first mismatch:
              with the same bits, and the forward kernels' training
              entries (flash with its lse, held against the plain
              version's; the scan with its checkpoint states) bit-equal to
-             the serving ones;
+             the serving ones; the segment kernel at the MoE combine's
+             shape (qwen3-moe-30b-a3b's 2048-token prefill: 16,384 bf16
+             rows of 2,048 into 2,048 tokens, ids in runs of 8) against
+             its plain version, launched twice with the same bits, timed
+             beside `index_add_` and the reshape-and-sum of the same rows;
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, in eager mode and in whole mode (the default:
@@ -112,18 +116,32 @@ first mismatch:
              its loop bit-equal to the fault-free run, no descent, the
              reference's ledger text; a straggling round's speculative
              backup;
-4. serve   — serve llama3-8b and falcon-mamba-7b at full width and full
-             depth (bf16, random weights from --seed, one model on the card
-             at a time) through `repro_torch.serve.ServeEngine`: 4 slots,
-             max_seq 2112, six requests of 2048, 1531, 1024, 777, 512 and
-             300 prompt tokens, 32 new tokens each, with the launch counts
-             read around the run; then prefill ms per prompt length, decode
-             ms per tick at 4 active slots, peak device memory and one
-             torch.profiler trace of a prefill and a decode tick; then a
-             2-layer float32 copy of each model (full width) run on the
-             card against the same weights on the CPU (the kernels' plain
-             versions); the served tokens' crc32 (tools/serve_tokens.py
-             prints the same digest from another tree's sources);
+4. serve   — serve llama3-8b, falcon-mamba-7b, minitron-4b,
+             phi3-medium-14b, qwen2-72b (32 of 80 layers),
+             qwen3-moe-30b-a3b and arctic-480b (2 of 35 layers) at full
+             width (bf16, random weights from --seed, one model on the
+             card at a time; depth cut only where the weights do not fit
+             one 80 GB card) through `repro_torch.serve.ServeEngine`: 4
+             slots, max_seq 2112, six requests of 2048, 1531, 1024, 777,
+             512 and 300 prompt tokens, 32 new tokens each, with the launch
+             counts read around the run (flash_attention for every
+             attention model, segment_reduce for the MoE combine); then
+             prefill ms per prompt length, decode ms per tick at 4 active
+             slots, peak device memory, the seconds each config took, and
+             for llama3-8b, falcon-mamba-7b and qwen3-moe-30b-a3b one
+             torch.profiler trace of a prefill and of a tick of the
+             engine's own decode step (a
+             prefill over a second is timed once, the others three times);
+             then a 2-layer float32 copy (full width; weights drawn on the
+             card from --seed and copied to the CPU) of llama3-8b,
+             falcon-mamba-7b, qwen3-moe-30b-a3b (its 300-token prompt
+             drops rows by capacity; the smallest gap between the k-th and
+             (k+1)-th router logit is printed) and qwen2-vl-72b (through
+             `make_prefill_step` with three M-RoPE position streams from
+             the seed) run on the card against the same weights on the
+             CPU (the kernels' plain versions); the served tokens' crc32
+             (tools/serve_tokens.py prints the same digest from another
+             tree's sources);
 8. train   — train llama3-8b (8 of 32 layers) and falcon-mamba-7b (16 of
              64) at full width, bf16 with float32 moments, remat "full",
              ce_chunk 512, through `repro_torch.runtime.TrainRunner` on
@@ -136,13 +154,15 @@ first mismatch:
              must fall; then at 2 layers (full width) six steps against a
              run failed at step 5 and resumed from its step-4 snapshot,
              bit-equal leaf by leaf; then a 2-layer float32 copy of each
-             takes one step on the card and on the CPU (B 1, S 1024, so
+             (weights drawn on the card from --seed and copied to the
+             CPU) takes one step on the card and on the CPU (B 1, S 1024, so
              that the chunked cross-entropy runs): loss and grad_norm
              within 1e-4, every gradient leaf within 1e-3 of its max |ref|.
 
 Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4.
 The line before the last is a JSON object with one entry per kernel
-(segment_reduce's launches count phases 3, 5, 6 and 7's world of 1;
+(segment_reduce's launches count phases 3, 5, 6, 7's world of 1 and 4's
+MoE combines;
 flash_attention's and selective_scan's phases 4 and 8; the backward
 kernels' phase 8); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, the script exits non-zero
@@ -198,13 +218,40 @@ MF_N, MF_L = 4096, 64
 # the kernels of the program path (phase 3)
 PROGRAM_KERNELS = ("segment_reduce", "tile_matmul")
 
-# the serve path: what one H100 serving an 8B model holds (full width and
-# depth, bf16); prompt lengths include ones that 128 and 256 do not divide
+# the serve path: each config at full width in bf16, with the kernels it
+# must launch; prompt lengths include ones that 128 and 256 do not divide
 SERVE_ARCHS = {"llama3-8b": ("flash_attention",),
-               "falcon-mamba-7b": ("selective_scan_fused",)}
+               "falcon-mamba-7b": ("selective_scan_fused",),
+               "minitron-4b": ("flash_attention",),
+               "phi3-medium-14b": ("flash_attention",),
+               "qwen2-72b": ("flash_attention",),
+               "qwen3-moe-30b-a3b": ("flash_attention", "segment_reduce"),
+               "arctic-480b": ("flash_attention", "segment_reduce")}
+# layers kept where a config's bf16 weights do not fit one 80 GB card:
+# qwen2-72b 145 GB -> 61.2 GB, arctic-480b 951 GB -> 55.4 GB (one layer's
+# 128 experts are 26.8 GB); no cut is made in width
+SERVE_DEPTH = {"qwen2-72b": 32, "arctic-480b": 2}
+# the configs whose prefill and decode tick phase 4 traces
+SERVE_TRACED = ("llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b")
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 4, 2112, 32
 PROMPT_LENS = (2048, 1531, 1024, 777, 512, 300)
+# the card-against-CPU checks: a 2-layer float32 copy of each, full width
+CHECK_ARCHS = ("llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+               "qwen2-vl-72b")
 CHECK_LAYERS, CHECK_PROMPT, CHECK_NEW = 2, 300, 8
+# the MoE combine's shape in phase 2: qwen3-moe-30b-a3b's 2048-token
+# prefill, top 8 of 128 experts, d_model 2048
+MOE_TOKENS, MOE_TOP_K, MOE_D = 2048, 8, 2048
+
+
+def serve_config(get_config, arch):
+    """Phase 4's config of `arch`: the registered one, cut to SERVE_DEPTH's
+    layers where it gives a cut."""
+    cfg = get_config(arch)
+    if arch not in SERVE_DEPTH:
+        return cfg
+    kind = cfg.layout[0][0][0]
+    return cfg.replace(layout=(((kind,), SERVE_DEPTH[arch]),))
 
 
 def serve_prompts(np, cfg, seed):
@@ -568,6 +615,58 @@ def _segment_lanes_case(torch, g, lens, L, k, reps=5):
                bound_by="bytes", launches_a_flush=B)
     log("[kernels] " + json.dumps(rec))
     return rec
+
+
+def _segment_moe_case(torch, g, t, k, d, reps=5):
+    """The MoE combine (models/moe.py's `segment_add`): t tokens of k bf16
+    rows of width d, ids in runs of k (int64, as the model hands them in),
+    summed in float32 into [t, d].  Held against the plain version and
+    launched twice with the same bits; timed beside `index_add_` of the
+    same rows and the reshape-and-sum, which computes the same function
+    here because the ids are sorted in runs of k."""
+    from repro_torch.kernels.segment_reduce import (segment_reduce,
+                                                     segment_reduce_plain)
+    dev = "cuda"
+    n = t * k
+    ids = torch.arange(t, device=dev).repeat_interleave(k)
+    vals = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
+    got = segment_reduce(ids, vals, t)
+    again = segment_reduce(ids, vals, t)
+    torch.cuda.synchronize()
+    require(got.dtype == torch.float32
+            and torch.equal(got.view(torch.int32), again.view(torch.int32)),
+            f"segment_reduce MoE combine N={n} K={t} D={d}: two launches "
+            "differ in their bits")
+    del again
+    want = segment_reduce_plain(ids, vals, t)
+    diff = (got - want).abs()
+    scale = segment_reduce_plain(ids, vals.abs(), t)
+    err = float(diff.max())
+    require(bool((diff <= 1e-4 * scale + 1e-6).all()),
+            f"segment_reduce MoE combine N={n} K={t} D={d}: err {err}")
+
+    def reshape_sum():
+        return vals.view(t, k, d).sum(1, dtype=torch.float32)
+    reshape_err = float((got - reshape_sum()).abs().max())
+    del want, diff, scale
+    kern = _kernel_ms(torch, "segment_reduce",
+                      lambda: segment_reduce(ids, vals, t), reps)
+    plain_ms = time_ms(torch, lambda: segment_reduce_plain(ids, vals, t),
+                       reps)
+    library_ms = time_ms(torch, lambda: torch.zeros(
+        (t, d), dtype=torch.float32, device=dev).index_add_(
+        0, ids, vals.float()), reps)
+    reshape_ms = time_ms(torch, reshape_sum, reps)
+    # ids and bf16 rows read once, the float32 [t, d] written once
+    bytes_ = ids.element_size() * n + 2 * n * d + 4 * t * d
+    rec = dict(case=f"segment_reduce MoE combine N={n} K={t} D={d} + "
+               f"bfloat16 rows, ids in runs of {k}", max_abs_err=err,
+               tol="1e-4*sum|v| per segment against the plain version; "
+                   "bit-equal across launches",
+               reshape_sum_err=reshape_err, **kern, plain_ms=plain_ms,
+               library_ms=library_ms, reshape_sum_ms=reshape_ms,
+               bound_ms=bytes_ / HBM_BYTES_S * 1e3, bound_by="bytes")
+    return _rates(rec, n * d)
 
 
 def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
@@ -1011,6 +1110,8 @@ def phase_kernels(torch, seed):
     lanes = _segment_lanes_case(torch, g, [MIX_B_ROWS[i % 2]
                                            for i in range(SERVE_MAX_BATCH)],
                                 MIX_B_ROWS[0], MIX_B_GROUPS)
+    # the MoE combine (phase 4's qwen3-moe-30b-a3b prefill of 2048 tokens)
+    _segment_moe_case(torch, g, MOE_TOKENS, MOE_TOP_K, MOE_D)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tile = [
@@ -2837,9 +2938,11 @@ def _serve_model(torch, np, arch, kernels, seed):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
-    from repro_torch.serve import (ServeEngine, make_decode_step,
-                                   make_prefill_step)
-    cfg = get_config(arch)
+    from repro_torch.serve import ServeEngine, make_prefill_step
+    cfg = serve_config(get_config, arch)
+    full = get_config(arch).num_layers
+    depth = "full depth" if cfg.num_layers == full else \
+        f"{cfg.num_layers} of {full} layers (depth cut to fit one card)"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = get_model(cfg).init(seed)
@@ -2850,7 +2953,7 @@ def _serve_model(torch, np, arch, kernels, seed):
         f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B parameters, "
         f"{w_bytes / 1e9:.2f} GB of weights ({str(cfg.param_dtype)}), init "
         f"on the card from seed {seed} in {time.perf_counter() - t0:.1f} s; "
-        f"full width and full depth")
+        f"full width, {depth}")
     prompts = serve_prompts(np, cfg, seed)
     # warm-up: one short request (allocator, cuBLAS handles, kernel build)
     warm = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
@@ -2917,6 +3020,8 @@ def _serve_model(torch, np, arch, kernels, seed):
             logits, cache1 = prefill(model, {"tokens": tokens})
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
+            if times[0] > 1000:    # a prefill of seconds is timed once
+                break
         require(bool(torch.isfinite(logits).all())
                 and tuple(logits.shape) == (1, cfg.vocab_size),
                 f"{arch}: prefill of {len(p)} tokens gave non-finite logits "
@@ -2924,10 +3029,13 @@ def _serve_model(torch, np, arch, kernels, seed):
         del cache1
         pre_ms[len(p)] = _median(times)
         log(f"[serve] {arch}: prefill {len(p)} tokens {pre_ms[len(p)]:.3f} ms"
-            f" (median of 3; min {min(times):.3f}, max {max(times):.3f}), "
+            f" (median of {len(times)}; min {min(times):.3f}, max "
+            f"{max(times):.3f}), "
             f"{len(p) / pre_ms[len(p)] * 1e3:.0f} tokens/s")
-    # one decode over the engine's cache: finite logits for every slot
-    decode = make_decode_step(cfg)
+    # one decode over the engine's cache, through the engine's own decode
+    # step (a moe config's capacity groups are its slots): finite logits
+    # for every slot
+    decode = eng._decode
     toks = torch.as_tensor([[r.out[-1]] for r in reqs[:SERVE_SLOTS]],
                            device="cuda")
     pos = np.minimum(eng.pos, SERVE_MAX_SEQ - 1)
@@ -2941,24 +3049,62 @@ def _serve_model(torch, np, arch, kernels, seed):
         "(max_memory_allocated over init, engine run and prefills)")
 
     # traced last: one prefill (the 2048-token prompt) and one decode tick
-    tokens = torch.as_tensor(prompts[0][None], device="cuda")
-    _profile(torch, f"{arch} prefill {len(prompts[0])} tokens",
-             lambda: prefill(model, {"tokens": tokens}),
-             pre_ms[len(prompts[0])])
-    _profile(torch, f"{arch} decode tick at {SERVE_SLOTS} slots",
-             lambda: decode(model, eng.cache, toks, pos), dec_ms)
+    if arch in SERVE_TRACED:
+        tokens = torch.as_tensor(prompts[0][None], device="cuda")
+        top = 10 if "segment_reduce" in kernels else 5
+        _profile(torch, f"{arch} prefill {len(prompts[0])} tokens",
+                 lambda: prefill(model, {"tokens": tokens}),
+                 pre_ms[len(prompts[0])], top)
+        _profile(torch, f"{arch} decode tick at {SERVE_SLOTS} slots (the "
+                 "engine's decode step)",
+                 lambda: decode(model, eng.cache, toks, pos), dec_ms, top)
     del model, eng, logits
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[serve] {arch}: {time.perf_counter() - t0:.1f} s for this config")
     return counts
+
+
+def _router_probe(torch, k):
+    """Wrap the MoE router and dispatch: the smallest gap met between the
+    k-th and (k+1)-th router logit of a token, and the rows dropped by
+    capacity, over the calls made until `restore()`."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import dense
+    seen = {"gap": float("inf"), "dropped": 0}
+    router, dispatch = moe._router, moe._dispatch
+
+    def probed_router(cfg, p, xt):
+        top = torch.sort(dense(xt, p["router"]).float(), dim=-1,
+                         descending=True).values
+        seen["gap"] = min(seen["gap"],
+                          float((top[:, k - 1] - top[:, k]).min()))
+        return router(cfg, p, xt)
+
+    def probed_dispatch(*a):
+        out = dispatch(*a)
+        seen["dropped"] += int((~out[1]).sum())
+        return out
+
+    def restore():
+        moe._router, moe._dispatch = router, dispatch
+    moe._router, moe._dispatch = probed_router, probed_dispatch
+    return seen, restore
 
 
 def _model_check(torch, np, arch, seed):
     """A 2-layer float32 copy of the model at full width: the port on the
-    card against the same weights on the CPU (the kernels' plain
-    versions), one prompt then greedy tokens."""
+    card against the same weights (drawn from the seed on the card) on the
+    CPU (the kernels' plain versions), one prompt through the prefill step
+    then greedy tokens.  A
+    vlm config's prompt carries three M-RoPE position streams from the
+    seed (its decode ropes plainly, as the reference's engine); a moe
+    config prints the rows its capacity dropped and the smallest gap
+    between the k-th and (k+1)-th router logit on each device, so that a
+    failure from a genuine near-tie can be told from a fault."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
+    from repro_torch.serve import make_prefill_step
     full = get_config(arch)
     kind = full.layout[0][0][0]
     cfg = full.replace(layout=(((kind,), CHECK_LAYERS),),
@@ -2966,15 +3112,44 @@ def _model_check(torch, np, arch, seed):
                        compute_dtype=torch.float32,
                        cache_dtype=torch.float32)
     t0 = time.perf_counter()
-    cpu = get_model(cfg, device="cpu").init(seed)
-    gpu = get_model(cfg)
-    gpu.load_state_dict(cpu.state_dict())
+    # drawn on the card and copied: the CPU's draw of a 72B config's
+    # 4.3e9 numbers would take most of the check's time
+    gpu = get_model(cfg).init(seed)
+    cpu = get_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
     rng = np.random.default_rng(seed + 1)
     prompt = rng.integers(0, cfg.vocab_size, CHECK_PROMPT).astype(np.int32)
+    batch = {"tokens": prompt[None]}
+    note = ""
+    if cfg.mrope_sections:
+        batch["pos_ids"] = rng.integers(0, CHECK_PROMPT, (1, CHECK_PROMPT, 3)
+                                        ).astype(np.int32)
+        note = "; M-RoPE positions: three streams from the seed"
     max_seq = CHECK_PROMPT + CHECK_NEW
-    ref, cc = cpu.prefill(torch.as_tensor(prompt[None]), max_seq)
-    got, gc_ = gpu.prefill(torch.as_tensor(prompt[None], device="cuda"),
-                           max_seq)
+    prefill = make_prefill_step(cfg, max_seq)
+    probes = []
+
+    def run(model, dev):
+        if cfg.num_experts:
+            probes.append(_router_probe(torch, cfg.top_k))
+        try:
+            return prefill(model, {n: torch.as_tensor(v, device=dev)
+                                   for n, v in batch.items()})
+        finally:
+            if cfg.num_experts:
+                probes[-1][1]()
+    ref, cc = run(cpu, "cpu")
+    got, gc_ = run(gpu, "cuda")
+    if cfg.num_experts:
+        (c, _), (g, _) = probes
+        note = (f"; prefill rows dropped by capacity {c['dropped']} (CPU), "
+                f"{g['dropped']} (card); smallest gap between the "
+                f"router logits {cfg.top_k} and {cfg.top_k + 1} of a token "
+                f"{c['gap']:.3g} (CPU), {g['gap']:.3g} (card)")
+        log(f"[serve] {arch} check{note}")
+        require(c["dropped"] == g["dropped"],
+                f"{arch} check: {g['dropped']} rows dropped on the card, "
+                f"{c['dropped']} on the CPU")
     errs, toks = [], []
     for step in range(CHECK_NEW + 1):
         r, o = ref.double(), got.double().cpu()
@@ -2997,7 +3172,7 @@ def _model_check(torch, np, arch, seed):
         f"(depth cut for this check only), full width, float32; prompt "
         f"{CHECK_PROMPT} then {CHECK_NEW} greedy tokens, card vs CPU: max "
         f"rel err {max(errs):.3g} (tol 1e-3; prefill {errs[0]:.3g}), tokens "
-        f"identical {toks}; {time.perf_counter() - t0:.1f} s")
+        f"identical {toks}{note}; {time.perf_counter() - t0:.1f} s")
     del cpu, gpu, cc, gc_
     gc.collect()
     torch.cuda.empty_cache()
@@ -3007,11 +3182,17 @@ def phase_serve(torch, seed):
     import numpy as np
     from repro_torch.kernels import ops
     launches = {}
+    t0 = time.perf_counter()
     for arch, kernels in SERVE_ARCHS.items():
         counts = _serve_model(torch, np, arch, kernels, seed)
-        launches.update({k: counts[k] for k in kernels})
-    for arch in SERVE_ARCHS:
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + counts[k]
+    t_checks = time.perf_counter()
+    for arch in CHECK_ARCHS:
         _model_check(torch, np, arch, seed)
+    log(f"[serve] phase 4 took {time.perf_counter() - t0:.1f} s (serving "
+        f"{t_checks - t0:.1f} s, checks {time.perf_counter() - t_checks:.1f}"
+        " s)")
     log(f"[serve] kernel launches on the serve path: {json.dumps(launches)}")
     ops.reset_launch_counts()
     return launches
@@ -3206,8 +3387,9 @@ def _train_resume(torch, arch, seed, tmp):
 
 def _train_check(torch, np, arch, seed):
     """A float32 copy at TRAIN_CHECK_LAYERS layers and full width: one
-    training step on the card against the same weights and batch on the
-    CPU (the kernels' plain versions): loss and grad_norm within 1e-4
+    training step on the card against the same weights (drawn on the
+    card from the seed) and batch on the CPU (the kernels' plain
+    versions): loss and grad_norm within 1e-4
     relative, every gradient leaf within 1e-3 of its leaf's max |ref|."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
@@ -3217,9 +3399,11 @@ def _train_check(torch, np, arch, seed):
     cfg = _depth(full, TRAIN_CHECK_LAYERS, param_dtype=torch.float32,
                  compute_dtype=torch.float32, cache_dtype=torch.float32)
     t0 = time.perf_counter()
-    cpu = get_model(cfg, device="cpu").init(seed)
-    gpu = get_model(cfg)
-    gpu.load_state_dict(cpu.state_dict())
+    # the weights are drawn on the card and copied: a float32 draw on the
+    # host of a full-width vocabulary takes seconds a leaf
+    gpu = get_model(cfg).init(seed)
+    cpu = get_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
     batch = SyntheticLMData(cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S,
                             seed=seed + 2).next_batch()
     out = {}
@@ -3324,7 +3508,8 @@ def main(argv=None) -> int:
             launches[k] += n
         gc.collect()
         torch.cuda.empty_cache()
-        launches.update(phase_serve(torch, args.seed))
+        for k, n in phase_serve(torch, args.seed).items():
+            launches[k] = launches.get(k, 0) + n
         gc.collect()
         torch.cuda.empty_cache()
         for k, n in phase_train(torch, args.seed).items():

@@ -94,13 +94,7 @@ SHAPES: dict[str, ShapeConfig] = {
 # the reference's other architectures, and where ROADMAP.md ("Modules to
 # port") puts the layers each of them needs
 NOT_PORTED = {
-    "arctic-480b": "the moe family",
-    "qwen3-moe-30b-a3b": "the moe family",
-    "minitron-4b": "more dense configs",
-    "phi3-medium-14b": "more dense configs",
-    "qwen2-72b": "more dense configs",
     "recurrentgemma-2b": "the rec and lattn layers (hybrid family)",
-    "qwen2-vl-72b": "the vlm family (M-RoPE)",
     "whisper-tiny": "the audio family (Whisper)",
 }
 

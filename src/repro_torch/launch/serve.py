@@ -38,6 +38,12 @@ def main(argv=None):
     batch = {"tokens": torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32),
         device=model.device)}
+    if cfg.family == "vlm":
+        # the reference launcher's stub M-RoPE positions: the text stream
+        # on all three
+        batch["pos_ids"] = torch.as_tensor(np.broadcast_to(
+            np.arange(args.prompt_len, dtype=np.int32)[None, :, None],
+            (args.batch, args.prompt_len, 3)).copy(), device=model.device)
     prefill = make_prefill_step(cfg, max_seq)
     decode = make_decode_step(cfg)
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.flash_attention import flash_attention_grad
-from .common import ParamDef, apply_rope, dense
+from .common import ParamDef, apply_mrope, apply_rope, dense
 
 NEG_INF = -1e30
 
@@ -93,34 +93,38 @@ def _project_qkv(cfg, p, x):
     return q, k, v
 
 
-def _rope(cfg, q, k, pos):
+def _rope(cfg, q, k, pos, pos_ids):
+    """M-RoPE from `pos_ids` ([B, S, 3]) when the config has sections and
+    the caller gives them, plain RoPE at `pos` otherwise (as the
+    reference: its decode gets no pos_ids from the engine)."""
     if cfg.pos_embed != "rope":
         return q, k
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE comes with the vlm family "
-                                  "(ROADMAP.md, 'Modules to port')")
+    if cfg.mrope_sections and pos_ids is not None:
+        sec = cfg.mrope_sections
+        return (apply_mrope(q, pos_ids, cfg.rope_theta, sec),
+                apply_mrope(k, pos_ids, cfg.rope_theta, sec))
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos,
                                                           cfg.rope_theta)
 
 
-def attn_forward(cfg, p, x):
+def attn_forward(cfg, p, x, pos_ids=None):
     """Training forward (no cache), causal. x: [B,S,d]."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     pos = torch.arange(s, device=x.device)
-    q, k = _rope(cfg, q, k, pos)
+    q, k = _rope(cfg, q, k, pos, pos_ids)
     out = attention_core(q, k, v, causal=True)
     return dense(out.reshape(b, s, -1), p["wo"])
 
 
-def attn_prefill(cfg, p, x, cache):
+def attn_prefill(cfg, p, x, cache, pos_ids=None):
     """Prefill: causal attention, and the post-rope k/v stored into the
     zeroed [B, max_seq, Hkv, hd] cache it is given (`LM.prefill` makes a
     fresh one).  Returns (y, cache)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     pos = torch.arange(s, device=x.device)
-    q, k = _rope(cfg, q, k, pos)
+    q, k = _rope(cfg, q, k, pos, pos_ids)
     out = attention_core(q, k, v, causal=True)
     kc, vc = cache["k"], cache["v"]
     kc[:, :s] = k.to(kc.dtype)
@@ -128,11 +132,12 @@ def attn_prefill(cfg, p, x, cache):
     return dense(out.reshape(b, s, -1), p["wo"]), {"k": kc, "v": vc}
 
 
-def attn_decode(cfg, p, x, cache, pos):
+def attn_decode(cfg, p, x, cache, pos, pos_ids=None):
     """One-token decode.  x: [B,1,d]; pos: [B] int, each row's count of
     tokens so far (a scalar is taken for every row).  Row r's rope angle
-    is pos[r], its k/v land at cache[r, pos[r]], and it attends to the
-    cache positions ≤ pos[r].  Updates the cache in place."""
+    is pos[r] (or, with `pos_ids` [B, 1, 3] on an M-RoPE config, its
+    M-RoPE angles), its k/v land at cache[r, pos[r]], and it attends to
+    the cache positions ≤ pos[r].  Updates the cache in place."""
     b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64) \
@@ -140,7 +145,7 @@ def attn_decode(cfg, p, x, cache, pos):
     q = dense(x, p["wq"], p.get("bq")).reshape(b, 1, hq, hd)
     k = dense(x, p["wk"], p.get("bk")).reshape(b, 1, hkv, hd)
     v = dense(x, p["wv"], p.get("bv")).reshape(b, 1, hkv, hd)
-    q, k = _rope(cfg, q, k, pos[:, None])
+    q, k = _rope(cfg, q, k, pos[:, None], pos_ids)
 
     kc, vc = cache["k"], cache["v"]
     cap = kc.shape[1]

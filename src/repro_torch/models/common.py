@@ -46,9 +46,17 @@ def generator_for(seed: int, path: str, device) -> torch.Generator:
     return g
 
 
+# a "normal" or "lecun" leaf is drawn in slices of leading rows of at most
+# _SLICE_CELLS cells, from the same generator: the float32 draw of a whole
+# leaf (an arctic-480b expert stack is 4.5e9 cells) would not fit beside
+# the model on one card; a leaf of at most _SLICE_CELLS cells is one draw
+_SLICE_CELLS = 2 ** 30
+
+
 def init_array(d: ParamDef, g: torch.Generator, device) -> torch.Tensor:
-    """A tensor drawn as the reference's `init_array` draws it (the same
-    distributions; other numbers, since the generators differ)."""
+    """A "zeros", "ones", "ssm_a" or "ssm_dt" tensor drawn as the
+    reference's `init_array` draws it (the same distributions; other
+    numbers, since the generators differ)."""
     shape, dtype = d.shape, d.dtype
     if d.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -63,14 +71,26 @@ def init_array(d: ParamDef, g: torch.Generator, device) -> torch.Tensor:
         u = torch.rand(shape, generator=g, dtype=torch.float32, device=device)
         dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
         return torch.log(torch.expm1(dt)).to(dtype)
-    x = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
+    raise ValueError(f"unknown init {d.init!r}")
+
+
+def _init_in_slices(p: torch.Tensor, d: ParamDef, g: torch.Generator):
+    """Fill a "normal" or "lecun" leaf as the reference's `init_array`
+    draws it, slice by slice of leading rows, each a float32 draw of at
+    most _SLICE_CELLS cells scaled by the whole leaf's scale."""
     if d.init == "normal":
-        return x.mul_(0.02).to(dtype)
-    if d.init != "lecun":
-        raise ValueError(f"unknown init {d.init!r}")
-    # lecun: fan_in = product of all but last dim (or last-but-one for stacks)
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return x.mul_(1.0 / fan_in ** 0.5).to(dtype)
+        scale = 0.02
+    else:
+        # lecun: fan_in = product of all but last dim (or last-but-one
+        # for stacks)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        scale = 1.0 / fan_in ** 0.5
+    rows = max(1, _SLICE_CELLS // (p.numel() // p.shape[0]))
+    for i in range(0, p.shape[0], rows):
+        part = p[i:i + rows]
+        x = torch.randn(part.shape, generator=g, dtype=torch.float32,
+                        device=p.device)
+        part.copy_(x.mul_(scale))
 
 
 class ParamTree(nn.Module):
@@ -115,8 +135,11 @@ class ParamTree(nn.Module):
         """Fill every parameter from `seed`, each from its own generator on
         the parameter's device."""
         for path, p, d in self.leaves():
-            p.copy_(init_array(d, generator_for(seed, path, p.device),
-                               p.device))
+            g = generator_for(seed, path, p.device)
+            if d.init in ("normal", "lecun"):
+                _init_in_slices(p, d, g)
+            else:
+                p.copy_(init_array(d, g, p.device))
         return self
 
 
@@ -160,6 +183,25 @@ def apply_rope(x, pos, theta: float):
     freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
     angles = pos.float()[..., None] * freqs                  # [..., S, hd/2]
     angles = angles[..., None, :]                            # [..., S, 1, hd/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, pos3, theta: float, sections: tuple[int, ...]):
+    """M-RoPE: head_dim/2 split into len(sections) position streams.
+
+    x: [B, S, H, hd]; pos3: [B, S, 3] (temporal/height/width).  As the
+    reference computes it: frequency j takes stream sec_id[j]'s position
+    as its angle, with no frequency factor (the reference computes the
+    frequencies and leaves them out; ROADMAP.md, 'Reference limits').
+    `theta` is unused for that reason."""
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))            # [hd/2]
+    pos = pos3.float()[..., sec_id] if pos3.shape[-1] == 3 else pos3.float()
+    angles = pos[..., None, :]                               # [B, S, 1, hd/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

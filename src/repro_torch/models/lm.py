@@ -5,8 +5,8 @@ The reference stacks each layout group's layers into [L, ...] leaves
 layer in an `nn.ModuleList`, in the order the layers run, and loops.
 `layer_slots(cfg)` says which stacked leaf (group, kind key, index) each
 layer of the port is, which is all a weight converter needs.  The cache is
-a list with one dict per layer (dense: k, v [B, max_seq, Hkv, hd]; ssm:
-conv [B, k-1, d_inner], h [B, d_inner, N] float32).
+a list with one dict per layer (dense and moe: k, v [B, max_seq, Hkv,
+hd]; ssm: conv [B, k-1, d_inner], h [B, d_inner, N] float32).
 
 Training: `loss(batch)` is the reference's — embedding, the layers (each
 under the config's `remat`: "full" is `torch.utils.checkpoint`, "dots"
@@ -174,41 +174,55 @@ class LM(ParamTree):
             logits = c * torch.tanh(logits / c)
         return logits
 
-    def _forward(self, x):
+    def _forward(self, x, pos_ids):
         for p, kind in zip(self.layers, self.kinds):
-            x = _remat(self.cfg, block_forward, self.cfg, kind, p, x)
+            x = _remat(self.cfg, block_forward, self.cfg, kind, p, x,
+                       pos_ids)
         return x
+
+    def _pos_ids(self, pos_ids):
+        return None if pos_ids is None else \
+            torch.as_tensor(pos_ids, device=self.device).long()
 
     # ---------------- public entry points ----------------
     def loss(self, batch):
-        """batch: {tokens: [B, S], labels: [B, S]} (numpy or tensors) ->
-        (loss, {"loss": loss}), the mean next-token cross-entropy, float32."""
+        """batch: {tokens: [B, S], labels: [B, S], (pos_ids: [B, S, 3])}
+        (numpy or tensors) -> (loss, {"loss": loss}), the mean next-token
+        cross-entropy, float32."""
         x = self._embed(batch["tokens"])
-        x = self._forward(x)
+        x = self._forward(x, self._pos_ids(batch.get("pos_ids")))
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         loss = chunked_ce(self.cfg, self._head, x, labels)
         return loss, {"loss": loss}
 
     @torch.no_grad()
-    def prefill(self, tokens, max_seq: int):
-        """tokens: [B, S] -> (last-token logits [B, V] float32, filled
-        cache)."""
+    def prefill(self, tokens, max_seq: int, pos_ids=None):
+        """tokens: [B, S] (pos_ids: [B, S, 3] M-RoPE positions) -> (last-
+        token logits [B, V] float32, filled cache)."""
         b, _ = tokens.shape
         cache = self.init_cache(b, max_seq)
         x = self._embed(tokens)
+        pos_ids = self._pos_ids(pos_ids)
         for l, (p, kind) in enumerate(zip(self.layers, self.kinds)):
-            x, cache[l] = block_prefill(self.cfg, kind, p, x, cache[l])
+            x, cache[l] = block_prefill(self.cfg, kind, p, x, cache[l],
+                                        pos_ids)
         return self._head(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
-    def decode(self, cache, token, pos):
+    def decode(self, cache, token, pos, pos_ids=None, moe_groups: int = 1):
         """One decode step. token: [B, 1]; pos: [B] int (or a scalar for
-        every row), each row's count of tokens so far.  Returns (logits
-        [B, V] float32, cache); the cache is updated in place."""
+        every row), each row's count of tokens so far; pos_ids: [B, 1, 3]
+        M-RoPE positions.  `moe_groups` cuts the rows into that many
+        equal groups, each routed through the MoE layers with its own
+        capacity (the engine passes its slots; 1 is the reference's
+        `model.decode` on a batch).  Returns (logits [B, V] float32,
+        cache); the cache is updated in place."""
         x = self._embed(token)
         # one host-to-device copy of the positions for all layers
         pos = torch.as_tensor(pos, device=self.device).long().reshape(-1) \
             .expand(x.shape[0])
+        pos_ids = self._pos_ids(pos_ids)
         for l, (p, kind) in enumerate(zip(self.layers, self.kinds)):
-            x, cache[l] = block_decode(self.cfg, kind, p, x, cache[l], pos)
+            x, cache[l] = block_decode(self.cfg, kind, p, x, cache[l], pos,
+                                       pos_ids, moe_groups)
         return self._head(x)[:, 0], cache

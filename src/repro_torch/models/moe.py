@@ -1,0 +1,160 @@
+"""Mixture-of-Experts layer on one device, as the reference's
+`models/moe.py` computes it in its local mode.
+
+The combine step is the paper's incremental-update pattern
+
+    for a in assignments:  Y[token(a)] += weight(a) * expert_out(a)
+
+a group-by destination index with a commutative ⊕ (paper §3.7).  Here it
+runs the hand-written `segment_reduce` kernel on the card (float32
+accumulation, the same bits on every launch) and its plain version on
+the CPU, as every other float + group-by of the port does; the result is
+cast back to the activation dtype once.  The reference adds the k
+contributions into a buffer of the activation dtype, so in bf16 the two
+differ in rounding only.
+
+Routing is the reference's: the router's logits in float32, the top k by
+a stable descending sort (the lower expert index first among equal
+logits, as `jax.lax.top_k`), softmax over the k.  The expert pass is the
+reference's padded form: rows scattered into a static [E, cap_e, d]
+buffer by (expert, rank within the expert), overflow rows dropped, three
+batched products over all experts.  `groups=G` cuts the rows into G
+equal groups of tokens, each with its own capacity and ranks, which
+equals G separate calls: the serve engine's batched decode passes its
+slots, as the reference vmaps a one-sequence decode over them.
+
+The kernel's launch carries no autograd history, so a combine that
+autograd records raises on the card (the moe family's training is a
+ROADMAP.md item).  The reference's expert-parallel modes (`ep_alltoall`,
+`ep_local`, under shard_map) wait for more than one card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import segment_reduce
+from .common import ParamDef, dense
+
+
+def moe_defs(cfg) -> dict[str, ParamDef]:
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    dt = cfg.param_dtype
+    dm = "embed" if cfg.fsdp_experts else "none"  # FSDP d_model dim or not
+    return {
+        "router": ParamDef((d, e), ("embed", "none"), dt),
+        "w_gate": ParamDef((e, d, ff), ("experts", dm, "expert_ff"), dt),
+        "w_in": ParamDef((e, d, ff), ("experts", dm, "expert_ff"), dt),
+        "w_out": ParamDef((e, ff, d), ("experts", "expert_ff", dm), dt),
+    }
+
+
+def _router(cfg, p, xt):
+    """xt: [T, d] -> (weights [T, k] float32, experts [T, k] int64)."""
+    logits = dense(xt, p["router"]).float()
+    top, experts = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.top_k
+    return torch.softmax(top[:, :k], dim=-1), experts[:, :k]
+
+
+def _cap_e(n_rows: int, n_experts: int, cf: float) -> int:
+    cap = math.ceil(n_rows / n_experts * cf)
+    return max(8, -(-cap // 8) * 8)
+
+
+def _ranks(flat_e, n_experts: int, groups: int):
+    """Each row's position among the rows of its group routed to the same
+    expert, in row order (the paper's group-by cumsum).  The one-hot is
+    laid out expert-major, [G, E, rows], so that the scan runs along the
+    contiguous dimension: a scan down the columns of [rows, E] runs one
+    thread a column on the card (3.6 ms on an H100 at 16,384 rows and 128
+    experts)."""
+    onehot = F.one_hot(flat_e.view(groups, -1), n_experts) \
+        .transpose(1, 2).contiguous()
+    rank = torch.cumsum(onehot, dim=2).gather(1, flat_e.view(groups, 1, -1))
+    return rank.reshape(-1) - 1
+
+
+def _bmm(a, w):
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.bmm(a.to(dt), w.to(dt))
+
+
+def _padded_expert_pass(x_rows, flat_e, slot, keep, n_experts, width,
+                        w_gate, w_in, w_out):
+    """Rows into a static [E, width, d] buffer at (expert, slot), dropped
+    rows into a spare slot cut off before the products; all experts as
+    one batched SwiGLU; per-row outputs gathered back ([N, d]), dropped
+    rows zero."""
+    d = x_rows.shape[1]
+    buf = torch.zeros((n_experts, width + 1, d), dtype=x_rows.dtype,
+                      device=x_rows.device)
+    buf[flat_e, slot] = x_rows
+    buf = buf[:, :width]
+    h = F.silu(_bmm(buf, w_gate)) * _bmm(buf, w_in)
+    y = _bmm(h, w_out)
+    out = y[flat_e, torch.where(keep, slot, 0)]
+    return out * keep[:, None].to(out.dtype)
+
+
+def segment_add(values, segment_ids, num_segments: int):
+    """The group-by ⊕ combine: [N, d] rows summed into [num_segments, d]
+    float32 by the `segment_reduce` kernel (its plain version on the
+    CPU)."""
+    if values.device.type == "cuda" and torch.is_grad_enabled() \
+            and values.requires_grad:
+        raise NotImplementedError(
+            "moe segment_add: the segment kernel's launch records no "
+            "gradient; training the moe family is not ported yet "
+            "(ROADMAP.md, Queue 1, 'the moe family's training')")
+    return segment_reduce(segment_ids, values, num_segments)
+
+
+def _dispatch(flat_e, n_experts: int, groups: int, cf: float):
+    """(slot [N], keep [N], width) of the routed rows (token-major, then
+    the k choices): each group of N/groups rows gets cap_e slots an
+    expert, a kept row the slot group·cap_e + its rank; a row of rank
+    ≥ cap_e is dropped."""
+    n = flat_e.shape[0]
+    per = n // groups
+    cap_e = _cap_e(per, n_experts, cf)
+    rank = _ranks(flat_e, n_experts, groups)
+    keep = rank < cap_e
+    group = torch.arange(n, device=flat_e.device) // per
+    slot = torch.where(keep, group * cap_e + rank, groups * cap_e)
+    return slot, keep, groups * cap_e
+
+
+def moe_local(cfg, p, x, groups: int = 1):
+    """x: [B, S, d] -> [B, S, d].  `groups` cuts the B·S tokens, in order,
+    into that many equal groups, each routed with its own capacity."""
+    b, s, d = x.shape
+    t = b * s
+    if t % groups:
+        raise ValueError(f"moe_local: {t} tokens do not cut into {groups} "
+                         "equal groups")
+    xt = x.reshape(t, d)
+    gw, ge = _router(cfg, p, xt)
+    k = cfg.top_k
+    flat_e = ge.reshape(t * k)
+    flat_w = gw.reshape(t * k)
+    src = torch.arange(t, device=x.device).repeat_interleave(k)
+    slot, keep, width = _dispatch(flat_e, cfg.num_experts, groups,
+                                  cfg.capacity_factor)
+    ys = _padded_expert_pass(xt[src], flat_e, slot, keep, cfg.num_experts,
+                             width, p["w_gate"], p["w_in"], p["w_out"])
+    y = segment_add(ys * flat_w[:, None].to(ys.dtype), src, t)
+    return y.reshape(b, s, d).to(x.dtype)
+
+
+def moe_forward(cfg, p, x, mesh=None, groups: int = 1):
+    """The reference's entry: local on one device; a mesh (its expert-
+    parallel modes) raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "moe_forward: expert parallelism over a mesh is not ported yet "
+            "(ROADMAP.md, Queue 1, 'expert parallelism over a RankGroup'); "
+            "pass mesh=None")
+    return moe_local(cfg, p, x, groups)

@@ -7,7 +7,10 @@ and finished slots are recycled.
 Per-slot positions: the reference `vmap`s a batch-1 decode over the slots;
 the port runs one decode over [slots, 1] tokens with a pos[slots] vector,
 so that each row ropes at its own position, writes its k/v at its own
-cache position and attends to the positions ≤ its own.
+cache position and attends to the positions ≤ its own.  MoE layers route
+each slot's token as a group of its own (`moe_groups=slots`): capacity
+couples the rows of one call, and a batch routed as one would let other
+slots, idle ones included, take a slot's capacity.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ class ServeEngine:
         self.slots = slots
         self.max_seq = max_seq
         self._prefill = make_prefill_step(cfg, max_seq)
-        self._decode = make_decode_step(cfg)
+        self._decode = make_decode_step(cfg, moe_groups=slots)
         self.cache = model.init_cache(slots, max_seq)
         self.pos = np.zeros(slots, np.int64)
         self.active: list[Request | None] = [None] * slots

@@ -10,11 +10,13 @@ def make_prefill_step(cfg, max_seq):
                                   "yet (ROADMAP.md, 'Modules to port')")
 
     def prefill_step(model, batch):
-        return model.prefill(batch["tokens"], max_seq)
+        return model.prefill(batch["tokens"], max_seq,
+                             pos_ids=batch.get("pos_ids"))
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, moe_groups: int = 1):
+    """`moe_groups`: see `LM.decode` (the engine passes its slots)."""
     def decode_step(model, cache, token, pos):
-        return model.decode(cache, token, pos)
+        return model.decode(cache, token, pos, moe_groups=moe_groups)
     return decode_step

@@ -16,7 +16,8 @@ functional step returns new trees instead.  Semantics are the reference's:
 
 The step runs eagerly (the reference jits it; a CUDA-graph step is a
 ROADMAP.md item).  `mesh` other than None raises: data-parallel training
-over a `RankGroup` is not ported yet.
+over a `RankGroup` is not ported yet, and so does a layout with a "moe"
+layer: the MoE combine's kernel launch carries no gradient.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ def make_train_step(cfg, mesh=None, dp_axes=("data",), lr=3e-4,
             "make_train_step: data-parallel training over a mesh is not "
             "ported yet (ROADMAP.md, Queue 1, 'Data-parallel training over "
             "a RankGroup'); pass mesh=None")
+    if any("moe" in pattern for pattern, _ in cfg.layout):
+        raise NotImplementedError(
+            "make_train_step: the moe family's combine has no backward yet "
+            "(ROADMAP.md, Queue 1, 'the moe family's training')")
     k = max(1, cfg.microbatch)
 
     def grads_of(model, params, batch):

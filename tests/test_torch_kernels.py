@@ -811,6 +811,54 @@ def test_cuda_segment_reduce_deterministic(cuda, n, k, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,k,d", [(96, 8, 256), (300, 2, 448), (4, 8, 2048)])
+def test_cuda_moe_combine_matches_plain(cuda, t, k, d):
+    # the MoE combine's shape at small widths: t tokens of k bf16 rows each
+    # (ids in runs of k), widened to float32; the same bits on two
+    # launches, the plain version's and the reshape-sum's values
+    r = np.random.default_rng(t + k)
+    ids = torch.arange(t, device=cuda).repeat_interleave(k)
+    vals = _t(r.standard_normal((t * k, d)).astype(np.float32)) \
+        .to(cuda, torch.bfloat16)
+    before = segment_reduce.launches
+    got = segment_reduce(ids, vals, t)
+    again = segment_reduce(ids, vals, t)
+    assert segment_reduce.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = segment_reduce_plain(ids, vals, t)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, vals.float().view(t, k, d).sum(1),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_matches_cpu_and_refuses_a_gradient(cuda):
+    # the smoke qwen3-moe MoE layer on the card (the combine through the
+    # kernel, one launch) against the CPU (its plain version), float32;
+    # under autograd with inputs that need a gradient it raises
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+    cfg = smoke_config("qwen3-moe-30b-a3b")
+    r = np.random.default_rng(3)
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p = {"router": r.standard_normal((d, e)) * d ** -0.5,
+         "w_gate": r.standard_normal((e, d, ff)) * d ** -0.5,
+         "w_in": r.standard_normal((e, d, ff)) * d ** -0.5,
+         "w_out": r.standard_normal((e, ff, d)) * ff ** -0.5}
+    p = {n: _t(v.astype(np.float32)) for n, v in p.items()}
+    x = _t(r.standard_normal((2, 40, d)).astype(np.float32))
+    want = moe.moe_local(cfg, p, x)
+    pc = {n: v.to(cuda) for n, v in p.items()}
+    before = segment_reduce.launches
+    got = moe.moe_local(cfg, pc, x.to(cuda))
+    assert segment_reduce.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    xg = x.to(cuda).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="moe family's training"):
+        moe.moe_local(cfg, pc, xg)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hot", [0.25, 1.0])
 @pytest.mark.parametrize("k,d", [(64, 1), (70_000, 1), (4_847_571, 1),
                                  (4096, 8)])

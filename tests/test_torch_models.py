@@ -6,7 +6,9 @@ logits, every leaf of the prefilled cache and four decode steps' logits
 must agree at rtol = atol = 1e-4 (float32 smoke configs: the port's
 kernels run their plain versions here, and the JAX LM computes with jnp).
 Prompt length 13 takes the SSM's single-chunk fallback (scan_chunk 8) and
-a ragged attention tile."""
+a ragged attention tile.  The configs with QKV biases (qwen2-72b,
+qwen2-vl-72b) get random nonzero biases in the JAX tree before it is
+carried across: the reference initialises them to zero."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,8 @@ from repro_torch.convert import (lm_cache_from_numpy, lm_cache_to_numpy,
 from repro_torch.models import LM, get_model
 from repro_torch.models.lm import layer_slots
 
-ARCHS = ["llama3-8b", "falcon-mamba-7b"]
+ARCHS = ["llama3-8b", "falcon-mamba-7b", "minitron-4b", "phi3-medium-14b",
+         "qwen2-72b", "qwen3-moe-30b-a3b", "arctic-480b", "qwen2-vl-72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 MAX_SEQ = 32
 
@@ -40,11 +43,25 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def with_biases(params, seed=0):
+    """The JAX tree with every QKV bias drawn from a seed (nonzero)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        if str(getattr(path[-1], "key", "")) in ("bq", "bk", "bv"):
+            return jnp.asarray(rng.standard_normal(leaf.shape) * 0.5,
+                               leaf.dtype)
+        return leaf
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
 def _make_pair(arch):
     """(port cfg, JAX model, JAX params, port model with JAX's weights)."""
     jcfg = jax_smoke_config(arch)
     jm = jax_get_model(jcfg)
     params = jm.init(0)
+    if jcfg.qkv_bias:
+        params = with_biases(params)
     tree = jax.tree.map(np.asarray, params)
     cfg = smoke_config(arch)
     return cfg, jm, params, lm_params_from_numpy(cfg, tree, device="cpu")
@@ -68,7 +85,7 @@ def test_configs_read_the_same():
                 else:
                     assert a[k] == b[k], k
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen3-moe-30b-a3b")
+        get_config("recurrentgemma-2b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -171,6 +188,65 @@ def test_decode_from_reference_cache(pair):
     np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
 
 
+def test_mrope_prefill_and_decode_match_reference():
+    """qwen2-vl-72b with M-RoPE positions: three different streams from a
+    seed in the prefill, then decode steps with positions of their own."""
+    cfg, jm, params, model = _make_pair("qwen2-vl-72b")
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    pos3 = rng.integers(0, 40, (2, 11, 3)).astype(np.int32)
+    jl, jc = jm.prefill(params, jnp.asarray(tokens), MAX_SEQ,
+                        pos_ids=jnp.asarray(pos3))
+    pl, pc = model.prefill(torch.as_tensor(tokens), MAX_SEQ,
+                           pos_ids=torch.as_tensor(pos3))
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+    plain, _ = model.prefill(torch.as_tensor(tokens), MAX_SEQ)
+    assert float((plain - pl).abs().max()) > 1e-3
+    for k, v in _flat(jax.tree.map(np.asarray, jc)):
+        np.testing.assert_allclose(dict(_flat(lm_cache_to_numpy(cfg, pc)))[k],
+                                   v, **TOL, err_msg=k)
+    for step in range(2):
+        tok = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+        p1 = rng.integers(0, 40, (2, 1, 3)).astype(np.int32)
+        jl, jc = jm.decode(params, jc, jnp.asarray(tok),
+                           jnp.asarray(11 + step, jnp.int32),
+                           pos_ids=jnp.asarray(p1))
+        pl, pc = model.decode(pc, torch.as_tensor(tok), 11 + step,
+                              pos_ids=torch.as_tensor(p1))
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL,
+                                   err_msg=f"decode step {step}")
+
+
+def test_init_draws_large_leaves_in_slices(monkeypatch):
+    """A leaf above _SLICE_CELLS is drawn slice by slice of leading rows
+    with the whole leaf's scale (lecun's fan-in from the full shape):
+    the same distributions, the same numbers from one seed.  A leaf of at
+    most _SLICE_CELLS cells is one float32 draw of its whole shape."""
+    from repro_torch.models import common
+    cfg = smoke_config("arctic-480b").replace(d_model=256, d_ff=512,
+                                              moe_d_ff=128)
+    monkeypatch.setattr(common, "_SLICE_CELLS", 2 ** 13)
+    model = get_model(cfg, device="cpu").init(3)
+    again = get_model(cfg, device="cpu").init(3)
+    big = small = 0
+    for (path, p, d), (_, q, _) in zip(model.leaves(), again.leaves()):
+        assert torch.equal(p, q), path
+        if d.init not in ("lecun", "normal"):
+            continue
+        want = 0.02 if d.init == "normal" else 1.0 / d.shape[-2] ** 0.5
+        if p.numel() > 2 ** 13:
+            big += 1
+            assert abs(p.double().std().item() / want - 1) < 0.05, path
+            # the slices are not copies of one another
+            assert not torch.equal(p[0], p[-1]), path
+        else:
+            small += 1
+            x = torch.randn(d.shape, dtype=torch.float32, generator=(
+                common.generator_for(3, path, "cpu")))
+            assert torch.equal(p, x.mul_(want).to(d.dtype)), path
+    assert big >= 5 and small >= 1
+
+
 def test_converter_refuses_a_wrong_tree():
     cfg = smoke_config("llama3-8b")
     tree = jax.tree.map(np.asarray, jax_get_model(
@@ -185,7 +261,7 @@ def test_converter_refuses_a_wrong_tree():
         lm_params_from_numpy(cfg, tree, device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["moe", "rec", "lattn"])
+@pytest.mark.parametrize("kind", ["rec", "lattn"])
 def test_unported_layer_kinds_raise(kind):
     cfg = smoke_config("llama3-8b").replace(layout=(((kind,), 1),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -4,13 +4,18 @@ The port's `ServeEngine` (one decode over all slots with a per-slot
 position vector) must give exactly the greedy tokens of the JAX
 `ServeEngine` (a vmapped batch-1 decode) on the same weights — the
 reference's `model.init(0)` carried across with `lm_params_from_numpy` —
-in the scenarios of tests/test_serve_engine.py.  Float32 smoke configs."""
+in the scenarios of tests/test_serve_engine.py.  Float32 smoke configs;
+the configs with QKV biases get random nonzero ones (the reference's are
+zero at init)."""
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from conftest import FakeClock, run_schedule
+from test_torch_models import with_biases
 
 from repro.configs import smoke_config as jax_smoke_config
 from repro.launch.serve import main as jax_serve_main
@@ -23,13 +28,25 @@ from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import LM
 from repro_torch.serve.engine import ServeEngine
 
-ARCHS = ["llama3-8b", "falcon-mamba-7b"]
+ARCHS = ["llama3-8b", "falcon-mamba-7b", "minitron-4b", "phi3-medium-14b",
+         "qwen2-72b", "qwen3-moe-30b-a3b", "arctic-480b", "qwen2-vl-72b"]
+# the engine's scheduling scenarios, one config of each kind of decode
+# state: dense and moe layers (whose engine decode routes a capacity group
+# a slot) and ssm layers; the other dense configs differ from llama3-8b
+# only in widths and biases, which the tests of every arch cover
+SCENARIO_ARCHS = ["llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+                  "arctic-480b"]
 
 
+@functools.lru_cache(maxsize=None)
 def _models(arch, seed=0):
-    """(JAX cfg, JAX params, port cfg, port model with JAX's weights)."""
+    """(JAX cfg, JAX params, port cfg, port model with JAX's weights); one
+    pair an arch for the file (the engines read the weights, never write
+    them)."""
     jcfg = jax_smoke_config(arch)
     params = jax_get_model(jcfg).init(seed)
+    if jcfg.qkv_bias:
+        params = with_biases(params, seed)
     cfg = smoke_config(arch)
     model = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params),
                                  device="cpu")
@@ -59,7 +76,7 @@ def test_engine_matches_jax_engine(arch):
     assert all(len(o) == 6 for o in ours)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SCENARIO_ARCHS)
 def test_engine_slot_recycling(arch):
     ref, ours = _serve_both(arch, (4, 4, 4), 3, slots=1, max_seq=32, seed=1)
     assert ours == ref
@@ -86,7 +103,7 @@ def test_engine_rids_unique_across_queue_drain():
     assert d.rid > c.rid == 40 > b.rid > a.rid
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SCENARIO_ARCHS)
 def test_engine_scripted_midrun_arrivals(arch):
     """Requests arriving while earlier ones decode, on the shared fake-clock
     schedule, give the JAX engine's tokens under the same schedule."""

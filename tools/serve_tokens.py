@@ -5,8 +5,10 @@
 
 Imports `repro_torch` from DIR/src (the checkout's own by default) and
 serves phase 4's models and requests through `ServeEngine`, with phase 4's
-own constants, prompts and digest (imported from this checkout's
-chip_smoke.py): full size, random weights from --seed.  Prints one JSON
+own constants, depth cuts, prompts and digest (imported from this
+checkout's chip_smoke.py): full width, random weights from --seed.  An
+arch that DIR's `get_config` does not know is reported as not in that
+tree, so that an earlier tree's digests still print.  Prints one JSON
 line: each model's tokens' crc32 and count, as phase 4's `[serve] ...
 crc32` lines.  Run it for two trees (a parent unpacked by `git archive`
 into the git-ignored `.checkout/`, and the checkout) in separate
@@ -41,7 +43,11 @@ def main(argv=None) -> int:
     from repro_torch.serve import ServeEngine
     out = {"tree": str(args.tree), "device": torch.cuda.get_device_name(0)}
     for arch in smoke.SERVE_ARCHS:
-        cfg = get_config(arch)
+        try:
+            cfg = smoke.serve_config(get_config, arch)
+        except KeyError:           # an arch the other tree does not serve
+            out[arch] = "not in this tree"
+            continue
         model = get_model(cfg).init(args.seed)
         eng = ServeEngine(cfg, model, slots=smoke.SERVE_SLOTS,
                           max_seq=smoke.SERVE_MAX_SEQ)

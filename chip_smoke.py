@@ -39,6 +39,16 @@ first mismatch:
              rows of 2,048 into 2,048 tokens, ids in runs of 8) against
              its plain version, launched twice with the same bits, timed
              beside `index_add_` and the reshape-and-sum of the same rows;
+             the shapes of the hybrid and audio families: flash bf16
+             [10, 8192, 256] causal within a 2048-token window (one lattn
+             layer of recurrentgemma-2b's 8192-token prefill; against
+             `scaled_dot_product_attention` with the same boolean mask)
+             and [10, 2048, 256] causal, float32 [10, 1531, 256] within a
+             256-token window, whisper-tiny's encoder [24, 1500, 64] and a
+             decode tick's cross-attention [24, 1, 64] x [24, 1500, 64],
+             both full; and the scan's (a, bx) entry as the RG-LRU calls
+             it, [1, 2048, 2560, 1] with c = 1, h0 and the final state;
+             each launched twice with the same bits;
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, in eager mode and in whole mode (the default:
@@ -118,30 +128,38 @@ first mismatch:
              backup;
 4. serve   — serve llama3-8b, falcon-mamba-7b, minitron-4b,
              phi3-medium-14b, qwen2-72b (32 of 80 layers),
-             qwen3-moe-30b-a3b and arctic-480b (2 of 35 layers) at full
-             width (bf16, random weights from --seed, one model on the
-             card at a time; depth cut only where the weights do not fit
-             one 80 GB card) through `repro_torch.serve.ServeEngine`: 4
-             slots, max_seq 2112, six requests of 2048, 1531, 1024, 777,
-             512 and 300 prompt tokens, 32 new tokens each, with the launch
-             counts read around the run (flash_attention for every
-             attention model, segment_reduce for the MoE combine); then
+             qwen3-moe-30b-a3b, arctic-480b (2 of 35 layers) and
+             recurrentgemma-2b at full width (bf16, random weights from
+             --seed, one model on the card at a time; depth cut, in whole
+             layout periods, only where the weights do not fit one 80 GB
+             card) through `repro_torch.serve.ServeEngine`: 4 slots,
+             max_seq 2112, six requests of 2048, 1531, 1024, 777, 512 and
+             300 prompt tokens (recurrentgemma-2b: also one of 8192, four
+             of its windows, at max_seq 8256), 32 new tokens each, with
+             the launch counts read around the run (flash_attention for
+             every attention model, segment_reduce for the MoE combine,
+             selective_scan for the RG-LRU); whisper-tiny through
+             `make_prefill_step` / `make_decode_step` (4 requests of 1500
+             stub frames and 300 tokens from the seed, 32 new tokens:
+             prefill ms with the encoder, decode ms a tick); then
              prefill ms per prompt length, decode ms per tick at 4 active
              slots, peak device memory, the seconds each config took, and
-             for llama3-8b, falcon-mamba-7b and qwen3-moe-30b-a3b one
-             torch.profiler trace of a prefill and of a tick of the
-             engine's own decode step (a
+             for llama3-8b, falcon-mamba-7b, qwen3-moe-30b-a3b and
+             recurrentgemma-2b one torch.profiler trace of the longest
+             prefill and of a tick of the engine's own decode step (a
              prefill over a second is timed once, the others three times);
-             then a 2-layer float32 copy (full width; weights drawn on the
-             card from --seed and copied to the CPU) of llama3-8b,
+             then a float32 copy (full width; weights drawn on the card
+             from --seed and copied to the CPU) of llama3-8b,
              falcon-mamba-7b, qwen3-moe-30b-a3b (its 300-token prompt
              drops rows by capacity; the smallest gap between the k-th and
              (k+1)-th router logit is printed) and qwen2-vl-72b (through
              `make_prefill_step` with three M-RoPE position streams from
-             the seed) run on the card against the same weights on the
-             CPU (the kernels' plain versions); the served tokens' crc32
-             (tools/serve_tokens.py prints the same digest from another
-             tree's sources);
+             the seed) at 2 layers, of recurrentgemma-2b at one (rec, rec,
+             lattn) period with a 2300-token prompt (past the window, the
+             ring wrapped), and of the whole whisper-tiny, run on the card
+             against the same weights on the CPU (the kernels' plain
+             versions); the served tokens' crc32 (tools/serve_tokens.py
+             prints the same digest from another tree's sources);
 8. train   — train llama3-8b (8 of 32 layers) and falcon-mamba-7b (16 of
              64) at full width, bf16 with float32 moments, remat "full",
              ce_chunk 512, through `repro_torch.runtime.TrainRunner` on
@@ -152,7 +170,8 @@ first mismatch:
              (device busy, idle share, top kernels, the hand-written
              kernels' share), and 10 steps on one fixed batch whose loss
              must fall; then at 2 layers (full width) six steps against a
-             run failed at step 5 and resumed from its step-4 snapshot,
+             run failed at step 5 and resumed from its step-4 snapshot
+             (each array read once, its crc32 checked as it is loaded),
              bit-equal leaf by leaf; then a 2-layer float32 copy of each
              (weights drawn on the card from --seed and copied to the
              CPU) takes one step on the card and on the CPU (B 1, S 1024, so
@@ -163,7 +182,8 @@ Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4.
 The line before the last is a JSON object with one entry per kernel
 (segment_reduce's launches count phases 3, 5, 6, 7's world of 1 and 4's
 MoE combines;
-flash_attention's and selective_scan's phases 4 and 8; the backward
+flash_attention's and selective_scan's (both entries) phases 4 and 8;
+the backward
 kernels' phase 8); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, the script exits non-zero
 and prints no result.
@@ -226,22 +246,46 @@ SERVE_ARCHS = {"llama3-8b": ("flash_attention",),
                "phi3-medium-14b": ("flash_attention",),
                "qwen2-72b": ("flash_attention",),
                "qwen3-moe-30b-a3b": ("flash_attention", "segment_reduce"),
-               "arctic-480b": ("flash_attention", "segment_reduce")}
+               "arctic-480b": ("flash_attention", "segment_reduce"),
+               "recurrentgemma-2b": ("flash_attention", "selective_scan")}
 # layers kept where a config's bf16 weights do not fit one 80 GB card:
 # qwen2-72b 145 GB -> 61.2 GB, arctic-480b 951 GB -> 55.4 GB (one layer's
 # 128 experts are 26.8 GB); no cut is made in width
 SERVE_DEPTH = {"qwen2-72b": 32, "arctic-480b": 2}
 # the configs whose prefill and decode tick phase 4 traces
-SERVE_TRACED = ("llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b")
+SERVE_TRACED = ("llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+                "recurrentgemma-2b")
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 4, 2112, 32
 PROMPT_LENS = (2048, 1531, 1024, 777, 512, 300)
-# the card-against-CPU checks: a 2-layer float32 copy of each, full width
+# one more prompt and its max_seq, for a config whose window it crosses:
+# recurrentgemma-2b's 8192 tokens are four of its 2048-token windows (its
+# lattn caches hold min(window, max_seq) rows, its rec state is O(1))
+SERVE_LONG = {"recurrentgemma-2b": (8192, 8256)}
+# whisper-tiny through the serving steps, as the reference's launcher
+# drives it: a batch of 4 requests of 1500 stub frames from the seed, a
+# 300-token prompt, 32 new tokens
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_PROMPT = "whisper-tiny", 4, 300
+# the card-against-CPU checks: a float32 copy of each, full width, cut to
+# whole layout periods of at least 2 layers (recurrentgemma-2b: one
+# (rec, rec, lattn) period), whisper-tiny whole
 CHECK_ARCHS = ("llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
-               "qwen2-vl-72b")
+               "qwen2-vl-72b", "recurrentgemma-2b", "whisper-tiny")
 CHECK_LAYERS, CHECK_PROMPT, CHECK_NEW = 2, 300, 8
+# a prompt past recurrentgemma-2b's window that it does not divide, so
+# that the window mask and the ring's wrap run on both devices
+CHECK_PROMPTS = {"recurrentgemma-2b": 2300}
 # the MoE combine's shape in phase 2: qwen3-moe-30b-a3b's 2048-token
 # prefill, top 8 of 128 experts, d_model 2048
 MOE_TOKENS, MOE_TOP_K, MOE_D = 2048, 8, 2048
+
+
+def cut_layout(cfg, layers, **over):
+    """`cfg` cut in depth to whole periods of its first layout group's
+    pattern, at least `layers` layers: (rec, rec, lattn) x n keeps a
+    hybrid config's pattern, (dense,) x n a dense one's."""
+    pattern = cfg.layout[0][0]
+    periods = -(-layers // len(pattern))
+    return cfg.replace(layout=((pattern, periods),), **over)
 
 
 def serve_config(get_config, arch):
@@ -250,16 +294,21 @@ def serve_config(get_config, arch):
     cfg = get_config(arch)
     if arch not in SERVE_DEPTH:
         return cfg
-    kind = cfg.layout[0][0][0]
-    return cfg.replace(layout=(((kind,), SERVE_DEPTH[arch]),))
+    return cut_layout(cfg, SERVE_DEPTH[arch])
+
+
+def serve_max_seq(arch):
+    return SERVE_LONG[arch][1] if arch in SERVE_LONG else SERVE_MAX_SEQ
 
 
 def serve_prompts(np, cfg, seed):
-    """Phase 4's prompts: one of each of PROMPT_LENS, random tokens of the
-    config's vocabulary from `seed`."""
+    """Phase 4's prompts: one of each of PROMPT_LENS (then SERVE_LONG's
+    one), random tokens of the config's vocabulary from `seed`."""
     rng = np.random.default_rng(seed)
+    lens = PROMPT_LENS + ((SERVE_LONG[cfg.name][0],)
+                          if cfg.name in SERVE_LONG else ())
     return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-            for n in PROMPT_LENS]
+            for n in lens]
 
 
 def served_digest(np, reqs):
@@ -740,18 +789,43 @@ def _tile_case(torch, g, m, k, n, bm, dtype, masked, packed, reps=3):
     return _rates(rec, flops)
 
 
-def _flash_case(torch, g, bh, s, hd, dtype, reps=5):
-    """Causal attention at the prefill's shape [B·Hq, S, hd]."""
+def _attended_pairs(sq, sk, causal, window):
+    """The (query, key) pairs a mask keeps: causal keys j <= i, window keys
+    j > i - window (the work of this run's shape, not the most it could
+    be)."""
+    i = [min(sk - 1, r) if causal else sk - 1 for r in range(sq)]
+    lo = [max(0, r - window + 1) if window > 0 else 0 for r in range(sq)]
+    return sum(max(0, h - l + 1) for h, l in zip(i, lo))
+
+
+def _flash_case(torch, g, bh, s, hd, dtype, reps=5, sk=None, causal=True,
+                window=0, again=False):
+    """Attention at a prefill's shape [B·Hq, S, hd]: causal (with a local
+    window when `window` > 0), or full with `sk` keys (an encoder, or
+    cross-attention when sk != s).  `again`: a second launch must give the
+    same bits."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(bh, s, hd, generator=g, device="cuda").to(dt)
-               for _ in range(3))
-    got = flash_attention(q, k, v, causal=True)
-    want = flash_attention_plain(q, k, v, causal=True)
+    sk = s if sk is None else sk
+    q = torch.randn(bh, s, hd, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(bh, sk, hd, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
+    form = ("causal" if causal else "full") \
+        + (f" window {window}" if window else "")
+    shape = f"[{bh}, {s}, {hd}]" + ("" if sk == s else
+                                    f"x[{bh}, {sk}, {hd}]")
     require(got.dtype == dt and got.shape == want.shape,
-            f"flash_attention {dtype}: got {got.dtype} {tuple(got.shape)}")
+            f"flash_attention {form} {shape} {dtype}: got {got.dtype} "
+            f"{tuple(got.shape)}")
+    if again:
+        require(torch.equal(flash_attention(q, k, v, **kw), got),
+                f"flash_attention {form} {shape} {dtype}: a second launch "
+                "gave other bits")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     # per query row: a row that attends to i keys has outputs of about
@@ -763,46 +837,66 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5):
     ref = want.float().abs()
     row_err = float((diff.amax(-1) / ref.amax(-1).clamp_min(1e-30)).max())
     require(row_err <= rel,
-            f"flash_attention [{bh}, {s}, {hd}] {dtype}: worst query row "
+            f"flash_attention {form} {shape} {dtype}: worst query row "
             f"err/max|ref row| {row_err:.3g} > {rel} (whole tensor: err/"
             f"max|ref| {err / float(ref.max()):.3g})")
+    del want, diff, ref
     kern = _kernel_ms(torch, "flash_attention",
-                      lambda: flash_attention(q, k, v), reps)
-    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v), reps)
+                      lambda: flash_attention(q, k, v, **kw), reps)
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw),
+                       reps if window == 0 else 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # as [1, BH, S, hd]: PyTorch's fused attention backends take 4-d inputs
     q4, k4, v4 = q[None], k[None], v[None]
-    library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True),
-                         reps)
+    if window:
+        kp = torch.arange(sk, device="cuda")[None, :]
+        qp = torch.arange(s, device="cuda")[:, None]
+        mask = (kp > qp - window) & ((kp <= qp) if causal else True)
+        library = "scaled_dot_product_attention(attn_mask=the window)"
+        library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask),
+                             reps)
+        del mask
+    else:
+        library = f"scaled_dot_product_attention(is_causal={causal})"
+        library_ms = time_ms(torch, lambda: sdpa(q4, k4, v4,
+                                                 is_causal=causal), reps)
     esize = 2 if dtype == "bfloat16" else 4
-    flops = 4.0 * bh * hd * s * (s + 1) / 2      # causal pairs only
-    bytes_ = 4.0 * bh * s * hd * esize           # q, k, v read; out written
+    flops = 4.0 * bh * hd * _attended_pairs(s, sk, causal, window)
+    bytes_ = 2.0 * bh * (s + sk) * hd * esize    # q, k, v read; out written
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
-    rec = dict(case=f"flash_attention causal [{bh}, {s}, {hd}] {dtype}",
+    rec = dict(case=f"flash_attention {form} {shape} {dtype}",
                max_abs_err=err, row_rel_err=row_err,
                tol=f"{rel:g}*max|ref row| per query row", **kern,
-               plain_ms=plain_ms, library_ms=library_ms,
-               library="scaled_dot_product_attention(is_causal=True)",
+               plain_ms=plain_ms, library_ms=library_ms, library=library,
                bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               same_bits_twice=again or None)
     return _rates(rec, flops)
 
 
-def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
+def _scan_case(torch, g, b, s, d, n, with_h0, reps=5, rglru=False):
     """The scan's (a, bx) entry at a prefill chunk's shape [B, S, D, N]:
     with h0 and the final state (a chunk after the first), or without
-    either (the TPU kernel's form)."""
+    either (the TPU kernel's form).  `rglru`: as the rec layer calls it
+    (N = 1, c = 1, so y is the state; recurrentgemma-2b's lru_width
+    2560), launched twice with the same bits."""
     from repro_torch.kernels.selective_scan import (selective_scan,
                                                     selective_scan_plain)
     dev = "cuda"
     a = torch.exp(-torch.randn(b, s, d, n, generator=g, device=dev).abs())
     bx = torch.randn(b, s, d, n, generator=g, device=dev) * 0.1
-    c = torch.randn(b, s, n, generator=g, device=dev)
+    c = torch.ones(b, s, n, device=dev) if rglru else \
+        torch.randn(b, s, n, generator=g, device=dev)
     h0 = torch.randn(b, d, n, generator=g, device=dev) if with_h0 else None
     if with_h0:
         got = selective_scan(a, bx, c, h0, return_state=True)
         want = selective_scan_plain(a, bx, c, h0, return_state=True)
+        if rglru:
+            again = selective_scan(a, bx, c, h0, return_state=True)
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"selective_scan [{b}, {s}, {d}, {n}]: a second launch "
+                    "gave other bits")
     else:
         # the TPU kernel's form, and the same call asking for the state
         got = (selective_scan(a, bx, c),
@@ -823,7 +917,8 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5):
     state = 4 * b * d * n * (2 if with_h0 else 0)   # h0 read, h_last written
     bytes_ = 4.0 * (2 * b * s * d * n + b * s * n + b * s * d) + state
     rec = dict(case=f"selective_scan [{b}, {s}, {d}, {n}] float32 "
-               + ("h0 and h_last" if with_h0 else "from zero, y only"),
+               + ("h0 and h_last" if with_h0 else "from zero, y only")
+               + (", c = 1 (the RG-LRU), same bits twice" if rglru else ""),
                max_abs_err=err, tol="1e-4*max|ref| (y and h_last)",
                **kern, plain_ms=plain_ms, library_ms=None,
                library="none (no single PyTorch call)",
@@ -1059,6 +1154,36 @@ def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
     return _rates(rec, flops)
 
 
+def _hybrid_audio_cases(torch, g):
+    """The shapes the hybrid and audio families give the two kernels
+    (phase 4): one lattn layer of recurrentgemma-2b's 8192-token prefill
+    (10 query heads on its one KV head, hd 256, window 2048) and of the
+    2048-token one; the float32 check's variant over ragged tiles;
+    whisper-tiny's encoder at 4 requests (6 heads, 1500 frames, hd 64)
+    and a decode tick's cross-attention; the rec layer's RG-LRU on the
+    scan's (a, bx) entry.  Each held against its plain version and
+    launched twice with the same bits.  Returns the RG-LRU's record, the
+    (a, bx) entry's item of the kernels line."""
+    from repro_torch.configs import get_config
+    rg, wh = get_config("recurrentgemma-2b"), get_config(AUDIO_ARCH)
+    (long_s, _), = SERVE_LONG.values()
+    hq, hd = rg.num_heads, rg.head_dim
+    flash = [_flash_case(torch, g, hq, long_s, hd, "bfloat16",
+                         window=rg.window, again=True),
+             _flash_case(torch, g, hq, PROMPT_LENS[0], hd, "bfloat16",
+                         again=True),
+             _flash_case(torch, g, hq, PROMPT_LENS[1], hd, "float32",
+                         window=256, again=True)]
+    bh = AUDIO_BATCH * wh.num_heads
+    flash += [_flash_case(torch, g, bh, wh.enc_seq, wh.head_dim, "bfloat16",
+                          causal=False, again=True),
+              _flash_case(torch, g, bh, 1, wh.head_dim, "bfloat16",
+                          sk=wh.enc_seq, causal=False, again=True)]
+    torch.cuda.empty_cache()
+    return _scan_case(torch, g, 1, PROMPT_LENS[0], rg.lru_width, 1, True,
+                      rglru=True)
+
+
 def phase_kernels(torch, seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -1133,6 +1258,9 @@ def phase_kernels(torch, seed):
             _scan_case(torch, g, 1, 1531, 8192, 16, False)]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    rglru = _hybrid_audio_cases(torch, g)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     fused = [_fused_scan_case(torch, g, 1, 2048, 8192, 16, "bfloat16"),
              _fused_scan_case(torch, g, 1, 1531, 8192, 16, "bfloat16",
                               with_h0=True),
@@ -1160,10 +1288,12 @@ def phase_kernels(torch, seed):
     # over 2^20 segments, the packed 8192^3 product through the packed
     # entry, the 2048-token llama3-8b prefill's attention, the scan kernel
     # through its fused entry on a 2048-token falcon-mamba-7b prefill, as
-    # the serve path calls it; the (a, bx) entry, which no path calls, is
-    # checked and timed above)
+    # the serve path calls it, and through its (a, bx) entry on the RG-LRU
+    # of a 2048-token recurrentgemma-2b prefill; the hybrid and audio
+    # families' flash shapes are checked and timed above)
     return {"segment_reduce": seg[0], "tile_matmul": tile[0],
             "flash_attention": flash[0], "selective_scan": fused[0],
+            "selective_scan[a, bx]": rglru,
             "flash_attention_bwd": bwd[0], "selective_scan_bwd": sbwd[0],
             "segment_reduce[lanes]": lanes}
 
@@ -2021,8 +2151,7 @@ def _ooc_pagerank(torch, np, ops, rng, tmp):
         launches += ops.launch_counts()["segment_reduce"]
     resumed = LoopRunner(cpk, str(d), every=2)
     t0 = time.perf_counter()
-    latest = resumed.mgr.latest()
-    resumed.mgr.restore_flat(latest)
+    resumed.mgr.resume(resumed.mgr.restore_flat)
     restore_ms = (time.perf_counter() - t0) * 1e3
     out, n = _counted(ops, lambda: resumed.run(inputs, resume=True))
     launches += n
@@ -2955,14 +3084,15 @@ def _serve_model(torch, np, arch, kernels, seed):
         f"on the card from seed {seed} in {time.perf_counter() - t0:.1f} s; "
         f"full width, {depth}")
     prompts = serve_prompts(np, cfg, seed)
+    max_seq = serve_max_seq(arch)
     # warm-up: one short request (allocator, cuBLAS handles, kernel build)
-    warm = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
+    warm = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=max_seq)
     warm.submit(prompts[-1][:64], 2)
     warm.run()
     del warm
 
     # the main path: six requests through the engine, launches counted
-    eng = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
+    eng = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=max_seq)
     reqs = [eng.submit(p, SERVE_MAX_NEW) for p in prompts]
     ticks, full_ticks = [], []
     ops.reset_launch_counts()
@@ -3009,7 +3139,7 @@ def _serve_model(torch, np, arch, kernels, seed):
         f"{SERVE_SLOTS / dec_ms * 1e3:.1f} decode tokens/s")
 
     # prefill per prompt length, through the engine's own prefill step
-    prefill = make_prefill_step(cfg, SERVE_MAX_SEQ)
+    prefill = make_prefill_step(cfg, max_seq)
     pre_ms = {}
     for p in prompts:
         tokens = torch.as_tensor(p[None], device="cuda")
@@ -3038,7 +3168,7 @@ def _serve_model(torch, np, arch, kernels, seed):
     decode = eng._decode
     toks = torch.as_tensor([[r.out[-1]] for r in reqs[:SERVE_SLOTS]],
                            device="cuda")
-    pos = np.minimum(eng.pos, SERVE_MAX_SEQ - 1)
+    pos = np.minimum(eng.pos, max_seq - 1)
     logits, _ = decode(model, eng.cache, toks, pos)
     require(bool(torch.isfinite(logits).all())
             and tuple(logits.shape) == (SERVE_SLOTS, cfg.vocab_size),
@@ -3050,11 +3180,12 @@ def _serve_model(torch, np, arch, kernels, seed):
 
     # traced last: one prefill (the 2048-token prompt) and one decode tick
     if arch in SERVE_TRACED:
-        tokens = torch.as_tensor(prompts[0][None], device="cuda")
+        longest = max(prompts, key=len)
+        tokens = torch.as_tensor(longest[None], device="cuda")
         top = 10 if "segment_reduce" in kernels else 5
-        _profile(torch, f"{arch} prefill {len(prompts[0])} tokens",
+        _profile(torch, f"{arch} prefill {len(longest)} tokens",
                  lambda: prefill(model, {"tokens": tokens}),
-                 pre_ms[len(prompts[0])], top)
+                 pre_ms[len(longest)], top)
         _profile(torch, f"{arch} decode tick at {SERVE_SLOTS} slots (the "
                  "engine's decode step)",
                  lambda: decode(model, eng.cache, toks, pos), dec_ms, top)
@@ -3062,6 +3193,94 @@ def _serve_model(torch, np, arch, kernels, seed):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[serve] {arch}: {time.perf_counter() - t0:.1f} s for this config")
+    return counts
+
+
+def _serve_whisper(torch, np, seed):
+    """whisper-tiny through the serving steps at full size, as the
+    reference's launcher drives it: AUDIO_BATCH requests of enc_seq stub
+    frames and AUDIO_PROMPT tokens from the seed, one prefill (the encoder
+    with it) then SERVE_MAX_NEW - 1 greedy decode steps, launches counted;
+    then the prefill timed alone.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    arch = AUDIO_ARCH
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg).init(seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (AUDIO_BATCH, AUDIO_PROMPT)).astype(np.int32),
+        device="cuda"),
+        "frames": torch.as_tensor(rng.standard_normal(
+            (AUDIO_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+            device="cuda")}
+    max_seq = AUDIO_PROMPT + SERVE_MAX_NEW
+    prefill = make_prefill_step(cfg, max_seq)
+    decode = make_decode_step(cfg)
+    log(f"[serve] {arch}: {cfg.enc_layers} encoder and "
+        f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.1f} M parameters "
+        f"({str(cfg.param_dtype)}), full size; batch of {AUDIO_BATCH}: "
+        f"{cfg.enc_seq} stub frames and {AUDIO_PROMPT} prompt tokens each "
+        f"from seed {seed}, {SERVE_MAX_NEW} new tokens")
+
+    def serve():
+        logits, cache = prefill(model, batch)
+        tok = torch.argmax(logits, -1)[:, None]
+        out, ticks = [tok], []
+        for i in range(SERVE_MAX_NEW - 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = decode(model, cache, tok, AUDIO_PROMPT + i)
+            tok = torch.argmax(logits, -1)[:, None]
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t) * 1e3)
+            out.append(tok)
+        return torch.cat(out, 1).cpu().numpy(), ticks, logits
+    serve()                                    # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, ticks, logits = serve()
+    run_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    require(counts["flash_attention"] > 0,
+            f"{arch}: flash_attention was not launched on the serve path")
+    require(bool(torch.isfinite(logits).all()) and toks.shape ==
+            (AUDIO_BATCH, SERVE_MAX_NEW) and ((toks >= 0)
+                                              & (toks < cfg.vocab_size)).all(),
+            f"{arch}: served tokens {toks.shape} out of the vocabulary or "
+            "non-finite logits")
+    import zlib
+    crc = zlib.crc32(toks.astype(np.int64).tobytes()) & 0xFFFFFFFF
+    log(f"[serve] {arch}: {AUDIO_BATCH} requests in {run_s:.3f} s; kernel "
+        f"launches {json.dumps(counts)}; served tokens {toks.size}, crc32 "
+        f"{crc}")
+    dec_ms = _median(ticks)
+    log(f"[serve] {arch}: decode {dec_ms:.3f} ms per tick at "
+        f"{AUDIO_BATCH} requests (median of {len(ticks)}; min "
+        f"{min(ticks):.3f}, max {max(ticks):.3f}), "
+        f"{AUDIO_BATCH / dec_ms * 1e3:.1f} decode tokens/s")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    log(f"[serve] {arch}: prefill (encoder of {cfg.enc_seq} frames and "
+        f"{AUDIO_PROMPT} tokens, batch {AUDIO_BATCH}) {_median(times):.3f} "
+        f"ms (median of 3; min {min(times):.3f}, max {max(times):.3f}); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB; {time.perf_counter() - t0:.1f} s for this config")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3106,11 +3325,12 @@ def _model_check(torch, np, arch, seed):
     from repro_torch.models import get_model
     from repro_torch.serve import make_prefill_step
     full = get_config(arch)
-    kind = full.layout[0][0][0]
-    cfg = full.replace(layout=(((kind,), CHECK_LAYERS),),
-                       param_dtype=torch.float32,
-                       compute_dtype=torch.float32,
-                       cache_dtype=torch.float32)
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32,
+               cache_dtype=torch.float32)
+    audio = full.family == "audio"
+    cfg = full.replace(**f32) if audio else \
+        cut_layout(full, CHECK_LAYERS, **f32)
+    n_prompt = CHECK_PROMPTS.get(arch, CHECK_PROMPT)
     t0 = time.perf_counter()
     # drawn on the card and copied: the CPU's draw of a 72B config's
     # 4.3e9 numbers would take most of the check's time
@@ -3118,14 +3338,21 @@ def _model_check(torch, np, arch, seed):
     cpu = get_model(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
     rng = np.random.default_rng(seed + 1)
-    prompt = rng.integers(0, cfg.vocab_size, CHECK_PROMPT).astype(np.int32)
+    prompt = rng.integers(0, cfg.vocab_size, n_prompt).astype(np.int32)
     batch = {"tokens": prompt[None]}
     note = ""
     if cfg.mrope_sections:
-        batch["pos_ids"] = rng.integers(0, CHECK_PROMPT, (1, CHECK_PROMPT, 3)
+        batch["pos_ids"] = rng.integers(0, n_prompt, (1, n_prompt, 3)
                                         ).astype(np.int32)
         note = "; M-RoPE positions: three streams from the seed"
-    max_seq = CHECK_PROMPT + CHECK_NEW
+    if audio:
+        batch["frames"] = rng.standard_normal(
+            (1, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        note = f"; {cfg.enc_seq} stub frames from the seed"
+    if cfg.window:
+        note = (f"; window {cfg.window}: the prompt crosses it and wraps "
+                f"the {min(cfg.window, n_prompt + CHECK_NEW)}-row ring")
+    max_seq = n_prompt + CHECK_NEW
     prefill = make_prefill_step(cfg, max_seq)
     probes = []
 
@@ -3164,13 +3391,15 @@ def _model_check(torch, np, arch, seed):
         toks.append(t_ref)
         if step == CHECK_NEW:
             break
-        pos = CHECK_PROMPT + step
+        pos = n_prompt + step
         ref, cc = cpu.decode(cc, torch.tensor([[t_ref]]), pos)
         got, gc_ = gpu.decode(gc_, torch.tensor([[t_got]], device="cuda"),
                               pos)
-    log(f"[serve] {arch} check: {CHECK_LAYERS} of {full.num_layers} layers "
-        f"(depth cut for this check only), full width, float32; prompt "
-        f"{CHECK_PROMPT} then {CHECK_NEW} greedy tokens, card vs CPU: max "
+    depth = "the whole model" if audio else (
+        f"{cfg.num_layers} of {full.num_layers} layers (depth cut for this "
+        "check only)")
+    log(f"[serve] {arch} check: {depth}, full width, float32; prompt "
+        f"{n_prompt} then {CHECK_NEW} greedy tokens, card vs CPU: max "
         f"rel err {max(errs):.3g} (tol 1e-3; prefill {errs[0]:.3g}), tokens "
         f"identical {toks}{note}; {time.perf_counter() - t0:.1f} s")
     del cpu, gpu, cc, gc_
@@ -3187,6 +3416,8 @@ def phase_serve(torch, seed):
         counts = _serve_model(torch, np, arch, kernels, seed)
         for k in kernels:
             launches[k] = launches.get(k, 0) + counts[k]
+    counts = _serve_whisper(torch, np, seed)
+    launches["flash_attention"] += counts["flash_attention"]
     t_checks = time.perf_counter()
     for arch in CHECK_ARCHS:
         _model_check(torch, np, arch, seed)
@@ -3217,11 +3448,6 @@ RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 2, 6, 5, 4
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 1, 1024
 
 
-def _depth(cfg, layers, **over):
-    kind = cfg.layout[0][0][0]
-    return cfg.replace(layout=(((kind,), layers),), **over)
-
-
 def _runner(torch, cfg, seed, ckpt_dir, ckpt_every):
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import get_model
@@ -3245,7 +3471,7 @@ def _train_model(torch, np, arch, layers, kernels, seed, tmp):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     full = get_config(arch)
-    cfg = _depth(full, layers)
+    cfg = cut_layout(full, layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     r = _runner(torch, cfg, seed, tmp / arch, 10 ** 6)
@@ -3336,7 +3562,7 @@ def _train_resume(torch, arch, seed, tmp):
     width and RESUME_LAYERS layers: bit-equal, leaf by leaf."""
     from repro_torch.configs import get_config
     from repro_torch.runtime.ft import SimulatedFailure
-    cfg = _depth(get_config(arch), RESUME_LAYERS)
+    cfg = cut_layout(get_config(arch), RESUME_LAYERS)
     t0 = time.perf_counter()
     a = _runner(torch, cfg, seed, tmp / f"{arch}-a", 10 ** 6)
     a.run(RESUME_STEPS)
@@ -3378,7 +3604,8 @@ def _train_resume(torch, arch, seed, tmp):
         f"step-{RESUME_EVERY} snapshot: bit-equal in {same} of {len(want)} "
         f"leaves (parameters and moments); snapshot {nbytes / 1e9:.2f} GB on "
         f"disk; the failed run {t_save:.1f} s with its save, resume "
-        f"{t_restore:.1f} s (verify and restore); "
+        f"{t_restore:.1f} s (each array read once, its crc32 checked as it "
+        "is loaded); "
         f"{time.perf_counter() - t0:.1f} s")
     del c, got, want
     gc.collect()
@@ -3396,7 +3623,7 @@ def _train_check(torch, np, arch, seed):
     from repro_torch.models import get_model
     from repro_torch.optim import adamw_init, adamw_update
     full = get_config(arch)
-    cfg = _depth(full, TRAIN_CHECK_LAYERS, param_dtype=torch.float32,
+    cfg = cut_layout(full, TRAIN_CHECK_LAYERS, param_dtype=torch.float32,
                  compute_dtype=torch.float32, cache_dtype=torch.float32)
     t0 = time.perf_counter()
     # the weights are drawn on the card and copied: a float32 draw on the
@@ -3517,9 +3744,10 @@ def main(argv=None) -> int:
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
         return 1
-    # the scan kernel's launches through either entry
-    launches["selective_scan"] = launches.get("selective_scan", 0) \
-        + launches.pop("selective_scan_fused", 0)
+    # the scan kernel's two entries, each with its own item: the fused one
+    # (falcon-mamba-7b) and the (a, bx) one (recurrentgemma-2b's RG-LRU)
+    launches["selective_scan[a, bx]"] = launches.pop("selective_scan", 0)
+    launches["selective_scan"] = launches.pop("selective_scan_fused", 0)
     sources = {"segment_reduce": ("src/repro_torch/kernels/csrc/"
                                   "segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce.py:109"),
@@ -3531,6 +3759,10 @@ def main(argv=None) -> int:
                "selective_scan": ("src/repro_torch/kernels/csrc/"
                                   "selective_scan.cu",
                                   "src/repro/kernels/selective_scan.py:60"),
+               "selective_scan[a, bx]": ("src/repro_torch/kernels/csrc/"
+                                         "selective_scan.cu",
+                                         "src/repro/kernels/selective_scan"
+                                         ".py:60"),
                # the backwards of those two TPU kernels' functions (the TPU
                # kernels have none: the reference differentiates the jnp
                # forms)

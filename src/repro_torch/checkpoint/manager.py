@@ -12,7 +12,9 @@ snapshot written by either package restores in the other.
 * **Verified**: every snapshot carries per-array crc32 stamps
   (`checksums.json`, `core.faults.checksum`); `latest()` verifies and
   SKIPS a torn or corrupted snapshot to the previous good one instead of
-  restoring garbage.
+  restoring garbage.  `restore` and `restore_flat` check each array as
+  they load it, so `resume(read)`, which walks the snapshots newest
+  first with the same skip, reads each array it restores once.
 * **Async**: the copy to the host is synchronous (a copy, so the caller
   may go on writing its tensors), the disk write happens on a background
   thread so the loop is not stalled on I/O.
@@ -26,6 +28,8 @@ import json
 import os
 import shutil
 import threading
+import zipfile
+import zlib
 
 import numpy as np
 import torch
@@ -78,12 +82,23 @@ def _unflatten_like(template, flat: dict, device=None, prefix=""):
     return arr
 
 
+class CorruptSnapshot(Exception):
+    """A snapshot whose bytes fail their crc32 stamps, or cannot be read."""
+
+
+# what reading torn or truncated bytes raises (a KeyError is a stamped
+# array or a checksums.json entry that is missing; a json error is a
+# ValueError)
+_TORN = (zipfile.BadZipFile, EOFError, ValueError, KeyError, OSError,
+         zlib.error)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, async_write: bool = True):
         self.dir = directory
         self.keep = keep
         self.async_write = async_write
-        self.skipped: list[int] = []    # steps latest() refused to restore
+        self.skipped: list[int] = []    # steps latest()/resume() refused
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
 
@@ -139,24 +154,49 @@ class CheckpointManager:
                 out.append(int(d.split("_")[1]))
         return sorted(out)
 
-    def verify(self, step: int) -> bool:
-        """Check every array in the snapshot against its crc32 stamp.
-        Pre-checksum snapshots (no checksums.json) are accepted as-is —
-        the stamp protects against torn/corrupted bytes, and a legacy
+    def _arrays(self, step: int, part: str):
+        """(path, np.ndarray) of one part ("params" or "opt") of a
+        snapshot, each array read once and checked against its crc32
+        stamp as it is loaded.  Raises CorruptSnapshot on a mismatch, a
+        stamped array that is missing, or bytes that cannot be read (what
+        torn bytes raise; a MemoryError or any other fault propagates).  A
+        pre-checksum snapshot (no checksums.json) is read as it is — the
+        stamp protects against torn/corrupted bytes, and a legacy
         snapshot's absence of stamps is not evidence of either."""
+        if part not in ("params", "opt"):
+            raise ValueError(f"part {part!r} is not 'params' or 'opt'")
         d = os.path.join(self.dir, f"step_{step:08d}")
-        cpath = os.path.join(d, "checksums.json")
-        if not os.path.exists(cpath):
-            return True
+        fname = f"{part}.npz"
         try:
-            with open(cpath) as f:
-                sums = json.load(f)
-            for fname, keys in sums.items():
-                with np.load(os.path.join(d, fname)) as zf:
-                    for k, crc in keys.items():
-                        if checksum(zf[k]) != int(crc):
-                            return False
-        except Exception:               # noqa: BLE001 — torn bytes, any form
+            sums = None
+            cpath = os.path.join(d, "checksums.json")
+            if os.path.exists(cpath):
+                with open(cpath) as f:
+                    sums = json.load(f)[fname]
+            seen = set()
+            with np.load(os.path.join(d, fname)) as zf:
+                for k in zf.files:
+                    arr = zf[k]
+                    if sums is not None and k in sums \
+                            and checksum(arr) != int(sums[k]):
+                        raise CorruptSnapshot(f"step {step}: {fname}/{k} "
+                                              "fails its crc32")
+                    seen.add(k)
+                    yield k, arr
+            if sums is not None and sums.keys() - seen:
+                raise CorruptSnapshot(f"step {step}: {fname} lacks "
+                                      f"{sorted(sums.keys() - seen)}")
+        except _TORN as ex:
+            raise CorruptSnapshot(f"step {step}: {fname}: {ex!r}") from ex
+
+    def verify(self, step: int) -> bool:
+        """Whether every array in the snapshot matches its crc32 stamp
+        (read one array at a time, nothing kept)."""
+        try:
+            for part in ("params", "opt"):
+                for _ in self._arrays(step, part):
+                    pass
+        except CorruptSnapshot:
             return False
         return True
 
@@ -171,39 +211,52 @@ class CheckpointManager:
             self.skipped.append(s)
         return None
 
+    def resume(self, read):
+        """`read(step)` of the newest snapshot it reads without a
+        CorruptSnapshot, or None when none does.  `read` is `restore_flat`,
+        `restore` or a caller's own function over them, so each array of
+        the snapshot restored is read once and checked as it is loaded; a
+        torn or bit-flipped snapshot is skipped (recorded in
+        `self.skipped`) for the next older one, as `latest()` does."""
+        for s in reversed(self.steps()):
+            try:
+                return read(s)
+            except CorruptSnapshot:
+                self.skipped.append(s)
+        return None
+
+    def _meta(self, step: int) -> dict:
+        try:
+            with open(os.path.join(self.dir, f"step_{step:08d}",
+                                   "meta.json")) as f:
+                return json.load(f)
+        except _TORN as ex:
+            raise CorruptSnapshot(f"step {step}: meta.json: {ex!r}") from ex
+
     def restore(self, step: int, params_template, opt_template=None,
                 device=None):
         """Returns (step, params, opt_state, extra), each tree shaped like
         its template: a tensor leaf comes back in the template leaf's
         dtype on `device`, or else on the template leaf's device; a numpy
-        leaf in its dtype."""
-        d = os.path.join(self.dir, f"step_{step:08d}")
-        with open(os.path.join(d, "meta.json")) as f:
-            meta = json.load(f)
-        with np.load(os.path.join(d, "params.npz")) as pf:
-            params = _unflatten_like(params_template,
-                                     {k: pf[k] for k in pf.files}, device)
+        leaf in its dtype.  Every array is checked against its crc32 stamp
+        as it is read (CorruptSnapshot on a mismatch)."""
+        meta = self._meta(step)
+        params = _unflatten_like(params_template,
+                                 dict(self._arrays(step, "params")), device)
         opt = None
         if opt_template is not None:
-            with np.load(os.path.join(d, "opt.npz")) as of:
-                opt = _unflatten_like(opt_template,
-                                      {k: of[k] for k in of.files}, device)
+            opt = _unflatten_like(opt_template,
+                                  dict(self._arrays(step, "opt")), device)
         return meta["step"], params, opt, meta["extra"]
 
     def restore_flat(self, step: int, part: str = "params"):
         """Template-free read: (step, {path: np.ndarray}, extra) of the
-        snapshot's params (or, with part="opt", its optimizer state).  The
-        mid-loop resume path (runtime/ft.LoopRunner) uses this — after a
-        crash there is no live tree to unflatten into; the flat keys
-        (``loop<i>/<carry-name>``) are self-describing — and so does the
-        LM's TrainRunner, which copies the reference's stacked leaves into
-        its layers."""
-        if part not in ("params", "opt"):
-            raise ValueError(f"restore_flat: part {part!r} is not 'params' "
-                             "or 'opt'")
-        d = os.path.join(self.dir, f"step_{step:08d}")
-        with open(os.path.join(d, "meta.json")) as f:
-            meta = json.load(f)
-        with np.load(os.path.join(d, f"{part}.npz")) as pf:
-            flat = {k: pf[k] for k in pf.files}
-        return meta["step"], flat, meta["extra"]
+        snapshot's params (or, with part="opt", its optimizer state), each
+        array checked against its crc32 stamp as it is read
+        (CorruptSnapshot on a mismatch).  The mid-loop resume path
+        (runtime/ft.LoopRunner) uses this — after a crash there is no live
+        tree to unflatten into; the flat keys (``loop<i>/<carry-name>``)
+        are self-describing — and so does the LM's TrainRunner, which
+        copies the reference's stacked leaves into its layers."""
+        meta = self._meta(step)
+        return meta["step"], dict(self._arrays(step, part)), meta["extra"]

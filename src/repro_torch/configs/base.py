@@ -2,8 +2,8 @@
 
 A copy of the reference package's `configs/base.py` with torch dtypes in
 place of jnp dtypes.  Every field is kept, so that a config reads the same
-in both packages; fields of layers the port does not run yet (moe,
-recurrent, enc-dec) are carried but unused."""
+in both packages; the perf knobs of the reference's sharded runs are
+carried but unused."""
 from __future__ import annotations
 
 import dataclasses
@@ -91,13 +91,6 @@ SHAPES: dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-# the reference's other architectures, and where ROADMAP.md ("Modules to
-# port") puts the layers each of them needs
-NOT_PORTED = {
-    "recurrentgemma-2b": "the rec and lattn layers (hybrid family)",
-    "whisper-tiny": "the audio family (Whisper)",
-}
-
 _REGISTRY: dict[str, Any] = {}
 
 
@@ -112,9 +105,6 @@ def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        if name in NOT_PORTED:
-            raise KeyError(f"{name} is not ported yet: ROADMAP.md, 'Modules "
-                           f"to port', {NOT_PORTED[name]}")
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     return _REGISTRY[name]
 

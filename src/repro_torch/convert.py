@@ -17,7 +17,10 @@ and `lm_params_to_numpy` is its inverse; `lm_tree_to_numpy` and
 parameters (the AdamW moments), so that a training snapshot of either
 package resumes in the other.  `lm_cache_from_numpy` and
 `lm_cache_to_numpy` carry a cache across in both directions, so that
-caches compare leaf by leaf.
+caches compare leaf by leaf.  `whisper_params_from_numpy` and
+`whisper_params_to_numpy` do the same for the Whisper model, whose
+reference tree stacks the encoder's layers into `enc/...` [L, ...] and
+the decoder's into `dec/...`.
 """
 from __future__ import annotations
 
@@ -152,13 +155,24 @@ def _put(tree: dict, key: str, value):
     tree[last] = value
 
 
-def lm_tree_to_numpy(cfg, leaves: dict) -> dict:
-    """The reference's stacked tree (numpy leaves, `g<gi>/s<i>_<kind>/...`
-    [L, ...]) from a dict keyed by the port's parameter paths (an LM's
-    `named_leaves()`, or AdamW moments); bfloat16 comes back as float32
-    (numpy has no bfloat16: the reference casts on restore)."""
+def whisper_slots(cfg) -> list[tuple[str, str, int | None]]:
+    """`lm_slots` for the Whisper model: the port's `enc/<l>/...` and
+    `dec/<l>/...` are entry l of the reference's stacked `enc/...` and
+    `dec/...`."""
+    from .models.whisper import Whisper
+    out = []
+    for path, _ in Whisper(cfg, device="meta").named_leaves():
+        side, *rest = path.split("/", 2)
+        if side in ("enc", "dec"):
+            out.append((path, f"{side}/{rest[1]}", int(rest[0])))
+        else:
+            out.append((path, path, None))
+    return out
+
+
+def _stacked_to_numpy(slots, leaves: dict) -> dict:
     stacks: dict = {}
-    for path, key, r in lm_slots(cfg):
+    for path, key, r in slots:
         t = leaves[path].detach()
         a = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
         stacks.setdefault(key, []).append(a if r is None else (r, a))
@@ -172,6 +186,14 @@ def lm_tree_to_numpy(cfg, leaves: dict) -> dict:
     return tree
 
 
+def lm_tree_to_numpy(cfg, leaves: dict) -> dict:
+    """The reference's stacked tree (numpy leaves, `g<gi>/s<i>_<kind>/...`
+    [L, ...]) from a dict keyed by the port's parameter paths (an LM's
+    `named_leaves()`, or AdamW moments); bfloat16 comes back as float32
+    (numpy has no bfloat16: the reference casts on restore)."""
+    return _stacked_to_numpy(lm_slots(cfg), leaves)
+
+
 def lm_params_to_numpy(cfg, model) -> dict:
     """The reference's parameter tree from the port's `LM`: the inverse of
     `lm_params_from_numpy`."""
@@ -183,8 +205,12 @@ def lm_tree_from_numpy(cfg, tree: dict, into: dict) -> dict:
     """Copy the reference's stacked tree into `into`, a dict of tensors
     keyed by the port's parameter paths (shapes must fit; each tensor
     keeps its dtype and device).  Every leaf of the tree must be used."""
+    return _stacked_from_numpy(lm_slots(cfg), tree, into)
+
+
+def _stacked_from_numpy(slots, tree: dict, into: dict) -> dict:
     used = set()
-    for path, key, r in lm_slots(cfg):
+    for path, key, r in slots:
         dst = into[path]
         t = _np_to_tensor(_at(tree, key), dst.device)
         if r is not None:
@@ -201,22 +227,41 @@ def lm_tree_from_numpy(cfg, tree: dict, into: dict) -> dict:
     return into
 
 
+def _load_params(model, slots, tree: dict):
+    params = dict(model.named_leaves())
+    for path, key, r in slots:
+        a = _at(tree, key)
+        dt = _np_to_tensor(a[:1] if r is not None else a, "cpu").dtype
+        if dt != params[path].dtype:
+            raise ValueError(f"{key}: {dt} does not fit {path} "
+                             f"{params[path].dtype}")
+    _stacked_from_numpy(slots, tree, params)
+    return model
+
+
 @torch.no_grad()
 def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
     """The port's `LM` holding the reference's parameters: `tree` is the
     reference's `model.init(seed)` with numpy leaves.  Shapes and dtypes
     must be the config's; every leaf of the tree is used exactly once."""
     from .models.lm import LM
-    model = LM(cfg, device=device)
-    params = dict(model.named_leaves())
-    for path, key, r in lm_slots(cfg):
-        a = _at(tree, key)
-        dt = _np_to_tensor(a[:1] if r is not None else a, "cpu").dtype
-        if dt != params[path].dtype:
-            raise ValueError(f"{key}: {dt} does not fit {path} "
-                             f"{params[path].dtype}")
-    lm_tree_from_numpy(cfg, tree, params)
-    return model
+    return _load_params(LM(cfg, device=device), lm_slots(cfg), tree)
+
+
+@torch.no_grad()
+def whisper_params_from_numpy(cfg, tree: dict, device="cuda"):
+    """The port's `Whisper` holding the reference's parameters (its
+    `Whisper(cfg).init(seed)` with numpy leaves), as
+    `lm_params_from_numpy`."""
+    from .models.whisper import Whisper
+    return _load_params(Whisper(cfg, device=device), whisper_slots(cfg),
+                        tree)
+
+
+def whisper_params_to_numpy(cfg, model) -> dict:
+    """The reference's Whisper parameter tree from the port's `Whisper`:
+    the inverse of `whisper_params_from_numpy`."""
+    return _stacked_to_numpy(whisper_slots(cfg), dict(model.named_leaves()))
 
 
 def lm_cache_from_numpy(cfg, tree: dict, device="cuda") -> list:

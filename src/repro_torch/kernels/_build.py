@@ -56,10 +56,10 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": [ctypes.c_int, _P, _P, _P, _P,
                                    *[ctypes.c_int] * 4, ctypes.c_float,
-                                   ctypes.c_int, _P],
+                                   ctypes.c_int, ctypes.c_int, _P],
         "flash_attention_lse_launch": [ctypes.c_int, *[_P] * 5,
                                        *[ctypes.c_int] * 4, ctypes.c_float,
-                                       ctypes.c_int, _P],
+                                       ctypes.c_int, ctypes.c_int, _P],
     },
     "selective_scan": {
         "selective_scan_launch": [*[_P] * 6, *[ctypes.c_int] * 4, _P],

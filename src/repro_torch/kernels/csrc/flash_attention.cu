@@ -1,5 +1,5 @@
-// Causal (or full) attention with an online softmax, for Hopper (sm_90a),
-// hand-written.
+// Causal (or full) attention with an online softmax, optionally within a
+// local window, for Hopper (sm_90a), hand-written.
 //
 // Replaces the Pallas TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py, `_kernel`): a grid of (batch*heads, Sq/bq) steps that
@@ -10,12 +10,30 @@
 // 4·BH·hd·S(S+1)/2 flops against (4·BH·S·hd) elements of traffic, far above
 // the card's flop-per-byte line at the prefill lengths of the serve path.
 //
+// Local window (`window` > 0; recurrentgemma-2b's lattn layers): key j is
+// kept for query i when j > i - window, beside the causal j <= i; masked
+// scores are -1e30, as the reference's `_scores_mask`.  The TPU package
+// computes the window in jnp and slices each query chunk's key span; here
+// a block starts its key loop at the tile that its first row's window
+// reaches, so a causal windowed block visits at most
+// ceil((window + TQ) / TK) + 1 key tiles and a windowed prefill costs
+// O(S·window).  A tile is masked element by element only when it is an
+// edge tile: ragged, crossing the causal diagonal, or holding a key below
+// some row's window.  A row whose keys in a visited tile are all masked
+// sums weights of 1 at the running max -1e30; they are scaled by exactly 0
+// at the row's first visible key (every causal row sees its own key).
+//
 // bfloat16 (the serve path): both products on the tensor cores, with
 // mma.sync m16n8k16 (bf16 in, float32 accumulators; csrc/ptx.cuh).
 //   * one block of 4 warps per (bh, 64-row query tile), the tiles with the
-//     most keys scheduled first; each warp owns 16 query rows, whose Q
-//     fragments are loaded once with ldmatrix and stay in registers;
-//   * K and V are staged in bf16, 64 keys a tile, by 16-byte cp.async
+//     most keys scheduled first (causal: the last query tiles); each warp
+//     owns 16 query rows, whose Q fragments are loaded once with ldmatrix
+//     and stay in registers up to hd 128.  At hd 256 they would take 64
+//     registers a lane beside 128 accumulators of O, past the 255 a thread
+//     may have, so there the fragments are read again from the Q tile in
+//     shared memory (ldmatrix) at each k-step of QKᵀ, and the key tile is
+//     32 keys (Q 32 KB + two stages of K and V 64 KB: two blocks an SM);
+//   * K and V are staged in bf16, 64 keys a tile (32 at hd 256), by 16-byte cp.async
 //     copies into a two-stage ring: the copy of tile j+1 is in flight while
 //     tile j is multiplied, with one __syncthreads a tile.  16-byte chunks
 //     are XOR-swizzled within each group of eight rows, so that ldmatrix
@@ -31,8 +49,8 @@
 //     and their staging rows are zero-filled (cp.async with src-size 0), so
 //     that whatever lies past Sk cannot reach the output as 0·NaN.  Rows
 //     past Sq are never written.
-//   Shared memory: Q 64×hd plus two stages of K and V 64×hd, bf16: 80 KB at
-//   hd 128, two blocks an SM.
+//   Shared memory: Q 64×hd plus two stages of K and V TK×hd, bf16: 80 KB at
+//   hd 128 and 96 KB at hd 256, two blocks an SM.
 //
 // Training: `flash_attention_lse_launch` also writes each query row's
 // log-sum-exp of its scaled, masked scores (natural log, float32), from the
@@ -45,7 +63,8 @@
 //   * one block of 256 threads per (bh, 64-row query tile); the query tile
 //     is loaded once, scaled by hd^-0.5, into shared memory;
 //   * K and V are staged through shared memory in 32-key tiles; a causal
-//     block stops at its diagonal tile;
+//     block stops at its diagonal tile, a windowed one starts at the tile
+//     its first row's window reaches; at hd 256 the tiles take 137 KB;
 //   * thread (ty, tx) of a 16×16 grid owns query rows 4·ty..4·ty+3, the
 //     score columns tx and tx+16 of a tile and the output columns
 //     tx + 16·c; row max and row sum go across the 16 lanes of a half-warp
@@ -68,8 +87,14 @@ constexpr float kNeg = -1e30f;
 // ---------------------------------------------------------------------------
 
 constexpr int TQ = 64;            // query rows of a block, 16 a warp
-constexpr int TK = 64;            // keys of a staged tile
 constexpr int kTcThreads = 128;   // 4 warps
+
+// keys of a staged tile, and whether a warp keeps its Q fragments in
+// registers across the key loop (not at hd 256: see the head comment)
+template <int HD>
+__host__ __device__ constexpr int tile_keys() { return HD >= 256 ? 32 : 64; }
+template <int HD>
+__host__ __device__ constexpr bool q_in_registers() { return HD <= 128; }
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -96,7 +121,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 template <int HD>
 constexpr size_t tc_smem_bytes() {
-  return (size_t)(TQ + 4 * TK) * HD * sizeof(__nv_bfloat16);
+  return (size_t)(TQ + 4 * tile_keys<HD>()) * HD * sizeof(__nv_bfloat16);
+}
+
+// The first key a block of query rows q0.. must visit: its first row's
+// window starts there (0 without a window).
+__device__ __forceinline__ int first_key(int q0, int window) {
+  return window > 0 ? max(0, q0 - window + 1) : 0;
 }
 
 template <int HD>
@@ -104,7 +135,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ Q,
                       const __nv_bfloat16* __restrict__ K,
                       const __nv_bfloat16* __restrict__ V, __nv_bfloat16* __restrict__ O,
-                      float* __restrict__ LSE, int Sq, int Sk, float scale_log2, int causal) {
+                      float* __restrict__ LSE, int Sq, int Sk, float scale_log2, int causal,
+                      int window) {
+  constexpr int TK = tile_keys<HD>();
+  constexpr bool QREG = q_in_registers<HD>();
   constexpr int C = HD / 8;    // 16-byte chunks a row
   constexpr int KD = HD / 16;  // k-steps of QKᵀ
   constexpr int NT = TK / 8;   // n-tiles of S (8 keys each)
@@ -114,18 +148,24 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   __nv_bfloat16* Ks = Qs + TQ * HD;                                 // [2][TK][HD]
   __nv_bfloat16* Vs = Ks + 2 * TK * HD;                             // [2][TK][HD]
 
-  // the longest causal rows first, so that short blocks fill the tail
+  // the blocks with the most key tiles first, so that short blocks fill
+  // the tail: the last query tiles when causal (with a window too: those
+  // before the window's reach are the short ones), the first otherwise
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * TQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const __nv_bfloat16* q = Q + (long long)bh * Sq * HD;
   const __nv_bfloat16* k = K + (long long)bh * Sk * HD;
   const __nv_bfloat16* v = V + (long long)bh * Sk * HD;
 
-  // a causal block sees keys up to its last row only (≥ 1 tile: Sk ≥ 1)
+  // a causal block sees keys up to its last row only, a windowed one from
+  // its first row's window on (≥ 1 tile: Sk ≥ 1)
   const int kend = causal ? min(Sk, q0 + TQ) : Sk;
+  const int tile0 = min(first_key(q0, window), kend - 1) / TK;
   const int ntiles = (kend + TK - 1) / TK;
+  // the last key some row of the block masks by its window (-1: none)
+  const int wlast = window > 0 ? q0 + TQ - 1 - window : -1;
 
   for (int i = tid; i < TQ * C; i += kTcThreads) {
     const int r = i / C, c = i % C, row = q0 + r;
@@ -145,23 +185,28 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       ptx::cp_async16(ptx::smem_addr(vs + d), v + off, ok ? 16 : 0);
     }
   };
-  load_kv(0, 0);
+  load_kv(tile0, tile0 & 1);
   ptx::cp_async_commit();
 
   ptx::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[KD][4];  // this warp's 16 rows of Q, for the whole key loop
+  // this warp's 16 rows of Q: in registers for the whole key loop, or read
+  // from the Q tile at each k-step (hd 256)
+  auto q_frag = [&](uint32_t (&r)[4], int kd) {
+    ptx::ldmatrix_x4(r, ptx::smem_addr(Qs + swz<HD>(warp * 16 + (lane & 15), kd * 2 + (lane >> 4))));
+  };
+  uint32_t qf[QREG ? KD : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ptx::ldmatrix_x4(qf[kd],
-                     ptx::smem_addr(Qs + swz<HD>(warp * 16 + (lane & 15), kd * 2 + (lane >> 4))));
+    for (int kd = 0; kd < KD; ++kd) q_frag(qf[kd], kd);
+  }
   float o[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // rows g and g + 8; l per lane
   const int row0 = q0 + warp * 16 + g;
 
-  for (int j = 0; j < ntiles; ++j) {
+  for (int j = tile0; j < ntiles; ++j) {
     ptx::cp_async_wait<0>();  // this thread's copies of tile j landed
     __syncthreads();          // everyone's did; stage (j+1)&1 is no longer read
     if (j + 1 < ntiles) {
@@ -177,19 +222,29 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+        qa[0] = qf[kd][0];
+        qa[1] = qf[kd][1];
+        qa[2] = qf[kd][2];
+        qa[3] = qf[kd][3];
+      } else {
+        q_frag(qa, kd);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ptx::ldmatrix_x4(b, ptx::smem_addr(ks + swz<HD>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                                        kd * 2 + ((lane >> 3) & 1))));
-        ptx::mma_bf16_16816(s[2 * np], qf[kd], b[0], b[1]);
-        ptx::mma_bf16_16816(s[2 * np + 1], qf[kd], b[2], b[3]);
+        ptx::mma_bf16_16816(s[2 * np], qa, b[0], b[1]);
+        ptx::mma_bf16_16816(s[2 * np + 1], qa, b[2], b[3]);
       }
     }
 
-    // scale (log2 domain), mask the diagonal and the ragged tile only
+    // scale (log2 domain), mask the diagonal, the window's lower edge and
+    // the ragged tile only
     const int k0 = j * TK;
-    const bool edge = k0 + TK > Sk || (causal && k0 + TK - 1 > q0);
+    const bool edge = k0 + TK > Sk || (causal && k0 + TK - 1 > q0) || k0 <= wlast;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -200,7 +255,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
           const int row = row0 + (e >> 1) * 8;
           if (key >= Sk)
             x = -INFINITY;  // padding: weighs exactly 0
-          else if (causal && key > row)
+          else if ((causal && key > row) || (window > 0 && key <= row - window))
             x = kNeg;
         }
         s[n][e] = x;
@@ -217,7 +272,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);  // key k0 is real and visible, so finite
+      mx[i] = quad_max(mx[i]);  // key k0 is real, so at least -1e30
       alpha[i] = exp2f(m[i] - mx[i]);
       m[i] = mx[i];
     }
@@ -278,7 +333,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int Sq,
-                int Sk, float scale, int causal, cudaStream_t s) {
+                int Sk, float scale, int causal, int window, cudaStream_t s) {
   const size_t bytes = tc_smem_bytes<HD>();
   // above 48 KB a block's shared memory has to be asked for explicitly
   cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<HD>,
@@ -288,7 +343,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   const dim3 grid(BH, (Sq + TQ - 1) / TQ);
   flash_bf16_kernel<HD><<<grid, kTcThreads, bytes, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, lse, Sq, Sk, scale * kLog2e, causal);
+      (__nv_bfloat16*)o, lse, Sq, Sk, scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -321,7 +376,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                      const float* __restrict__ V, float* __restrict__ O,
-                     float* __restrict__ LSE, int Sq, int Sk, float scale, int causal) {
+                     float* __restrict__ LSE, int Sq, int Sk, float scale, int causal,
+                     int window) {
   constexpr int LD = HD + 1;    // padded row stride of Qs and Ks
   constexpr int LP = BK + 1;    // padded row stride of Ps
   constexpr int CPT = HD / 16;  // output columns per thread
@@ -331,9 +387,9 @@ __global__ void __launch_bounds__(kThreads)
   float* Vs = Ks + BK * LD;     // [BK][HD]
   float* Ps = Vs + BK * HD;     // [BQ][LP], this tile's softmax weights
 
-  // the longest causal rows first, so that short blocks fill the tail
+  // the blocks with the most key tiles first (as the bf16 kernel)
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const float* q = Q + (long long)bh * Sq * HD;
@@ -354,9 +410,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  // a causal block sees keys up to its last row only
+  // a causal block sees keys up to its last row only, a windowed one from
+  // its first row's window on
   const int kend = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  for (int k0 = min(first_key(q0, window), kend - 1) / BK * BK; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile's Ks/Vs/Ps reads are done
     for (int i = tid; i < BK * HD; i += kThreads) {
       const int r = i / HD, c = i % HD, key = k0 + r;
@@ -392,11 +449,11 @@ __global__ void __launch_bounds__(kThreads)
         const int key = k0 + tx + 16 * j;
         if (key >= Sk)
           s[i][j] = -INFINITY;  // padding: weighs exactly 0
-        else if (causal && key > row)
+        else if ((causal && key > row) || (window > 0 && key <= row - window))
           s[i][j] = kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
-      // key k0 is a real key, so the tile max is finite
+      // key k0 is a real key, so the tile max is at least -1e30
       const float m_new = fmaxf(m[i], half_warp_max(mx));
       const float alpha = __expf(m[i] - m_new);
       float rs = 0.f;
@@ -442,7 +499,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int Sq,
-               int Sk, float scale, int causal, cudaStream_t s) {
+               int Sk, float scale, int causal, int window, cudaStream_t s) {
   const size_t bytes = smem_floats<HD>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -450,31 +507,34 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
   flash_f32_kernel<HD><<<grid, kThreads, bytes, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq, Sk, scale, causal);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq, Sk, scale, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, int BH,
-           int Sq, int Sk, float scale, int causal, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
-  if (dtype == 1) return launch_bf16<HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
+           int Sq, int Sk, float scale, int causal, int window, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, window, s);
+  if (dtype == 1) return launch_bf16<HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 int launch_any(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
-               int BH, int Sq, int Sk, int hd, float scale, int causal, void* stream) {
-  if (BH < 0 || Sq < 0 || Sk < 1 || (Sq + BQ - 1) / BQ > 65535)
+               int BH, int Sq, int Sk, int hd, float scale, int causal, int window,
+               void* stream) {
+  if (BH < 0 || Sq < 0 || Sk < 1 || window < 0 || (Sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return (int)cudaErrorMisalignedAddress;
   if (BH == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
-    case 32: return launch<32>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
-    case 64: return launch<64>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
-    case 128: return launch<128>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, s);
+    case 16: return launch<16>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, window, s);
+    case 32: return launch<32>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, window, s);
+    case 64: return launch<64>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, window, s);
+    case 128: return launch<128>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, window, s);
+    case 256: return launch<256>(dtype, q, k, v, out, lse, BH, Sq, Sk, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -483,12 +543,15 @@ int launch_any(int dtype, const void* q, const void* k, const void* v, void* out
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  q, out:
 // [BH, Sq, hd]; k, v: [BH, Sk, hd]; all contiguous, bfloat16 ones 16-byte
-// aligned.  hd ∈ {16, 32, 64, 128}.  Returns cudaGetLastError() after the
-// launch.
+// aligned.  hd ∈ {16, 32, 64, 128, 256}.  window: 0 for none, else key j is
+// kept for query i only when j > i - window.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int BH, int Sq, int Sk,
-                                      int hd, float scale, int causal, void* stream) {
-  return launch_any(dtype, q, k, v, out, nullptr, BH, Sq, Sk, hd, scale, causal, stream);
+                                      int hd, float scale, int causal, int window,
+                                      void* stream) {
+  return launch_any(dtype, q, k, v, out, nullptr, BH, Sq, Sk, hd, scale, causal, window,
+                    stream);
 }
 
 // The same, also writing lse [BH, Sq] float32: each query row's
@@ -496,9 +559,10 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
 // backward (csrc/flash_attention_bwd.cu) recomputes the weights from.
 extern "C" int flash_attention_lse_launch(int dtype, const void* q, const void* k,
                                           const void* v, void* out, void* lse, int BH, int Sq,
-                                          int Sk, int hd, float scale, int causal,
+                                          int Sk, int hd, float scale, int causal, int window,
                                           void* stream) {
-  return launch_any(dtype, q, k, v, out, (float*)lse, BH, Sq, Sk, hd, scale, causal, stream);
+  return launch_any(dtype, q, k, v, out, (float*)lse, BH, Sq, Sk, hd, scale, causal, window,
+                    stream);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,5 +1,5 @@
-"""Attention with an online softmax, causal or not: the CUDA kernel, its
-wrapper and its plain PyTorch version.
+"""Attention with an online softmax, causal or not, optionally within a
+local window: the CUDA kernel, its wrapper and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel `flash_attention` in
 src/repro/kernels/flash_attention.py (`_kernel`), the TPU target of the LM
@@ -15,6 +15,13 @@ dtype (float32 or bfloat16) → [BH, Sq, hd] in q's dtype.  Scores are
 scaled by hd^-0.5; causal masks key j from query i when j > i (query row i
 aligns with key row i) with a score of -1e30.  Unlike the TPU kernel, any
 Sq and Sk are taken: the kernel masks the ragged last tiles itself.
+`window` > 0 also masks key j from query i when j <= i - window (the
+reference's local attention, `_scores_mask` in src/repro/models/
+attention.py, which computes it in jnp outside the TPU kernel); a windowed
+block visits only the key tiles its rows' windows reach.  hd is one of
+HEAD_DIMS; at 256 (recurrentgemma-2b) the bf16 kernel reads its Q
+fragments from shared memory at each k-step instead of holding them in
+registers, and stages 32-key tiles.
 `return_lse=True` also returns each query row's log-sum-exp of its scaled,
 masked scores ([BH, Sq] float32, natural log).
 
@@ -24,10 +31,12 @@ It recomputes the weights from q, k and the forward's lse, and sums with
 no float atomics (the same bits on every launch).  In bf16 at hd 64 and
 128 it makes one pass over the keys on wgmma, adding each key block's
 part of dQ into a float32 workspace in a fixed order; hd 16 and 32 keep
-a dK/dV kernel and a dQ kernel on mma.sync.  `FlashAttention` is the
-autograd Function the training path calls (`flash_attention_grad`): on
-the card both directions launch the kernels, on the CPU both run their
-plain versions.
+a dK/dV kernel and a dQ kernel on mma.sync.  It takes no window and no hd
+256 yet: `flash_attention_grad` raises for those when autograd records
+(ROADMAP.md, Queue 1, "the hybrid and audio families' training").
+`FlashAttention` is the autograd Function the training path calls
+(`flash_attention_grad`): on the card both directions launch the
+kernels, on the CPU both run their plain versions.
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 NEG = -1e30
 
 
@@ -52,25 +62,44 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k and v must share a dtype")
 
 
-def _scores(q, k, causal):
-    """The scaled float32 scores [BH, Sq, Sk] and the causal mask (None
-    when not causal)."""
+def _check_window(causal, window):
+    """The window is local causal attention's (lattn): with causal=False
+    a row past Sk - 1 + window would keep no key, where the kernel and the
+    plain version would disagree, so that form is refused."""
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if window > 0 and not causal:
+        raise ValueError(f"flash_attention: window {window} needs "
+                         "causal=True")
+
+
+def _scores(q, k, causal, window=0):
+    """The scaled float32 scores [BH, Sq, Sk] and the mask of the kept
+    (query, key) pairs (None when neither causal nor windowed): the
+    reference's `_scores_mask`."""
     hd = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (hd ** -0.5)
-    if not causal:
+    if not causal and window <= 0:
         return s, None
     sq, sk = s.shape[1], s.shape[2]
-    mask = torch.arange(sk, device=q.device)[None, :] \
-        <= torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
     return s, mask
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           return_lse: bool = False):
     """The same function in plain PyTorch: softmax(q kᵀ·scale + mask) v in
-    float32 (the math of the reference's flash_attention_ref)."""
+    float32 (the math of the reference's flash_attention_ref, with the
+    window of its `_scores_mask`)."""
     _check(q, k, v)
-    s, mask = _scores(q, k, causal)
+    _check_window(causal, int(window))
+    s, mask = _scores(q, k, causal, window)
     if mask is not None:
         s = torch.where(mask[None], s, torch.full((), NEG, device=q.device))
     w = torch.softmax(s, dim=-1)
@@ -92,11 +121,11 @@ def _on_card(name, *tensors):
                          f"{[str(t.dtype) for t in tensors]})")
 
 
-def _sizes(name, q, k):
+def _sizes(name, q, k, head_dims=HEAD_DIMS):
     bh, sq, hd = q.shape
     sk = k.shape[1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if hd not in head_dims:
+        raise ValueError(f"{name}: head_dim {hd} not in {head_dims}")
     if sk == 0 or max(bh * sq, bh * sk) * hd >= 2 ** 62:
         raise ValueError(f"{name}: unsupported sizes bh={bh} sq={sq} "
                          f"sk={sk}")
@@ -111,16 +140,19 @@ def _aligned(*tensors):
             for x in (t.contiguous() for t in tensors)]
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     return_lse: bool = False):
     """q: [BH, Sq, hd]; k, v: [BH, Sk, hd] -> [BH, Sq, hd] in q's dtype,
-    or (out, lse [BH, Sq] float32) with return_lse.
+    or (out, lse [BH, Sq] float32) with return_lse.  `window` > 0 keeps
+    key j for query i only when j > i - window, and needs causal=True.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel or
     raise; there is no fallback."""
+    window = int(window)
+    _check_window(causal, window)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
     _check(q, k, v)
     _on_card("flash_attention", q, k, v)
@@ -131,7 +163,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr())
-    tail = (bh, sq, sk, hd, hd ** -0.5, int(causal), stream)
+    tail = (bh, sq, sk, hd, hd ** -0.5, int(causal), window, stream)
     if return_lse:
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         code = lib.flash_attention_lse_launch(*args, lse.data_ptr(), *tail)
@@ -195,7 +227,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     _check(q, k, v)
     _on_card("flash_attention_bwd", q, k, v, o, do)
-    bh, sq, sk, hd = _sizes("flash_attention_bwd", q, k)
+    bh, sq, sk, hd = _sizes("flash_attention_bwd", q, k, BWD_HEAD_DIMS)
     if o.shape != q.shape or do.shape != q.shape \
             or tuple(lse.shape) != (bh, sq):
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
@@ -225,7 +257,8 @@ flash_attention_bwd.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """flash_attention with its backward: the forward keeps q, k, v, the
-    output and its lse; the backward is `flash_attention_bwd`."""
+    output and its lse; the backward is `flash_attention_bwd` (no window,
+    hd up to 128: `flash_attention_grad` refuses the rest)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -242,11 +275,18 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention_grad(q, k, v, *, causal: bool = True):
+def flash_attention_grad(q, k, v, *, causal: bool = True, window: int = 0):
     """flash_attention, differentiable: through `FlashAttention` when
     autograd records (grad mode on and an input requires grad), else the
-    plain forward call, which computes no lse."""
+    plain forward call, which computes no lse.  A recorded call with a
+    window or at hd 256 raises: the backward (kernel and plain version)
+    takes neither yet."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if window > 0 or q.shape[-1] not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention: no backward for window {window} and "
+                f"head_dim {q.shape[-1]} yet (ROADMAP.md, Queue 1, 'the "
+                "hybrid and audio families' training')")
         return FlashAttention.apply(q, k, v, causal)
-    return flash_attention(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal, window=window)

@@ -4,7 +4,9 @@
       --batch 4 --prompt-len 32 --gen 16
 
 runs the full-size config on the card (random weights from --seed);
---smoke takes the tiny same-family config and --device cpu the CPU.
+--smoke takes the tiny same-family config and --device cpu the CPU.  The
+audio family (--arch whisper-tiny) gets stub frames [batch, enc_seq,
+d_model] from --seed, as the reference's launcher.
 """
 from __future__ import annotations
 
@@ -38,6 +40,11 @@ def main(argv=None):
     batch = {"tokens": torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32),
         device=model.device)}
+    if cfg.family == "audio":
+        # the reference launcher's stub frame embeddings
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+            device=model.device)
     if cfg.family == "vlm":
         # the reference launcher's stub M-RoPE positions: the text stream
         # on all three

@@ -1,13 +1,13 @@
 from .lm import LM
+from .whisper import Whisper
 
 
 def get_model(cfg, device="cuda"):
     """The model class for a config, its parameters allocated on `device`
     (not initialised: call `.init(seed)` or load weights)."""
     if cfg.family == "audio":
-        raise NotImplementedError("the audio family (Whisper) is not ported "
-                                  "yet (ROADMAP.md, 'Modules to port')")
+        return Whisper(cfg, device=device)
     return LM(cfg, device=device)
 
 
-__all__ = ["LM", "get_model"]
+__all__ = ["LM", "Whisper", "get_model"]

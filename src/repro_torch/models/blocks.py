@@ -1,8 +1,8 @@
 """Layer-kind dispatch: param defs + forward/prefill/decode per block kind.
 
-Ported kinds: "dense" (GQA attn + SwiGLU), "moe" (GQA attn + MoE
-[+ dense residual SwiGLU]) and "ssm" (Mamba-1).  The reference's "rec"
-and "lattn" kinds raise NotImplementedError naming their ROADMAP.md item.
+Kinds: "dense" (GQA attn + SwiGLU), "moe" (GQA attn + MoE [+ dense
+residual SwiGLU]), "ssm" (Mamba-1), "rec" (RG-LRU + SwiGLU) and "lattn"
+(local-window attn + SwiGLU), as the reference's `models/blocks.py`.
 
 `pos_ids` ([B, S, 3] M-RoPE positions) reaches the attention layers;
 `moe_groups` (decode only) the MoE layers' capacity groups.
@@ -13,21 +13,9 @@ import torch
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import recurrent as rec_mod
 from . import ssm as ssm_mod
 from .common import ParamDef, rms_norm, swiglu
-
-NOT_PORTED = {
-    "rec": "ROADMAP.md, 'Modules to port': the rec and lattn layers",
-    "lattn": "ROADMAP.md, 'Modules to port': the rec and lattn layers",
-}
-
-
-def _check_kind(kind: str):
-    if kind in NOT_PORTED:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  f"({NOT_PORTED[kind]})")
-    if kind not in ("dense", "moe", "ssm"):
-        raise ValueError(kind)
 
 
 def _norm_def(cfg):
@@ -43,24 +31,33 @@ def _mlp_defs(cfg):
 
 
 def block_defs(cfg, kind: str) -> dict:
-    _check_kind(kind)
-    if kind == "ssm":
-        return {"ln": _norm_def(cfg), "ssm": ssm_mod.ssm_defs(cfg)}
+    if kind in ("dense", "lattn"):
+        return {"ln1": _norm_def(cfg), "attn": attn.attn_defs(cfg),
+                "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}
     if kind == "moe":
         d = {"ln1": _norm_def(cfg), "attn": attn.attn_defs(cfg),
              "ln2": _norm_def(cfg), "moe": moe_mod.moe_defs(cfg)}
         if cfg.dense_residual:
             d["mlp"] = _mlp_defs(cfg)
         return d
-    return {"ln1": _norm_def(cfg), "attn": attn.attn_defs(cfg),
-            "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}
+    if kind == "ssm":
+        return {"ln": _norm_def(cfg), "ssm": ssm_mod.ssm_defs(cfg)}
+    if kind == "rec":
+        return {"ln1": _norm_def(cfg), "rec": rec_mod.rglru_defs(cfg),
+                "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}
+    raise ValueError(kind)
 
 
 def block_cache_defs(cfg, kind: str, batch: int, max_seq: int):
-    _check_kind(kind)
+    if kind in ("dense", "moe"):
+        return attn.attn_cache_defs(cfg, batch, max_seq)
+    if kind == "lattn":
+        return attn.attn_cache_defs(cfg, batch, max_seq, window=cfg.window)
     if kind == "ssm":
         return ssm_mod.ssm_cache_defs(cfg, batch)
-    return attn.attn_cache_defs(cfg, batch, max_seq)
+    if kind == "rec":
+        return rec_mod.rglru_cache_defs(cfg, batch)
+    raise ValueError(kind)
 
 
 def _ffn(cfg, kind, p, h, moe_groups=1):
@@ -73,12 +70,19 @@ def _ffn(cfg, kind, p, h, moe_groups=1):
     return swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_in"], p["mlp"]["w_out"])
 
 
+def _window(cfg, kind):
+    return cfg.window if kind == "lattn" else 0
+
+
 def block_forward(cfg, kind, p, x, pos_ids=None):
     """Training-mode block. x: [B,S,d] -> [B,S,d]."""
     if kind == "ssm":
         return x + ssm_mod.mamba_forward(cfg, p["ssm"], rms_norm(x, p["ln"]))
+    if kind == "rec":
+        h = x + rec_mod.rglru_forward(cfg, p["rec"], rms_norm(x, p["ln1"]))
+        return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"]))
     h = x + attn.attn_forward(cfg, p["attn"], rms_norm(x, p["ln1"]),
-                              pos_ids=pos_ids)
+                              window=_window(cfg, kind), pos_ids=pos_ids)
     return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"]))
 
 
@@ -87,8 +91,13 @@ def block_prefill(cfg, kind, p, x, cache, pos_ids=None):
         y, c = ssm_mod.mamba_forward(cfg, p["ssm"], rms_norm(x, p["ln"]),
                                      return_state=True)
         return x + y, c
+    if kind == "rec":
+        y, c = rec_mod.rglru_forward(cfg, p["rec"], rms_norm(x, p["ln1"]),
+                                     return_state=True)
+        h = x + y
+        return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"])), c
     y, c = attn.attn_prefill(cfg, p["attn"], rms_norm(x, p["ln1"]), cache,
-                             pos_ids=pos_ids)
+                             window=_window(cfg, kind), pos_ids=pos_ids)
     h = x + y
     return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"])), c
 
@@ -98,7 +107,12 @@ def block_decode(cfg, kind, p, x, cache, pos, pos_ids=None, moe_groups=1):
         y, c = ssm_mod.mamba_decode(cfg, p["ssm"], rms_norm(x, p["ln"]),
                                     cache)
         return x + y, c
+    if kind == "rec":
+        y, c = rec_mod.rglru_decode(cfg, p["rec"], rms_norm(x, p["ln1"]),
+                                    cache)
+        h = x + y
+        return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"])), c
     y, c = attn.attn_decode(cfg, p["attn"], rms_norm(x, p["ln1"]), cache,
-                            pos, pos_ids=pos_ids)
+                            pos, window=_window(cfg, kind), pos_ids=pos_ids)
     h = x + y
     return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"]), moe_groups), c

@@ -130,6 +130,11 @@ class ParamTree(nn.Module):
             else:
                 yield from getattr(self, name).leaves(f"{path}/")
 
+    def named_leaves(self):
+        """(path, parameter) of every parameter, in the order they are
+        made ("embed", ..., "layers/<l>/attn/wq", ...)."""
+        return ((path, p) for path, p, _ in self.leaves())
+
     @torch.no_grad()
     def init(self, seed: int = 0):
         """Fill every parameter from `seed`, each from its own generator on

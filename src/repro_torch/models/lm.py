@@ -125,11 +125,6 @@ class LM(ParamTree):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def named_leaves(self):
-        """(path, parameter) of every parameter, in the order they are
-        made ("embed", ..., "layers/<l>/attn/wq", ...)."""
-        return ((path, p) for path, p, _ in self.leaves())
-
     def to_tree(self, leaves: dict | None = None) -> dict:
         """The parameters (or `leaves`, a dict keyed like them: the AdamW
         moments) as the reference's stacked tree of numpy leaves, the

@@ -178,23 +178,29 @@ class TrainRunner:
         self.mgr.save(self.step, params, opt,
                       extra={"data": self.data.state()})
 
-    def _restore(self, latest: int):
+    def _restore(self, step: int):
+        """(step, params, opt_state, extra) of one snapshot, every array
+        read once and checked as it is loaded: both parts are read before
+        a live tree is written, so a corrupt opt.npz leaves it as it was."""
         load_tree = getattr(self.params, "load_tree", None)
         if load_tree is None:
-            return self.mgr.restore(latest, self.params, self.opt_state)
-        step, flat, extra = self.mgr.restore_flat(latest)
+            return self.mgr.restore(step, self.params, self.opt_state)
+        saved, flat, extra = self.mgr.restore_flat(step)
+        oflat = None if self.opt_state is None else \
+            self.mgr.restore_flat(step, part="opt")[1]
         load_tree(_nest(flat))
-        if self.opt_state is not None:
-            _, oflat, _ = self.mgr.restore_flat(latest, part="opt")
+        if oflat is not None:
             self.opt_state.load_tree(_nest(oflat), load_tree)
-        return step, self.params, self.opt_state, extra
+        return saved, self.params, self.opt_state, extra
 
     def maybe_resume(self):
-        latest = self.mgr.latest()
-        if latest is None:
+        """Restore the newest snapshot that verifies (a corrupt one is
+        skipped for the next older, `mgr.skipped`); False when there is
+        none."""
+        found = self.mgr.resume(self._restore)
+        if found is None:
             return False
-        self.step, self.params, self.opt_state, extra = \
-            self._restore(latest)
+        self.step, self.params, self.opt_state, extra = found
         if "data" in extra:
             self.data.restore(extra["data"],
                               host_index=self.data.host,
@@ -271,9 +277,9 @@ class LoopRunner:
         loop_state = None
         self.resumed_from = None
         if resume:
-            latest = self.mgr.latest()
-            if latest is not None:
-                step, flat, extra = self.mgr.restore_flat(latest)
+            found = self.mgr.resume(self.mgr.restore_flat)
+            if found is not None:
+                step, flat, extra = found
                 loop_state = {}
                 for li_s, it in (extra.get("loops") or {}).items():
                     li = int(li_s)

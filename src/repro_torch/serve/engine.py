@@ -33,6 +33,9 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg, model, *, slots: int = 4, max_seq: int = 128):
+        if cfg.family == "audio":      # the reference's refusal
+            raise ValueError("enc-dec engine: use Whisper API "
+                             "(make_prefill_step / make_decode_step)")
         self.cfg = cfg
         self.model = model
         self.slots = slots

@@ -1,22 +1,29 @@
 """Serving steps: prefill (builds the cache) and decode (one new token with
 a KV/state cache of `max_seq`).  The port's model carries its weights, so a
-step takes the model where the reference's takes params."""
+step takes the model where the reference's takes params.  The audio
+family's prefill takes the batch's stub frames [B, enc_seq, d] beside its
+tokens."""
 from __future__ import annotations
 
 
 def make_prefill_step(cfg, max_seq):
     if cfg.family == "audio":
-        raise NotImplementedError("the audio family (Whisper) is not ported "
-                                  "yet (ROADMAP.md, 'Modules to port')")
-
-    def prefill_step(model, batch):
-        return model.prefill(batch["tokens"], max_seq,
-                             pos_ids=batch.get("pos_ids"))
+        def prefill_step(model, batch):
+            return model.prefill(batch["frames"], batch["tokens"], max_seq)
+    else:
+        def prefill_step(model, batch):
+            return model.prefill(batch["tokens"], max_seq,
+                                 pos_ids=batch.get("pos_ids"))
     return prefill_step
 
 
 def make_decode_step(cfg, moe_groups: int = 1):
-    """`moe_groups`: see `LM.decode` (the engine passes its slots)."""
-    def decode_step(model, cache, token, pos):
-        return model.decode(cache, token, pos, moe_groups=moe_groups)
+    """`moe_groups`: see `LM.decode` (the engine passes its slots; the
+    audio family has no MoE layer and takes none)."""
+    if cfg.family == "audio":
+        def decode_step(model, cache, token, pos):
+            return model.decode(cache, token, pos)
+    else:
+        def decode_step(model, cache, token, pos):
+            return model.decode(cache, token, pos, moe_groups=moe_groups)
     return decode_step

@@ -17,7 +17,9 @@ functional step returns new trees instead.  Semantics are the reference's:
 The step runs eagerly (the reference jits it; a CUDA-graph step is a
 ROADMAP.md item).  `mesh` other than None raises: data-parallel training
 over a `RankGroup` is not ported yet, and so does a layout with a "moe"
-layer: the MoE combine's kernel launch carries no gradient.
+layer (the MoE combine's kernel launch carries no gradient), a "rec" or
+"lattn" layer, or the audio family (no backward kernel for the window,
+hd 256 or the RG-LRU scan, and no Whisper loss yet).
 """
 from __future__ import annotations
 
@@ -46,6 +48,12 @@ def make_train_step(cfg, mesh=None, dp_axes=("data",), lr=3e-4,
         raise NotImplementedError(
             "make_train_step: the moe family's combine has no backward yet "
             "(ROADMAP.md, Queue 1, 'the moe family's training')")
+    if cfg.family == "audio" or any("rec" in pattern or "lattn" in pattern
+                                    for pattern, _ in cfg.layout):
+        raise NotImplementedError(
+            "make_train_step: the rec, lattn and Whisper layers have no "
+            "backward kernels yet (ROADMAP.md, Queue 1, 'the hybrid and "
+            "audio families' training')")
     k = max(1, cfg.microbatch)
 
     def grads_of(model, params, batch):

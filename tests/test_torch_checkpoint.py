@@ -25,6 +25,7 @@ from repro.core import compile_program as jax_compile
 from repro.core.programs import ALL as JAX_ALL
 from repro.runtime import LoopRunner as JaxLoopRunner
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.manager import CorruptSnapshot
 from repro_torch.core import compile_program
 from repro_torch.core.programs import ALL
 from repro_torch.runtime import LoopRunner, SimulatedFailure, TrainRunner
@@ -146,6 +147,28 @@ def test_torn_snapshot_skipped_to_previous_good(tmp_path):
 
     step, flat, _ = mgr.restore_flat(2)
     np.testing.assert_array_equal(flat["w"], np.arange(8.0))
+
+
+def test_restore_checks_each_array_as_it_reads(tmp_path):
+    """restore_flat and restore raise CorruptSnapshot on the bit-flipped
+    snapshot; resume() walks newest first on that reader and skips it."""
+    mgr = CheckpointManager(str(tmp_path), async_write=False)
+    mgr.save(2, {"w": np.arange(8.0)})
+    mgr.save(4, {"w": np.arange(8.0) * 2})
+    payload = tmp_path / "step_00000004" / "params.npz"
+    raw = bytearray(payload.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    payload.write_bytes(bytes(raw))
+
+    with pytest.raises(CorruptSnapshot):
+        mgr.restore_flat(4)
+    with pytest.raises(CorruptSnapshot):
+        mgr.restore(4, {"w": np.zeros(8)})
+    step, flat, _ = mgr.resume(mgr.restore_flat)
+    assert step == 2 and mgr.skipped == [4]
+    np.testing.assert_array_equal(flat["w"], np.arange(8.0))
+    assert CheckpointManager(str(tmp_path / "none")).resume(
+        mgr.restore_flat) is None
 
 
 def test_snapshot_checksums_written_and_verify(tmp_path):

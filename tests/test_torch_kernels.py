@@ -995,6 +995,84 @@ def test_cuda_flash_attention_bf16_edges(cuda, hd, sq, sk, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("s,window", [(1, 16), (63, 16), (200, 16),
+                                      (200, 64), (333, 100), (130, 200)])
+def test_cuda_flash_attention_window(cuda, dtype, hd, s, window):
+    # a local window (recurrentgemma-2b's lattn layers): windows below,
+    # at and above the tile sizes, prompts shorter and longer than the
+    # window, ragged tiles; two launches give the same bits
+    r = np.random.default_rng(s * 7 + window + hd)
+    q, k, v = (_t(r.standard_normal((3, s, hd)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _flash_row_err(got, want) <= \
+        (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       got)
+    _, lse = flash_attention(q, k, v, causal=True, window=window,
+                             return_lse=True)
+    _, want_lse = flash_attention_plain(q, k, v, causal=True, window=window,
+                                        return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(1, 1, True), (65, 65, True),
+                                          (777, 777, True), (50, 130, False),
+                                          (1, 300, False)])
+def test_cuda_flash_attention_hd256(cuda, dtype, sq, sk, causal):
+    r = np.random.default_rng(sq + sk)
+    q = _t(r.standard_normal((2, sq, 256)).astype(np.float32)).to(cuda, dtype)
+    k, v = (_t(r.standard_normal((2, sk, 256)).astype(np.float32))
+            .to(cuda, dtype) for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _flash_row_err(got, want) <= \
+        (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,window", [(64, 0), (256, 0), (64, 16)])
+def test_cuda_flash_grad_refuses_what_the_backward_lacks(cuda, hd, window):
+    from repro_torch.kernels.flash_attention import flash_attention_grad
+    q = torch.randn(2, 32, hd, device=cuda, requires_grad=True)
+    if hd in (16, 32, 64, 128) and window == 0:
+        flash_attention_grad(q, q, q).sum().backward()
+        return
+    with pytest.raises(NotImplementedError, match="hybrid and audio"):
+        flash_attention_grad(q, q, q, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d", [(1, 2048, 2560), (2, 77, 300),
+                                   (3, 1, 40)])
+def test_cuda_selective_scan_rglru(cuda, b, s, d):
+    # the rec layer's call: N = 1, c = 1 (y is the state), h0 and h_last
+    r = np.random.default_rng(d)
+    a = _t(np.exp(-np.abs(r.standard_normal((b, s, d, 1)))).astype(
+        np.float32)).to(cuda)
+    bx = _t(r.standard_normal((b, s, d, 1)).astype(np.float32)).to(cuda)
+    c = torch.ones(b, s, 1, device=cuda)
+    h0 = _t(r.standard_normal((b, d, 1)).astype(np.float32)).to(cuda)
+    before = selective_scan.launches
+    y, h = selective_scan(a, bx, c, h0, return_state=True)
+    assert selective_scan.launches == before + 1
+    wy, wh = selective_scan_plain(a, bx, c, h0, return_state=True)
+    assert _scan_err(y, wy) <= 1e-5 and _scan_err(h, wh) <= 1e-5
+    torch.testing.assert_close(y[:, -1], h[..., 0], rtol=0, atol=0)
+    y2, h2 = selective_scan(a, bx, c, h0, return_state=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_nan_past_sk(cuda, dtype, causal):
     # k and v are contiguous [:, :Sk] views of buffers holding NaN past Sk:

@@ -26,7 +26,10 @@ from repro_torch.models import LM, get_model
 from repro_torch.models.lm import layer_slots
 
 ARCHS = ["llama3-8b", "falcon-mamba-7b", "minitron-4b", "phi3-medium-14b",
-         "qwen2-72b", "qwen3-moe-30b-a3b", "arctic-480b", "qwen2-vl-72b"]
+         "qwen2-72b", "qwen3-moe-30b-a3b", "arctic-480b", "qwen2-vl-72b",
+         "recurrentgemma-2b"]
+# the reference's one encoder-decoder config (tests/test_torch_whisper.py)
+AUDIO_ARCHS = ["whisper-tiny"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 MAX_SEQ = 32
 
@@ -73,8 +76,9 @@ def pair(request):
 
 
 def test_configs_read_the_same():
-    assert list_archs() == sorted(ARCHS)
-    for arch in ARCHS:
+    # all ten of the reference's architectures
+    assert list_archs() == sorted(ARCHS + AUDIO_ARCHS)
+    for arch in ARCHS + AUDIO_ARCHS:
         for ours, ref in ((get_config(arch), jax_get_config(arch)),
                           (smoke_config(arch), jax_smoke_config(arch))):
             a, b = vars(ours), vars(ref)
@@ -84,8 +88,8 @@ def test_configs_read_the_same():
                     assert _dtype_name(a[k]) == jnp.dtype(b[k]).name, k
                 else:
                     assert a[k] == b[k], k
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("recurrentgemma-2b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gemma-9b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -263,9 +267,12 @@ def test_converter_refuses_a_wrong_tree():
 
 @pytest.mark.parametrize("kind", ["rec", "lattn"])
 def test_unported_layer_kinds_raise(kind):
-    cfg = smoke_config("llama3-8b").replace(layout=(((kind,), 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg, device="cpu")
+    # the rec and lattn kinds are ported: a layout of one builds; a kind
+    # the reference does not have raises
+    cfg = smoke_config("recurrentgemma-2b").replace(layout=(((kind,), 1),))
+    assert get_model(cfg, device="cpu").kinds == [kind]
+    with pytest.raises(ValueError, match=f"{kind}x"):
+        get_model(cfg.replace(layout=(((kind + "x",), 1),)), device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():

@@ -29,13 +29,15 @@ from repro_torch.models import LM
 from repro_torch.serve.engine import ServeEngine
 
 ARCHS = ["llama3-8b", "falcon-mamba-7b", "minitron-4b", "phi3-medium-14b",
-         "qwen2-72b", "qwen3-moe-30b-a3b", "arctic-480b", "qwen2-vl-72b"]
+         "qwen2-72b", "qwen3-moe-30b-a3b", "arctic-480b", "qwen2-vl-72b",
+         "recurrentgemma-2b"]
 # the engine's scheduling scenarios, one config of each kind of decode
 # state: dense and moe layers (whose engine decode routes a capacity group
-# a slot) and ssm layers; the other dense configs differ from llama3-8b
-# only in widths and biases, which the tests of every arch cover
+# a slot), ssm layers, and rec with ring-buffer lattn layers; the other
+# dense configs differ from llama3-8b only in widths and biases, which the
+# tests of every arch cover
 SCENARIO_ARCHS = ["llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
-                  "arctic-480b"]
+                  "arctic-480b", "recurrentgemma-2b"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,8 +158,9 @@ def test_cpu_serving_counts_no_kernel_launches():
 
 
 def test_engine_refuses_the_audio_family():
+    # with the reference's message: Whisper serves through the steps
     cfg = smoke_config("llama3-8b").replace(family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="enc-dec engine: use Whisper API"):
         ServeEngine(cfg, LM(smoke_config("llama3-8b"), device="meta"))
 
 

@@ -12,6 +12,7 @@ absolute.  Then the port's own forms (remat full / dots / none within
 recovery and system tests of the train loop, and snapshots that cross
 between the packages.
 """
+import collections
 import os
 import subprocess
 import sys
@@ -253,6 +254,84 @@ def test_restart_resumes_bit_exact(tmp_path, arch):
     assert int(r2.opt_state.step) == 4
     r2.run(6)
     for a, b in zip(_state(r_full), _state(r2)):
+        assert torch.equal(a, b)
+
+
+class _CountingNpz:
+    """np.load's NpzFile, counting each array read by (file, key)."""
+
+    def __init__(self, zf, path, reads):
+        self.zf, self.path, self.reads = zf, path, reads
+        self.files = zf.files
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.zf.close()
+
+    def __getitem__(self, k):
+        self.reads[(self.path, k)] += 1
+        return self.zf[k]
+
+
+def test_resume_reads_each_array_of_its_snapshot_once(tmp_path,
+                                                      monkeypatch):
+    """maybe_resume reads every array of the snapshot it restores once,
+    checking its crc32 as it is loaded, and no array of an older one."""
+    r1 = _mk(tmp_path)
+    r1.run(4)
+    reads = collections.Counter()
+    real_load = np.load
+    monkeypatch.setattr(np, "load", lambda path, *a, **kw: _CountingNpz(
+        real_load(path, *a, **kw), str(path), reads))
+    r2 = _mk(tmp_path)
+    assert r2.maybe_resume() and r2.step == 4
+    monkeypatch.undo()
+    d = tmp_path / "step_00000004"
+    expect = {}
+    for fname in ("params.npz", "opt.npz"):
+        with np.load(d / fname) as zf:
+            expect.update({(str(d / fname), k): 1 for k in zf.files})
+    assert dict(reads) == expect
+    for a, b in zip(_state(r1), _state(r2)):
+        assert torch.equal(a, b)
+
+
+def test_resume_lets_a_host_fault_through(tmp_path, monkeypatch):
+    """A MemoryError while a snapshot is read is no torn snapshot: it
+    reaches the caller, and no snapshot is recorded as skipped."""
+    r1 = _mk(tmp_path)
+    r1.run(4)
+
+    def out_of_memory(*a, **kw):
+        raise MemoryError("host out of memory")
+
+    monkeypatch.setattr(np, "load", out_of_memory)
+    r2 = _mk(tmp_path)
+    with pytest.raises(MemoryError):
+        r2.maybe_resume()
+    assert r2.mgr.skipped == [] and r2.step == 0
+
+
+@pytest.mark.parametrize("part", ["params.npz", "opt.npz"])
+def test_resume_skips_a_bit_flipped_newest_snapshot(tmp_path, part):
+    """A flipped byte in either part of the newest snapshot is caught as
+    it is read: the resume falls back to the older snapshot (recorded in
+    `skipped`), bit-equal to a run stopped there."""
+    r_at2 = _mk(tmp_path / "ref")
+    r_at2.run(2)
+    r1 = _mk(tmp_path / "run")
+    r1.run(4)
+    path = tmp_path / "run" / "step_00000004" / part
+    raw = bytearray(path.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    path.write_bytes(bytes(raw))
+    r2 = _mk(tmp_path / "run")
+    assert r2.maybe_resume() and r2.step == 2
+    assert r2.mgr.skipped == [4]
+    assert r2.data.step == 2
+    for a, b in zip(_state(r_at2), _state(r2)):
         assert torch.equal(a, b)
 
 

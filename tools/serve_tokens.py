@@ -50,7 +50,7 @@ def main(argv=None) -> int:
             continue
         model = get_model(cfg).init(args.seed)
         eng = ServeEngine(cfg, model, slots=smoke.SERVE_SLOTS,
-                          max_seq=smoke.SERVE_MAX_SEQ)
+                          max_seq=smoke.serve_max_seq(arch))
         reqs = [eng.submit(p, smoke.SERVE_MAX_NEW)
                 for p in smoke.serve_prompts(np, cfg, args.seed)]
         eng.run()

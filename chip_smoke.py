@@ -31,7 +31,16 @@ first mismatch:
              [128, 1531, 128] and [128, 2048, 64], the scan [4, 1531,
              8136, 16]), each held against its plain version, which
              takes nothing from a kernel under test, and launched twice
-             with the same bits, and the forward kernels' training
+             with the same bits; the same at the hybrid and audio
+             families' training shapes: the flash backward bf16 [10,
+             4096, 256] causal within a 2048-token window (one lattn
+             layer of a recurrentgemma-2b microbatch; against the
+             backward of `scaled_dot_product_attention` with the window's
+             mask), float32 [10, 1531, 256] within 256, whisper-tiny's
+             encoder [48, 1500, 64] and cross-attention [48, 448, 64] x
+             [48, 1500, 64] non-causal, and the scan's (a, bx) backward
+             at N = 1 [1, 4096, 2560] from h0 with dh_last (its RG-LRU);
+             and the forward kernels' training
              entries (flash with its lse, held against the plain
              version's; the scan with its checkpoint states) bit-equal to
              the serving ones; the segment kernel at the MoE combine's
@@ -160,31 +169,40 @@ first mismatch:
              against the same weights on the CPU (the kernels' plain
              versions); the served tokens' crc32 (tools/serve_tokens.py
              prints the same digest from another tree's sources);
-8. train   — train llama3-8b (8 of 32 layers) and falcon-mamba-7b (16 of
-             64) at full width, bf16 with float32 moments, remat "full",
-             ce_chunk 512, through `repro_torch.runtime.TrainRunner` on
-             `SyntheticLMData` batches of 4 x 2048 tokens: loss and
-             grad_norm a step, step ms (median after the first), tokens/s,
-             peak memory, the launches of each kernel (a forward kernel
-             twice a layer and step, a backward once), one profiled step
-             (device busy, idle share, top kernels, the hand-written
-             kernels' share), and 10 steps on one fixed batch whose loss
-             must fall; then at 2 layers (full width) six steps against a
+8. train   — train llama3-8b (8 of 32 layers), falcon-mamba-7b (16 of
+             64), qwen3-moe-30b-a3b (4 of 48), recurrentgemma-2b (all 26,
+             batches of 2 x 4096 tokens, so that its 2048-token window
+             masks) and whisper-tiny (whole: 8 rows of 448 tokens on 1500
+             stub frames) at full width, bf16 with float32 moments, remat
+             "full", the configs' ce_chunk and microbatch, through
+             `repro_torch.runtime.TrainRunner` on `SyntheticLMData`
+             batches (the others 4 x 2048 tokens): loss and grad_norm a
+             step, step ms (median after the first), tokens/s, peak
+             memory, the launches of each kernel (a forward kernel twice
+             a layer and microbatch, a backward once, every other none),
+             one profiled step (device busy, idle share, top kernels, the
+             hand-written kernels' share), and 10 steps on one fixed batch
+             whose loss must fall; then whisper-tiny six steps against a
              run failed at step 5 and resumed from its step-4 snapshot
              (each array read once, its crc32 checked as it is loaded),
-             bit-equal leaf by leaf; then a 2-layer float32 copy of each
-             (weights drawn on the card from --seed and copied to the
-             CPU) takes one step on the card and on the CPU (B 1, S 1024, so
-             that the chunked cross-entropy runs): loss and grad_norm
-             within 1e-4, every gradient leaf within 1e-3 of its max |ref|.
+             bit-equal leaf by leaf; then a float32 copy of each (weights
+             drawn on the card from --seed and copied to the CPU: 2
+             layers of llama3-8b and falcon-mamba-7b, 1 of
+             qwen3-moe-30b-a3b with rows dropped by capacity, one (rec,
+             rec, lattn) period of recurrentgemma-2b at 2300 tokens, past
+             its window, the whole whisper-tiny) takes one step's
+             gradients on the card and on the CPU: loss and grad_norm
+             within 1e-4, every gradient leaf within 1e-3 of its max
+             |ref|.
 
 Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4.
 The line before the last is a JSON object with one entry per kernel
 (segment_reduce's launches count phases 3, 5, 6, 7's world of 1 and 4's
 MoE combines;
 flash_attention's and selective_scan's (both entries) phases 4 and 8;
-the backward
-kernels' phase 8); the last line is {"ok": true, "device": {...}}.
+the backward kernels' phase 8, the windowed hd-256 flash backward
+(recurrentgemma-2b's) apart from the other flash backwards); the last line
+is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, the script exits non-zero
 and prints no result.
 
@@ -1005,79 +1023,146 @@ def _grad_errs(what, got, want, tols):
     return worst
 
 
-def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2):
-    """The backward of causal attention at the training shape [B·Hq, S,
-    hd]: the kernel (from the forward kernel's lse) against the plain
-    formula, a second launch bit-equal, and one backward of PyTorch's
-    scaled_dot_product_attention as the library call.  With --parent the
-    kernel is timed against the earlier library, interleaved."""
+def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
+                    sk=None, causal=True, window=0):
+    """The backward of attention at a training shape [B·Hq, S, hd]:
+    causal (within a local window when `window` > 0), or full with `sk`
+    keys (an encoder, or cross-attention when sk != s).  The kernel (from
+    the forward kernel's lse) against the plain formula, a second launch
+    bit-equal, and one backward of PyTorch's scaled_dot_product_attention
+    (with the window's mask where there is one) as the library call.
+    With --parent the kernel is timed against the earlier library,
+    interleaved."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
     dt = getattr(torch, dtype)
-    q, k, v, do = (torch.randn(bh, s, hd, generator=g, device="cuda").to(dt)
-                   for _ in range(4))
-    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    sk = s if sk is None else sk
+    q, do = (torch.randn(bh, s, hd, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, hd, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    form = ("causal" if causal else "full") \
+        + (f" window {window}" if window else "")
+    shape = f"[{bh}, {s}, {hd}]" + ("" if sk == s else f"x[{bh}, {sk}, {hd}]")
+    what = f"{form} {shape} {dtype}"
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     # the training entry writes the serving entry's output bits
-    require(torch.equal(o, flash_attention(q, k, v, causal=True)),
-            f"flash_attention [{bh}, {s}, {hd}] {dtype}: the lse entry's "
-            "output differs from the serving entry's")
+    require(torch.equal(o, flash_attention(q, k, v, **kw)),
+            f"flash_attention {what}: the lse entry's output differs from "
+            "the serving entry's")
     # the kernel's lse against the plain version's: both float32 sums of
     # the same products, so they differ in summation order only
-    wo, wlse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    wo, wlse = flash_attention_plain(q, k, v, return_lse=True, **kw)
     lse_tol = 1e-3
     lse_err = float((lse - wlse).abs().max())
-    log(f"[kernels] flash_attention lse [{bh}, {s}, {hd}] {dtype}: max abs "
-        f"err {lse_err:.3g} against the plain version (tol {lse_tol:g})")
+    log(f"[kernels] flash_attention lse {what}: max abs err {lse_err:.3g} "
+        f"against the plain version (tol {lse_tol:g})")
     require(lse_err <= lse_tol,
-            f"flash_attention [{bh}, {s}, {hd}] {dtype}: lse err "
-            f"{lse_err:.4g} > {lse_tol:g}")
-    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+            f"flash_attention {what}: lse err {lse_err:.4g} > {lse_tol:g}")
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     # the reference takes nothing from the kernels under test
-    want = flash_attention_bwd_plain(q, k, v, wo, wlse, do, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, wo, wlse, do, **kw)
     del wo, wlse
     torch.cuda.synchronize()
     # bf16: the kernel rounds P and dS to bf16 for the tensor cores (the
     # plain formula keeps them float32), then rounds the sums to bf16
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
-    err = _grad_errs(f"flash_attention_bwd [{bh}, {s}, {hd}] {dtype}", got,
-                     want, dict(dq=tol, dk=tol, dv=tol))
+    err = _grad_errs(f"flash_attention_bwd {what}", got, want,
+                     dict(dq=tol, dk=tol, dv=tol))
     del want
-    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
-            f"flash_attention_bwd [{bh}, {s}, {hd}] {dtype}: a second "
-            "launch gave other bits")
+            f"flash_attention_bwd {what}: a second launch gave other bits")
     del got, again
     torch.cuda.empty_cache()
     timed = _kernel_ms(torch, "flash_attention_bwd",
-                       lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                   causal=True), reps)
+                       lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                       reps)
     plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
-        q, k, v, o, lse, do, causal=True), plain_reps,
+        q, k, v, o, lse, do, **kw), plain_reps,
         warmup=1 if plain_reps > 1 else 0)
     torch.cuda.empty_cache()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
-    out4 = sdpa(q4, k4, v4, is_causal=True)
+    if window:
+        kp = torch.arange(sk, device="cuda")[None, :]
+        qp = torch.arange(s, device="cuda")[:, None]
+        mask = (kp > qp - window) & (kp <= qp)
+        out4 = sdpa(q4, k4, v4, attn_mask=mask)
+        library = ("autograd of scaled_dot_product_attention(attn_mask="
+                   "the window): its backward alone")
+    else:
+        out4 = sdpa(q4, k4, v4, is_causal=causal)
+        library = (f"autograd of scaled_dot_product_attention(is_causal="
+                   f"{causal}): its backward alone")
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
         out4, (q4, k4, v4), do[None], retain_graph=True), reps)
     del out4, q4, k4, v4
+    torch.cuda.empty_cache()
     esize = 2 if dtype == "bfloat16" else 4
-    # 5 products over the causal pairs: S = QKᵀ (recomputed), dP = dO Vᵀ,
+    # 5 products over the kept pairs: S = QKᵀ (recomputed), dP = dO Vᵀ,
     # dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q
-    flops = 5 * 2.0 * bh * hd * s * (s + 1) / 2
-    # q, k, v, o, dO read and dq, dk, dv written; lse read
-    bytes_ = 8.0 * bh * s * hd * esize + 4.0 * bh * s
+    flops = 5 * 2.0 * bh * hd * _attended_pairs(s, sk, causal, window)
+    # q, o, dO read and dq written [BH, S, hd]; k, v read and dk, dv
+    # written [BH, Sk, hd]; lse read
+    bytes_ = 4.0 * bh * (s + sk) * hd * esize + 4.0 * bh * s
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
-    rec = dict(case=f"flash_attention_bwd causal [{bh}, {s}, {hd}] {dtype}",
+    rec = dict(case=f"flash_attention_bwd {what}",
                max_abs_err=err, tol=f"{tol:g}*max|ref| (dq, dk, dv)",
                **timed, plain_ms=plain_ms, library_ms=library_ms,
-               library="autograd of scaled_dot_product_attention"
-                       "(is_causal=True): its backward alone",
-               bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+               library=library, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               same_bits_twice=True)
     return _rates(rec, flops)
+
+
+def _abx_bwd_case(torch, g, b, s, d, reps=5):
+    """The scan's (a, bx) backward at N = 1 at a recurrentgemma-2b
+    training microbatch's shape [B, S, lru_width]: from the forward's
+    states (the (a, bx) entry's y with c = 1, from an h0) with the final
+    state's gradient, the kernel against the plain reverse walk (each sum
+    and product rounded alone in both: 1e-6 of max|ref|), a second launch
+    bit-equal."""
+    import importlib
+    scan = importlib.import_module("repro_torch.kernels.selective_scan")
+    dev = "cuda"
+    a = torch.exp(-torch.randn(b, s, d, generator=g, device=dev).abs())
+    bx = torch.randn(b, s, d, generator=g, device=dev) * 0.1
+    h0, dh = (torch.randn(b, d, generator=g, device=dev) for _ in range(2))
+    dy = torch.randn(b, s, d, generator=g, device=dev)
+    h, _ = scan.selective_scan(a[..., None], bx[..., None],
+                               torch.ones(b, s, 1, device=dev),
+                               h0[..., None], return_state=True)
+    what = f"selective_scan_bwd[a, bx] [{b}, {s}, {d}, 1]"
+    got = scan.selective_scan_bwd(a, h, h0, dy, dh)
+    want = scan.selective_scan_bwd_plain(a, h, h0, dy, dh)
+    torch.cuda.synchronize()
+    tol = 1e-6
+    err = _grad_errs(what, got, want, dict(da=tol, dbx=tol, dh0=tol))
+    same_as_plain = all(bool(torch.equal(x, y)) for x, y in zip(got, want))
+    del want
+    again = scan.selective_scan_bwd(a, h, h0, dy, dh)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            f"{what}: a second launch gave other bits")
+    del got, again
+    timed = _kernel_ms(torch, "selective_scan_bwd",
+                       lambda: scan.selective_scan_bwd(a, h, h0, dy, dh),
+                       reps)
+    plain_ms = time_ms(torch, lambda: scan.selective_scan_bwd_plain(
+        a, h, h0, dy, dh), 1, warmup=0)
+    # read once: a, h, dy [B, S, D], h0, dh_last [B, D]; written once: da,
+    # dbx [B, S, D], dh0 [B, D]
+    bytes_ = 4.0 * 5 * b * s * d + 4.0 * 3 * b * d
+    rec = dict(case=f"{what} float32, h0 and dh_last, same bits twice",
+               max_abs_err=err, tol=f"{tol:g}*max|ref| (da, dbx, dh0)",
+               bits_equal_to_plain=same_as_plain, **timed,
+               plain_ms=plain_ms, library_ms=None,
+               library="none (no single PyTorch call)",
+               bound_ms=bytes_ / HBM_BYTES_S * 1e3, bound_by="bytes")
+    return _rates(rec, 4.0 * b * s * d)   # g = dy + c, da, c = a·g
 
 
 def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
@@ -1184,6 +1269,35 @@ def _hybrid_audio_cases(torch, g):
                       rglru=True)
 
 
+def _family_bwd_cases(torch, g):
+    """The backwards phase 8's hybrid and audio runs take: one lattn
+    layer of a recurrentgemma-2b microbatch (10 query heads on its one KV
+    head, hd 256, 4096 tokens within the 2048-token window) in bf16, and
+    in float32 (the float32 check's form) over ragged tiles;
+    whisper-tiny's encoder and cross-attention at 8 requests (48 heads of
+    64: 1500 frames; 448 tokens on them), non-causal; the RG-LRU's (a,
+    bx) backward over the microbatch.  Returns the windowed bf16 record
+    and the (a, bx) one, the two new items of the kernels line."""
+    from repro_torch.configs import get_config
+    rg, wh = get_config("recurrentgemma-2b"), get_config(AUDIO_ARCH)
+    _, rg_batch, rg_seq = TRAIN_ARCHS["recurrentgemma-2b"]
+    rg_rows = rg_batch // rg.microbatch
+    hq, hd = rg.num_heads, rg.head_dim
+    win = _flash_bwd_case(torch, g, rg_rows * hq, rg_seq, hd, "bfloat16",
+                          window=rg.window)
+    _flash_bwd_case(torch, g, hq, PROMPT_LENS[1], hd, "float32", window=256,
+                    plain_reps=1)
+    bh = TRAIN_ARCHS[AUDIO_ARCH][1] * wh.num_heads
+    for sq in (wh.enc_seq, TRAIN_ARCHS[AUDIO_ARCH][2]):
+        _flash_bwd_case(torch, g, bh, sq, wh.head_dim, "bfloat16",
+                        sk=wh.enc_seq, causal=False, plain_reps=1)
+    torch.cuda.empty_cache()
+    abx = _abx_bwd_case(torch, g, rg_rows, rg_seq, rg.lru_width)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return win, abx
+
+
 def phase_kernels(torch, seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -1284,6 +1398,7 @@ def phase_kernels(torch, seed):
             _scan_bwd_case(torch, g, 4, 1531, 8136, 16, "bfloat16")]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    hyb, abx = _family_bwd_cases(torch, g)
     # the entries of the kernel line: the main paths' shapes (the group-by
     # over 2^20 segments, the packed 8192^3 product through the packed
     # entry, the 2048-token llama3-8b prefill's attention, the scan kernel
@@ -1295,6 +1410,8 @@ def phase_kernels(torch, seed):
             "flash_attention": flash[0], "selective_scan": fused[0],
             "selective_scan[a, bx]": rglru,
             "flash_attention_bwd": bwd[0], "selective_scan_bwd": sbwd[0],
+            "flash_attention_bwd[window, hd 256]": hyb,
+            "selective_scan_bwd[a, bx]": abx,
             "segment_reduce[lanes]": lanes}
 
 
@@ -3294,8 +3411,9 @@ def _router_probe(torch, k):
     router, dispatch = moe._router, moe._dispatch
 
     def probed_router(cfg, p, xt):
-        top = torch.sort(dense(xt, p["router"]).float(), dim=-1,
-                         descending=True).values
+        with torch.no_grad():
+            top = torch.sort(dense(xt, p["router"]).float(), dim=-1,
+                             descending=True).values
         seen["gap"] = min(seen["gap"],
                           float((top[:, k - 1] - top[:, k]).min()))
         return router(cfg, p, xt)
@@ -3430,26 +3548,78 @@ def phase_serve(torch, seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: training the two LM families
+# phase 8: training every family
 # ---------------------------------------------------------------------------
 
-# full width, depth cut so that bf16 parameters and gradients and float32
-# AdamW moments fit one 80 GB card (PERF.md §4); the configs' own remat
-# ("full") and ce_chunk (512); one model on the card at a time
-TRAIN_ARCHS = {"llama3-8b": (8, ("flash_attention", "flash_attention_bwd")),
-               "falcon-mamba-7b": (16, ("selective_scan_fused",
-                                        "selective_scan_bwd"))}
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 6, 3e-4
+# arch -> (layers kept, batch, tokens a row): full width, depth cut (in
+# whole layout periods) so that bf16 parameters and gradients and float32
+# AdamW moments fit one 80 GB card (PERF.md §4), None for the whole
+# model; the configs' own remat ("full"), ce_chunk (512) and microbatch.
+# recurrentgemma-2b's rows are 4096 tokens, so that its 2048-token window
+# masks; whisper-tiny's batch carries 1500 stub frames a row.  One model
+# on the card at a time
+TRAIN_ARCHS = {"llama3-8b": (8, 4, 2048),
+               "falcon-mamba-7b": (16, 4, 2048),
+               "qwen3-moe-30b-a3b": (4, 4, 2048),
+               "recurrentgemma-2b": (None, 2, 4096),
+               "whisper-tiny": (None, 8, 448)}
+TRAIN_STEPS, TRAIN_LR = 6, 3e-4
 LEARN_STEPS = 10
-# the resume check: a copy at this depth (full width), six steps against
-# a run failed at step 5 and resumed from its step-4 snapshot
-RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 2, 6, 5, 4
-# the card-against-CPU check: a float32 copy at this depth, one step
-TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 1, 1024
+# the resume check, on the model whose snapshot is small: six steps against
+# a run failed at step 5 and resumed from its step-4 snapshot (the other
+# families' resume is held on the CPU, tests/test_torch_train.py)
+RESUME_ARCHS = ("whisper-tiny",)
+RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 6, 5, 4
+# the card-against-CPU checks, float32: arch -> (layers kept or None for
+# the whole model, batch, tokens a row).  qwen3-moe-30b-a3b's capacity
+# drops rows; recurrentgemma-2b's one (rec, rec, lattn) period runs past
+# its window
+TRAIN_CHECKS = {"llama3-8b": (2, 1, 1024), "falcon-mamba-7b": (2, 1, 1024),
+                "qwen3-moe-30b-a3b": (1, 1, 1024),
+                "recurrentgemma-2b": (3, 1, 2300),
+                "whisper-tiny": (None, 1, 448)}
 
 
-def _runner(torch, cfg, seed, ckpt_dir, ckpt_every):
+def train_config(get_config, arch, layers):
+    """`arch`'s config cut to `layers` in whole periods (None: whole)."""
+    cfg = get_config(arch)
+    return cfg if layers is None else cut_layout(cfg, layers)
+
+
+def train_launches(cfg) -> dict:
+    """The launches one training step makes of each counted kernel: under
+    remat "full" (Whisper: every layer, as the reference) a forward kernel
+    runs twice a layer and microbatch (the forward, the recompute), a
+    backward once; the MoE combine's backward is a gather (no launch)."""
+    if cfg.remat != "full":
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r}, not 'full'")
+    mb = max(1, cfg.microbatch)
+    kinds = [k for pattern, reps in cfg.layout for _ in range(reps)
+             for k in pattern]
+    attn = cfg.enc_layers + 2 * len(kinds) if cfg.family == "audio" else \
+        sum(k in ("dense", "moe", "lattn") for k in kinds)
+    per_layer = {"flash_attention": (attn, 2),
+                 "flash_attention_bwd": (attn, 1),
+                 "segment_reduce": (kinds.count("moe"), 2),
+                 "selective_scan_fused": (kinds.count("ssm"), 2),
+                 "selective_scan_bwd": (kinds.count("ssm"), 1),
+                 "selective_scan": (kinds.count("rec"), 2),
+                 "selective_scan_bwd[a, bx]": (kinds.count("rec"), 1)}
+    return {k: n * times * mb for k, (n, times) in per_layer.items() if n}
+
+
+def _train_data(cfg, batch, seq, seed):
+    """The reference launcher's data: frames for the audio family, M-RoPE
+    positions for the vlm family."""
     from repro_torch.data import SyntheticLMData
+    return SyntheticLMData(cfg.vocab_size, batch, seq, seed=seed,
+                           with_frames=cfg.enc_seq
+                           if cfg.family == "audio" else 0,
+                           d_model=cfg.d_model,
+                           with_pos_ids=cfg.family == "vlm")
+
+
+def _runner(torch, cfg, seed, ckpt_dir, ckpt_every, batch, seq):
     from repro_torch.models import get_model
     from repro_torch.optim import adamw_init
     from repro_torch.runtime import TrainRunner
@@ -3458,30 +3628,36 @@ def _runner(torch, cfg, seed, ckpt_dir, ckpt_every):
     opt = adamw_init(dict(model.named_leaves()),
                      torch.bfloat16 if cfg.opt_dtype == "bf16"
                      else torch.float32)
-    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
     step = make_train_step(cfg, lr=TRAIN_LR, compress_grads=False)
-    return TrainRunner(step, model, opt, data, ckpt_dir=str(ckpt_dir),
-                       ckpt_every=ckpt_every)
+    return TrainRunner(step, model, opt, _train_data(cfg, batch, seq, seed),
+                       ckpt_dir=str(ckpt_dir), ckpt_every=ckpt_every)
 
 
-def _train_model(torch, np, arch, layers, kernels, seed, tmp):
+def _train_model(torch, np, arch, seed, tmp):
     """Train one model through TrainRunner: TRAIN_STEPS steps with the
-    launch counts read around them, one profiled step, then LEARN_STEPS
-    steps on one fixed batch.  Returns the launch counts of the run."""
+    launch counts read around them (each kernel's as `train_launches`
+    says, every other counted kernel none), one profiled step, then
+    LEARN_STEPS steps on one fixed batch.  Returns the launch counts of
+    the run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    layers, batch, seq = TRAIN_ARCHS[arch]
     full = get_config(arch)
-    cfg = cut_layout(full, layers)
+    cfg = train_config(get_config, arch, layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = _runner(torch, cfg, seed, tmp / arch, 10 ** 6)
+    r = _runner(torch, cfg, seed, tmp / arch, 10 ** 6, batch, seq)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in r.params.parameters())
-    log(f"[train] {arch}: {layers} of {full.num_layers} layers, full width "
-        f"(d_model {cfg.d_model}, vocab {cfg.vocab_size}), "
-        f"{n_params / 1e9:.3f} B parameters ({str(cfg.param_dtype)}, "
-        f"moments {cfg.opt_dtype}), remat {cfg.remat}, ce_chunk "
-        f"{cfg.ce_chunk}, batch {TRAIN_BATCH} x {TRAIN_SEQ}; init from seed "
+    depth = "the whole model" if layers is None else \
+        f"{cfg.num_layers} of {full.num_layers} layers"
+    frames = f", {cfg.enc_seq} stub frames a row" \
+        if cfg.family == "audio" else ""
+    log(f"[train] {arch}: {depth}, full width (d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}), {n_params / 1e9:.3f} B parameters "
+        f"({str(cfg.param_dtype)}, moments {cfg.opt_dtype}), remat "
+        f"{cfg.remat}, ce_chunk {cfg.ce_chunk}, microbatch "
+        f"{cfg.microbatch}, batch {batch} x {seq}{frames}; init from seed "
         f"{seed} in {time.perf_counter() - t0:.1f} s")
     # the main path: TRAIN_STEPS steps through the runner, launches counted
     ops.reset_launch_counts()
@@ -3502,23 +3678,16 @@ def _train_model(torch, np, arch, layers, kernels, seed, tmp):
         f"grad_norm {[round(x, 4) for x in gnorms]}")
     log(f"[train] {arch}: step {step_ms:.1f} ms (median of steps 2-"
         f"{TRAIN_STEPS}; first {ms[0]:.1f}, min {min(ms[1:]):.1f}, max "
-        f"{max(ms[1:]):.1f}), {TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} "
+        f"{max(ms[1:]):.1f}), {batch * seq / step_ms * 1e3:.0f} "
         f"tokens/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    per_step = {k: counts[k] / TRAIN_STEPS for k in kernels}
+    per_step = train_launches(cfg)
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in counts}
     log(f"[train] {arch}: kernel launches {json.dumps(counts)}; a step "
         f"{json.dumps(per_step)}")
-    # full remat: a layer's forward runs twice (forward, recompute in
-    # backward), its backward once
-    fwd, bwd = kernels
-    require(counts[fwd] == 2 * layers * TRAIN_STEPS
-            and counts[bwd] == layers * TRAIN_STEPS,
-            f"{arch}: {counts[fwd]} {fwd} and {counts[bwd]} {bwd} launches "
-            f"in {TRAIN_STEPS} steps, expected {2 * layers} and {layers} a "
-            "step")
-    if fwd == "selective_scan_fused":
-        require(counts["selective_scan"] == 0,
-                f"{arch}: scans through the (a, bx) entry")
+    require(counts == want, f"{arch}: launches {json.dumps(counts)} in "
+                            f"{TRAIN_STEPS} steps, expected "
+                            f"{json.dumps(want)}")
     # one more step, profiled: device busy, idle share, the hand kernels'
     # share of the device time
     per, spans = _profile(torch, f"train {arch} step", lambda: (
@@ -3533,17 +3702,17 @@ def _train_model(torch, np, arch, layers, kernels, seed, tmp):
             f"{hand_ms:.3f} ms of {dev_ms:.3f} ms of device time "
             f"({hand_ms / dev_ms:.3f})")
     # learning: LEARN_STEPS steps on one fixed batch
-    batch = r.data.next_batch()
+    fixed = r.data.next_batch()
     learn = []
     for _ in range(LEARN_STEPS):
-        r.params, r.opt_state, m = r.step_fn(r.params, r.opt_state, batch)
+        r.params, r.opt_state, m = r.step_fn(r.params, r.opt_state, fixed)
         learn.append(float(m["loss"]))
     require(learn[-1] < learn[0], f"{arch}: the loss on one fixed batch did "
                                   f"not fall: {learn}")
     log(f"[train] {arch}: {LEARN_STEPS} steps on one fixed batch: loss "
         f"{learn[0]:.4f} -> {learn[-1]:.4f} (every step "
         f"{[round(x, 3) for x in learn]})")
-    del r, m, batch
+    del r, m, fixed
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -3558,19 +3727,21 @@ def _state_bits(r):
 
 def _train_resume(torch, arch, seed, tmp):
     """RESUME_STEPS uninterrupted steps against a run failed at
-    RESUME_FAIL and resumed from its step-RESUME_EVERY snapshot, at full
-    width and RESUME_LAYERS layers: bit-equal, leaf by leaf."""
+    RESUME_FAIL and resumed from its step-RESUME_EVERY snapshot, at phase
+    8's config and batch: bit-equal, leaf by leaf."""
     from repro_torch.configs import get_config
     from repro_torch.runtime.ft import SimulatedFailure
-    cfg = cut_layout(get_config(arch), RESUME_LAYERS)
+    layers, batch, seq = TRAIN_ARCHS[arch]
+    cfg = train_config(get_config, arch, layers)
     t0 = time.perf_counter()
-    a = _runner(torch, cfg, seed, tmp / f"{arch}-a", 10 ** 6)
+    a = _runner(torch, cfg, seed, tmp / f"{arch}-a", 10 ** 6, batch, seq)
     a.run(RESUME_STEPS)
     want = _state_bits(a)
     del a
     gc.collect()
     torch.cuda.empty_cache()
-    b = _runner(torch, cfg, seed, tmp / f"{arch}-b", RESUME_EVERY)
+    b = _runner(torch, cfg, seed, tmp / f"{arch}-b", RESUME_EVERY, batch,
+                seq)
     t_save = time.perf_counter()
     try:
         b.run(RESUME_STEPS, fail_at_step=RESUME_FAIL)
@@ -3582,7 +3753,7 @@ def _train_resume(torch, arch, seed, tmp):
     del b
     gc.collect()
     torch.cuda.empty_cache()
-    c = _runner(torch, cfg, seed + 1, tmp / f"{arch}-b", 10 ** 6)
+    c = _runner(torch, cfg, seed + 1, tmp / f"{arch}-b", 10 ** 6, batch, seq)
     t = time.perf_counter()
     require(c.maybe_resume() and c.step == RESUME_EVERY
             and c.data.step == RESUME_EVERY
@@ -3597,15 +3768,13 @@ def _train_resume(torch, arch, seed, tmp):
                                 f"{len(want)} leaves")
     nbytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
                  os.walk(tmp / f"{arch}-b") for f in fs)
-    log(f"[train] {arch} resume: {RESUME_LAYERS} layers (depth cut for this "
-        f"check only), full width, {str(cfg.param_dtype)}: {RESUME_STEPS} "
-        f"steps uninterrupted "
-        f"against a run failed at step {RESUME_FAIL} and resumed from its "
-        f"step-{RESUME_EVERY} snapshot: bit-equal in {same} of {len(want)} "
-        f"leaves (parameters and moments); snapshot {nbytes / 1e9:.2f} GB on "
-        f"disk; the failed run {t_save:.1f} s with its save, resume "
-        f"{t_restore:.1f} s (each array read once, its crc32 checked as it "
-        "is loaded); "
+    log(f"[train] {arch} resume: phase 8's config, {str(cfg.param_dtype)}: "
+        f"{RESUME_STEPS} steps uninterrupted against a run failed at step "
+        f"{RESUME_FAIL} and resumed from its step-{RESUME_EVERY} snapshot: "
+        f"bit-equal in {same} of {len(want)} leaves (parameters and "
+        f"moments); snapshots {nbytes / 1e9:.3f} GB on disk; the failed run "
+        f"{t_save:.1f} s with its saves, resume {t_restore:.1f} s (each "
+        "array read once, its crc32 checked as it is loaded); "
         f"{time.perf_counter() - t0:.1f} s")
     del c, got, want
     gc.collect()
@@ -3613,37 +3782,54 @@ def _train_resume(torch, arch, seed, tmp):
 
 
 def _train_check(torch, np, arch, seed):
-    """A float32 copy at TRAIN_CHECK_LAYERS layers and full width: one
-    training step on the card against the same weights (drawn on the
-    card from the seed) and batch on the CPU (the kernels' plain
-    versions): loss and grad_norm within 1e-4
-    relative, every gradient leaf within 1e-3 of its leaf's max |ref|."""
+    """A float32 copy at TRAIN_CHECKS' depth and full width: one training
+    step's loss and gradients on the card against the same weights
+    (drawn on the card from the seed) and batch on the CPU (the kernels'
+    plain versions): loss and grad_norm (the global norm AdamW clips by)
+    within 1e-4 relative, every gradient leaf within 1e-3 of its leaf's
+    max |ref|.  A moe config also prints the rows its capacity dropped on
+    each device, which must agree and not be none."""
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLMData
     from repro_torch.models import get_model
-    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim.adamw import global_norm
+    layers, batch, seq = TRAIN_CHECKS[arch]
     full = get_config(arch)
-    cfg = cut_layout(full, TRAIN_CHECK_LAYERS, param_dtype=torch.float32,
-                 compute_dtype=torch.float32, cache_dtype=torch.float32)
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32,
+               cache_dtype=torch.float32)
+    cfg = full.replace(**f32) if layers is None else \
+        cut_layout(full, layers, **f32)
     t0 = time.perf_counter()
     # the weights are drawn on the card and copied: a float32 draw on the
     # host of a full-width vocabulary takes seconds a leaf
     gpu = get_model(cfg).init(seed)
     cpu = get_model(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
-    batch = SyntheticLMData(cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S,
-                            seed=seed + 2).next_batch()
-    out = {}
+    data = _train_data(cfg, batch, seq, seed + 2).next_batch()
+    out, probes, secs = {}, [], {}
     for name, model in (("cpu", cpu), ("card", gpu)):
-        model.train_mode()
-        params = dict(model.named_leaves())
-        loss, _ = model.loss(batch)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
-        _, _, m = adamw_update(params, grads, adamw_init(params),
-                               lr=TRAIN_LR)
-        out[name] = (float(loss.detach()), float(m["grad_norm"]), grads)
+        t = time.perf_counter()
+        if cfg.num_experts:
+            probes.append(_router_probe(torch, cfg.top_k))
+        try:
+            model.train_mode()
+            params = dict(model.named_leaves())
+            loss, _ = model.loss(data)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+        finally:
+            if cfg.num_experts:
+                probes[-1][1]()
+        out[name] = (float(loss.detach()), float(global_norm(grads)), grads)
+        secs[name] = time.perf_counter() - t
     (l_ref, gn_ref, g_ref), (l_got, gn_got, g_got) = out["cpu"], out["card"]
+    note = ""
+    if cfg.num_experts:
+        (c, _), (g, _) = probes
+        note = (f"; rows dropped by capacity {c['dropped']} (CPU), "
+                f"{g['dropped']} (card) of {batch * seq * cfg.top_k}")
+        require(c["dropped"] == g["dropped"] and g["dropped"] > 0,
+                f"{arch} train check: {g['dropped']} rows dropped on the "
+                f"card, {c['dropped']} on the CPU")
     e_loss = abs(l_got - l_ref) / abs(l_ref)
     e_gn = abs(gn_got - gn_ref) / abs(gn_ref)
     require(e_loss <= 1e-4 and e_gn <= 1e-4,
@@ -3658,42 +3844,57 @@ def _train_check(torch, np, arch, seed):
             worst, where = e, k
     require(worst <= 1e-3, f"{arch} train check: gradient {where} err "
                            f"{worst:.3g} of its max |ref| > 1e-3")
-    log(f"[train] {arch} check: {TRAIN_CHECK_LAYERS} of {full.num_layers} "
-        f"layers (depth cut for this check only), full width, float32, "
-        f"batch {TRAIN_CHECK_B} x {TRAIN_CHECK_S}, ce_chunk {cfg.ce_chunk}: "
-        f"one step on the card against the CPU: loss {l_got!r} (CPU "
-        f"{l_ref!r}, rel err {e_loss:.3g}), grad_norm {gn_got!r} (CPU "
-        f"{gn_ref!r}, rel err {e_gn:.3g}), worst "
-        f"gradient leaf {where} {worst:.3g} of its max |ref| (tol 1e-3); "
-        f"{time.perf_counter() - t0:.1f} s")
+    depth = "the whole model" if layers is None else (
+        f"{cfg.num_layers} of {full.num_layers} layers (depth cut for this "
+        "check only)")
+    log(f"[train] {arch} check: {depth}, full width, float32, batch "
+        f"{batch} x {seq}, ce_chunk {cfg.ce_chunk}: one step's gradients on "
+        f"the card against the CPU: loss {l_got!r} (CPU {l_ref!r}, rel err "
+        f"{e_loss:.3g}), grad_norm {gn_got!r} (CPU {gn_ref!r}, rel err "
+        f"{e_gn:.3g}), worst gradient leaf {where} {worst:.3g} of its max "
+        f"|ref| (tol 1e-3){note}; CPU {secs['cpu']:.1f} s, card "
+        f"{secs['card']:.1f} s, {time.perf_counter() - t0:.1f} s in all")
     del cpu, gpu, out, g_ref, g_got
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def phase_train(torch, seed):
-    """Train both LM families; returns the launch counts of the main runs
-    (TRAIN_STEPS steps of each model) by kernel."""
+    """Train every family; returns the launch counts of the main runs
+    (TRAIN_STEPS steps of each model) by kernel, the windowed hd-256
+    backward's (recurrentgemma-2b's lattn layers) apart from the other
+    flash backwards."""
     import tempfile
     import numpy as np
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    launches = {}
+    launches, secs = {}, {}
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         tmp = Path(tmp)
-        for arch, (layers, kernels) in TRAIN_ARCHS.items():
-            counts = _train_model(torch, np, arch, layers, kernels, seed,
-                                  tmp)
-            launches.update({k: counts[k] for k in kernels})
         for arch in TRAIN_ARCHS:
+            t = time.perf_counter()
+            counts = _train_model(torch, np, arch, seed, tmp)
+            if get_config(arch).window:
+                counts["flash_attention_bwd[window, hd 256]"] = \
+                    counts.pop("flash_attention_bwd")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            secs[arch] = time.perf_counter() - t
+        t = time.perf_counter()
+        for arch in RESUME_ARCHS:
             _train_resume(torch, arch, seed, tmp)
-    for arch in TRAIN_ARCHS:
+        secs["resume"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for arch in TRAIN_CHECKS:
         _train_check(torch, np, arch, seed)
+    secs["checks"] = time.perf_counter() - t
     log(f"[train] kernel launches on the training path: "
         f"{json.dumps(launches)}; phase 8 took "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
     ops.reset_launch_counts()
     return launches
 
@@ -3773,7 +3974,16 @@ def main(argv=None) -> int:
                "selective_scan_bwd": ("src/repro_torch/kernels/csrc/"
                                       "selective_scan_bwd.cu",
                                       "src/repro/kernels/selective_scan.py"
-                                      ":60")}
+                                      ":60"),
+               # the same backwards' hybrid paths: the flash backward
+               # within a window at hd 256 (recurrentgemma-2b's lattn), the
+               # (a, bx) entry's reverse walk at N = 1 (its RG-LRU)
+               "flash_attention_bwd[window, hd 256]": (
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:70"),
+               "selective_scan_bwd[a, bx]": (
+                   "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+                   "src/repro/kernels/selective_scan.py:60")}
     lanes = per_kernel.pop("segment_reduce[lanes]")
     log(f"[kernels] segment_reduce device-count entry, one flush: kernel "
         f"{lanes['kernel_ms']:.4f} ms, plain {lanes['plain_ms']:.4f} ms, "
@@ -3789,6 +3999,11 @@ def main(argv=None) -> int:
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"]})
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        print(f"chip_smoke.py: FAILED: no launch on the main paths of "
+              f"{idle}", file=sys.stderr)
+        return 1
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

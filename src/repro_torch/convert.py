@@ -20,7 +20,8 @@ package resumes in the other.  `lm_cache_from_numpy` and
 caches compare leaf by leaf.  `whisper_params_from_numpy` and
 `whisper_params_to_numpy` do the same for the Whisper model, whose
 reference tree stacks the encoder's layers into `enc/...` [L, ...] and
-the decoder's into `dec/...`.
+the decoder's into `dec/...`; `whisper_tree_to_numpy` and
+`whisper_tree_from_numpy` carry its moments, as the LM's.
 """
 from __future__ import annotations
 
@@ -258,10 +259,25 @@ def whisper_params_from_numpy(cfg, tree: dict, device="cuda"):
                         tree)
 
 
+def whisper_tree_to_numpy(cfg, leaves: dict) -> dict:
+    """`lm_tree_to_numpy` for the Whisper model: the reference's stacked
+    tree (`enc/...`, `dec/...` [L, ...]) from a dict keyed by the port's
+    Whisper parameter paths (its leaves, or AdamW moments)."""
+    return _stacked_to_numpy(whisper_slots(cfg), leaves)
+
+
+@torch.no_grad()
+def whisper_tree_from_numpy(cfg, tree: dict, into: dict) -> dict:
+    """`lm_tree_from_numpy` for the Whisper model: the reference's stacked
+    tree copied into `into`, a dict of tensors keyed by the port's
+    Whisper parameter paths."""
+    return _stacked_from_numpy(whisper_slots(cfg), tree, into)
+
+
 def whisper_params_to_numpy(cfg, model) -> dict:
     """The reference's Whisper parameter tree from the port's `Whisper`:
     the inverse of `whisper_params_from_numpy`."""
-    return _stacked_to_numpy(whisper_slots(cfg), dict(model.named_leaves()))
+    return whisper_tree_to_numpy(cfg, dict(model.named_leaves()))
 
 
 def lm_cache_from_numpy(cfg, tree: dict, device="cuda") -> list:

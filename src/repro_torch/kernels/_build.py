@@ -73,11 +73,13 @@ SIGNATURES = {
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [ctypes.c_int, *[_P] * 10,
                                        *[ctypes.c_int] * 4, ctypes.c_float,
-                                       ctypes.c_int, _P],
+                                       ctypes.c_int, ctypes.c_int, _P],
     },
     "selective_scan_bwd": {
         "selective_scan_bwd_launch": [*[_P] * 5, ctypes.c_int, *[_P] * 10,
                                       *[ctypes.c_int] * 4, _P],
+        "selective_scan_abx_bwd_launch": [*[_P] * 8, *[ctypes.c_int] * 3,
+                                          _P],
     },
 }
 

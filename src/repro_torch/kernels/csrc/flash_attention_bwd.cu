@@ -71,25 +71,41 @@
 //   dQ's sum runs in another order than the two-kernel design's (a sum of
 //   float32 parts, one a key block), so its last bits differ from it.
 //
-// bfloat16, hd 16 and 32: the earlier two-kernel design on mma.sync
-// m16n8k16 (csrc/ptx.cuh) stays.  A 32- or 16-column bf16 row is 64 or 32
-// bytes, under the 128-byte swizzle line the wgmma path is built on, and
-// no model of the repo trains at those widths; three launches:
+// bfloat16, hd 16, 32 and 256: the earlier two-kernel design on mma.sync
+// m16n8k16 (csrc/ptx.cuh).  A 32- or 16-column bf16 row is 64 or 32
+// bytes, under the 128-byte swizzle line the wgmma path is built on; hd
+// 256 is recurrentgemma-2b's local attention (lattn), the one place a
+// window trains.  Three launches (four at hd 256):
 //   * dK/dV: one block per (bh, 64-key tile), 4 warps of 16 keys; K and V
 //     stay in shared memory, 32-row Q and dO tiles come through a
 //     two-stage ring; per tile Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, P, dS in float32,
-//     re-packed to bf16 A fragments, dV += Pᵀ·dO, dK += dSᵀ·Q;
+//     re-packed to bf16 A fragments, dV += Pᵀ·dO, dK += dSᵀ·Q.  At hd 256
+//     a warp's 16 keys of dK and dV are 2·16·256/32 = 256 floats a lane,
+//     past the 255 registers a thread may hold, so dV and dK are formed
+//     in two launches of one template (`PASS`): the first forms Sᵀ and
+//     dV alone, the second Sᵀ, dPᵀ and dK; 128 accumulators a lane each;
 //   * dQ: one block per (bh, 64-row query tile); K and V come in 64-key
-//     tiles; S = Q·Kᵀ, dP = dO·Vᵀ, P, dS as above, dQ += dS·K;
+//     tiles (32 at hd 256, for the same registers); S = Q·Kᵀ, dP = dO·Vᵀ,
+//     P, dS as above, dQ += dS·K;
 //   tiles staged by 16-byte cp.async in the forward's XOR-swizzled layout
-//   for ldmatrix.
+//   for ldmatrix.  Within a window (key j kept for query i when i −
+//   window < j ≤ i, the forward's mask) a key block walks only the query
+//   tiles from its first key to its last key + window − 1, and a query
+//   tile only the key tiles from its first row − window + 1 on: the band,
+//   O(S·window) work; only the tiles that cross a mask edge test it.
+//   Every sum runs in one block in a fixed order: the same bits on every
+//   launch.  The wgmma path (hd 64 and 128) takes no window: its ordered
+//   dQ sum starts at each tile's highest reaching key block and ends at
+//   block 0, and no model trains a window at those widths, so the wrapper
+//   refuses a window there.
 //
-// float32 (the 2-layer float32 model check): float32 FMAs, no tensor cores.
-// 256 threads a block, 32 keys (dK/dV) or 32 query rows (dQ) a block,
-// tiles of 32 rows in shared memory padded by one float a row; a thread
-// forms 4 scores and 4 dP of a 32×32 tile (one key, four queries), writes
-// P and dS to shared memory, then owns one row and hd/8 columns of the
-// accumulators.  exp is expf (the accurate one): this path is the check.
+// float32 (the float32 model checks): float32 FMAs, no tensor cores, any
+// hd of 16–256, with the window.  256 threads a block, 32 keys (dK/dV) or
+// 32 query rows (dQ) a block, tiles of 32 rows in shared memory padded by
+// one float a row; a thread forms 4 scores and 4 dP of a 32×32 tile (one
+// key, four queries), writes P and dS to shared memory, then owns one row
+// and hd/8 columns of the accumulators (32 of each at hd 256).  exp is
+// expf (the accurate one): this path is the check.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cmath>
@@ -135,7 +151,20 @@ constexpr int kTcThreads = 128;  // 4 warps
 constexpr int TKB = 64;          // keys of a dK/dV block, 16 a warp
 constexpr int TQB = 32;          // query rows of a tile staged by a dK/dV block
 constexpr int TQ = 64;           // query rows of a dQ block, 16 a warp
-constexpr int TK = 64;           // keys of a tile staged by a dQ block
+
+// keys of a tile staged by a dQ block: 32 at hd 256, where a lane already
+// holds 128 floats of dQ
+template <int HD>
+__host__ __device__ constexpr int dq_keys() { return HD >= 256 ? 32 : 64; }
+
+// the dK/dV kernel's passes: dV, dK, or both in one
+constexpr int kPassDV = 1, kPassDK = 2, kPassBoth = 3;
+
+// is key `key` masked from query `q`: past Sk, after q (causal), or at or
+// before q - window
+__device__ __forceinline__ bool masked(int key, int q, int Sk, int causal, int window) {
+  return key >= Sk || (causal && key > q) || (window > 0 && key <= q - window);
+}
 
 // Element offset of the 16-byte chunk `chunk` of row `row` in a [rows][HD]
 // bf16 tile, XOR-swizzled within each group of eight rows: the layout of
@@ -250,15 +279,16 @@ constexpr size_t dkdv_smem_bytes() {
   return (size_t)(2 * TKB + 4 * TQB) * HD * sizeof(__nv_bfloat16) + 4 * TQB * sizeof(float);
 }
 
-template <int HD>
+template <int HD, int PASS>
 __global__ void __launch_bounds__(kTcThreads)
     dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                      const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
                      const float* __restrict__ LSE, const float* __restrict__ Dv,
                      __nv_bfloat16* __restrict__ dK, __nv_bfloat16* __restrict__ dV, int Sq,
-                     int Sk, float scale, int causal) {
+                     int Sk, float scale, int causal, int window) {
   constexpr int NT = TQB / 8;  // n-tiles of Sᵀ (8 queries each)
   constexpr int DT = HD / 8;   // n-tiles of dK, dV (8 columns each)
+  constexpr bool DK = PASS & kPassDK, DV = PASS & kPassDV;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TKB][HD]
   __nv_bfloat16* Vs = Ks + TKB * HD;                                // [TKB][HD]
@@ -274,11 +304,14 @@ __global__ void __launch_bounds__(kTcThreads)
   const float scale_log2 = scale * kLog2e;
   const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
 
-  const int qstart = causal ? k0 : 0;  // queries before k0 see none of these keys
-  const int nq = Sq > qstart ? (Sq - qstart + TQB - 1) / TQB : 0;
+  // queries before k0 see none of these keys (causal), nor queries at or
+  // past the last key + window (the window)
+  const int qstart = causal ? k0 : 0;
+  const int qend = window > 0 ? min(Sq, k0 + TKB - 1 + window) : Sq;
+  const int nq = qend > qstart ? (qend - qstart + TQB - 1) / TQB : 0;
 
   stage<HD>(Ks, K + koff * HD, k0, TKB, Sk, tid, kTcThreads);
-  stage<HD>(Vs, V + koff * HD, k0, TKB, Sk, tid, kTcThreads);
+  if constexpr (DK) stage<HD>(Vs, V + koff * HD, k0, TKB, Sk, tid, kTcThreads);
   auto load_q = [&](int j, int st) {
     const int q0 = qstart + j * TQB;
     stage<HD>(Qs + st * TQB * HD, Q + qoff * HD, q0, TQB, Sq, tid, kTcThreads);
@@ -292,11 +325,14 @@ __global__ void __launch_bounds__(kTcThreads)
   if (nq > 0) load_q(0, 0);
   ptx::cp_async_commit();
 
-  float dk[DT][4], dv[DT][4];
+  float dk[DK ? DT : 1][4], dv[DV ? DT : 1][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DK) dk[d][e] = 0.f;
+      if constexpr (DV) dv[d][e] = 0.f;
+    }
   const int key_a = k0 + warp * 16 + g;  // this lane's keys: key_a, key_a + 8
 
   for (int j = 0; j < nq; ++j) {
@@ -313,32 +349,34 @@ __global__ void __launch_bounds__(kTcThreads)
     const float* ds = Ds + st * TQB;
 
     float s[NT][4], dp[NT][4];
-    scores<HD, NT>(s, Ks, warp * 16, qs, lane);    // Sᵀ = K Qᵀ
-    scores<HD, NT>(dp, Vs, warp * 16, dos, lane);  // dPᵀ = V dOᵀ
-    const bool edge = causal && k0 + TKB - 1 > q0;
+    scores<HD, NT>(s, Ks, warp * 16, qs, lane);      // Sᵀ = K Qᵀ
+    if constexpr (DK) scores<HD, NT>(dp, Vs, warp * 16, dos, lane);  // dPᵀ = V dOᵀ
+    // the tile crosses the causal diagonal or the window's far edge
+    const bool edge = (causal && k0 + TKB - 1 > q0) ||
+                      (window > 0 && q0 + TQB - 1 - window >= k0);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = n * 8 + 2 * t + (e & 1);
         float p = exp2f(s[n][e] * scale_log2 - ls[qi]);
-        if (edge && key_a + (e >> 1) * 8 > q0 + qi) p = 0.f;
+        if (edge && masked(key_a + (e >> 1) * 8, q0 + qi, Sk, causal, window)) p = 0.f;
         s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - ds[qi]);
+        if constexpr (DK) dp[n][e] = p * (dp[n][e] - ds[qi]);
       }
     }
-    acc_pv<HD, TQB / 16>(dv, s, dos, lane);   // dV += Pᵀ dO
-    acc_pv<HD, TQB / 16>(dk, dp, qs, lane);   // dK += dSᵀ Q
+    if constexpr (DV) acc_pv<HD, TQB / 16>(dv, s, dos, lane);   // dV += Pᵀ dO
+    if constexpr (DK) acc_pv<HD, TQB / 16>(dk, dp, qs, lane);   // dK += dSᵀ Q
   }
   ptx::cp_async_wait<0>();  // no copy outlives the block (nq = 0 issues K, V only)
 
-  store_rows<HD>(dK + koff * HD, dk, k0 + warp * 16, Sk, scale, lane);
-  store_rows<HD>(dV + koff * HD, dv, k0 + warp * 16, Sk, 1.f, lane);
+  if constexpr (DK) store_rows<HD>(dK + koff * HD, dk, k0 + warp * 16, Sk, scale, lane);
+  if constexpr (DV) store_rows<HD>(dV + koff * HD, dv, k0 + warp * 16, Sk, 1.f, lane);
 }
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * TQ + 4 * TK) * HD * sizeof(__nv_bfloat16);
+  return (size_t)(2 * TQ + 4 * dq_keys<HD>()) * HD * sizeof(__nv_bfloat16);
 }
 
 template <int HD>
@@ -346,7 +384,9 @@ __global__ void __launch_bounds__(kTcThreads)
     dq_bf16_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                    const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
                    const float* __restrict__ LSE, const float* __restrict__ Dv,
-                   __nv_bfloat16* __restrict__ dQ, int Sq, int Sk, float scale, int causal) {
+                   __nv_bfloat16* __restrict__ dQ, int Sq, int Sk, float scale, int causal,
+                   int window) {
+  constexpr int TK = dq_keys<HD>();
   constexpr int NT = TK / 8;  // n-tiles of S (8 keys each)
   constexpr int DT = HD / 8;  // n-tiles of dQ
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -362,8 +402,11 @@ __global__ void __launch_bounds__(kTcThreads)
   const int g = lane >> 2, t = lane & 3;
   const float scale_log2 = scale * kLog2e;
   const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
+  // the key tiles the block's rows reach: from the first row's window
+  // (the tile of key q0 - window + 1) to the last row's diagonal (causal)
   const int kend = causal ? min(Sk, q0 + TQ) : Sk;
   const int ntiles = (kend + TK - 1) / TK;
+  const int jstart = window > 0 ? max(0, q0 - window + 1) / TK : 0;
 
   stage<HD>(Qs, Q + qoff * HD, q0, TQ, Sq, tid, kTcThreads);
   stage<HD>(dOs, dO + qoff * HD, q0, TQ, Sq, tid, kTcThreads);
@@ -371,7 +414,7 @@ __global__ void __launch_bounds__(kTcThreads)
     stage<HD>(Ks + st * TK * HD, K + koff * HD, j * TK, TK, Sk, tid, kTcThreads);
     stage<HD>(Vs + st * TK * HD, V + koff * HD, j * TK, TK, Sk, tid, kTcThreads);
   };
-  if (ntiles > 0) load_kv(0, 0);
+  if (jstart < ntiles) load_kv(jstart, 0);
   ptx::cp_async_commit();
 
   const int row_a = q0 + warp * 16 + g;  // this lane's rows: row_a, row_a + 8
@@ -386,29 +429,31 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
   for (int d = 0; d < DT; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
 
-  for (int j = 0; j < ntiles; ++j) {
+  for (int j = jstart; j < ntiles; ++j) {
     ptx::cp_async_wait<0>();
     __syncthreads();
     if (j + 1 < ntiles) {
-      load_kv(j + 1, (j + 1) & 1);
+      load_kv(j + 1, (j + 1 - jstart) & 1);
       ptx::cp_async_commit();
     }
-    const __nv_bfloat16* ks = Ks + (j & 1) * TK * HD;
-    const __nv_bfloat16* vs = Vs + (j & 1) * TK * HD;
+    const int st = (j - jstart) & 1;
+    const __nv_bfloat16* ks = Ks + st * TK * HD;
+    const __nv_bfloat16* vs = Vs + st * TK * HD;
     float s[NT][4], dp[NT][4];
     scores<HD, NT>(s, Qs, warp * 16, ks, lane);    // S = Q Kᵀ
     scores<HD, NT>(dp, dOs, warp * 16, vs, lane);  // dP = dO Vᵀ
     const int k0 = j * TK;
-    const bool edge = k0 + TK > Sk || (causal && k0 + TK - 1 > q0);
+    // the tile reaches past Sk, crosses the diagonal or the window's edge
+    const bool edge = k0 + TK > Sk || (causal && k0 + TK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + TQ - 1 - window);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(s[n][e] * scale_log2 - lse2[e >> 1]);
-        if (edge) {
-          const int key = k0 + n * 8 + 2 * t + (e & 1);
-          if (key >= Sk || (causal && key > row_a + (e >> 1) * 8)) p = 0.f;
-        }
+        if (edge && masked(k0 + n * 8 + 2 * t + (e & 1), row_a + (e >> 1) * 8, Sk, causal,
+                           window))
+          p = 0.f;
         dp[n][e] = p * (dp[n][e] - drow[e >> 1]);
       }
     }
@@ -417,26 +462,45 @@ __global__ void __launch_bounds__(kTcThreads)
   store_rows<HD>(dQ + qoff * HD, dq, q0 + warp * 16, Sq, scale, lane);
 }
 
+template <int HD, int PASS>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* D, void* dk, void* dv, int BH, int Sq, int Sk, float scale,
+                int causal, int window, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const size_t bytes = dkdv_smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      dkdv_bf16_kernel<HD, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  dkdv_bf16_kernel<HD, PASS><<<dim3(BH, (Sk + TKB - 1) / TKB), kTcThreads, bytes, s>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dk, (bf*)dv, Sq,
+      Sk, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                 const float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk, float scale,
-                int causal, cudaStream_t s) {
+                int causal, int window, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  const size_t b1 = dkdv_smem_bytes<HD>(), b2 = dq_smem_bytes<HD>();
-  cudaError_t e = cudaFuncSetAttribute(dkdv_bf16_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dq_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)b2);
-  if (e != cudaSuccess) return (int)e;
-  dkdv_bf16_kernel<HD><<<dim3(BH, (Sk + TKB - 1) / TKB), kTcThreads, b1, s>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dk, (bf*)dv, Sq,
-      Sk, scale, causal);
-  e = cudaGetLastError();
+  int rc;
+  if constexpr (HD >= 256) {  // dV, then dK: 128 accumulators a lane each
+    rc = launch_dkdv<HD, kPassDV>(q, k, v, dout, lse, D, dk, dv, BH, Sq, Sk, scale, causal,
+                                  window, s);
+    if (rc != 0) return rc;
+    rc = launch_dkdv<HD, kPassDK>(q, k, v, dout, lse, D, dk, dv, BH, Sq, Sk, scale, causal,
+                                  window, s);
+  } else {
+    rc = launch_dkdv<HD, kPassBoth>(q, k, v, dout, lse, D, dk, dv, BH, Sq, Sk, scale, causal,
+                                    window, s);
+  }
+  if (rc != 0) return rc;
+  const size_t b2 = dq_smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      dq_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b2);
   if (e != cudaSuccess) return (int)e;
   dq_bf16_kernel<HD><<<dim3(BH, (Sq + TQ - 1) / TQ), kTcThreads, b2, s>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dq, Sq, Sk, scale,
-      causal);
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -798,7 +862,7 @@ template <int HD>
 __device__ __forceinline__ void f32_tile(const float* Qs, const float* dOs, const float* Ks,
                                          const float* Vs, const float* Ls, const float* Dd,
                                          float* Ps, float* Ss, int q0, int k0, int Sk,
-                                         float scale, int causal, int tid) {
+                                         float scale, int causal, int window, int tid) {
   constexpr int LD = HD + 1;
   const int kc = tid & 31, qr = tid >> 5;
   float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
@@ -817,7 +881,7 @@ __device__ __forceinline__ void f32_tile(const float* Qs, const float* dOs, cons
   for (int i = 0; i < 4; ++i) {
     const int qi = qr + 8 * i;
     float p = expf(s[i] * scale - Ls[qi]);
-    if (key >= Sk || (causal && key > q0 + qi)) p = 0.f;
+    if (masked(key, q0 + qi, Sk, causal, window)) p = 0.f;
     Ps[qi * (BR + 1) + kc] = p;
     Ss[qi * (BR + 1) + kc] = p * (dp[i] - Dd[qi]);
   }
@@ -829,7 +893,7 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ V, const float* __restrict__ dO,
                     const float* __restrict__ LSE, const float* __restrict__ Dv,
                     float* __restrict__ dK, float* __restrict__ dV, int Sq, int Sk, float scale,
-                    int causal) {
+                    int causal, int window) {
   constexpr int LD = HD + 1, CPT = HD / 8;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -848,7 +912,10 @@ __global__ void __launch_bounds__(kThreads)
   float dk[CPT], dv[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) dk[c] = dv[c] = 0.f;
-  for (int q0 = causal ? k0 : 0; q0 < Sq; q0 += BR) {
+  // the query tiles that reach these keys: from k0 (causal) to the last
+  // key + window - 1 (the window)
+  const int qend = window > 0 ? min(Sq, k0 + BR - 1 + window) : Sq;
+  for (int q0 = causal ? k0 : 0; q0 < qend; q0 += BR) {
     __syncthreads();  // the previous tile's reads are done
     stage_f32<HD>(Qs, Q + qoff * HD, q0, Sq, tid);
     stage_f32<HD>(dOs, dO + qoff * HD, q0, Sq, tid);
@@ -858,7 +925,7 @@ __global__ void __launch_bounds__(kThreads)
       Dd[tid] = q < Sq ? Dv[qoff + q] : 0.f;
     }
     __syncthreads();
-    f32_tile<HD>(Qs, dOs, Ks, Vs, Ls, Dd, Ps, Ss, q0, k0, Sk, scale, causal, tid);
+    f32_tile<HD>(Qs, dOs, Ks, Vs, Ls, Dd, Ps, Ss, q0, k0, Sk, scale, causal, window, tid);
     __syncthreads();
 #pragma unroll 4
     for (int qq = 0; qq < BR; ++qq) {
@@ -885,7 +952,8 @@ __global__ void __launch_bounds__(kThreads)
     dq_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                   const float* __restrict__ V, const float* __restrict__ dO,
                   const float* __restrict__ LSE, const float* __restrict__ Dv,
-                  float* __restrict__ dQ, int Sq, int Sk, float scale, int causal) {
+                  float* __restrict__ dQ, int Sq, int Sk, float scale, int causal,
+                  int window) {
   constexpr int LD = HD + 1, CPT = HD / 8;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -910,13 +978,16 @@ __global__ void __launch_bounds__(kThreads)
   float dq[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) dq[c] = 0.f;
+  // the key tiles the rows reach: from the first row's window on, to the
+  // last row's diagonal (causal)
   const int kend = causal ? min(Sk, q0 + BR) : Sk;
-  for (int k0 = 0; k0 < kend; k0 += BR) {
+  const int kbeg = window > 0 ? max(0, q0 - window + 1) / BR * BR : 0;
+  for (int k0 = kbeg; k0 < kend; k0 += BR) {
     __syncthreads();
     stage_f32<HD>(Ks, K + koff * HD, k0, Sk, tid);
     stage_f32<HD>(Vs, V + koff * HD, k0, Sk, tid);
     __syncthreads();
-    f32_tile<HD>(Qs, dOs, Ks, Vs, Ls, Dd, Ps, Ss, q0, k0, Sk, scale, causal, tid);
+    f32_tile<HD>(Qs, dOs, Ks, Vs, Ls, Dd, Ps, Ss, q0, k0, Sk, scale, causal, window, tid);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BR; ++kk) {
@@ -935,7 +1006,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk, float scale,
-               int causal, cudaStream_t s) {
+               int causal, int window, cudaStream_t s) {
   const size_t bytes = f32_smem_floats<HD>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(dkdv_f32_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -945,25 +1016,29 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
   if (e != cudaSuccess) return (int)e;
   dkdv_f32_kernel<HD><<<dim3(BH, (Sk + BR - 1) / BR), kThreads, bytes, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, D, (float*)dk,
-      (float*)dv, Sq, Sk, scale, causal);
+      (float*)dv, Sq, Sk, scale, causal, window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dq_f32_kernel<HD><<<dim3(BH, (Sq + BR - 1) / BR), kThreads, bytes, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, D, (float*)dq,
-      Sq, Sk, scale, causal);
+      Sq, Sk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
-           float scale, int causal, cudaStream_t s) {
+           float scale, int causal, int window, cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
-  if constexpr (HD >= 64)
+    return launch_f32<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, window,
+                          s);
+  if constexpr (HD == 64 || HD == 128) {
+    if (window > 0) return (int)cudaErrorInvalidValue;  // the wrapper refuses it first
     return launch_bf16_wg<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
-  else
-    return launch_bf16<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+  } else {
+    return launch_bf16<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, window,
+                           s);
+  }
 }
 
 }  // namespace
@@ -975,14 +1050,16 @@ int launch(int dtype, const void* q, const void* k, const void* v, const void* d
 // with the sync words (1 + BH·ceil(Sq/64) of 32 bits), padded to 16 bytes,
 // then the dQ workspace [BH, ceil(Sq/64), 64·hd]: BH·Sq + 1 + BH·ceil(Sq/64)
 // rounded up to a multiple of 4, plus BH·ceil(Sq/64)·64·hd floats in all.  All contiguous,
-// bfloat16 ones and d 16-byte aligned.  hd ∈ {16, 32, 64, 128}.  Returns
+// bfloat16 ones and d 16-byte aligned.  hd ∈ {16, 32, 64, 128, 256}.  window > 0 keeps key
+// j for query i only when j > i - window (bfloat16 at hd 64 and 128 take none).  Returns
 // cudaGetLastError() after the launches.
 extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                           const void* v, const void* o, const void* lse,
                                           const void* dout, void* dq, void* dk, void* dv,
                                           void* d, int BH, int Sq, int Sk, int hd, float scale,
-                                          int causal, void* stream) {
-  if (BH < 0 || Sq < 0 || Sk < 1 || (Sq + BR - 1) / BR > 65535 || (Sk + BR - 1) / BR > 65535)
+                                          int causal, int window, void* stream) {
+  if (BH < 0 || Sq < 0 || Sk < 1 || window < 0 || (Sq + BR - 1) / BR > 65535 ||
+      (Sk + BR - 1) / BR > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
                      (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)d) % 16)
@@ -991,7 +1068,7 @@ extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* 
   if (BH == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long rows = (long long)BH * Sq;
-  const long long nsync = dtype == 1 && hd >= 64 ? wg_sync_words(BH, Sq) : 0;
+  const long long nsync = dtype == 1 && (hd == 64 || hd == 128) ? wg_sync_words(BH, Sq) : 0;
   unsigned* sync = reinterpret_cast<unsigned*>((float*)d + rows);
   {
     const int warps = 8;
@@ -1008,12 +1085,15 @@ extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* 
   }
   const float* L = (const float*)lse;
   float* D = (float*)d;
+  const int w = window;
   switch (hd) {
-    case 16: return launch<16>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
-    case 32: return launch<32>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
-    case 64: return launch<64>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+    case 16: return launch<16>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, w, s);
+    case 32: return launch<32>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, w, s);
+    case 64: return launch<64>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, w, s);
     case 128:
-      return launch<128>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+      return launch<128>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, w, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, dout, L, D, dq, dk, dv, BH, Sq, Sk, scale, causal, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

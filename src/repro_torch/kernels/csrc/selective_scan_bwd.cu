@@ -61,6 +61,24 @@
 // (fewer registers) were slower.  The shuffles over the warp's channels
 // take about a sixth of the walk's time; its other arithmetic and its
 // shared-memory reads most of the rest.
+//
+// The (a, bx) entry's backward at N = 1 (`selective_scan_abx_bwd_launch`):
+// the RG-LRU of recurrentgemma-2b calls the scan's (a, bx) entry with
+// N = 1 and c = 1, so the forward's y is the state h itself.  Given h
+// [B, S, D] (the forward's y), a [B, S, D], dy [B, S, D] and dh_last
+// [B, D] (or zero), one reverse walk a channel:
+//   g_t = dy_t + a_{t+1}·g_{t+1}  (g_{S-1} = dy_{S-1} + dh_last),
+//   da_t = g_t·h_{t-1} (h_{-1} = h0, or zero),  dbx_t = g_t,  dh0 = a_0·g_0.
+// One thread a channel d of a batch row b walks t from S − 1 to 0; a
+// warp's 32 lanes read 32 neighbouring channels (128 contiguous bytes) a
+// step, and each 16-step slice's loads are issued before its walk, so
+// that their latency overlaps.  Each sum and product is rounded on its
+// own (__fadd_rn, __fmul_rn: no fused multiply-add), as the plain
+// version's elementwise steps are: the same bits on every launch, and
+// the plain version's.  Bound: bytes, a, h and dy read and da and dbx
+// written once.  Like the forward at N = 1 it has one lane a channel, so
+// D = 2560 gives 80 warps a batch row for the whole walk (ROADMAP Queue 2
+// item 12).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -456,7 +474,72 @@ int launch(const Args& g, int B, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the (a, bx) entry's backward at N = 1
+// ---------------------------------------------------------------------------
+
+constexpr int kAbxThreads = 32;  // one warp a block: 80 blocks a batch row at D = 2560
+constexpr int kAbxUnroll = 16;   // steps whose loads are issued together
+
+__global__ void __launch_bounds__(kAbxThreads)
+    abx_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                   const float* __restrict__ h0, const float* __restrict__ dy,
+                   const float* __restrict__ dh_last, float* __restrict__ da,
+                   float* __restrict__ dbx, float* __restrict__ dh0, int S, int D) {
+  const int b = blockIdx.y;
+  const int d = blockIdx.x * kAbxThreads + threadIdx.x;
+  if (d >= D) return;
+  const long long row = (long long)b * D + d;
+  const long long base = (long long)b * S * D + d;
+  const float start = h0 ? h0[row] : 0.f;
+  float carry = dh_last ? dh_last[row] : 0.f;  // a_{t+1}·g_{t+1}: h_t's gradient from later steps
+  int t = S - 1;
+  for (; t >= kAbxUnroll - 1; t -= kAbxUnroll) {
+    float av[kAbxUnroll], hv[kAbxUnroll], gv[kAbxUnroll];
+#pragma unroll
+    for (int i = 0; i < kAbxUnroll; ++i) {
+      const long long o = base + (long long)(t - i) * D;
+      av[i] = __ldg(a + o);
+      gv[i] = __ldg(dy + o);
+      hv[i] = t - i > 0 ? __ldg(h + o - D) : start;
+    }
+#pragma unroll
+    for (int i = 0; i < kAbxUnroll; ++i) {
+      const long long o = base + (long long)(t - i) * D;
+      const float g = __fadd_rn(gv[i], carry);
+      da[o] = __fmul_rn(g, hv[i]);
+      dbx[o] = g;
+      carry = __fmul_rn(av[i], g);
+    }
+  }
+  for (; t >= 0; --t) {
+    const long long o = base + (long long)t * D;
+    const float g = __fadd_rn(__ldg(dy + o), carry);
+    da[o] = __fmul_rn(g, t > 0 ? __ldg(h + o - D) : start);
+    dbx[o] = g;
+    carry = __fmul_rn(__ldg(a + o), g);
+  }
+  dh0[row] = carry;
+}
+
 }  // namespace
+
+// The (a, bx) entry's backward at N = 1.  a, h (the forward's y), dy, da,
+// dbx: [B, S, D] float32; h0, dh_last: [B, D] float32 or null (zero); dh0:
+// [B, D] float32.  All contiguous.  Returns cudaGetLastError() after the
+// launch.
+extern "C" int selective_scan_abx_bwd_launch(const void* a, const void* h, const void* h0,
+                                             const void* dy, const void* dh_last, void* da,
+                                             void* dbx, void* dh0, int B, int S, int D,
+                                             void* stream) {
+  if (B < 0 || S < 0 || D < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0 || D == 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  abx_bwd_kernel<<<dim3((D + kAbxThreads - 1) / kAbxThreads, B), kAbxThreads, 0, s>>>(
+      (const float*)a, (const float*)h, (const float*)h0, (const float*)dy,
+      (const float*)dh_last, (float*)da, (float*)dbx, (float*)dh0, S, D);
+  return (int)cudaGetLastError();
+}
 
 // dt, dy, ddt: [B, S, D] float32; A: [D, N] float32; Bm, Cm, dB, dC:
 // [B, S, N] float32; x, dx: [B, S, D], bf16 when x_bf16 else float32;

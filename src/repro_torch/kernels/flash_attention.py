@@ -30,10 +30,12 @@ the TPU kernel has none, and the reference trains through the jnp form.
 It recomputes the weights from q, k and the forward's lse, and sums with
 no float atomics (the same bits on every launch).  In bf16 at hd 64 and
 128 it makes one pass over the keys on wgmma, adding each key block's
-part of dQ into a float32 workspace in a fixed order; hd 16 and 32 keep
-a dK/dV kernel and a dQ kernel on mma.sync.  It takes no window and no hd
-256 yet: `flash_attention_grad` raises for those when autograd records
-(ROADMAP.md, Queue 1, "the hybrid and audio families' training").
+part of dQ into a float32 workspace in a fixed order; hd 16, 32 and 256
+keep a dK/dV kernel and a dQ kernel on mma.sync (at hd 256 dV and dK in
+two launches, for registers).  The window (recurrentgemma-2b's lattn, hd
+256) is taken by the mma.sync and float32 kernels, which walk only the
+band of tiles it keeps; bf16 at hd 64 and 128 refuses it with a
+ValueError (no model trains a window at those widths).
 `FlashAttention` is the autograd Function the training path calls
 (`flash_attention_grad`): on the card both directions launch the
 kernels, on the CPU both run their plain versions.
@@ -46,7 +48,9 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the bf16 backward's one-pass wgmma kernel: no window at these widths
+WGMMA_HEAD_DIMS = (64, 128)
 NEG = -1e30
 
 
@@ -181,14 +185,17 @@ flash_attention.launches = 0
 # the backward
 # ---------------------------------------------------------------------------
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0):
     """The backward in plain PyTorch, the explicit formula in float32 with
-    the weights materialised: P = exp(s − lse) (masked: 0), D = rowsum(dO ⊙
-    O), dS = P ⊙ (dO·Vᵀ − D), dV = Pᵀ·dO, dK = scale·dSᵀ·Q, dQ =
-    scale·dS·K.  Returns (dq, dk, dv) in the inputs' dtype."""
+    the weights materialised: P = exp(s − lse) (masked, as the forward's
+    `_scores` with the window: 0), D = rowsum(dO ⊙ O), dS = P ⊙ (dO·Vᵀ −
+    D), dV = Pᵀ·dO, dK = scale·dSᵀ·Q, dQ = scale·dS·K.  Returns (dq, dk,
+    dv) in the inputs' dtype."""
     _check(q, k, v)
+    _check_window(causal, int(window))
     scale = q.shape[-1] ** -0.5
-    s, mask = _scores(q, k, causal)
+    s, mask = _scores(q, k, causal, int(window))
     p = torch.exp(s - lse.float()[..., None])
     if mask is not None:
         p = torch.where(mask[None], p, torch.zeros((), device=q.device))
@@ -209,25 +216,38 @@ def _bwd_scratch_floats(bh, sq, hd, dtype):
     workspace, a part of 64·hd a (bh, query tile) (flash_attention_bwd.cu's
     entry point)."""
     n = bh * sq
-    if dtype == torch.bfloat16 and hd >= 64:
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         tiles = bh * -(-sq // 64)
         n = -(-(n + 1 + tiles) // 4) * 4 + tiles * 64 * hd
     return n
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+def _check_bwd_window(name, dtype, hd, window):
+    """The card's backward takes no window in bf16 at the wgmma widths."""
+    if window > 0 and dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        raise ValueError(f"{name}: no window in the bf16 backward at head_dim "
+                         f"{hd} (the one-pass wgmma kernel); it is taken at "
+                         f"head_dim 16, 32 and 256 and in float32")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
     """The gradients (dq, dk, dv) of flash_attention's output `o` given its
     gradient `do`, from q, k, v and the forward's lse; shapes and dtype
-    as the forward's inputs.
+    as the forward's inputs.  `window` is the forward's.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernels
     or raise; there is no fallback."""
+    window = int(window)
     tensors = (q, k, v, o, lse, do)
     if all(t.device.type == "cpu" for t in tensors):
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
     _check(q, k, v)
+    _check_window(causal, window)
     _on_card("flash_attention_bwd", q, k, v, o, do)
     bh, sq, sk, hd = _sizes("flash_attention_bwd", q, k, BWD_HEAD_DIMS)
+    _check_bwd_window("flash_attention_bwd", q.dtype, hd, window)
     if o.shape != q.shape or do.shape != q.shape \
             or tuple(lse.shape) != (bh, sq):
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
@@ -246,7 +266,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), d.data_ptr(), bh, sq, sk, hd,
-        hd ** -0.5, int(causal), stream)
+        hd ** -0.5, int(causal), window, stream)
     _build.check("flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -257,13 +277,14 @@ flash_attention_bwd.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """flash_attention with its backward: the forward keeps q, k, v, the
-    output and its lse; the backward is `flash_attention_bwd` (no window,
-    hd up to 128: `flash_attention_grad` refuses the rest)."""
+    output and its lse; the backward is `flash_attention_bwd`, with the
+    forward's causal flag and window."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, window=0):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -271,22 +292,19 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         causal=ctx.causal)
-        return dq, dk, dv, None
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_grad(q, k, v, *, causal: bool = True, window: int = 0):
     """flash_attention, differentiable: through `FlashAttention` when
     autograd records (grad mode on and an input requires grad), else the
-    plain forward call, which computes no lse.  A recorded call with a
-    window or at hd 256 raises: the backward (kernel and plain version)
-    takes neither yet."""
+    plain forward call, which computes no lse.  The card's backward takes
+    no window in bf16 at hd 64 or 128: there `flash_attention_bwd` raises
+    ValueError."""
+    window = int(window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if window > 0 or q.shape[-1] not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash_attention: no backward for window {window} and "
-                f"head_dim {q.shape[-1]} yet (ROADMAP.md, Queue 1, 'the "
-                "hybrid and audio families' training')")
-        return FlashAttention.apply(q, k, v, causal)
+        _check_window(causal, window)
+        return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention(q, k, v, causal=causal, window=window)

@@ -6,10 +6,11 @@ integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
 `flash_attention.launches`, `selective_scan.launches`; the packed entry
 `tile_matmul_packed` launches the same kernel and counts in
 `tile_matmul.launches`; the scan kernel's fused entry
-`selective_scan_fused` counts in `selective_scan_fused.launches`; the two
-backward kernels count in `flash_attention_bwd.launches` and
-`selective_scan_fused_bwd.launches`), so a run can show that it went
-through the kernels.
+`selective_scan_fused` counts in `selective_scan_fused.launches`; the
+backward kernels count in `flash_attention_bwd.launches`,
+`selective_scan_fused_bwd.launches` and, for the scan's (a, bx) entry,
+`selective_scan_bwd.launches`), so a run can show that it went through
+the kernels.
 
 The counts are of launches that ran on the device.  A CUDA graph capture
 calls the wrappers, but launches nothing: `captured()` takes the counts the
@@ -23,8 +24,8 @@ from contextlib import contextmanager
 from ._build import build_all
 from .flash_attention import flash_attention, flash_attention_bwd
 from .segment_reduce import segment_reduce, segment_sum
-from .selective_scan import (selective_scan, selective_scan_fused,
-                             selective_scan_fused_bwd)
+from .selective_scan import (selective_scan, selective_scan_bwd,
+                             selective_scan_fused, selective_scan_fused_bwd)
 from .tile_matmul import tile_matmul, tile_matmul_packed
 
 # each kernel source's counting wrapper, by source name
@@ -35,8 +36,10 @@ KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
            "selective_scan_bwd": selective_scan_fused_bwd}
 
 
-# every counting wrapper: the kernels and the scan's second entry
-COUNTED = {**KERNELS, "selective_scan_fused": selective_scan_fused}
+# every counting wrapper: the kernels, the scan's second entry and the
+# (a, bx) entry's backward (in the selective_scan_bwd library)
+COUNTED = {**KERNELS, "selective_scan_fused": selective_scan_fused,
+           "selective_scan_bwd[a, bx]": selective_scan_bwd}
 
 
 def launch_counts() -> dict:
@@ -74,7 +77,7 @@ def credit(counts: dict) -> None:
 
 __all__ = ["build_all", "segment_reduce", "segment_sum", "tile_matmul",
            "tile_matmul_packed", "flash_attention", "flash_attention_bwd",
-           "selective_scan", "selective_scan_fused",
+           "selective_scan", "selective_scan_bwd", "selective_scan_fused",
            "selective_scan_fused_bwd",
            "launch_counts", "reset_launch_counts", "captured", "credit",
            "KERNELS"]

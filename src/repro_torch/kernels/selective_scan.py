@@ -42,8 +42,15 @@ states in registers and walks them in reverse; its sums over D and over
 B·S are partials reduced in a fixed order, with no float atomics.
 `SelectiveScanFused` is the autograd Function the training path calls
 (`selective_scan_fused_grad`): on the card both directions launch the
-kernels, on the CPU both run their plain versions.  The (a, bx) entry has
-no backward: no path calls it.
+kernels, on the CPU both run their plain versions.
+
+The (a, bx) entry has a backward at N = 1 (`selective_scan_bwd`, the
+`selective_scan_abx_bwd_launch` entry of csrc/selective_scan_bwd.cu): the
+RG-LRU's call, where c = 1 makes y the state h itself, so one reverse walk
+over a, h and dy gives da, dbx and dh0.  `SelectiveScan` is its autograd
+Function and `selective_scan_grad` the call the RG-LRU makes: on the card
+both directions launch the kernels, on the CPU both run their plain
+versions.  A recorded call the backward cannot take (N > 1) raises.
 """
 from __future__ import annotations
 
@@ -346,6 +353,122 @@ def selective_scan_fused_grad(dt, A, Bm, Cm, x, h0=None, *,
         return (y, h_last) if return_state else y
     return selective_scan_fused(dt, A, Bm, Cm, x, h0,
                                 return_state=return_state)
+
+
+# ---------------------------------------------------------------------------
+# the (a, bx) entry's backward at N = 1: the RG-LRU
+# ---------------------------------------------------------------------------
+
+def selective_scan_bwd_plain(a, h, h0, dy, dh_last=None):
+    """The backward of the (a, bx) entry at N = 1 with c = 1, in plain
+    PyTorch, float32: a, h (the forward's y, which is the state), dy
+    [B, S, D]; h0 and dh_last [B, D] or None (zero).  The reverse walk
+    g_t = dy_t + a_{t+1}·g_{t+1} from dh_last gives da_t = g_t·h_{t-1}
+    (h_{-1} = h0), dbx_t = g_t and dh0 = a_0·g_0.  Returns (da, dbx,
+    dh0), float32."""
+    b, s, d = a.shape
+    a, h, dy = a.float(), h.float(), dy.float()
+    start = torch.zeros((b, d), dtype=torch.float32, device=a.device) \
+        if h0 is None else h0.float()
+    carry = torch.zeros_like(start) if dh_last is None \
+        else dh_last.float().clone()
+    da, dbx = torch.empty_like(a), torch.empty_like(a)
+    for t in reversed(range(s)):
+        g = dy[:, t] + carry
+        da[:, t] = g * (h[:, t - 1] if t > 0 else start)
+        dbx[:, t] = g
+        carry = a[:, t] * g
+    return da, dbx, carry
+
+
+def _abx_check(a, h, h0, dy, dh_last):
+    if a.dim() != 3 or a.shape != h.shape or a.shape != dy.shape:
+        raise ValueError(f"selective_scan_bwd: a {tuple(a.shape)}, h "
+                         f"{tuple(h.shape)} and dy {tuple(dy.shape)} must be "
+                         "one [B, S, D] shape")
+    b, s, d = a.shape
+    for name, t in (("h0", h0), ("dh_last", dh_last)):
+        if t is not None and tuple(t.shape) != (b, d):
+            raise ValueError(f"selective_scan_bwd: {name} {tuple(t.shape)} "
+                             f"!= {(b, d)}")
+    return b, s, d
+
+
+def selective_scan_bwd(a, h, h0, dy, dh_last=None):
+    """The (a, bx) entry's gradients (da, dbx, dh0) at N = 1, c = 1, from
+    its a, its output h and h0, given dy (and dh_last, None for zero):
+    shapes as `selective_scan_bwd_plain`'s, float32.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel or
+    raise; there is no fallback."""
+    tensors = [t for t in (a, h, h0, dy, dh_last) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return selective_scan_bwd_plain(a, h, h0, dy, dh_last)
+    b, s, d = _abx_check(a, h, h0, dy, dh_last)
+    if a.device.type != "cuda" or any(t.device != a.device for t in tensors):
+        raise ValueError("selective_scan_bwd: inputs must lie on one CUDA "
+                         "device")
+    _check_sizes(b, s, d, 1)
+    a, h, dy = (_f32(t) for t in (a, h, dy))
+    h0 = None if h0 is None else _f32(h0)
+    dh_last = None if dh_last is None else _f32(dh_last)
+    da, dbx = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty((b, d), dtype=torch.float32, device=a.device)
+    lib = _build.load("selective_scan_bwd")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = lib.selective_scan_abx_bwd_launch(
+        a.data_ptr(), h.data_ptr(), _ptr(h0), dy.data_ptr(), _ptr(dh_last),
+        da.data_ptr(), dbx.data_ptr(), dh0.data_ptr(), b, s, d, stream)
+    _build.check("selective_scan_bwd", code)
+    selective_scan_bwd.launches += 1
+    return da, dbx, dh0
+
+
+selective_scan_bwd.launches = 0
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The (a, bx) entry at N = 1 with c = 1, with its backward: (y,
+    h_last) of (a, bx [B, S, D, 1], h0 [B, D, 1] or None).  The forward
+    keeps a, y (the states) and h0 for `selective_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, a, bx, h0):
+        ctx.set_materialize_grads(False)
+        b, s = a.shape[:2]
+        ones = torch.ones((b, s, 1), dtype=torch.float32, device=a.device)
+        y, h_last = selective_scan(a, bx, ones, h0, return_state=True)
+        ctx.save_for_backward(a, y, h0)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, y, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        da, dbx, dh0 = selective_scan_bwd(
+            a[..., 0], y, None if h0 is None else h0[..., 0], dy,
+            None if dh_last is None else dh_last[..., 0])
+        return da[..., None], dbx[..., None], \
+            None if h0 is None else dh0[..., None]
+
+
+def selective_scan_grad(a, bx, h0=None, *, return_state: bool = False):
+    """selective_scan at c = 1, differentiable.  When autograd records
+    (grad mode on and an input requires grad), through `SelectiveScan`:
+    N must be 1, the form the kernel's backward takes, or it raises, on
+    either device.  Otherwise the forward call."""
+    inputs = [t for t in (a, bx, h0) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        if a.shape[-1] != 1:
+            raise NotImplementedError(
+                f"selective_scan_grad: the backward takes N = 1 (got N = "
+                f"{a.shape[-1]})")
+        y, h_last = SelectiveScan.apply(a, bx, h0)
+        return (y, h_last) if return_state else y
+    c = torch.ones(a.shape[:2] + (a.shape[-1],), dtype=torch.float32,
+                   device=a.device)
+    return selective_scan(a, bx, c, h0, return_state=return_state)
 
 
 # ---------------------------------------------------------------------------

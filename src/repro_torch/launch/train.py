@@ -59,7 +59,11 @@ def main(argv=None):
           f"layers={cfg.num_layers} d={cfg.d_model} device={model.device}")
 
     data = SyntheticLMData(cfg.vocab_size, args.global_batch, args.seq,
-                           seed=args.seed)
+                           seed=args.seed,
+                           with_frames=cfg.enc_seq if cfg.family == "audio"
+                           else 0,
+                           d_model=cfg.d_model,
+                           with_pos_ids=cfg.family == "vlm")
     step_fn = make_train_step(cfg, None, ("data",), lr=args.lr,
                               compress_grads=False)
     opt = adamw_init(dict(model.named_leaves()))

@@ -8,11 +8,11 @@ any Sq and Sk) runs the hand-written `flash_attention` kernel on
 [B·Hq, S, hd]; when autograd records, through its Function, whose
 backward is the hand-written `flash_attention_bwd` kernel (the repeated
 K/V heads' gradients are summed over each group by autograd of
-`_repeat_kv`; no window or hd 256 yet, see the kernel's module).  The
-reference slices each query chunk's key span for a window; the kernel
-skips the key tiles no row of a block reaches, which is the same O(S·
-window) work.  Decode attention is plain torch, as the reference computes
-it outside any kernel.
+`_repeat_kv`), the window and hd 256 (lattn) included.  The reference
+slices each query chunk's key span for a window; both kernels skip the
+key tiles no row of a block reaches, which is the same O(S·window) work.
+Decode attention is plain torch, as the reference computes it outside
+any kernel.
 
 Local attention keeps a ring buffer of min(window, max_seq) rows.  Its
 placement is the reference's: a prefill longer than the ring stores the

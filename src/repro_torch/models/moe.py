@@ -23,10 +23,14 @@ equal groups of tokens, each with its own capacity and ranks, which
 equals G separate calls: the serve engine's batched decode passes its
 slots, as the reference vmaps a one-sequence decode over them.
 
-The kernel's launch carries no autograd history, so a combine that
-autograd records raises on the card (the moe family's training is a
-ROADMAP.md item).  The reference's expert-parallel modes (`ep_alltoall`,
-`ep_local`, under shard_map) wait for more than one card.
+Training: the combine is an autograd Function (`SegmentAdd`) whose
+forward is the segment kernel and whose backward is the gather
+`dy[src]` in the values' dtype, the transpose of the reference's
+`.at[].add` (an XLA gather, outside any Pallas kernel).  The router's
+top-k and the padded expert pass differentiate through torch, as the
+reference's do through `lax.top_k` and its einsums.  The reference's
+expert-parallel modes (`ep_alltoall`, `ep_local`, under shard_map) wait
+for more than one card.
 """
 from __future__ import annotations
 
@@ -99,16 +103,31 @@ def _padded_expert_pass(x_rows, flat_e, slot, keep, n_experts, width,
     return out * keep[:, None].to(out.dtype)
 
 
+class SegmentAdd(torch.autograd.Function):
+    """The combine with its backward: the forward is the segment kernel
+    (float32 sums), the backward gathers each row's segment gradient,
+    `dy[src]`, in the values' dtype."""
+
+    @staticmethod
+    def forward(ctx, values, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        ctx.dtype = values.dtype
+        return segment_reduce(segment_ids, values, num_segments)
+
+    @staticmethod
+    def backward(ctx, dy):
+        segment_ids, = ctx.saved_tensors
+        return dy[segment_ids].to(ctx.dtype), None, None
+
+
 def segment_add(values, segment_ids, num_segments: int):
     """The group-by ⊕ combine: [N, d] rows summed into [num_segments, d]
     float32 by the `segment_reduce` kernel (its plain version on the
-    CPU)."""
-    if values.device.type == "cuda" and torch.is_grad_enabled() \
-            and values.requires_grad:
-        raise NotImplementedError(
-            "moe segment_add: the segment kernel's launch records no "
-            "gradient; training the moe family is not ported yet "
-            "(ROADMAP.md, Queue 1, 'the moe family's training')")
+    CPU); differentiable in `values` through `SegmentAdd` when autograd
+    records.  Every id must lie in [0, num_segments): the gather of the
+    backward reads one segment a row."""
+    if torch.is_grad_enabled() and values.requires_grad:
+        return SegmentAdd.apply(values, segment_ids, num_segments)
     return segment_reduce(segment_ids, values, num_segments)
 
 

@@ -5,7 +5,11 @@ The gates are the reference's, in float32 (`_gates`).  The recurrence
 h_t = a_t ⊙ h_{t-1} + b_t over [B, S, lru_width] is the selective scan at
 N = 1 with c = 1 (so y_t is h_t itself): one call of the hand-written
 scan kernel's (a, bx) entry per layer and prefill on the card, from h0
-and returning the last state for the decode cache.  The reference scans
+and returning the last state for the decode cache.  When autograd records
+(training), the call goes through `selective_scan_grad`, whose backward
+is the same entry's hand-written reverse walk, so a, b and everything
+before them (the gates, `lam`, `in_x`, the conv) get their gradients;
+torch differentiates the gates.  The reference scans
 chunks of `scan_chunk` steps with `associative_scan`; the port walks the
 whole sequence in order, which is the same recurrence summed in another
 order, and holds nothing wider than [B, S, lru_width].  Decode is one
@@ -16,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.selective_scan import selective_scan
+from ..kernels.selective_scan import selective_scan_grad
 from .common import ParamDef, dense
 from .ssm import _causal_conv
 
@@ -61,14 +65,12 @@ def _gates(p, xc):
 def rglru_forward(cfg, p, x, *, h0=None, conv0=None, return_state=False):
     """x: [B,S,d] -> [B,S,d] (with return_state also the decode cache
     {conv, h})."""
-    b, s, _ = x.shape
     xb = dense(x, p["in_x"])
     yg = F.gelu(dense(x, p["in_y"]), approximate="tanh")
     xc, conv_tail = _causal_conv(xb, p["conv_w"], p["conv_b"], conv0)
     a, bb = _gates(p, xc)
-    ones = torch.ones((b, s, 1), dtype=torch.float32, device=x.device)
-    h_seq, h_last = selective_scan(
-        a[..., None], bb[..., None], ones,
+    h_seq, h_last = selective_scan_grad(
+        a[..., None], bb[..., None],
         None if h0 is None else h0.float()[..., None], return_state=True)
     out = dense((h_seq * yg.float()).to(x.dtype), p["out"])
     if return_state:

@@ -19,8 +19,17 @@ self-attention in decode is plain torch, as for the LM.
 The cache is the reference's: "self", the decoder's self-attention k/v
 (here a list of one {k, v} [B, max_seq, Hkv, hd] a layer), and
 "cross_k" / "cross_v" [L, B, enc_seq, Hkv, hd], the encoder output's
-projections made once by the prefill.  Training (`loss`) is not ported
-yet (ROADMAP.md, Queue 1, "the hybrid and audio families' training").
+projections made once by the prefill.
+
+Training: `loss(batch)` is the reference's (batch {frames, tokens,
+labels}): the encoder, the decoder, then `chunked_ce` over the decoder's
+output, with every layer's body rematerialized (`checkpoint`, as the
+reference's `jax.checkpoint` around each scanned body, whatever the
+config's `remat`); the attentions run the flash kernel's Function, whose
+backward is the hand-written `flash_attention_bwd`.  `train_mode()`
+turns gradients on; `to_tree`/`load_tree` give `TrainRunner` the
+reference's stacked tree (`convert.whisper_slots`), so that a training
+snapshot of either package resumes in the other.
 """
 from __future__ import annotations
 
@@ -28,10 +37,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..convert import whisper_tree_from_numpy, whisper_tree_to_numpy
 from . import attention as attn
 from .common import ParamDef, ParamTree, dense, rms_norm
-from .lm import _device
+from .lm import _device, chunked_ce
 
 
 def _sinusoid(seq: int, d: int, offset=0, device=None):
@@ -75,6 +86,23 @@ def _mlp(p, x):
     return dense(h, p["w_out"], p["b_out"])
 
 
+def _enc_layer(cfg, p, x):
+    x = x + attn.attn_forward(cfg, p["attn"], rms_norm(x, p["ln1"]),
+                              causal=False)
+    return x + _mlp(p["mlp"], rms_norm(x, p["ln2"]))
+
+
+def _dec_layer(cfg, p, x, enc):
+    """A decoder layer in training: causal self-attention over x, then
+    cross-attention to the encoder's output, then the MLP."""
+    x = x + attn.attn_forward(cfg, p["self"], rms_norm(x, p["ln1"]),
+                              causal=True)
+    kv = attn.cross_kv(cfg, p["cross"], enc)
+    x = x + attn.cross_attn_forward(cfg, p["cross"], rms_norm(x, p["ln2"]),
+                                    kv)
+    return x + _mlp(p["mlp"], rms_norm(x, p["ln3"]))
+
+
 def dec_layers(cfg) -> int:
     return sum(len(p) * r for p, r in cfg.layout)
 
@@ -103,25 +131,54 @@ class Whisper(ParamTree):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def to_tree(self, leaves: dict | None = None) -> dict:
+        """The parameters (or `leaves`, a dict keyed like them: the AdamW
+        moments) as the reference's stacked tree of numpy leaves, the
+        layout of a training snapshot that either package resumes."""
+        if leaves is None:
+            leaves = dict(self.named_leaves())
+        return whisper_tree_to_numpy(self.cfg, leaves)
+
+    def load_tree(self, tree: dict, into: dict | None = None) -> None:
+        """Copy a tree of `to_tree`'s layout into the parameters (or into
+        `into`, a dict keyed like them), in place."""
+        if into is None:
+            into = dict(self.named_leaves())
+        whisper_tree_from_numpy(self.cfg, tree, into)
+
+    def train_mode(self):
+        """Turn gradients on for every parameter (the training step calls
+        it); returns the model."""
+        return self.requires_grad_(True)
+
     def loss(self, batch):
-        raise NotImplementedError(
-            "Whisper.loss: training the audio family is not ported yet "
-            "(ROADMAP.md, Queue 1, 'the hybrid and audio families' "
-            "training')")
+        """batch: {frames: [B, S_enc, d], tokens: [B, S], labels: [B, S]}
+        (numpy or tensors) -> (loss, {"loss": loss}), the mean next-token
+        cross-entropy of the decoder, float32."""
+        enc = self._encoder(batch["frames"], remat=True)
+        x = self._dec_embed(batch["tokens"])
+        for p in self.dec:
+            x = checkpoint(_dec_layer, self.cfg, p, x, enc,
+                           use_reentrant=False)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        loss = chunked_ce(self.cfg, self._head, x, labels)
+        return loss, {"loss": loss}
 
     # -------------- encoder --------------
-    @torch.no_grad()
-    def encode(self, frames):
-        """frames: [B, S_enc, d] (stub embeddings) -> [B, S_enc, d]."""
+    def _encoder(self, frames, remat=False):
         cfg = self.cfg
         x = torch.as_tensor(frames, device=self.device).to(cfg.compute_dtype)
         x = x + _sinusoid(x.shape[1], cfg.d_model,
                           device=self.device).to(x.dtype)[None]
         for p in self.enc:
-            x = x + attn.attn_forward(cfg, p["attn"], rms_norm(x, p["ln1"]),
-                                      causal=False)
-            x = x + _mlp(p["mlp"], rms_norm(x, p["ln2"]))
+            x = checkpoint(_enc_layer, cfg, p, x, use_reentrant=False) \
+                if remat else _enc_layer(cfg, p, x)
         return rms_norm(x, self.enc_norm)
+
+    @torch.no_grad()
+    def encode(self, frames):
+        """frames: [B, S_enc, d] (stub embeddings) -> [B, S_enc, d]."""
+        return self._encoder(frames)
 
     # -------------- decoder --------------
     def _dec_embed(self, tokens, offset=0):

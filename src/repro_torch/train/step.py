@@ -2,7 +2,7 @@
 reference's src/repro/train/step.py.
 
 `make_train_step(cfg, ...)` returns `train_step(model, opt_state, batch)
--> (model, opt_state, metrics)`.  The model is the port's `LM`, updated in
+-> (model, opt_state, metrics)`.  The model is updated in
 place (its parameters and the moments of `opt_state`); the reference's
 functional step returns new trees instead.  Semantics are the reference's:
 
@@ -14,12 +14,11 @@ functional step returns new trees instead.  Semantics are the reference's:
 * AdamW (`optim/adamw.py`) with the given lr and weight decay; metrics
   {"loss", "grad_norm", "lr"}, as 0-d tensors (read them with float()).
 
-The step runs eagerly (the reference jits it; a CUDA-graph step is a
-ROADMAP.md item).  `mesh` other than None raises: data-parallel training
-over a `RankGroup` is not ported yet, and so does a layout with a "moe"
-layer (the MoE combine's kernel launch carries no gradient), a "rec" or
-"lattn" layer, or the audio family (no backward kernel for the window,
-hd 256 or the RG-LRU scan, and no Whisper loss yet).
+The model is any of the ten architectures' (`models.get_model`): an `LM`
+of dense, moe, ssm, rec and lattn layers, or `Whisper`, whose batch also
+carries the encoder's frames.  The step runs eagerly (the reference jits
+it; a CUDA-graph step is a ROADMAP.md item).  `mesh` other than None
+raises: data-parallel training over a `RankGroup` is not ported yet.
 """
 from __future__ import annotations
 
@@ -44,16 +43,6 @@ def make_train_step(cfg, mesh=None, dp_axes=("data",), lr=3e-4,
             "make_train_step: data-parallel training over a mesh is not "
             "ported yet (ROADMAP.md, Queue 1, 'Data-parallel training over "
             "a RankGroup'); pass mesh=None")
-    if any("moe" in pattern for pattern, _ in cfg.layout):
-        raise NotImplementedError(
-            "make_train_step: the moe family's combine has no backward yet "
-            "(ROADMAP.md, Queue 1, 'the moe family's training')")
-    if cfg.family == "audio" or any("rec" in pattern or "lattn" in pattern
-                                    for pattern, _ in cfg.layout):
-        raise NotImplementedError(
-            "make_train_step: the rec, lattn and Whisper layers have no "
-            "backward kernels yet (ROADMAP.md, Queue 1, 'the hybrid and "
-            "audio families' training')")
     k = max(1, cfg.microbatch)
 
     def grads_of(model, params, batch):

@@ -9,8 +9,8 @@ at S > window with ragged lengths and GQA, the ring-buffer prefill and
 decode (the s % w != 0 case too), the LM's prefill logits and a chain of
 decodes, and the serve engine's greedy tokens (identical).  Also the
 reference's ring placement recorded as a limit (ROADMAP.md, 'Reference
-limits'), the training refusals, and chip_smoke.py's depth cut in whole
-periods.
+limits'), training both families and the windowed hd-256 gradient, and
+chip_smoke.py's depth cut in whole periods.
 """
 import sys
 from pathlib import Path
@@ -30,6 +30,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.convert import (lm_cache_to_numpy, lm_params_from_numpy,
                                  lm_params_to_numpy)
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_grad,
                                                  flash_attention_plain)
 from repro_torch.models import attention as attn
@@ -97,23 +98,30 @@ def test_rglru_forward_then_decode_matches_reference(s):
 
 def test_rglru_prefill_goes_through_the_scan_at_n1(monkeypatch):
     """The rec layer's recurrence is one call of the scan's (a, bx) entry
-    at N = 1 with c = 1, from h0, returning the state."""
+    at N = 1 with c = 1, from h0, returning the state: in serving and,
+    through `selective_scan_grad`'s Function, in training."""
+    import importlib
+    scan_mod = importlib.import_module("repro_torch.kernels.selective_scan")
     cfg = smoke_config(ARCH)
     pt = {k: torch.from_numpy(v) for k, v in _rec_params(cfg, 3).items()}
     calls = []
-    real = rec.selective_scan
+    real = scan_mod.selective_scan
 
     def spy(a, bx, c, h0=None, *, return_state=False):
         calls.append((tuple(a.shape), bool((c == 1).all()),
                       None if h0 is None else tuple(h0.shape), return_state))
         return real(a, bx, c, h0, return_state=return_state)
-    monkeypatch.setattr(rec, "selective_scan", spy)
+    monkeypatch.setattr(scan_mod, "selective_scan", spy)
     x = torch.randn(2, 9, cfg.d_model)
     _, c = rec.rglru_forward(cfg, pt, x, return_state=True)
     rec.rglru_forward(cfg, pt, x, h0=c["h"], conv0=c["conv"])
+    rec.rglru_forward(cfg, {k: v.requires_grad_() for k, v in pt.items()},
+                      x).sum().backward()
     w = cfg.lru_width
     assert calls == [((2, 9, w, 1), True, None, True),
-                     ((2, 9, w, 1), True, (2, w, 1), True)]
+                     ((2, 9, w, 1), True, (2, w, 1), True),
+                     ((2, 9, w, 1), True, None, True)]
+    assert all(v.grad is not None for v in pt.values())
 
 
 def _qkv(r, b, sq, sk, hq, hkv, hd):
@@ -309,24 +317,49 @@ def test_engine_matches_jax_engine_across_the_ring(pair):
 
 @pytest.mark.parametrize("arch", [ARCH, "whisper-tiny"])
 def test_training_refuses_the_hybrid_and_audio_families(arch):
-    with pytest.raises(NotImplementedError,
-                       match="hybrid and audio families' training"):
-        make_train_step(smoke_config(arch))
+    """The hybrid and audio families train: make_train_step builds a step,
+    and two steps on the reference launcher's data give a finite loss and
+    move every parameter (no refusal is left)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    cfg = smoke_config(arch)
+    model = get_model(cfg, device="cpu").init(0)
+    before = {n: t.detach().clone() for n, t in model.named_leaves()}
+    step = make_train_step(cfg, compress_grads=False)
+    opt = adamw_init(dict(model.named_leaves()))
+    data = SyntheticLMData(cfg.vocab_size, 2, 20, seed=1,
+                           with_frames=cfg.enc_seq if cfg.family == "audio"
+                           else 0, d_model=cfg.d_model)
+    for _ in range(2):
+        model, opt, m = step(model, opt, data.next_batch())
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    moved = [n for n, t in model.named_leaves()
+             if not torch.equal(t.detach(), before[n])]
+    assert len(moved) == len(before)
 
 
 @pytest.mark.parametrize("hd,window", [(16, 8), (256, 0)])
 def test_flash_gradient_refuses_what_the_backward_lacks(hd, window):
-    # a recorded call with a window or at hd 256 raises (the backward,
-    # kernel and plain version, takes neither yet); a plain call does not
+    """A recorded call with a window or at hd 256 (what the backward
+    once lacked) goes through the Function: its gradients are the plain
+    backward's, with the window; a call under no_grad is the plain
+    forward."""
     q = torch.randn(2, 30, hd, requires_grad=True)
-    with pytest.raises(NotImplementedError,
-                       match="hybrid and audio families' training"):
-        flash_attention_grad(q, q, q, causal=True, window=window)
+    out = flash_attention_grad(q, q, q, causal=True, window=window)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    do = torch.randn(2, 30, hd)
+    got, = torch.autograd.grad(out, q, do)
+    qd = q.detach()
+    o, lse = flash_attention_plain(qd, qd, qd, window=window,
+                                   return_lse=True)
+    dq, dk, dv = flash_attention_bwd_plain(qd, qd, qd, o, lse, do,
+                                           window=window)
+    torch.testing.assert_close(got, dq + dk + dv, rtol=1e-5, atol=1e-6)
     with torch.no_grad():
-        got = flash_attention_grad(q, q, q, causal=True, window=window)
-    torch.testing.assert_close(
-        got, flash_attention_plain(q.detach(), q.detach(), q.detach(),
-                                   window=window))
+        plain = flash_attention_grad(q, q, q, causal=True, window=window)
+    assert plain.grad_fn is None
+    torch.testing.assert_close(plain, o)
 
 
 @pytest.mark.parametrize("fn", ["kernel", "plain"])

@@ -434,3 +434,208 @@ def test_cuda_functions_match_cpu_functions(cuda):
                              (_t(dy).to(cuda), _t(dh).to(cuda)))
     for a, b_ in zip(gc, gg):
         assert _err(b_.cpu(), a.numpy()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the backwards the moe, hybrid and audio families train through (need a
+# card): the flash backward within a window and at hd 256, the scan's
+# (a, bx) backward at N = 1, the recorded forms of the three layers
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_window_check(cuda, seed, bh, sq, sk, hd, dtype, causal,
+                            window):
+    """The backward with `window` against its plain version (bf16 2e-2,
+    float32 1e-4 of max|ref|, an absolute floor of 1e-6), and a second
+    launch bit-equal."""
+    q, k, v, do = (_t(a).to(cuda, dtype)
+                   for a in _flash_inputs(seed, bh, sq, sk, hd))
+    o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        if window == 1 and name != "dv":
+            # one key a query: P = 1 and dS = dP − D = 0 in exact
+            # arithmetic, so dq and dk are the rounding of that difference
+            # (two float32 sums of hd products of about 1) on both sides
+            assert float(g.float().abs().max()) <= 1e-5, name
+            assert float(w.float().abs().max()) <= 1e-5, name
+            continue
+        e = float((g.float() - w.float()).abs().max())
+        assert e <= max(tol * float(w.float().abs().max()), 1e-6), (name, e)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,window", [(3, 300, 64), (2, 130, 100),
+                                         (1, 97, 16), (2, 70, 2048),
+                                         (2, 65, 1)])
+def test_cuda_flash_bwd_window_hd256(cuda, dtype, bh, s, window):
+    """recurrentgemma-2b's lattn form, hd 256, causal within a window:
+    S past the window (the band's first and last tiles), a window past S
+    (every causal key), a window of 1 (the diagonal alone), ragged S."""
+    _flash_bwd_window_check(cuda, s + window, bh, s, s, 256, dtype, True,
+                            window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(77, 77), (129, 300), (300, 129)])
+def test_cuda_flash_bwd_hd256(cuda, dtype, causal, sq, sk):
+    """hd 256 without a window: causal and not, Sq != Sk, ragged."""
+    _flash_bwd_window_check(cuda, sq * sk, 2, sq, sk, 256, dtype, causal, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(16, torch.bfloat16),
+                                      (32, torch.bfloat16),
+                                      (64, torch.float32),
+                                      (128, torch.float32)])
+def test_cuda_flash_bwd_window_other_head_dims(cuda, hd, dtype):
+    """Where no model trains a window, it works (bf16 hd 16 and 32 on
+    mma.sync, float32 at every hd), or raises ValueError (bf16 hd 64 and
+    128, the wgmma kernel): never a result without the mask."""
+    _flash_bwd_window_check(cuda, hd, 2, 150, 150, hd, dtype, True, 40)
+    if dtype == torch.float32:
+        q = torch.randn(2, 40, hd, device=cuda, dtype=torch.bfloat16)
+        o, lse = flash_attention(q, q, q, window=8, return_lse=True)
+        with pytest.raises(ValueError, match="no window in the bf16"):
+            flash_attention_bwd(q, q, q, o, lse, q, window=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(45, 1500), (1500, 1500)])
+def test_cuda_flash_bwd_whisper_shapes(cuda, sq, sk):
+    """whisper-tiny's cross-attention (Sq tokens on 1500 frames) and its
+    encoder (1500 on 1500), non-causal, 6 heads of 64, bf16: ragged last
+    tiles (1500 is no multiple of 64 or 128)."""
+    _flash_bwd_window_check(cuda, sq + sk, 6, sq, sk, 64, torch.bfloat16,
+                            False, 0)
+
+
+def _abx_inputs(seed, b, s, d, cuda):
+    r = np.random.default_rng(seed)
+    a = np.exp(-np.abs(r.standard_normal((b, s, d)))).astype(np.float32)
+    h, dy = (r.standard_normal((b, s, d)).astype(np.float32)
+             for _ in range(2))
+    h0, dh = (r.standard_normal((b, d)).astype(np.float32)
+              for _ in range(2))
+    return [_t(x).to(cuda) for x in (a, h, h0, dy, dh)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("b,s,d", [(1, 2048, 2560), (2, 77, 300),
+                                   (3, 1, 40), (2, 33, 1), (1, 0, 8)])
+def test_cuda_abx_bwd_matches_plain(cuda, b, s, d, with_state):
+    """The (a, bx) entry's backward at N = 1 against its plain version:
+    each sum and product rounded on its own in both, so within 1e-6 of
+    max|ref|; one launch counted; a second launch bit-equal."""
+    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                    selective_scan_bwd_plain)
+    a, h, h0, dy, dh = _abx_inputs(s * d + b, b, s, d, cuda)
+    if not with_state:
+        h0 = dh = None
+    before = ops.launch_counts()["selective_scan_bwd[a, bx]"]
+    got = selective_scan_bwd(a, h, h0, dy, dh)
+    assert ops.launch_counts()["selective_scan_bwd[a, bx]"] == before + 1
+    want = selective_scan_bwd_plain(a, h, h0, dy, dh)
+    for name, g, w in zip(("da", "dbx", "dh0"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        if w.numel():
+            e = float((g - w).abs().max())
+            assert e <= 1e-6 * max(float(w.abs().max()), 1e-30), (name, e)
+    again = selective_scan_bwd(a, h, h0, dy, dh)
+    for g, w in zip(got, again):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_function_and_rglru_match_cpu(cuda):
+    """SelectiveScan on the card against the same Function on the CPU,
+    and the RG-LRU layer's gradients (smoke widths, float32, with h0 and
+    the final state's gradient), within 1e-4 of max|ref|; N > 1 raises on
+    the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.selective_scan import (SelectiveScan,
+                                                    selective_scan_grad)
+    from repro_torch.models import recurrent as rec
+    r = np.random.default_rng(8)
+    a = np.exp(-np.abs(r.standard_normal((2, 50, 30, 1)))).astype(np.float32)
+    bx = r.standard_normal((2, 50, 30, 1)).astype(np.float32)
+    h0 = r.standard_normal((2, 30, 1)).astype(np.float32)
+    dy = r.standard_normal((2, 50, 30)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        ins = [_t(x).to(dev).requires_grad_() for x in (a, bx, h0)]
+        y, hl = SelectiveScan.apply(*ins)
+        out[str(dev)] = torch.autograd.grad((y, hl), ins,
+                                            (_t(dy).to(dev), hl.detach()))
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert _err(g.cpu(), w.numpy()) <= 1e-4
+    cfg = smoke_config("recurrentgemma-2b")
+    d, w, k = cfg.d_model, cfg.lru_width, cfg.ssm_conv
+    p = {"in_x": r.standard_normal((d, w)) * d ** -0.5,
+         "in_y": r.standard_normal((d, w)) * d ** -0.5,
+         "conv_w": r.standard_normal((k, w)) * 0.5,
+         "conv_b": r.standard_normal(w) * 0.1,
+         "gate_a": r.standard_normal((w, w)) * w ** -0.5,
+         "gate_x": r.standard_normal((w, w)) * w ** -0.5,
+         "lam": r.uniform(-2.0, 2.0, w),
+         "out": r.standard_normal((w, d)) * w ** -0.5}
+    x = r.standard_normal((2, 37, d))
+    hh = r.standard_normal((2, w))
+    grads = {}
+    for dev in ("cpu", cuda):
+        tp = {n: _t(v.astype(np.float32)).to(dev).requires_grad_()
+              for n, v in p.items()}
+        tx = _t(x.astype(np.float32)).to(dev).requires_grad_()
+        th = _t(hh.astype(np.float32)).to(dev).requires_grad_()
+        o, c = rec.rglru_forward(cfg, tp, tx, h0=th, return_state=True)
+        assert o.grad_fn is not None and c["h"].grad_fn is not None
+        grads[str(dev)] = torch.autograd.grad(
+            (o, c["h"]), [*tp.values(), tx, th],
+            (torch.ones_like(o), torch.ones_like(c["h"])))
+    for g, w_ in zip(grads["cuda"], grads["cpu"]):
+        assert _err(g.cpu(), w_.numpy()) <= 1e-4
+    an = torch.rand(1, 5, 4, 2, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="N = 1"):
+        selective_scan_grad(an, an)
+
+
+@pytest.mark.cuda
+def test_cuda_recorded_outputs_keep_their_history(cuda):
+    """On the card, rglru_forward, moe_local and flash_attention_grad
+    within a window at hd 256, called under autograd with an input that
+    requires grad, return outputs with an autograd history (or raise):
+    none drops the gradient silently."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention_grad
+    from repro_torch.models import get_model
+    from repro_torch.models import moe
+    from repro_torch.models import recurrent as rec
+    q = torch.randn(10, 300, 256, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    o = flash_attention_grad(q, q, q, window=64)
+    assert o.grad_fn is not None
+    for arch, layer in (("recurrentgemma-2b", "rec"),
+                        ("qwen3-moe-30b-a3b", "moe")):
+        cfg = smoke_config(arch)
+        model = get_model(cfg, device=cuda).init(0).train_mode()
+        blk = next(p for p, kind in zip(model.layers, model.kinds)
+                   if kind == layer)
+        x = torch.randn(2, 24, cfg.d_model, device=cuda, requires_grad=True)
+        y = rec.rglru_forward(cfg, blk["rec"], x) if layer == "rec" \
+            else moe.moe_local(cfg, blk["moe"], x)
+        assert y.grad_fn is not None, arch
+        g, = torch.autograd.grad(y.sum(), x)
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0

@@ -9,9 +9,10 @@ a router skewed toward expert 0 (rows drop at 1.25) and with tied router
 columns (the lower index wins, as `jax.lax.top_k`).  `groups=G` equals G
 separate calls.  The serve engine at 32 slots on a skewed qwen3-moe smoke
 config gives the JAX engine's tokens only because its batched decode
-routes each slot as a group of its own.  Training a moe layout, a meshed
-`moe_forward` and a recorded combine on the card raise; the converter
-carries the expert leaves across both ways.
+routes each slot as a group of its own.  A moe layout trains and a
+recorded combine takes its gradient through `SegmentAdd`; a meshed
+`moe_forward` raises; the converter carries the expert leaves across
+both ways.
 """
 import jax
 import jax.numpy as jnp
@@ -209,8 +210,24 @@ def test_engine_at_32_slots_routes_each_slot_alone(monkeypatch):
 
 
 def test_training_a_moe_layout_raises():
-    with pytest.raises(NotImplementedError, match="moe family's training"):
-        make_train_step(smoke_config(ARCH))
+    """A moe layout trains: make_train_step builds a step, and two steps
+    give a finite loss and move the router and every expert's weights
+    (the refusal is gone)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    cfg = smoke_config(ARCH)
+    model = get_model(cfg, device="cpu").init(0)
+    before = {n: t.detach().clone() for n, t in model.named_leaves()}
+    step = make_train_step(cfg, compress_grads=False)
+    opt = adamw_init(dict(model.named_leaves()))
+    data = SyntheticLMData(cfg.vocab_size, 2, 16, seed=2)
+    for _ in range(2):
+        model, opt, m = step(model, opt, data.next_batch())
+    assert np.isfinite(float(m["loss"]))
+    for n, t in model.named_leaves():
+        if "/moe/" in n:
+            assert not torch.equal(t.detach(), before[n]), n
 
 
 def test_meshed_moe_forward_raises():
@@ -222,21 +239,28 @@ def test_meshed_moe_forward_raises():
 
 
 def test_recorded_combine_raises_on_the_card(monkeypatch):
-    """The guard sits before the launch: a CUDA tensor that requires grad
-    under grad mode raises (a stand-in with the CUDA device type stands
-    for the card's tensor here); without grad mode it goes on to the
-    kernel."""
-    class OnCard:
-        device = torch.device("cuda")
-        requires_grad = True
+    """A recorded combine no longer raises: it goes through `SegmentAdd`,
+    whose forward calls the kernel's wrapper once (a spy around it here)
+    and whose backward is the gather dy[src]; without grad mode it calls
+    the wrapper directly and records nothing."""
+    real = moe.segment_reduce
     calls = []
-    monkeypatch.setattr(moe, "segment_reduce",
-                        lambda *a: calls.append(a) or "launched")
-    with pytest.raises(NotImplementedError, match="moe family's training"):
-        moe.segment_add(OnCard(), None, 4)
+
+    def spy(*a):
+        calls.append(a)
+        return real(*a)
+    monkeypatch.setattr(moe, "segment_reduce", spy)
+    vals = torch.randn(6, 3, requires_grad=True)
+    ids = torch.tensor([2, 0, 2, 1, 0, 2])
+    out = moe.segment_add(vals, ids, 3)
+    assert type(out.grad_fn).__name__ == "SegmentAddBackward"
+    dy = torch.randn(3, 3)
+    g, = torch.autograd.grad(out, vals, dy)
+    assert torch.equal(g, dy[ids])
     with torch.no_grad():
-        assert moe.segment_add(OnCard(), None, 4) == "launched"
-    assert len(calls) == 1
+        plain = moe.segment_add(vals, ids, 3)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+    assert len(calls) == 2
 
 
 @pytest.mark.parametrize("arch", [ARCH, "arctic-480b"])

@@ -178,9 +178,20 @@ def test_launch_serve_matches_jax(monkeypatch, capsys):
 
 
 def test_engine_and_training_refuse_the_audio_family(pair):
+    """The serve engine still refuses Whisper (the reference's message);
+    training takes it: `loss` on a batch of frames, tokens and labels is
+    finite and gives every parameter a gradient."""
     cfg, _, _, model = pair
     with pytest.raises(ValueError, match="Whisper API"):
         ServeEngine(cfg, model)
-    with pytest.raises(NotImplementedError,
-                       match="hybrid and audio families' training"):
-        model.loss({})
+    r, frames, tokens = _inputs(cfg, 6)
+    labels = r.integers(0, cfg.vocab_size, tokens.shape).astype(np.int32)
+    model = whisper_params_from_numpy(cfg, whisper_params_to_numpy(
+        cfg, model), device="cpu").train_mode()
+    leaves = dict(model.named_leaves())
+    loss, _ = model.loss({"frames": frames, "tokens": tokens,
+                          "labels": labels})
+    assert np.isfinite(float(loss.detach()))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert all(g is not None and g.shape == p.shape
+               for g, p in zip(grads, leaves.values()))

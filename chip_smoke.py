@@ -43,11 +43,14 @@ first mismatch:
              and the forward kernels' training
              entries (flash with its lse, held against the plain
              version's; the scan with its checkpoint states) bit-equal to
-             the serving ones; the segment kernel at the MoE combine's
-             shape (qwen3-moe-30b-a3b's 2048-token prefill: 16,384 bf16
-             rows of 2,048 into 2,048 tokens, ids in runs of 8) against
-             its plain version, launched twice with the same bits, timed
-             beside `index_add_` and the reshape-and-sum of the same rows;
+             the serving ones; the segment kernel's wide route at the MoE
+             combine's shapes (qwen3-moe-30b-a3b's 2048-token prefill:
+             16,384 bf16 rows of 2,048 into 2,048 tokens, ids in runs of
+             8; a decode tick's 32 rows into 4; a training microbatch's
+             65,536 into 8,192; arctic-480b's 4,096 rows of 7,168 into
+             2,048) against its plain version, launched twice with the
+             same bits, timed beside `index_add_` and the reshape-and-sum
+             of the same rows;
              the shapes of the hybrid and audio families: flash bf16
              [10, 8192, 256] causal within a 2048-token window (one lattn
              layer of recurrentgemma-2b's 8192-token prefill; against
@@ -56,8 +59,10 @@ first mismatch:
              256-token window, whisper-tiny's encoder [24, 1500, 64] and a
              decode tick's cross-attention [24, 1, 64] x [24, 1500, 64],
              both full; and the scan's (a, bx) entry as the RG-LRU calls
-             it, [1, 2048, 2560, 1] with c = 1, h0 and the final state;
-             each launched twice with the same bits;
+             it, [1, 2048, 2560, 1], [1, 8192, 2560, 1], [1, 4096,
+             2560, 1] (a training microbatch) and [2, 4096, 2560, 1]
+             with c = 1, h0 and the final state; each launched twice
+             with the same bits;
 3. main    — run all 15 paper programs through
              `repro_torch.core.compile_program(p).run(inputs)` at the data
              sizes below, in eager mode and in whole mode (the default:
@@ -197,8 +202,8 @@ first mismatch:
 
 Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4.
 The line before the last is a JSON object with one entry per kernel
-(segment_reduce's launches count phases 3, 5, 6, 7's world of 1 and 4's
-MoE combines;
+(segment_reduce's launches count phases 3, 5, 6 and 7's world of 1;
+segment_reduce[wide]'s the MoE combines of phases 4 and 8;
 flash_attention's and selective_scan's (both entries) phases 4 and 8;
 the backward kernels' phase 8, the windowed hd-256 flash backward
 (recurrentgemma-2b's) apart from the other flash backwards); the last line
@@ -214,7 +219,11 @@ src/repro_torch/kernels/csrc` unpacked into the git-ignored `.checkout/`)
 that differ from the current ones, and phase 2 times each such kernel
 through the same wrapper with the earlier library and the current one,
 interleaved (earlier, current, current, earlier): `parent_ms` and
-`change_ms` in its `[kernels]` records, the backward kernels' too.
+`change_ms` in its `[kernels]` records, the backward kernels' too.  The
+segment kernel's wide route and the scan's N = 1 path call C entries
+that a library older than them lacks; there the earlier library is
+timed through its own entries as its wrapper called them
+(`_bucketed_launch`, `_scan_launch_n1_parent`).
 """
 from __future__ import annotations
 
@@ -372,10 +381,13 @@ def time_ms(torch, fn, reps=5, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def _kernel_ms(torch, name, fn, reps):
+def _kernel_ms(torch, name, fn, reps, parent_fn=None):
     """The kernel's time in a `[kernels]` record: `fn`'s, or with --parent
     the mean of the current library's two times, interleaved with the
-    earlier library's, all through the same wrapper."""
+    earlier library's, all through the same wrapper; or, where the current
+    wrapper calls an entry the earlier library lacks (the wide segment
+    route, the N = 1 scan), through `parent_fn`, which calls the earlier
+    library's unchanged entry as its wrapper did."""
     from repro_torch.kernels import _build
     if name not in PARENT_LIBS:
         return dict(kernel_ms=time_ms(torch, fn, reps))
@@ -385,7 +397,8 @@ def _kernel_ms(torch, name, fn, reps):
         for which in ("parent", "change", "change", "parent"):
             _build._LIBS[name] = PARENT_LIBS[name] if which == "parent" \
                 else own
-            times[which].append(time_ms(torch, fn, reps))
+            run = parent_fn if which == "parent" and parent_fn else fn
+            times[which].append(time_ms(torch, run, reps))
     finally:
         _build._LIBS[name] = own
     kernel_ms = sum(times["change"]) / 2
@@ -684,13 +697,45 @@ def _segment_lanes_case(torch, g, lens, L, k, reps=5):
     return rec
 
 
-def _segment_moe_case(torch, g, t, k, d, reps=5):
+def _bucketed_launch(torch, ids, vals, k):
+    """A wide-row group-by (+) as the earlier wrapper launched it: the rows
+    widened to float32, `_bucket_plan`'s split, the C entry
+    `segment_reduce_launch` (unchanged): --parent's side of the wide
+    route's timings."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.segment_reduce import _bucket_plan
+    v = vals.float().contiguous()
+    n, d = v.shape
+    blocks, shift, nbytes = _bucket_plan(n, d, k, d)
+    out = torch.empty((k, d), dtype=torch.float32, device=v.device)
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=v.device)
+    code = _build.load("segment_reduce").segment_reduce_launch(
+        0, 0, ids.data_ptr(), v.data_ptr(), out.data_ptr(), n, d, d, k,
+        torch.cuda.current_stream().cuda_stream,
+        int(ids.dtype == torch.int64), scratch.data_ptr(), nbytes, blocks,
+        shift)
+    _build.check("segment_reduce", code)
+    return out
+
+
+# the MoE combine's shapes (phase 2): (tokens, rows a token, width) of
+# qwen3-moe-30b-a3b's 2048-token prefill (top 8 of 128 experts, d_model
+# 2048), a decode tick at 4 slots, a training microbatch of 4 x 2048
+# tokens, and arctic-480b's 2048-token prefill (top 2, d_model 7168)
+MOE_SHAPES = {"prefill": (MOE_TOKENS, MOE_TOP_K, MOE_D),
+              "decode": (SERVE_SLOTS, MOE_TOP_K, MOE_D),
+              "training": (4 * MOE_TOKENS, MOE_TOP_K, MOE_D),
+              "arctic": (MOE_TOKENS, 2, 7168)}
+
+
+def _segment_moe_case(torch, g, t, k, d, reps=5, what="prefill"):
     """The MoE combine (models/moe.py's `segment_add`): t tokens of k bf16
     rows of width d, ids in runs of k (int64, as the model hands them in),
-    summed in float32 into [t, d].  Held against the plain version and
-    launched twice with the same bits; timed beside `index_add_` of the
-    same rows and the reshape-and-sum, which computes the same function
-    here because the ids are sorted in runs of k."""
+    summed in float32 into [t, d] on the wide route.  Held against the
+    plain version and launched twice with the same bits; timed beside
+    `index_add_` of the same rows and the reshape-and-sum, which computes
+    the same function here because the ids are sorted in runs of k; with
+    --parent against the earlier kernel (`_bucketed_launch`)."""
     from repro_torch.kernels.segment_reduce import (segment_reduce,
                                                      segment_reduce_plain)
     dev = "cuda"
@@ -717,7 +762,8 @@ def _segment_moe_case(torch, g, t, k, d, reps=5):
     reshape_err = float((got - reshape_sum()).abs().max())
     del want, diff, scale
     kern = _kernel_ms(torch, "segment_reduce",
-                      lambda: segment_reduce(ids, vals, t), reps)
+                      lambda: segment_reduce(ids, vals, t), reps,
+                      parent_fn=lambda: _bucketed_launch(torch, ids, vals, t))
     plain_ms = time_ms(torch, lambda: segment_reduce_plain(ids, vals, t),
                        reps)
     library_ms = time_ms(torch, lambda: torch.zeros(
@@ -726,8 +772,9 @@ def _segment_moe_case(torch, g, t, k, d, reps=5):
     reshape_ms = time_ms(torch, reshape_sum, reps)
     # ids and bf16 rows read once, the float32 [t, d] written once
     bytes_ = ids.element_size() * n + 2 * n * d + 4 * t * d
-    rec = dict(case=f"segment_reduce MoE combine N={n} K={t} D={d} + "
-               f"bfloat16 rows, ids in runs of {k}", max_abs_err=err,
+    rec = dict(case=f"segment_reduce MoE combine ({what}) N={n} K={t} "
+               f"D={d} + bfloat16 rows, ids in runs of {k}, wide route",
+               max_abs_err=err,
                tol="1e-4*sum|v| per segment against the plain version; "
                    "bit-equal across launches",
                reshape_sum_err=reshape_err, **kern, plain_ms=plain_ms,
@@ -929,7 +976,10 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5, rglru=False):
                           f"h0={with_h0} {name}: err {e} > {tol}")
         err = max(err, e)
     kern = _kernel_ms(torch, "selective_scan", lambda: selective_scan(
-        a, bx, c, h0, return_state=with_h0), reps)
+        a, bx, c, h0, return_state=with_h0), reps,
+        parent_fn=(lambda: _scan_launch_n1_parent(torch, a, bx, c, h0,
+                                                  with_h0)) if n == 1
+        else None)
     plain_ms = time_ms(torch, lambda: selective_scan_plain(
         a, bx, c, h0, return_state=with_h0), 2)
     state = 4 * b * d * n * (2 if with_h0 else 0)   # h0 read, h_last written
@@ -942,6 +992,24 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5, rglru=False):
                library="none (no single PyTorch call)",
                bound_ms=bytes_ / HBM_BYTES_S * 1e3, bound_by="bytes")
     return _rates(rec, 4 * b * s * d * n)    # h = a·h + bx; y += c·h
+
+
+def _scan_launch_n1_parent(torch, a, bx, c, h0, with_state):
+    """The (a, bx) entry at N = 1 as the earlier wrapper launched it: the
+    C entry `selective_scan_launch` (unchanged), which the current library
+    refuses at N = 1: --parent's side of the N = 1 timings."""
+    from repro_torch.kernels import _build
+    b, s, d, n = a.shape
+    y = torch.empty((b, s, d), dtype=torch.float32, device=a.device)
+    h_last = torch.empty((b, d, n), dtype=torch.float32, device=a.device) \
+        if with_state else None
+    code = _build.load("selective_scan").selective_scan_launch(
+        a.data_ptr(), bx.data_ptr(), c.data_ptr(),
+        None if h0 is None else h0.data_ptr(), y.data_ptr(),
+        None if h_last is None else h_last.data_ptr(), b, s, d, n,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check("selective_scan", code)
+    return y
 
 
 def _fused_scan_case(torch, g, b, s, d, n, x_dtype, with_h0=False, reps=5):
@@ -1265,8 +1333,15 @@ def _hybrid_audio_cases(torch, g):
               _flash_case(torch, g, bh, 1, wh.head_dim, "bfloat16",
                           sk=wh.enc_seq, causal=False, again=True)]
     torch.cuda.empty_cache()
-    return _scan_case(torch, g, 1, PROMPT_LENS[0], rg.lru_width, 1, True,
-                      rglru=True)
+    # the RG-LRU at a 2048- and the 8192-token prefill, a training
+    # microbatch's (phase 8's step: 2 x 4096 tokens in microbatches of
+    # one row) and the whole batch's
+    _, rg_batch, rg_seq = TRAIN_ARCHS["recurrentgemma-2b"]
+    rglru = [_scan_case(torch, g, b, s, rg.lru_width, 1, True, rglru=True)
+             for b, s in ((1, PROMPT_LENS[0]), (1, long_s),
+                          (rg_batch // rg.microbatch, rg_seq),
+                          (rg_batch, rg_seq))]
+    return rglru[0]
 
 
 def _family_bwd_cases(torch, g):
@@ -1349,8 +1424,9 @@ def phase_kernels(torch, seed):
     lanes = _segment_lanes_case(torch, g, [MIX_B_ROWS[i % 2]
                                            for i in range(SERVE_MAX_BATCH)],
                                 MIX_B_ROWS[0], MIX_B_GROUPS)
-    # the MoE combine (phase 4's qwen3-moe-30b-a3b prefill of 2048 tokens)
-    _segment_moe_case(torch, g, MOE_TOKENS, MOE_TOP_K, MOE_D)
+    # the MoE combine (phases 4 and 8) on the wide route
+    moe = {what: _segment_moe_case(torch, g, *shape, what=what)
+           for what, shape in MOE_SHAPES.items()}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     tile = [
@@ -1412,6 +1488,7 @@ def phase_kernels(torch, seed):
             "flash_attention_bwd": bwd[0], "selective_scan_bwd": sbwd[0],
             "flash_attention_bwd[window, hd 256]": hyb,
             "selective_scan_bwd[a, bx]": abx,
+            "segment_reduce[wide]": moe["prefill"],
             "segment_reduce[lanes]": lanes}
 
 
@@ -3936,11 +4013,13 @@ def main(argv=None) -> int:
             launches[k] += n
         gc.collect()
         torch.cuda.empty_cache()
-        for k, n in phase_serve(torch, args.seed).items():
-            launches[k] = launches.get(k, 0) + n
+        # phases 4 and 8 launch the segment kernel only as the MoE
+        # combine, on its wide route: the kernel line's own item
+        served = phase_serve(torch, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
-        for k, n in phase_train(torch, args.seed).items():
+        for k, n in [*served.items(), *phase_train(torch, args.seed).items()]:
+            k = "segment_reduce[wide]" if k == "segment_reduce" else k
             launches[k] = launches.get(k, 0) + n
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
@@ -3952,6 +4031,10 @@ def main(argv=None) -> int:
     sources = {"segment_reduce": ("src/repro_torch/kernels/csrc/"
                                   "segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce.py:109"),
+               "segment_reduce[wide]": ("src/repro_torch/kernels/csrc/"
+                                        "segment_reduce.cu",
+                                        "src/repro/kernels/segment_reduce.py"
+                                        ":109"),
                "tile_matmul": ("src/repro_torch/kernels/csrc/tile_matmul.cu",
                                "src/repro/kernels/tile_matmul.py:69"),
                "flash_attention": ("src/repro_torch/kernels/csrc/"

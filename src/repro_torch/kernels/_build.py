@@ -47,6 +47,13 @@ SIGNATURES = {
                                        ctypes.c_int, ctypes.c_int, _P,
                                        ctypes.c_longlong, ctypes.c_int,
                                        ctypes.c_int],
+        "segment_reduce_wide_launch": [ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                                       ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_longlong, ctypes.c_int, _P,
+                                       ctypes.c_int, _P, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, _P, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_int],
     },
     "tile_matmul": {
         "tile_matmul_launch": [ctypes.c_int, _P, *[ctypes.c_longlong] * 4,
@@ -63,6 +70,7 @@ SIGNATURES = {
     },
     "selective_scan": {
         "selective_scan_launch": [*[_P] * 6, *[ctypes.c_int] * 4, _P],
+        "selective_scan_n1_launch": [*[_P] * 7, *[ctypes.c_int] * 4, _P],
         "selective_scan_fused_launch": [*[_P] * 5, ctypes.c_int, *[_P] * 3,
                                         *[ctypes.c_int] * 4, _P],
         "selective_scan_fused_ckpt_launch": [*[_P] * 5, ctypes.c_int,

@@ -13,7 +13,7 @@
 //
 // Bound: device-memory bytes.  The least traffic is the ids and values read
 // once and the [K, D] output written once.  Data read once is loaded with
-// the streaming hint (`__ldcs`, evict-first in L1 and L2).  Two paths:
+// the streaming hint (`__ldcs`, evict-first in L1 and L2).  Three paths:
 //   * small [K, D] (≤ kSmallCells cells: kmeans K = 64, histogram K = 256):
 //     each warp walks a fixed contiguous range of rows 32 at a time into
 //     its own copy of [K, D] in shared memory; the block merges its warps'
@@ -36,6 +36,13 @@
 //     (one value a row, or none, and at most kStageBuckets buckets: every
 //     main path) stages each bucket's open sector in shared memory and
 //     stores it whole.
+//   * wide rows (d ≥ 64: the MoE combine; segment_reduce_wide_launch): the
+//     large path's count, scans and scatter, but the scatter moves records
+//     of (id, row index) and no value, and the reduce's grid is (bucket,
+//     column tile), as the TPU kernel tiles the row width in its grid: a
+//     block reads its columns of each of its bucket's rows straight from
+//     the input, 16 bytes a thread (bf16 widened in registers), and every
+//     output cell is ⊕-ed in row order by the one thread that owns it.
 // The device-count entry (`segment_reduce_launch_rows`) takes the row count
 // from device memory: a lane of a served batch whose rows were padded to
 // the batch's length, counted on the device.  The grid and the scratch are
@@ -399,7 +406,9 @@ scan_chunks(int* __restrict__ counts, long long len, const int* __restrict__ sum
 
 // large path, pass 1b: every kept row's id and (unless the value is one
 // broadcast row) values to its place, stable in row order
-template <typename T, typename IdT>
+// With ROWS (the wide route) each kept row's record is (id, row index), an
+// int2 at sid[2·place], and no value is read.
+template <typename T, typename IdT, bool ROWS = false>
 __global__ void __launch_bounds__(kThreads)
 bucket_scatter(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n, int d,
                long long vstride, int k, int shift, int nb, long long per, Count count,
@@ -451,7 +460,9 @@ bucket_scatter(const IdT* __restrict__ ids, const T* __restrict__ vals, long lon
         if (pending) place = base + g.rank;
         __syncwarp();
       }
-      if (bucket >= 0) {
+      if (bucket >= 0 && ROWS) {
+        reinterpret_cast<int2*>(sid)[place] = make_int2((int)id[u], (int)r);
+      } else if (bucket >= 0) {
         sid[place] = (int)id[u];
         if (vstride != 0) {
           sval[(long long)place * d] = v0[u];
@@ -475,8 +486,9 @@ template <> __device__ __forceinline__ unsigned bits<int>(int v) { return (unsig
 // a bucket's first and last sectors, which it shares with its neighbours,
 // are stored record by record.  Scattered single-record stores leave
 // partial sectors to the L2 and cost a device-memory read-modify-write
-// each; whole sectors do not.
-template <typename T, typename IdT, int W>
+// each; whole sectors do not.  With ROWS (the wide route, W = 2) a
+// record's second word is the row's index, and no value is read.
+template <typename T, typename IdT, int W, bool ROWS = false>
 __global__ void __launch_bounds__(kThreads)
 bucket_scatter_staged(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n,
                       int k, int shift, int nb, long long per, Count count, int ranges,
@@ -508,14 +520,16 @@ bucket_scatter_staged(const IdT* __restrict__ ids, const T* __restrict__ vals, l
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long r = base + u * 32 + lane;
-      if (W == 2 && id[u] >= 0 && id[u] < k) v0[u] = __ldcs(vals + r);
+      if (W == 2 && !ROWS && id[u] >= 0 && id[u] < k) v0[u] = __ldcs(vals + r);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (base + u * 32 >= end) break;                     // warp-uniform
       const int bucket = id[u] >= 0 && id[u] < k ? (int)(id[u] >> shift) : -1;
       const unsigned idw = (unsigned)id[u];
-      const unsigned vw = W == 2 && bucket >= 0 ? bits<T>(v0[u]) : 0u;
+      const unsigned vw = W == 2 && bucket >= 0
+                              ? (ROWS ? (unsigned)(base + u * 32 + lane) : bits<T>(v0[u]))
+                              : 0u;
       // places taken in lane order, one a bucket a round: the scatter is
       // stable, and the lane that fills a sector stores it
       const bool pending = lane_rounds<kLargeRounds>(bucket >= 0, bucket, tags + w * kTags, [=] {
@@ -616,6 +630,160 @@ bucket_reduce(const int* __restrict__ ids, int istride, const T* __restrict__ ro
                                                        tags + w * kTags);
   __syncthreads();
   merge_warps<T, OP>(copies, warps, stride, cells, slice);
+}
+
+// ---------------------------------------------------------------------------
+// The wide route: rows of d ≥ 64 values (the MoE combine: 16,384 bf16 rows
+// of 2,048 into 2,048 tokens).  The count, the scans and the scatter above
+// order the kept rows by bucket, stable, but the scatter moves records of
+// (id, row index), 8 bytes a row, and no value.  wide_reduce then owns a
+// (bucket, column tile) cell of the grid, as the TPU kernel tiles the row
+// width in its grid: it walks the bucket's records in their stable order
+// and reads each row's columns of the tile straight from the input, one
+// 16-byte load a thread, widening bf16 in registers.  Each thread owns its
+// VEC columns of the bucket's ids for the whole walk, so every output cell
+// is ⊕-ed by one thread in row order, with no atomic and no barrier, and
+// written once (MODE kRegs, kShared).  The accumulators live in registers
+// when a bucket holds one id, else in shared memory ([span][VEC][threads],
+// conflict-free), else (a slice too large for it) in the output slice
+// itself, which only this block writes.
+// ---------------------------------------------------------------------------
+
+// bf16 values are read as their 16 bits and widened exactly by a shift
+using bf16_bits = unsigned short;
+
+// a value type in device memory: its accumulator and the values one
+// 16-byte load holds
+template <typename V> struct Wide;
+template <> struct Wide<float> { using T = float; static constexpr int kVec = 4; };
+template <> struct Wide<int> { using T = int; static constexpr int kVec = 4; };
+template <> struct Wide<bf16_bits> { using T = float; static constexpr int kVec = 8; };
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ int widen(int v) { return v; }
+__device__ __forceinline__ float widen(bf16_bits v) { return __uint_as_float((unsigned)v << 16); }
+
+// kVec values from 16-byte aligned memory, read once
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const int* p, int (&v)[4]) {
+  const int4 q = __ldcs(reinterpret_cast<const int4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const bf16_bits* p, float (&v)[8]) {
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// four accumulators to 16-byte aligned memory
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float e) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, e);
+}
+__device__ __forceinline__ void store4(int* p, int a, int b, int c, int e) {
+  *reinterpret_cast<int4*>(p) = make_int4(a, b, c, e);
+}
+
+enum WideMode { kRegs = 0, kShared = 1, kGlobal = 2 };
+constexpr int kWideRows = 8;              // records (rows) a thread loads ahead
+constexpr int kWideSlice = 64 * 1024;     // shared bytes of a block's accumulators at most
+constexpr int kWideMaxBuckets = 4096;     // buckets at most (pass 1's counters)
+
+// Block (bucket b, column tile y) of the wide route: rows rec[offs[b·ranges]
+// … offs[(b+1)·ranges]), each (id, row), their values vals[row·vstride + c]
+// for the tile's columns c; writes out[id, c] for the bucket's ids.  `vec`:
+// the rows' columns may be read 16 bytes at a time.
+template <typename V, int OP, int MODE>
+__global__ void wide_reduce(const int2* __restrict__ rec, const V* __restrict__ vals,
+                            long long vstride, int d, int k, int shift, int ranges,
+                            const int* __restrict__ offs, int vec,
+                            typename Wide<V>::T* __restrict__ out) {
+  using T = typename Wide<V>::T;
+  constexpr int VEC = Wide<V>::kVec;
+  extern __shared__ unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
+  if (c0 >= d) return;                    // no barrier follows: threads work alone
+  const long long lo = offs[(long long)b * ranges], hi = offs[(long long)(b + 1) * ranges];
+  const long long id_lo = (long long)b << shift;
+  const int span = (int)min((long long)1 << shift, (long long)k - id_lo);
+  const int nc = min(VEC, d - c0);
+  const bool whole = vec && nc == VEC;
+  // my cell (s, j): cells[s·sstride + j·jstride]
+  T* cells = nullptr;
+  long long sstride = 0, jstride = 0;
+  if (MODE == kShared) {
+    cells = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+    jstride = blockDim.x;
+    sstride = (long long)VEC * blockDim.x;
+  } else if (MODE == kGlobal) {
+    cells = out + id_lo * d + c0;
+    jstride = 1;
+    sstride = d;
+  }
+  T acc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = identity<T, OP>();
+  if (MODE != kRegs)
+    for (int s = 0; s < span; ++s)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        if (j < nc) cells[s * sstride + j * jstride] = identity<T, OP>();
+  const V* col = vals + c0;
+  for (long long p = lo; p < hi; p += kWideRows) {
+    const int m = (int)min((long long)kWideRows, hi - p);
+    int2 r[kWideRows];
+    T v[kWideRows][VEC];
+#pragma unroll
+    for (int u = 0; u < kWideRows; ++u)
+      if (u < m) r[u] = rec[p + u];
+#pragma unroll
+    for (int u = 0; u < kWideRows; ++u) {
+      if (u >= m) break;
+      const V* src = col + (long long)r[u].y * vstride;
+      if (whole) {
+        load_vec(src, v[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[u][j] = j < nc ? widen(__ldcs(src + j)) : identity<T, OP>();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kWideRows; ++u) {
+      if (u >= m) break;
+      if (MODE == kRegs) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[j] = combine<T, OP>(acc[j], v[u][j]);
+      } else {
+        T* c = cells + (long long)(r[u].x - id_lo) * sstride;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          if (j < nc) c[j * jstride] = combine<T, OP>(c[j * jstride], v[u][j]);
+      }
+    }
+  }
+  if (MODE == kGlobal) return;            // the cells are the output
+  for (int s = 0; s < span; ++s) {
+    if (MODE == kShared) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = cells[s * sstride + j * jstride];
+    }
+    T* dst = out + (id_lo + s) * d + c0;
+    if (whole && d % 4 == 0) {             // dst is 16-byte aligned
+#pragma unroll
+      for (int q = 0; q < VEC; q += 4) store4(dst + q, acc[q], acc[q + 1], acc[q + 2], acc[q + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        if (j < nc) dst[j] = acc[j];
+    }
+  }
 }
 
 long long align256(long long bytes) { return (bytes + 255) / 256 * 256; }
@@ -749,6 +917,104 @@ int launch_any(int dtype, int op, const void* ids, const void* vals, void* out, 
   return err ? err : (int)cudaGetLastError();
 }
 
+// The wide route: count, scan, scatter of (id, row) records, then the
+// (bucket, column tile) reduce with `threads` threads a block.
+template <typename V, int OP, typename IdT>
+int launch_wide(const IdT* ids, const V* vals, typename Wide<V>::T* out, long long n, int d,
+                long long vstride, int k, unsigned char* scratch, long long scratch_bytes,
+                int blocks, int shift, int threads, Count count, cudaStream_t s) {
+  using T = typename Wide<V>::T;
+  constexpr int VEC = Wide<V>::kVec;
+  if ((long long)k * d == 0) return 0;
+  const long long ranges = (long long)blocks * kWarps;
+  const long long per = ((n + ranges - 1) / ranges + 31) / 32 * 32;
+  const long long nb = (k + (1LL << shift) - 1) >> shift;
+  const long long len = nb * ranges + 1;
+  const long long chunks = (len + kScanChunk - 1) / kScanChunk;
+  const long long tile = (long long)threads * VEC;
+  const long long tiles = (d + tile - 1) / tile;
+  int* counts = reinterpret_cast<int*>(scratch);
+  int* sums = reinterpret_cast<int*>(scratch + align256(4 * len));
+  int2* rec = reinterpret_cast<int2*>(scratch + align256(4 * len) + align256(4 * chunks));
+  const long long need = align256(4 * len) + align256(4 * chunks) + 8 * n;
+  if (scratch_bytes < need || n >= (1LL << 31) || len >= (1LL << 31) || nb > kWideMaxBuckets ||
+      threads < 32 || threads > kThreads || (threads & (threads - 1)) != 0 || tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool staged = nb <= kStageBuckets;
+  const size_t smem1 = (size_t)kWarps * nb * sizeof(int);
+  const size_t smem_staged = (size_t)kWarps * nb * (2 * sizeof(int) + 32);
+  const long long span = k < (1LL << shift) ? k : 1LL << shift;   // a bucket's ids at most
+  const long long slice = span * tile * (long long)sizeof(T);
+  const int mode = span == 1 ? kRegs : slice <= kWideSlice ? kShared : kGlobal;
+  const size_t smem2 = mode == kShared ? (size_t)slice : 0;
+  const void* reduce = mode == kRegs     ? (const void*)wide_reduce<V, OP, kRegs>
+                       : mode == kShared ? (const void*)wide_reduce<V, OP, kShared>
+                                         : (const void*)wide_reduce<V, OP, kGlobal>;
+  int err = set_smem((const void*)bucket_count<IdT>, smem1);
+  if (!err && staged)
+    err = set_smem((const void*)bucket_scatter_staged<float, IdT, 2, true>, smem_staged);
+  if (!err && !staged) err = set_smem((const void*)bucket_scatter<float, IdT, true>, smem1);
+  if (!err) err = set_smem(reduce, smem2);
+  if (err) return err;
+  bucket_count<IdT><<<blocks, kThreads, smem1, s>>>(ids, n, k, shift, (int)nb, per, count,
+                                                    (int)ranges, counts);
+  scan_sums<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
+  scan_chunk_sums<<<1, kThreads, 0, s>>>(sums, (int)chunks);
+  scan_chunks<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
+  if (staged)
+    bucket_scatter_staged<float, IdT, 2, true><<<blocks, kThreads, smem_staged, s>>>(
+        ids, nullptr, n, k, shift, (int)nb, per, count, (int)ranges, counts,
+        reinterpret_cast<unsigned*>(rec));
+  else
+    bucket_scatter<float, IdT, true><<<blocks, kThreads, smem1, s>>>(
+        ids, nullptr, n, 1, 0, k, shift, (int)nb, per, count, (int)ranges, counts,
+        reinterpret_cast<int*>(rec), nullptr);
+  const int vec = reinterpret_cast<unsigned long long>(vals) % 16 == 0 &&
+                  (vstride * (long long)sizeof(V)) % 16 == 0;
+  const dim3 grid((unsigned)nb, (unsigned)tiles);
+  if (mode == kRegs)
+    wide_reduce<V, OP, kRegs><<<grid, threads, 0, s>>>(rec, vals, vstride, d, k, shift,
+                                                       (int)ranges, counts, vec, out);
+  else if (mode == kShared)
+    wide_reduce<V, OP, kShared><<<grid, threads, smem2, s>>>(rec, vals, vstride, d, k, shift,
+                                                             (int)ranges, counts, vec, out);
+  else
+    wide_reduce<V, OP, kGlobal><<<grid, threads, 0, s>>>(rec, vals, vstride, d, k, shift,
+                                                         (int)ranges, counts, vec, out);
+  return 0;
+}
+
+template <typename V, typename IdT>
+int wide_op(int op, const IdT* ids, const void* vals, void* out, long long n, int d,
+            long long vstride, int k, unsigned char* scratch, long long scratch_bytes, int blocks,
+            int shift, int threads, Count count, cudaStream_t s) {
+  using T = typename Wide<V>::T;
+  const V* v = static_cast<const V*>(vals);
+  T* o = static_cast<T*>(out);
+  if (op == kSum)
+    return launch_wide<V, kSum, IdT>(ids, v, o, n, d, vstride, k, scratch, scratch_bytes, blocks,
+                                     shift, threads, count, s);
+  if (op == kMin)
+    return launch_wide<V, kMin, IdT>(ids, v, o, n, d, vstride, k, scratch, scratch_bytes, blocks,
+                                     shift, threads, count, s);
+  return launch_wide<V, kMax, IdT>(ids, v, o, n, d, vstride, k, scratch, scratch_bytes, blocks,
+                                   shift, threads, count, s);
+}
+
+template <typename IdT>
+int wide_dtype(int dtype, int op, const IdT* ids, const void* vals, void* out, long long n,
+               int d, long long vstride, int k, unsigned char* scratch, long long scratch_bytes,
+               int blocks, int shift, int threads, Count count, cudaStream_t s) {
+  if (dtype == 0)
+    return wide_op<float, IdT>(op, ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+                               blocks, shift, threads, count, s);
+  if (dtype == 1)
+    return wide_op<int, IdT>(op, ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+                             blocks, shift, threads, count, s);
+  return wide_op<bf16_bits, IdT>(op, ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+                                 blocks, shift, threads, count, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = int32.  op: 0 = +, 1 = min, 2 = max.  ids [n],
@@ -784,6 +1050,35 @@ extern "C" int segment_reduce_launch_rows(int dtype, int op, const void* ids, co
   return launch_any(dtype, op, ids, vals, out, n, d, vstride, k, stream, id64, scratch,
                     scratch_bytes, blocks, shift,
                     Count{static_cast<const int*>(n_rows), base, cap, rpb});
+}
+
+// The wide route (rows of d ≥ 64 values; kernels/segment_reduce.py::_route):
+// the arguments of segment_reduce_launch, with dtype 0 = float32, 1 =
+// int32, 2 = bf16 (summed in float32: `out` is float32); `shift` the
+// bucket size 2^shift; `threads` a reduce block's threads (its column tile
+// is threads · 16 bytes of values); the scratch holds the counts, the
+// scan's sums and a record of (id, row) for every kept row.  With `n_rows`
+// (a device count, as segment_reduce_launch_rows: `base`, `cap`, `rpb`) the
+// launch reduces the first `*n_rows - base` rows; null: all n.  Every
+// output cell is the ⊕ of its rows in row order, by one thread.
+extern "C" int segment_reduce_wide_launch(int dtype, int op, const void* ids, const void* vals,
+                                          void* out, long long n, int d, long long vstride,
+                                          int k, void* stream, int id64, void* scratch,
+                                          long long scratch_bytes, int blocks, int shift,
+                                          int threads, const void* n_rows, long long base,
+                                          int cap, int rpb) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (op < 0 || op > 2 || d < 1 || k < 0 || n < 0 || blocks < 1 || shift < 0 || shift > 30 ||
+      dtype < 0 || dtype > 2 || (n_rows != nullptr && (cap < 1 || rpb < 1)))
+    return (int)cudaErrorInvalidValue;
+  const Count count{static_cast<const int*>(n_rows), base, cap, rpb};
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  const int err =
+      id64 ? wide_dtype<long long>(dtype, op, (const long long*)ids, vals, out, n, d, vstride, k,
+                                   sc, scratch_bytes, blocks, shift, threads, count, s)
+           : wide_dtype<int>(dtype, op, (const int*)ids, vals, out, n, d, vstride, k, sc,
+                             scratch_bytes, blocks, shift, threads, count, s);
+  return err ? err : (int)cudaGetLastError();
 }
 
 extern "C" const char* segment_reduce_error_string(int code) {

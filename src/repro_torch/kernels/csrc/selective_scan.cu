@@ -49,6 +49,22 @@
 // falcon-mamba-7b prefill's shape on an H100 (fewer states a thread means
 // more threads but more shuffles).  NPT and L are template parameters, so
 // that every index and the shuffle loop are known to the compiler.
+//
+// The (a, bx) entry at N = 1 (the RG-LRU: [B, S, 2560] with c = 1) has a
+// path of its own, `selective_scan_n1_launch`.  One state a channel leaves
+// the template one lane a channel, 80 one-warp blocks at D = 2560, each
+// walking every step in a chain of loads; so S is cut into chunks of
+// `chunk` steps walked in parallel (the reference computes the RG-LRU the
+// same way: an associative scan within chunks under a scan over them).
+//   * n1_totals: each (channel, chunk but the last) walks its chunk from
+//     zero and keeps (Π a, h_end) in `carry` [B, chunks, D];
+//   * n1_walk: each (channel, chunk) folds h0 through the earlier chunks'
+//     (Π a, h_end) in chunk order, h = Π a · h + h_end, then walks its chunk
+//     from that state and writes y = c·h (and h_last from the last chunk).
+// Every fold runs in one fixed order, so every launch gives the same bits.
+// A thread loads kN1Batch steps of a and bx before it walks them, so the
+// chain waits on the FMAs, not on device memory.  The bytes are a and bx
+// read twice and y written once: 20 bytes a (t, d) against the bound's 12.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -213,7 +229,9 @@ int launch(const Args& g, int B, cudaStream_t s) {
   static_assert(kStates == 2, "the cases below spell out kStates = 2");
   const dim3 grid((g.D + kChannels - 1) / kChannels, B);
   switch (g.N) {
-    case 1: return run<1, 1, FUSED, XT>(g, grid, s);
+    case 1:   // the (a, bx) entry's N = 1 is selective_scan_n1_launch's
+      if constexpr (FUSED) return run<1, 1, FUSED, XT>(g, grid, s);
+      return (int)cudaErrorInvalidValue;
     case 2: return run<2, 1, FUSED, XT>(g, grid, s);
     case 4: return run<2, 2, FUSED, XT>(g, grid, s);
     case 8: return run<2, 4, FUSED, XT>(g, grid, s);
@@ -237,6 +255,79 @@ int launch_fused(const void* dt, const void* A, const void* Bm, const void* Cm, 
          (const float*)Cm, (const float*)h0, (float*)y, (float*)h_last, (float*)ckpt, S, D, N};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return x_bf16 ? launch<true, __nv_bfloat16>(g, B, s) : launch<true, float>(g, B, s);
+}
+
+// ---------------------------------------------------------------------------
+// the (a, bx) entry at N = 1: chunks walked in parallel
+// ---------------------------------------------------------------------------
+
+constexpr int kN1Tile = 128;    // channels a block
+constexpr int kN1Batch = 16;    // steps a thread loads before it walks them
+
+// chunk j < chunks - 1 (blockIdx.y) of channels d of batch row b: (Π a,
+// h_end from zero) into carry[b, j, d]; chunk is a multiple of kN1Batch
+__global__ void __launch_bounds__(kN1Tile)
+n1_totals(const float* __restrict__ a, const float* __restrict__ bx, float2* __restrict__ carry,
+          int S, int D, int chunk, int chunks) {
+  const int d = blockIdx.x * kN1Tile + threadIdx.x;
+  if (d >= D) return;
+  const int j = blockIdx.y, b = blockIdx.z;
+  const long long at = ((long long)b * S + (long long)j * chunk) * D + d;
+  float A = 1.f, H = 0.f;
+  for (int t = 0; t < chunk; t += kN1Batch) {
+    float av[kN1Batch], bv[kN1Batch];
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      av[u] = __ldg(a + at + (long long)(t + u) * D);
+      bv[u] = __ldg(bx + at + (long long)(t + u) * D);
+    }
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      H = fmaf(av[u], H, bv[u]);
+      A *= av[u];
+    }
+  }
+  carry[((long long)b * chunks + j) * D + d] = make_float2(A, H);
+}
+
+// chunk j (blockIdx.y) of channels d of batch row b: its state from h0 and
+// the earlier chunks' carries, then its steps; y [B, S, D], c [B, S]
+__global__ void __launch_bounds__(kN1Tile)
+n1_walk(const float* __restrict__ a, const float* __restrict__ bx, const float* __restrict__ c,
+        const float* __restrict__ h0, const float2* __restrict__ carry, float* __restrict__ y,
+        float* __restrict__ h_last, int S, int D, int chunk) {
+  const int d = blockIdx.x * kN1Tile + threadIdx.x;
+  if (d >= D) return;
+  const int j = blockIdx.y, b = blockIdx.z, chunks = gridDim.y;
+  float h = h0 != nullptr ? h0[(long long)b * D + d] : 0.f;
+  const float2* cb = carry + (long long)b * chunks * D + d;
+#pragma unroll 8
+  for (int i = 0; i < j; ++i) {
+    const float2 g = cb[(long long)i * D];
+    h = fmaf(g.x, h, g.y);
+  }
+  const int t0 = j * chunk, tn = min(chunk, S - t0);
+  const long long at = ((long long)b * S + t0) * D + d;
+  const float* cs = c + (long long)b * S + t0;
+  for (int t = 0; t < tn; t += kN1Batch) {
+    float av[kN1Batch], bv[kN1Batch], cv[kN1Batch];
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      if (t + u < tn) {
+        av[u] = __ldcs(a + at + (long long)(t + u) * D);
+        bv[u] = __ldcs(bx + at + (long long)(t + u) * D);
+        cv[u] = __ldg(cs + t + u);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      if (t + u < tn) {
+        h = fmaf(av[u], h, bv[u]);
+        y[at + (long long)(t + u) * D] = h * cv[u];
+      }
+    }
+  }
+  if (h_last != nullptr && j == chunks - 1) h_last[(long long)b * D + d] = h;
 }
 
 }  // namespace
@@ -274,6 +365,31 @@ extern "C" int selective_scan_fused_ckpt_launch(const void* dt, const void* A, c
                                                 void* ckpt, int B, int S, int D, int N,
                                                 void* stream) {
   return launch_fused(dt, A, Bm, Cm, x, x_bf16, h0, y, h_last, ckpt, B, S, D, N, stream);
+}
+
+// The (a, bx) entry at N = 1, in chunks of `chunk` steps (a positive
+// multiple of 16): a, bx [B, S, D] (the [B, S, D, 1] arrays), c [B, S],
+// h0, h_last [B, D] or null, y [B, S, D]; `carry` is float32 scratch of 2 ·
+// B · max(1, ceil(S / chunk)) · D.  All float32 and contiguous.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int selective_scan_n1_launch(const void* a, const void* bx, const void* c,
+                                        const void* h0, void* y, void* h_last, void* carry,
+                                        int B, int S, int D, int chunk, void* stream) {
+  if (B < 0 || S < 0 || D < 0 || B > 65535 || chunk < kN1Batch || chunk % kN1Batch != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || D == 0) return (int)cudaGetLastError();
+  const long long chunks = S == 0 ? 1 : ((long long)S + chunk - 1) / chunk;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const unsigned tiles = (unsigned)((D + kN1Tile - 1) / kN1Tile);
+  float2* cr = static_cast<float2*>(carry);
+  if (chunks > 1)
+    n1_totals<<<dim3(tiles, (unsigned)chunks - 1, B), kN1Tile, 0, s>>>(
+        (const float*)a, (const float*)bx, cr, S, D, chunk, (int)chunks);
+  n1_walk<<<dim3(tiles, (unsigned)chunks, B), kN1Tile, 0, s>>>(
+      (const float*)a, (const float*)bx, (const float*)c, (const float*)h0, cr, (float*)y,
+      (float*)h_last, S, D, chunk);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int selective_scan_ckpt_steps() { return kCkpt; }

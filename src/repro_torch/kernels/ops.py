@@ -9,8 +9,9 @@ integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
 `selective_scan_fused` counts in `selective_scan_fused.launches`; the
 backward kernels count in `flash_attention_bwd.launches`,
 `selective_scan_fused_bwd.launches` and, for the scan's (a, bx) entry,
-`selective_scan_bwd.launches`), so a run can show that it went through
-the kernels.
+`selective_scan_bwd.launches`; the segment kernel's device-count entry
+also in `segment_reduce.rows_launches`, "segment_reduce[rows]" below), so
+a run can show that it went through the kernels.
 
 The counts are of launches that ran on the device.  A CUDA graph capture
 calls the wrappers, but launches nothing: `captured()` takes the counts the
@@ -23,7 +24,7 @@ from contextlib import contextmanager
 
 from ._build import build_all
 from .flash_attention import flash_attention, flash_attention_bwd
-from .segment_reduce import segment_reduce, segment_sum
+from .segment_reduce import rows_launches, segment_reduce, segment_sum
 from .selective_scan import (selective_scan, selective_scan_bwd,
                              selective_scan_fused, selective_scan_fused_bwd)
 from .tile_matmul import tile_matmul, tile_matmul_packed
@@ -36,10 +37,12 @@ KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
            "selective_scan_bwd": selective_scan_fused_bwd}
 
 
-# every counting wrapper: the kernels, the scan's second entry and the
-# (a, bx) entry's backward (in the selective_scan_bwd library)
+# every counter: the kernels, the scan's second entry, the (a, bx) entry's
+# backward (in the selective_scan_bwd library) and the segment kernel's
+# device-count launches (a part of its own)
 COUNTED = {**KERNELS, "selective_scan_fused": selective_scan_fused,
-           "selective_scan_bwd[a, bx]": selective_scan_bwd}
+           "selective_scan_bwd[a, bx]": selective_scan_bwd,
+           "segment_reduce[rows]": rows_launches}
 
 
 def launch_counts() -> dict:

@@ -9,9 +9,14 @@ launch, float sums too.  It uses no atomics on device memory and runs no
 separate fill: a small [K, D] is reduced into warp-private copies in
 shared memory merged in a fixed order, a large one by a partitioned
 reduction (rows counted and scattered, stable, into buckets of ids, then
-one block a bucket).  It is bound by device-memory bytes — ids and values
-read once, the [K, D] output written once — and reads no value of a
-dropped row at all.
+one block a bucket).  Rows of at least `_WIDE_MIN_D` values (the MoE
+combine) take the wide route (`_route`): the same count and scatter, of
+(id, row index) records only, then a grid of (bucket, column tile) blocks
+that read each row's columns straight from the input, bf16 widened in
+registers, and ⊕ each output cell in row order in the one thread that
+owns it.  It is bound by device-memory bytes — ids and values read once,
+the [K, D] output written once — and reads no value of a dropped row at
+all.
 
 The order of the sums is fixed by the rows alone, not by N: rows are
 reduced in ranges of `RANGE_ROWS` rows, each range in an order fixed by
@@ -23,8 +28,11 @@ chunked, out-of-core run whose chunks are ranges).
 Contract (the JAX kernel's): ids [N] int; values [N] or [N, D] →
 [K] or [K, D].  Ids < 0 or ≥ K contribute nothing.  Integer values
 accumulate exactly in int32, floats in float32; the result has the
-accumulator's dtype.  A NaN in a kept row propagates through min/max, as
-jnp.min/jnp.max do.  int32 and int64 ids are read as they are.
+accumulator's dtype.  The wide route reads float32, int32 and bf16 values
+as they are; other dtypes, and bf16 rows narrower than `_WIDE_MIN_D`, are
+converted to the accumulator's dtype first.  A NaN in a kept row
+propagates through min/max, as jnp.min/jnp.max do.  int32 and int64 ids
+are read as they are.
 """
 from __future__ import annotations
 
@@ -92,15 +100,73 @@ _SMALL_BLOCKS, _LARGE_BLOCKS = 528, 264   # 4 and 2 blocks an SM of an H100
 _MIN_BUCKETS, _MAX_BUCKETS = 512, 4096
 RANGE_ROWS = 2 ** 26       # rows one launch takes; the unit of the order
 _COMBINE = {"+": torch.add, "min": torch.minimum, "max": torch.maximum}
+# the wide route (csrc/segment_reduce.cu: wide_reduce): rows of at least
+# _WIDE_MIN_D values; blocks of the count and scatter passes of
+# _WIDE_ROWS_PER_BLOCK rows; reduce blocks of up to 256 threads, halved
+# down to one warp until there are _WIDE_MIN_BLOCKS (bucket, column tile)
+# blocks where the shape allows
+_WIDE_MIN_D = 64
+_WIDE_ROWS_PER_BLOCK = 2048
+_WIDE_MIN_BLOCKS = 264
+# the C entries' value dtype codes: the wide entry reads all three, the
+# bucketed ones the accumulators' two
+_WIDE_DTYPES = {torch.float32: 0, torch.int32: 1, torch.bfloat16: 2}
 
 
 def _a256(nbytes: int) -> int:
     return -(-nbytes // 256) * 256
 
 
+def _route(d: int, k: int) -> str:
+    """The kernel path of a launch of rows of d values into k segments:
+    "wide" for rows of at least _WIDE_MIN_D values, else "small" for a
+    [K, D] of at most _SMALL_CELLS cells, else "buckets"."""
+    if d >= _WIDE_MIN_D:
+        return "wide"
+    return "small" if k * d <= _SMALL_CELLS else "buckets"
+
+
 def _plan(n: int, d: int, k: int, vstride: int):
     """(blocks, shift, scratch bytes) of one launch, from the sizes alone,
-    so that the same inputs are reduced in the same order on every launch.
+    so that the same inputs are reduced in the same order on every launch:
+    `_wide_plan`'s on the wide route, else `_bucket_plan`'s."""
+    if _route(d, k) == "wide":
+        return _wide_plan(n, d, k)
+    return _bucket_plan(n, d, k, vstride)
+
+
+def _wide_plan(n: int, d: int, k: int):
+    """The wide route's (blocks, shift, scratch bytes): `blocks` blocks of
+    _WIDE_ROWS_PER_BLOCK rows count and scatter; buckets of 2^shift ids,
+    the fewest ids a bucket within _MAX_BUCKETS buckets; the scratch holds
+    the [bucket, warp range] counts, the scan's chunk sums and an 8-byte
+    (id, row) record a row."""
+    blocks = max(1, min(_LARGE_BLOCKS, -(-n // _WIDE_ROWS_PER_BLOCK)))
+    shift = 0
+    while -(-k >> shift) > _MAX_BUCKETS:
+        shift += 1
+    length = -(-k >> shift) * blocks * _WARPS + 1
+    chunks = -(-length // _SCAN_CHUNK)
+    return blocks, shift, _a256(4 * length) + _a256(4 * chunks) + 8 * n
+
+
+def _wide_threads(d: int, k: int, shift: int, itemsize: int) -> int:
+    """Threads of a wide reduce block: its column tile is 16 bytes of
+    values a thread; 256, halved down to 32 while half the tile still
+    covers the row, then while the (bucket, column tile) grid has fewer
+    than _WIDE_MIN_BLOCKS blocks."""
+    buckets, vec = -(-k >> shift), 16 // itemsize
+    threads = 256
+    while threads > 32 and threads // 2 * vec >= d:
+        threads //= 2
+    while threads > 32 and buckets * -(-d // (threads * vec)) \
+            < _WIDE_MIN_BLOCKS:
+        threads //= 2
+    return threads
+
+
+def _bucket_plan(n: int, d: int, k: int, vstride: int):
+    """(blocks, shift, scratch bytes) of the small and bucketed paths.
 
     `blocks` blocks of 8 warps each walk a fixed contiguous range of rows.
     shift = -1 takes the small path, whose scratch holds the blocks'
@@ -172,6 +238,16 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+",
 segment_reduce.launches = 0
 
 
+class _Count:
+    """A launch counter beside a wrapper's own."""
+    launches = 0
+
+
+# the device-count entry's launches (`n_rows=`), which segment_reduce's
+# count includes: `ops.launch_counts()["segment_reduce[rows]"]`
+rows_launches = _Count()
+
+
 def _check_count(n_rows, values) -> None:
     if not torch.is_tensor(n_rows) or n_rows.dtype != torch.int32 \
             or n_rows.dim() != 0 or n_rows.device != values.device:
@@ -205,7 +281,9 @@ def _launch(ids, values, num_segments: int, op: str, n_rows=None,
     if n > RANGE_ROWS:
         return _by_ranges(ids, values, k, op, n_rows=n_rows)
     acc = _acc_dtype(vals.dtype)
-    vals = vals.to(acc)
+    wide = _route(d, k) == "wide"
+    if not (wide and vals.dtype in _WIDE_DTYPES):
+        vals = vals.to(acc)
     if vals.stride(0) == 0 and (d == 1 or vals.stride(1) == 1):
         vstride = 0          # one broadcast row: read it, never copy it
     else:
@@ -220,11 +298,18 @@ def _launch(ids, values, num_segments: int, op: str, n_rows=None,
                           device=vals.device)
     lib = _build.load("segment_reduce")
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    args = (0 if acc == torch.float32 else 1, _OPS[op], ids.data_ptr(),
+    args = (_WIDE_DTYPES[vals.dtype], _OPS[op], ids.data_ptr(),
             vals.data_ptr(), out.data_ptr(), n, d, vstride, k, stream,
             int(ids.dtype == torch.int64), scratch.data_ptr(), scratch_bytes,
             blocks, shift)
-    if n_rows is None:
+    if wide:
+        # a device count's plan is derived on the device as _wide_plan
+        # makes it: the same block cap and rows a block
+        count = (None, 0, 1, 1) if n_rows is None else \
+            (n_rows.data_ptr(), base, _LARGE_BLOCKS, _WIDE_ROWS_PER_BLOCK)
+        code = lib.segment_reduce_wide_launch(
+            *args, _wide_threads(d, k, shift, vals.element_size()), *count)
+    elif n_rows is None:
         code = lib.segment_reduce_launch(*args)
     else:
         # the device derives the counted rows' plan as _plan does: the
@@ -234,6 +319,8 @@ def _launch(ids, values, num_segments: int, op: str, n_rows=None,
                                               cap, _ROWS_PER_BLOCK)
     _build.check("segment_reduce", code)
     segment_reduce.launches += 1
+    if n_rows is not None:
+        rows_launches.launches += 1
     return out[:, 0] if squeeze else out
 
 

@@ -15,7 +15,10 @@ Two entries, built from one kernel template:
 
 * `selective_scan(a, bx, c, h0, return_state)`, the TPU kernel's
   contract: a, bx [B, S, D, N], c [B, S, N] → y [B, S, D], all float32.
-  Bound by device-memory bytes (a and bx read once, y written once).
+  Bound by device-memory bytes (a and bx read once, y written once).  At
+  N = 1 (the RG-LRU) it takes a path of its own: S cut into chunks of
+  `_n1_chunk(S)` steps walked in parallel, each chunk's (Π a, h_end)
+  folded from h0 in chunk order (`selective_scan_n1_launch`).
 * `selective_scan_fused(dt, A, Bm, Cm, x, h0, return_state)`, the
   discretisation fused in: a_t = exp(dt·A) and bx_t = (dt·x)·B are formed
   in registers, in the order the model's `_ssm_params` computes them, so
@@ -104,15 +107,32 @@ def selective_scan(a, bx, c, h0=None, *, return_state: bool = False):
     y, h_last = _outputs(b, s, d, n, return_state, a.device)
     lib = _build.load("selective_scan")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = lib.selective_scan_launch(
-        a.data_ptr(), bx.data_ptr(), c.data_ptr(), _ptr(h0), y.data_ptr(),
-        _ptr(h_last), b, s, d, n, stream)
+    ptrs = (a.data_ptr(), bx.data_ptr(), c.data_ptr(), _ptr(h0),
+            y.data_ptr(), _ptr(h_last))
+    if n == 1:
+        chunk = _n1_chunk(s)
+        carry = torch.empty(2 * b * max(1, -(-s // chunk)) * d,
+                            dtype=torch.float32, device=a.device)
+        code = lib.selective_scan_n1_launch(*ptrs, carry.data_ptr(), b, s,
+                                            d, chunk, stream)
+    else:
+        code = lib.selective_scan_launch(*ptrs, b, s, d, n, stream)
     _build.check("selective_scan", code)
     selective_scan.launches += 1
     return (y, h_last) if return_state else y
 
 
 selective_scan.launches = 0
+
+# the N = 1 path's chunks: at most _N1_CHUNKS of at least _N1_MIN_CHUNK
+# steps, a multiple of 16 (csrc/selective_scan.cu: kN1Batch)
+_N1_CHUNKS, _N1_MIN_CHUNK = 32, 64
+
+
+def _n1_chunk(s: int) -> int:
+    """Steps a chunk of the N = 1 path: from S alone, so that the same
+    inputs are folded in the same order on every launch."""
+    return max(_N1_MIN_CHUNK, -(-s // (16 * _N1_CHUNKS)) * 16)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,11 @@ The combine step is the paper's incremental-update pattern
     for a in assignments:  Y[token(a)] += weight(a) * expert_out(a)
 
 a group-by destination index with a commutative ⊕ (paper §3.7).  Here it
-runs the hand-written `segment_reduce` kernel on the card (float32
-accumulation, the same bits on every launch) and its plain version on
-the CPU, as every other float + group-by of the port does; the result is
+runs the hand-written `segment_reduce` kernel on the card (its wide
+route: the rows handed in as they are, bf16 included, widened in
+registers, float32 accumulation, the same bits on every launch) and its
+plain version on the CPU, as every other float + group-by of the port
+does; the result is
 cast back to the activation dtype once.  The reference adds the k
 contributions into a buffer of the activation dtype, so in bf16 the two
 differ in rounding only.
@@ -105,8 +107,8 @@ def _padded_expert_pass(x_rows, flat_e, slot, keep, n_experts, width,
 
 class SegmentAdd(torch.autograd.Function):
     """The combine with its backward: the forward is the segment kernel
-    (float32 sums), the backward gathers each row's segment gradient,
-    `dy[src]`, in the values' dtype."""
+    (the rows unwidened, float32 sums), the backward gathers each row's
+    segment gradient, `dy[src]`, in the values' dtype."""
 
     @staticmethod
     def forward(ctx, values, segment_ids, num_segments):

@@ -360,7 +360,8 @@ def test_cpu_wrappers_count_no_launches():
                                    "selective_scan_fused": 0,
                                    "flash_attention_bwd": 0,
                                    "selective_scan_bwd": 0,
-                                   "selective_scan_bwd[a, bx]": 0}
+                                   "selective_scan_bwd[a, bx]": 0,
+                                   "segment_reduce[rows]": 0}
 
 
 def test_every_source_has_its_ctypes_signatures():

@@ -54,11 +54,15 @@ first mismatch:
              the shapes of the hybrid and audio families: flash bf16
              [10, 8192, 256] causal within a 2048-token window (one lattn
              layer of recurrentgemma-2b's 8192-token prefill; against
-             `scaled_dot_product_attention` with the same boolean mask)
-             and [10, 2048, 256] causal, float32 [10, 1531, 256] within a
-             256-token window, whisper-tiny's encoder [24, 1500, 64] and a
-             decode tick's cross-attention [24, 1, 64] x [24, 1500, 64],
-             both full; and the scan's (a, bx) entry as the RG-LRU calls
+             `scaled_dot_product_attention` with the same boolean mask),
+             [10, 2048, 256] causal and [10, 4096, 256] within the window
+             (a training microbatch's lattn layer), float32 [10, 1531,
+             256] within a 256-token window, whisper-tiny's encoder [24,
+             1500, 64] and a decode tick's cross-attention [24, 1, 64] x
+             [24, 1500, 64], both full (the bf16 ones at hd 64 and 256
+             from 64 query rows on the forward's wgmma route,
+             `flash_attention[wg]`, which each case checks by its launch
+             count); and the scan's (a, bx) entry as the RG-LRU calls
              it, [1, 2048, 2560, 1], [1, 8192, 2560, 1], [1, 4096,
              2560, 1] (a training microbatch) and [2, 4096, 2560, 1]
              with c = 1, h0 and the final state; each launched twice
@@ -190,9 +194,9 @@ first mismatch:
              whose loss must fall; then whisper-tiny six steps against a
              run failed at step 5 and resumed from its step-4 snapshot
              (each array read once, its crc32 checked as it is loaded),
-             bit-equal leaf by leaf; then a float32 copy of each (weights
-             drawn on the card from --seed and copied to the CPU: 2
-             layers of llama3-8b and falcon-mamba-7b, 1 of
+             bit-equal leaf by leaf; then a float32 copy of each but
+             llama3-8b (weights drawn on the card from --seed and copied
+             to the CPU: 2 layers of falcon-mamba-7b, 1 of
              qwen3-moe-30b-a3b with rows dropped by capacity, one (rec,
              rec, lattn) period of recurrentgemma-2b at 2300 tokens, past
              its window, the whole whisper-tiny) takes one step's
@@ -204,7 +208,9 @@ Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4.
 The line before the last is a JSON object with one entry per kernel
 (segment_reduce's launches count phases 3, 5, 6 and 7's world of 1;
 segment_reduce[wide]'s the MoE combines of phases 4 and 8;
-flash_attention's and selective_scan's (both entries) phases 4 and 8;
+flash_attention's and selective_scan's (both entries) phases 4 and 8,
+flash_attention[wg]'s the part of flash_attention's on the wgmma route
+(recurrentgemma-2b's and whisper-tiny's full-sequence attentions);
 the backward kernels' phase 8, the windowed hd-256 flash backward
 (recurrentgemma-2b's) apart from the other flash backwards); the last line
 is {"ok": true, "device": {...}}.
@@ -220,10 +226,11 @@ that differ from the current ones, and phase 2 times each such kernel
 through the same wrapper with the earlier library and the current one,
 interleaved (earlier, current, current, earlier): `parent_ms` and
 `change_ms` in its `[kernels]` records, the backward kernels' too.  The
-segment kernel's wide route and the scan's N = 1 path call C entries
-that a library older than them lacks; there the earlier library is
-timed through its own entries as its wrapper called them
-(`_bucketed_launch`, `_scan_launch_n1_parent`).
+segment kernel's wide route, the scan's N = 1 path and the flash
+forward's wgmma route call C entries that a library older than them
+lacks; there the earlier library is timed through its own entries as
+its wrapper called them (`_bucketed_launch`, `_scan_launch_n1_parent`,
+`_flash_launch_parent`).
 """
 from __future__ import annotations
 
@@ -274,7 +281,8 @@ SERVE_ARCHS = {"llama3-8b": ("flash_attention",),
                "qwen2-72b": ("flash_attention",),
                "qwen3-moe-30b-a3b": ("flash_attention", "segment_reduce"),
                "arctic-480b": ("flash_attention", "segment_reduce"),
-               "recurrentgemma-2b": ("flash_attention", "selective_scan")}
+               "recurrentgemma-2b": ("flash_attention", "flash_attention[wg]",
+                                     "selective_scan")}
 # layers kept where a config's bf16 weights do not fit one 80 GB card:
 # qwen2-72b 145 GB -> 61.2 GB, arctic-480b 951 GB -> 55.4 GB (one layer's
 # 128 experts are 26.8 GB); no cut is made in width
@@ -868,8 +876,12 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5, sk=None, causal=True,
     """Attention at a prefill's shape [B·Hq, S, hd]: causal (with a local
     window when `window` > 0), or full with `sk` keys (an encoder, or
     cross-attention when sk != s).  `again`: a second launch must give the
-    same bits."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    same bits.  A shape of the wgmma route (bf16, hd 64 or 256, S ≥ 64)
+    also checks that the route took it, and --parent times the earlier
+    library through the entry its wrapper called there
+    (`_flash_launch_parent`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (_route, flash_attention,
                                                      flash_attention_plain)
     dt = getattr(torch, dtype)
     sk = s if sk is None else sk
@@ -877,6 +889,8 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5, sk=None, causal=True,
     k, v = (torch.randn(bh, sk, hd, generator=g, device="cuda").to(dt)
             for _ in range(2))
     kw = dict(causal=causal, window=window)
+    wg = _route(dt, hd, s) == "wgmma"
+    before = ops.launch_counts()["flash_attention[wg]"]
     got = flash_attention(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -887,6 +901,9 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5, sk=None, causal=True,
     require(got.dtype == dt and got.shape == want.shape,
             f"flash_attention {form} {shape} {dtype}: got {got.dtype} "
             f"{tuple(got.shape)}")
+    require(ops.launch_counts()["flash_attention[wg]"] == before + wg,
+            f"flash_attention {form} {shape} {dtype}: the wgmma route "
+            f"{'not ' if wg else ''}taken")
     if again:
         require(torch.equal(flash_attention(q, k, v, **kw), got),
                 f"flash_attention {form} {shape} {dtype}: a second launch "
@@ -907,7 +924,9 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5, sk=None, causal=True,
             f"max|ref| {err / float(ref.max()):.3g})")
     del want, diff, ref
     kern = _kernel_ms(torch, "flash_attention",
-                      lambda: flash_attention(q, k, v, **kw), reps)
+                      lambda: flash_attention(q, k, v, **kw), reps,
+                      parent_fn=(lambda: _flash_launch_parent(
+                          torch, q, k, v, **kw)) if wg else None)
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw),
                        reps if window == 0 else 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -931,13 +950,29 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5, sk=None, causal=True,
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"flash_attention {form} {shape} {dtype}",
-               max_abs_err=err, row_rel_err=row_err,
+               route=_route(dt, hd, s), max_abs_err=err, row_rel_err=row_err,
                tol=f"{rel:g}*max|ref row| per query row", **kern,
                plain_ms=plain_ms, library_ms=library_ms, library=library,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                same_bits_twice=again or None)
     return _rates(rec, flops)
+
+
+def _flash_launch_parent(torch, q, k, v, causal, window):
+    """The bf16 forward as the earlier wrapper launched it at hd 64 and
+    256: the C entry `flash_attention_launch` (unchanged) of the library
+    `_kernel_ms` installed, which has no wgmma route: --parent's side of
+    the wgmma route's timings."""
+    from repro_torch.kernels import _build
+    out = torch.empty_like(q)
+    bh, s, hd = q.shape
+    code = _build.load("flash_attention").flash_attention_launch(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
+        k.shape[1], hd, hd ** -0.5, int(causal), window,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_attention", code)
+    return out
 
 
 def _scan_case(torch, g, b, s, d, n, with_h0, reps=5, rglru=False):
@@ -1309,22 +1344,27 @@ def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
 
 def _hybrid_audio_cases(torch, g):
     """The shapes the hybrid and audio families give the two kernels
-    (phase 4): one lattn layer of recurrentgemma-2b's 8192-token prefill
-    (10 query heads on its one KV head, hd 256, window 2048) and of the
-    2048-token one; the float32 check's variant over ragged tiles;
-    whisper-tiny's encoder at 4 requests (6 heads, 1500 frames, hd 64)
-    and a decode tick's cross-attention; the rec layer's RG-LRU on the
-    scan's (a, bx) entry.  Each held against its plain version and
-    launched twice with the same bits.  Returns the RG-LRU's record, the
-    (a, bx) entry's item of the kernels line."""
+    (phases 4 and 8): one lattn layer of recurrentgemma-2b's 8192-token
+    prefill (10 query heads on its one KV head, hd 256, window 2048), of
+    the 2048-token one, and of a training microbatch (4096 tokens within
+    the window: the forward of phase 8's step); the float32 check's
+    variant over ragged tiles; whisper-tiny's encoder at 4 requests (6
+    heads, 1500 frames, hd 64) and a decode tick's cross-attention; the
+    rec layer's RG-LRU on the scan's (a, bx) entry.  Each held against its
+    plain version and launched twice with the same bits.  Returns the
+    RG-LRU's record, the (a, bx) entry's item of the kernels line, and the
+    2048-token lattn layer's, the flash wgmma route's item."""
     from repro_torch.configs import get_config
     rg, wh = get_config("recurrentgemma-2b"), get_config(AUDIO_ARCH)
     (long_s, _), = SERVE_LONG.values()
     hq, hd = rg.num_heads, rg.head_dim
+    _, rg_batch, rg_seq = TRAIN_ARCHS["recurrentgemma-2b"]
     flash = [_flash_case(torch, g, hq, long_s, hd, "bfloat16",
                          window=rg.window, again=True),
              _flash_case(torch, g, hq, PROMPT_LENS[0], hd, "bfloat16",
                          again=True),
+             _flash_case(torch, g, rg_batch // rg.microbatch * hq, rg_seq, hd,
+                         "bfloat16", window=rg.window, again=True),
              _flash_case(torch, g, hq, PROMPT_LENS[1], hd, "float32",
                          window=256, again=True)]
     bh = AUDIO_BATCH * wh.num_heads
@@ -1336,12 +1376,11 @@ def _hybrid_audio_cases(torch, g):
     # the RG-LRU at a 2048- and the 8192-token prefill, a training
     # microbatch's (phase 8's step: 2 x 4096 tokens in microbatches of
     # one row) and the whole batch's
-    _, rg_batch, rg_seq = TRAIN_ARCHS["recurrentgemma-2b"]
     rglru = [_scan_case(torch, g, b, s, rg.lru_width, 1, True, rglru=True)
              for b, s in ((1, PROMPT_LENS[0]), (1, long_s),
                           (rg_batch // rg.microbatch, rg_seq),
                           (rg_batch, rg_seq))]
-    return rglru[0]
+    return rglru[0], flash[1]
 
 
 def _family_bwd_cases(torch, g):
@@ -1448,7 +1487,7 @@ def phase_kernels(torch, seed):
             _scan_case(torch, g, 1, 1531, 8192, 16, False)]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    rglru = _hybrid_audio_cases(torch, g)
+    rglru, wg = _hybrid_audio_cases(torch, g)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     fused = [_fused_scan_case(torch, g, 1, 2048, 8192, 16, "bfloat16"),
@@ -1483,7 +1522,8 @@ def phase_kernels(torch, seed):
     # of a 2048-token recurrentgemma-2b prefill; the hybrid and audio
     # families' flash shapes are checked and timed above)
     return {"segment_reduce": seg[0], "tile_matmul": tile[0],
-            "flash_attention": flash[0], "selective_scan": fused[0],
+            "flash_attention": flash[0], "flash_attention[wg]": wg,
+            "selective_scan": fused[0],
             "selective_scan[a, bx]": rglru,
             "flash_attention_bwd": bwd[0], "selective_scan_bwd": sbwd[0],
             "flash_attention_bwd[window, hd 256]": hyb,
@@ -3443,8 +3483,10 @@ def _serve_whisper(torch, np, seed):
     toks, ticks, logits = serve()
     run_s = time.perf_counter() - t
     counts = ops.launch_counts()
-    require(counts["flash_attention"] > 0,
-            f"{arch}: flash_attention was not launched on the serve path")
+    require(counts["flash_attention"] > 0 and counts["flash_attention[wg]"] > 0,
+            f"{arch}: flash_attention (its wgmma route: "
+            f"{counts['flash_attention[wg]']}) was not launched on the serve "
+            "path")
     require(bool(torch.isfinite(logits).all()) and toks.shape ==
             (AUDIO_BATCH, SERVE_MAX_NEW) and ((toks >= 0)
                                               & (toks < cfg.vocab_size)).all(),
@@ -3612,7 +3654,8 @@ def phase_serve(torch, seed):
         for k in kernels:
             launches[k] = launches.get(k, 0) + counts[k]
     counts = _serve_whisper(torch, np, seed)
-    launches["flash_attention"] += counts["flash_attention"]
+    for k in ("flash_attention", "flash_attention[wg]"):
+        launches[k] = launches.get(k, 0) + counts[k]
     t_checks = time.perf_counter()
     for arch in CHECK_ARCHS:
         _model_check(torch, np, arch, seed)
@@ -3650,8 +3693,10 @@ RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 6, 5, 4
 # the card-against-CPU checks, float32: arch -> (layers kept or None for
 # the whole model, batch, tokens a row).  qwen3-moe-30b-a3b's capacity
 # drops rows; recurrentgemma-2b's one (rec, rec, lattn) period runs past
-# its window
-TRAIN_CHECKS = {"llama3-8b": (2, 1, 1024), "falcon-mamba-7b": (2, 1, 1024),
+# its window.  llama3-8b's (about 42 s, the costliest but one) left for
+# the time limit: its attention and norms are qwen3-moe-30b-a3b's, whose
+# check stays, and its float32 prefill is checked in phase 4
+TRAIN_CHECKS = {"falcon-mamba-7b": (2, 1, 1024),
                 "qwen3-moe-30b-a3b": (1, 1, 1024),
                 "recurrentgemma-2b": (3, 1, 2300),
                 "whisper-tiny": (None, 1, 448)}
@@ -3663,11 +3708,16 @@ def train_config(get_config, arch, layers):
     return cfg if layers is None else cut_layout(cfg, layers)
 
 
-def train_launches(cfg) -> dict:
-    """The launches one training step makes of each counted kernel: under
-    remat "full" (Whisper: every layer, as the reference) a forward kernel
-    runs twice a layer and microbatch (the forward, the recompute), a
-    backward once; the MoE combine's backward is a gather (no launch)."""
+def train_launches(cfg, seq) -> dict:
+    """The launches one training step of rows of `seq` tokens makes of each
+    counted kernel: under remat "full" (Whisper: every layer, as the
+    reference) a forward kernel runs twice a layer and microbatch (the
+    forward, the recompute), a backward once; the MoE combine's backward
+    is a gather (no launch).  The flash forward's wgmma route counts the
+    launches it takes (bf16 at hd 64 and 256: Whisper's every attention,
+    its encoder's enc_seq and its decoder's `seq` rows both past the
+    route's 64)."""
+    from repro_torch.kernels.flash_attention import _route
     if cfg.remat != "full":
         raise ValueError(f"{cfg.name}: remat {cfg.remat!r}, not 'full'")
     mb = max(1, cfg.microbatch)
@@ -3675,7 +3725,11 @@ def train_launches(cfg) -> dict:
              for k in pattern]
     attn = cfg.enc_layers + 2 * len(kinds) if cfg.family == "audio" else \
         sum(k in ("dense", "moe", "lattn") for k in kinds)
+    wg = min(seq, cfg.enc_seq) if cfg.family == "audio" else seq
     per_layer = {"flash_attention": (attn, 2),
+                 "flash_attention[wg]": (
+                     attn if _route(cfg.compute_dtype, cfg.head_dim, wg)
+                     == "wgmma" else 0, 2),
                  "flash_attention_bwd": (attn, 1),
                  "segment_reduce": (kinds.count("moe"), 2),
                  "selective_scan_fused": (kinds.count("ssm"), 2),
@@ -3758,7 +3812,7 @@ def _train_model(torch, np, arch, seed, tmp):
         f"{max(ms[1:]):.1f}), {batch * seq / step_ms * 1e3:.0f} "
         f"tokens/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    per_step = train_launches(cfg)
+    per_step = train_launches(cfg, seq)
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in counts}
     log(f"[train] {arch}: kernel launches {json.dumps(counts)}; a step "
         f"{json.dumps(per_step)}")
@@ -4040,6 +4094,11 @@ def main(argv=None) -> int:
                "flash_attention": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:70"),
+               # the same TPU kernel's wgmma route (bf16, hd 64 and 256)
+               "flash_attention[wg]": ("src/repro_torch/kernels/csrc/"
+                                       "flash_attention.cu",
+                                       "src/repro/kernels/flash_attention.py"
+                                       ":70"),
                "selective_scan": ("src/repro_torch/kernels/csrc/"
                                   "selective_scan.cu",
                                   "src/repro/kernels/selective_scan.py:60"),

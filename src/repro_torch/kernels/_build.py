@@ -67,6 +67,9 @@ SIGNATURES = {
         "flash_attention_lse_launch": [ctypes.c_int, *[_P] * 5,
                                        *[ctypes.c_int] * 4, ctypes.c_float,
                                        ctypes.c_int, ctypes.c_int, _P],
+        "flash_attention_wg_launch": [*[_P] * 5, *[ctypes.c_int] * 4,
+                                      ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_int, _P],
     },
     "selective_scan": {
         "selective_scan_launch": [*[_P] * 6, *[ctypes.c_int] * 4, _P],

@@ -1,7 +1,10 @@
 // Hopper's warpgroup products (wgmma, sm_90a only) and what goes with them:
 // shared-memory matrix descriptors for the 128-byte swizzle, the wgmma
-// fence / commit / wait, the async-proxy fence, and the acquire / release
-// flag operations that order work between blocks.
+// fence / commit / wait, the async-proxy fence, the acquire / release
+// flag operations that order work between blocks, and the tile copies
+// that feed them: TMA loads (cp.async.bulk.tensor) completing on
+// shared-memory mbarriers, the registers moved between warpgroups
+// (setmaxnreg), and named barriers between warpgroups.
 //
 // Tiles.  A bf16 tile of R rows and W columns (W a multiple of 64) is kept
 // as W/64 panels of [R][64]: each row of a panel is one 128-byte line, and
@@ -70,6 +73,65 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 }
 __device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
   asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// mbarriers in shared memory (at shared address `bar`): init with the
+// arrivals a phase takes; an arrival that also expects `bytes` of TMA
+// transactions; a plain arrival; a wait for the phase of `parity` to
+// complete
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// the inits made visible to the other threads and to the TMA unit (then
+// a block-wide barrier)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 3-d tensor map (coordinates innermost first) into shared
+// memory at `dst`, completing `bytes` on the mbarrier `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a warpgroup's registers a thread, lowered (a producer's) or raised (a
+// consumer's) from the launch's even share
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// named barriers: wait until `n` threads have reached barrier `id`
+// (counting this warp's), or count this warp's arrival without waiting
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // d (+)= A·B, m64n32k16: A and B from shared memory by descriptor;

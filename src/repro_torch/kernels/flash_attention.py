@@ -3,12 +3,21 @@ local window: the CUDA kernel, its wrapper and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel `flash_attention` in
 src/repro/kernels/flash_attention.py (`_kernel`), the TPU target of the LM
-stack's `attention_core`.  The Hopper kernel (csrc/flash_attention.cu) runs
-one block per (batch·head, 64-row query tile) and keeps the running max,
-sum and accumulator in float32 registers.  It is bound by operations
-(4·BH·hd·Sq·Sk flops, about half that when causal).  bfloat16 inputs do
-both products on the tensor cores (mma.sync, K/V staged in bf16 by
-cp.async in 64-key tiles); float32 inputs keep float32 FMAs.
+stack's `attention_core`.  The Hopper kernels (csrc/flash_attention.cu)
+keep each query row's running max, sum and accumulator in float32
+registers.  They are bound by operations (4·BH·hd·Sq·Sk flops, about half
+that when causal).  `_route` picks the kernel of a launch:
+  * "wgmma": bfloat16 at hd 64 and 256 from 64 query rows (whisper-tiny's
+    attention, recurrentgemma-2b's lattn layers) on Hopper's warpgroup
+    products, Q, K and V in shared memory in 64-key tiles; at hd 256 two
+    consumer warpgroups of 64 rows fed by TMA from a producer warpgroup,
+    taking turns so that one's softmax runs under the other's products,
+    at hd 64 one warpgroup a block and several blocks an SM.  Counted in
+    `wg_launches` too ("flash_attention[wg]" in `ops.launch_counts()`);
+  * "mma": the rest of bfloat16 (hd 16, 32 and 128; a decode tick's one
+    query row) on mma.sync, one block per (batch·head, 64-row query
+    tile), K/V staged by cp.async in 64-key tiles (32 at hd 256);
+  * "f32": float32 inputs keep float32 FMAs.
 
 Contract (the JAX kernel's): q [BH, Sq, hd], k and v [BH, Sk, hd], one
 dtype (float32 or bfloat16) → [BH, Sq, hd] in q's dtype.  Scores are
@@ -19,11 +28,9 @@ Sq and Sk are taken: the kernel masks the ragged last tiles itself.
 reference's local attention, `_scores_mask` in src/repro/models/
 attention.py, which computes it in jnp outside the TPU kernel); a windowed
 block visits only the key tiles its rows' windows reach.  hd is one of
-HEAD_DIMS; at 256 (recurrentgemma-2b) the bf16 kernel reads its Q
-fragments from shared memory at each k-step instead of holding them in
-registers, and stages 32-key tiles.
-`return_lse=True` also returns each query row's log-sum-exp of its scaled,
-masked scores ([BH, Sq] float32, natural log).
+HEAD_DIMS.  `return_lse=True` also returns each query row's log-sum-exp
+of its scaled, masked scores ([BH, Sq] float32, natural log); the output
+is the same bits with or without it.
 
 The backward (csrc/flash_attention_bwd.cu, `flash_attention_bwd`) is new:
 the TPU kernel has none, and the reference trains through the jnp form.
@@ -51,7 +58,30 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the bf16 backward's one-pass wgmma kernel: no window at these widths
 WGMMA_HEAD_DIMS = (64, 128)
+# the bf16 forward's wgmma kernel: these widths, from WG_MIN_SQ query rows
+# (one consumer warpgroup's tile); the rest stays on mma.sync
+WG_FWD_HEAD_DIMS = (64, 256)
+WG_MIN_SQ = 64
 NEG = -1e30
+
+
+class _Count:
+    """A launch counter beside a wrapper's own."""
+    launches = 0
+
+
+# the wgmma route's launches (`_route` "wgmma"), which flash_attention's
+# count includes: `ops.launch_counts()["flash_attention[wg]"]`
+wg_launches = _Count()
+
+
+def _route(dtype, hd: int, sq: int) -> str:
+    """The forward kernel of a launch: "f32" for float32 inputs; for
+    bfloat16 "wgmma" at hd 64 and 256 from WG_MIN_SQ query rows, else
+    "mma" (hd 16, 32 and 128, and fewer rows: a decode tick's Sq = 1)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if hd in WG_FWD_HEAD_DIMS and sq >= WG_MIN_SQ else "mma"
 
 
 def _check(q, k, v):
@@ -165,16 +195,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     tail = (bh, sq, sk, hd, hd ** -0.5, int(causal), window, stream)
-    if return_lse:
-        lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        code = lib.flash_attention_lse_launch(*args, lse.data_ptr(), *tail)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    route = _route(q.dtype, hd, sq)
+    if route == "wgmma":
+        code = lib.flash_attention_wg_launch(
+            *ptrs, None if lse is None else lse.data_ptr(), *tail)
+    elif return_lse:
+        code = lib.flash_attention_lse_launch(_DTYPES[q.dtype], *ptrs,
+                                              lse.data_ptr(), *tail)
     else:
-        code = lib.flash_attention_launch(*args, *tail)
+        code = lib.flash_attention_launch(_DTYPES[q.dtype], *ptrs, *tail)
     _build.check("flash_attention", code)
     flash_attention.launches += 1
+    if route == "wgmma":
+        wg_launches.launches += 1
     return (out, lse) if return_lse else out
 
 

@@ -10,8 +10,10 @@ integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
 backward kernels count in `flash_attention_bwd.launches`,
 `selective_scan_fused_bwd.launches` and, for the scan's (a, bx) entry,
 `selective_scan_bwd.launches`; the segment kernel's device-count entry
-also in `segment_reduce.rows_launches`, "segment_reduce[rows]" below), so
-a run can show that it went through the kernels.
+also in `segment_reduce.rows_launches`, "segment_reduce[rows]" below; the
+flash forward's wgmma route, hd 64 and 256 in bf16, also in
+`flash_attention.wg_launches`, "flash_attention[wg]"), so a run can show
+that it went through the kernels.
 
 The counts are of launches that ran on the device.  A CUDA graph capture
 calls the wrappers, but launches nothing: `captured()` takes the counts the
@@ -23,7 +25,8 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 from ._build import build_all
-from .flash_attention import flash_attention, flash_attention_bwd
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              wg_launches)
 from .segment_reduce import rows_launches, segment_reduce, segment_sum
 from .selective_scan import (selective_scan, selective_scan_bwd,
                              selective_scan_fused, selective_scan_fused_bwd)
@@ -38,11 +41,13 @@ KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
 
 
 # every counter: the kernels, the scan's second entry, the (a, bx) entry's
-# backward (in the selective_scan_bwd library) and the segment kernel's
-# device-count launches (a part of its own)
+# backward (in the selective_scan_bwd library), and two parts of a
+# kernel's own count: the segment kernel's device-count launches and the
+# flash forward's wgmma route
 COUNTED = {**KERNELS, "selective_scan_fused": selective_scan_fused,
            "selective_scan_bwd[a, bx]": selective_scan_bwd,
-           "segment_reduce[rows]": rows_launches}
+           "segment_reduce[rows]": rows_launches,
+           "flash_attention[wg]": wg_launches}
 
 
 def launch_counts() -> dict:

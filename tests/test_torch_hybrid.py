@@ -399,3 +399,21 @@ def test_chip_smoke_cuts_depth_in_whole_periods(arch, layers, kinds):
     assert tuple(k for *_, k in layer_slots(cfg)) == kinds
     assert cs.serve_config(get_config, arch).num_layers == \
         cs.SERVE_DEPTH.get(arch, get_config(arch).num_layers)
+
+
+@pytest.mark.parametrize("arch,wg", [("recurrentgemma-2b", True),
+                                     ("whisper-tiny", True),
+                                     ("llama3-8b", False),
+                                     ("qwen3-moe-30b-a3b", False),
+                                     ("falcon-mamba-7b", False)])
+def test_chip_smoke_counts_the_flash_wgmma_route(arch, wg):
+    """chip_smoke.py's launches a training step: the flash forward's wgmma
+    route (bf16 at hd 64 and 256) takes every forward launch of the hybrid
+    and audio families (their rows are past its 64) and none of the
+    others'."""
+    cs = _chip_smoke()
+    layers, _, seq = cs.TRAIN_ARCHS[arch]
+    cfg = cs.train_config(get_config, arch, layers)
+    per_step = cs.train_launches(cfg, seq)
+    assert per_step.get("flash_attention[wg]", 0) == \
+        (per_step["flash_attention"] if wg else 0)

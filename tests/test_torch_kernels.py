@@ -48,6 +48,7 @@ from repro_torch.kernels.tile_matmul import (tile_matmul, tile_matmul_packed,
 
 # the modules themselves (the package's names are the wrappers)
 segment_module = importlib.import_module("repro_torch.kernels.segment_reduce")
+flash_module = importlib.import_module("repro_torch.kernels.flash_attention")
 
 rng = np.random.default_rng(0)
 
@@ -344,6 +345,9 @@ def test_cpu_wrappers_count_no_launches():
     tile_matmul_packed(t.tiles, t.mask, t.shape, torch.ones(4, 4))
     q = torch.ones(2, 5, 16)
     flash_attention(q, q, q)
+    # a bf16 shape of the wgmma route: the CPU takes the plain version
+    qw = torch.ones(1, 64, 64, dtype=torch.bfloat16)
+    flash_attention(qw, qw, qw, causal=False)
     a = torch.ones(1, 3, 4, 2)
     selective_scan(a, a, torch.ones(1, 3, 2), return_state=True)
     dt = torch.ones(1, 3, 4)
@@ -361,7 +365,8 @@ def test_cpu_wrappers_count_no_launches():
                                    "flash_attention_bwd": 0,
                                    "selective_scan_bwd": 0,
                                    "selective_scan_bwd[a, bx]": 0,
-                                   "segment_reduce[rows]": 0}
+                                   "segment_reduce[rows]": 0,
+                                   "flash_attention[wg]": 0}
 
 
 def test_every_source_has_its_ctypes_signatures():
@@ -370,6 +375,7 @@ def test_every_source_has_its_ctypes_signatures():
     import re
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == set(_build.SIGNATURES) == set(ops.KERNELS)
+    assert "flash_attention_wg_launch" in _build.SIGNATURES["flash_attention"]
     for name, fns in _build.SIGNATURES.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" const char* {name}_error_string(int code)' in src
@@ -390,7 +396,9 @@ def test_every_source_has_its_ctypes_signatures():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,sq,sk,hd,bq", [(2, 64, 64, 16, 32),
                                             (4, 128, 128, 32, 64),
-                                            (1, 32, 32, 8, 32)])
+                                            (1, 32, 32, 8, 32),
+                                            (2, 64, 192, 64, 32),
+                                            (1, 128, 128, 256, 64)])
 def test_flash_attention_matches_jax(bh, sq, sk, hd, bq, causal):
     q = rng.standard_normal((bh, sq, hd)).astype(np.float32)
     k = rng.standard_normal((bh, sk, hd)).astype(np.float32)
@@ -445,6 +453,20 @@ def test_flash_attention_plain_ignores_nan_past_sk(causal):
     ref = flash_attention_ref(jnp.asarray(q), jnp.asarray(kv[0]),
                               jnp.asarray(kv[1]), causal=causal)
     np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype,hd,sq,route", [
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 256, 64, "wgmma"),
+    (torch.bfloat16, 64, 1500, "wgmma"), (torch.bfloat16, 256, 8192, "wgmma"),
+    (torch.bfloat16, 64, 63, "mma"), (torch.bfloat16, 256, 1, "mma"),
+    (torch.bfloat16, 128, 2048, "mma"), (torch.bfloat16, 16, 2048, "mma"),
+    (torch.bfloat16, 32, 64, "mma"), (torch.float32, 64, 1500, "f32"),
+    (torch.float32, 256, 2048, "f32"), (torch.float32, 128, 1, "f32")])
+def test_flash_route(dtype, hd, sq, route):
+    # the forward's kernel by (dtype, hd, Sq): the wgmma kernel takes bf16
+    # at hd 64 and 256 from one warpgroup's 64 rows; hd 128, hd 16 and 32,
+    # a decode tick's Sq = 1 and float32 keep their kernels
+    assert flash_module._route(dtype, hd, sq) == route
 
 
 def test_flash_attention_bad_shapes_raise():
@@ -777,6 +799,12 @@ def test_cuda_mamba_prefill_allocates_nothing_n_wide(cuda):
     x = _t(r.standard_normal((1, s, cfg.d_model)).astype(np.float32))
     pc = {k: v.to(cuda) for k, v in p.items()}
     xc = x.to(cuda)
+    # cuBLAS allocates its workspace (32 MiB on an H100) through PyTorch's
+    # allocator at a stream's first product, and keeps it: whether that
+    # lands in the window below depends on what ran before in the process.
+    # One product first, so that the window holds the prefill's own
+    # allocations alone
+    (xc[0, :8] @ pc["in_proj"][:, :8]).sum().item()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1051,6 +1079,96 @@ def test_cuda_flash_attention_hd256(cuda, dtype, sq, sk, causal):
     assert got.dtype == dtype and got.shape == want.shape
     assert _flash_row_err(got, want) <= \
         (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+# the wgmma route of the bf16 forward (hd 64 and 256 from 64 query rows):
+# 64-row warpgroup tiles, blocks of one or two warpgroups, 64- or 128-key
+# tiles in a ring of two K and three V stages
+
+def _bf16_qkv(cuda, seed, bh, sq, sk, hd):
+    r = np.random.default_rng(seed)
+    return [_t(r.standard_normal((bh, s_, hd)).astype(np.float32))
+            .to(cuda, torch.bfloat16) for s_ in (sq, sk, sk)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("sq,sk,causal", [(64, 64, True), (65, 65, True),
+                                          (63, 63, True), (200, 333, False),
+                                          (333, 200, False), (777, 777, True),
+                                          (130, 1500, False), (300, 130, True),
+                                          (64, 1, False)])
+def test_cuda_flash_wg_matches_plain(cuda, hd, sq, sk, causal):
+    # ragged Sq and Sk on both sides of the route's edge (Sq = 63 stays on
+    # mma.sync), causal with Sq > Sk, a single key
+    q, k, v = _bf16_qkv(cuda, hd + sq * 3 + sk, 3, sq, sk, hd)
+    before = ops.launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    after = ops.launch_counts()
+    wg = flash_module._route(q.dtype, hd, sq) == "wgmma"
+    assert wg == (sq >= 64)
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention[wg]"] == before["flash_attention[wg]"] + wg
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _flash_row_err(got, want) <= 1e-2      # bf16 output rounding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,window", [(64, 1), (64, 63), (200, 64),
+                                      (300, 128), (513, 100), (1000, 256),
+                                      (777, 700)])
+def test_cuda_flash_wg_window_edges(cuda, s, window):
+    # hd 256 within a window: windows below, at and above the 64-key tile
+    # and the 128-row block, blocks whose second warpgroup starts tiles
+    # after the first; the lse against the plain version's
+    q, k, v = _bf16_qkv(cuda, s + window, 2, s, s, 256)
+    before = ops.launch_counts()["flash_attention[wg]"]
+    got, lse = flash_attention(q, k, v, causal=True, window=window,
+                               return_lse=True)
+    assert ops.launch_counts()["flash_attention[wg]"] == before + 1
+    want, want_lse = flash_attention_plain(q, k, v, causal=True,
+                                           window=window, return_lse=True)
+    assert _flash_row_err(got, want) <= 1e-2
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_wg_ignores_nan_past_sk(cuda, hd, causal):
+    # k and v as views of buffers that hold NaN past Sk: the staging rows
+    # past Sk are zero-filled, so nothing there reaches the output
+    sq, sk = 130, 77
+    q, k0, v0 = _bf16_qkv(cuda, hd + causal, 2, sq, sk, hd)
+    bufs = [torch.full((2, 192, hd), float("nan"), device=cuda,
+                       dtype=torch.bfloat16) for _ in range(2)]
+    bufs[0][:, :sk], bufs[1][:, :sk] = k0, v0
+    k, v = (buf[:, :sk] for buf in bufs)
+    got = flash_attention(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    want = flash_attention_plain(q, k0, v0, causal=causal)
+    assert _flash_row_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,sq,sk,causal,window", [
+    (64, 1500, 1500, False, 0), (64, 448, 1500, False, 0),
+    (256, 1024, 1024, True, 0), (256, 700, 700, True, 256)])
+def test_cuda_flash_wg_lse_entry_same_bits(cuda, hd, sq, sk, causal,
+                                           window):
+    # the training entry (with lse) gives the serving entry's output bit
+    # for bit, and two launches of each give the same bits
+    q, k, v = _bf16_qkv(cuda, sq + hd, 2, sq, sk, hd)
+    kw = dict(causal=causal, window=window)
+    got = flash_attention(q, k, v, **kw)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, got)
+    assert torch.equal(flash_attention(q, k, v, **kw), got)
+    out2, lse2 = flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    _, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

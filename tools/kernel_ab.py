@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Time a backward kernel's source against edited copies of it, on the card.
+"""Time a kernel's source against edited copies of it, on the card.
 
     python3 tools/kernel_ab.py NAME [DIR ...] [--reps N]
 
 Run from the root of a checkout on a machine with a CUDA card.  NAME is
-`flash_attention_bwd` or `selective_scan_bwd`.  Each DIR is a copy of
-src/repro_torch/kernels/csrc in which that source was edited (another
-layout or design to compare: edit the copy, never the package); the
-package's own csrc comes first.  Every library is built with the
-package's nvcc line and served to the same wrapper in turn: at phase 8's
-shape (flash [128, 2048, 128] bf16 causal, the scan [4, 2048, 8192, 16]
-with bf16 x, the inputs of chip_smoke.py's phase 2) each is held against
-the plain version with phase 2's tolerances and launched twice for its
-bits, then all are timed by CUDA events in turns (first to last, then
-last to first), and one call of each is traced with torch.profiler for
-its launches' device times.  Prints the card, then one JSON line per
-library; exits 1 if one disagrees with the plain version.
+`flash_attention` (the forward's wgmma route), `flash_attention_bwd` or
+`selective_scan_bwd`.  Each DIR is a copy of src/repro_torch/kernels/csrc
+in which that source was edited (another layout or design to compare:
+edit the copy, never the package); the package's own csrc comes first.
+Every library is built with the package's nvcc line and served to the
+same wrapper in turn.  The backwards run at phase 8's shape (flash [128,
+2048, 128] bf16 causal, the scan [4, 2048, 8192, 16] with bf16 x, the
+inputs of chip_smoke.py's phase 2); the forward at the shapes of
+chip_smoke.py's rows 4w and 4n (bf16 [10, 2048, 256] causal, [10, 8192,
+256] and [10, 4096, 256] within a 2048-key window, [24, 1500, 64]
+non-causal), each also timed through the package's mma.sync entry
+(`flash_attention_launch`, the route those shapes took before) and
+beside `scaled_dot_product_attention`.  Each case is held against the
+plain version with phase 2's tolerances and launched twice for its bits,
+then all libraries are timed by CUDA events in turns (first to last,
+then last to first), and one call of each is traced with torch.profiler
+for its launches' device times.  Prints the card, then one JSON line per
+case and library; exits 1 if one disagrees with the plain version.
 """
 from __future__ import annotations
 
@@ -31,15 +37,67 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 from chip_smoke import card_line, time_ms  # noqa: E402
 
 
-def _flash(torch, g):
+def _flash_bwd(torch, g):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
     q, k, v, do = (torch.randn(128, 2048, 128, generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
-    return (lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-            want, dict(dq=2e-2, dk=2e-2, dv=2e-2))
+    return [dict(case="[128, 2048, 128] bf16 causal",
+                 call=lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=True),
+                 want=want, tols=dict(dq=2e-2, dk=2e-2, dv=2e-2))]
+
+
+def _row_err(got, want):
+    """chip_smoke.py's flash check: the worst query row's error over that
+    row's largest |value|."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def _flash_fwd(torch, g):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    for bh, s, hd, causal, window in ((10, 2048, 256, True, 0),
+                                      (10, 8192, 256, True, 2048),
+                                      (10, 4096, 256, True, 2048),
+                                      (24, 1500, 64, False, 0)):
+        q, k, v = (torch.randn(bh, s, hd, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        kw = dict(causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, **kw)
+        out = torch.empty_like(q)
+
+        def mma(q=q, k=k, v=v, out=out, bh=bh, s=s, hd=hd, kw=kw):
+            lib = _build.load("flash_attention", _build.CSRC)
+            code = lib.flash_attention_launch(
+                1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                bh, s, s, hd, hd ** -0.5, int(kw["causal"]), kw["window"],
+                torch.cuda.current_stream().cuda_stream)
+            _build.check("flash_attention", code)
+            return out
+        if window:
+            kp = torch.arange(s, device="cuda")
+            mask = (kp[None, :] > kp[:, None] - window) \
+                & (kp[None, :] <= kp[:, None])
+            lib_call = (lambda q=q, k=k, v=v, mask=mask:
+                        sdpa(q[None], k[None], v[None], attn_mask=mask))
+        else:
+            lib_call = (lambda q=q, k=k, v=v, causal=causal:
+                        sdpa(q[None], k[None], v[None], is_causal=causal))
+        form = ("causal" if causal else "full") \
+            + (f" window {window}" if window else "")
+        cases.append(dict(
+            case=f"[{bh}, {s}, {hd}] bf16 {form}",
+            call=lambda q=q, k=k, v=v, kw=kw: (flash_attention(q, k, v, **kw),),
+            want=(want,), tols=dict(out=1e-2), err=_row_err,
+            baselines={"mma.sync entry": mma, "sdpa": lib_call}))
+    return cases
 
 
 def _scan(torch, g):
@@ -56,12 +114,14 @@ def _scan(torch, g):
     _, _, states = scan._fused_launch(dt, A, Bm, Cm, x, None, True, True)
     want = scan.selective_scan_fused_bwd_plain(dt, A, Bm, Cm, x, None, dy)
     tols = dict(ddt=1e-4, dA=1e-4, dBm=1e-4, dCm=1e-4, dx=8e-3, dh0=1e-4)
-    return (lambda: scan.selective_scan_fused_bwd(dt, A, Bm, Cm, x, None, dy,
-                                                  states=states),
-            want, tols)
+    return [dict(case="[4, 2048, 8192, 16] bf16 x",
+                 call=lambda: scan.selective_scan_fused_bwd(
+                     dt, A, Bm, Cm, x, None, dy, states=states),
+                 want=want, tols=tols)]
 
 
-CASES = {"flash_attention_bwd": _flash, "selective_scan_bwd": _scan}
+CASES = {"flash_attention": _flash_fwd, "flash_attention_bwd": _flash_bwd,
+         "selective_scan_bwd": _scan}
 
 
 def main(argv=None) -> int:
@@ -80,42 +140,57 @@ def main(argv=None) -> int:
     libs = [_build.load(args.name, d) for d in srcs]
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    call, want, tols = CASES[args.name](torch, g)
-    recs, ok = [], True
+    ok = True
     try:
-        for src, lib in zip(srcs, libs):
-            _build._LIBS[args.name] = lib
-            got = call()
-            again = call()
-            torch.cuda.synchronize()
-            errs = {k: float((a.float() - w.float()).abs().max())
-                    / float(w.float().abs().max())
-                    for k, a, w in zip(tols, got, want)}
-            good = all(errs[k] <= tol for k, tol in tols.items())
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            ok &= good and same
-            recs.append(dict(source=str(src), rel_err=errs, within_tol=good,
-                             same_bits=same, ms=[]))
-            del got, again
-        for i in [*range(len(libs)), *reversed(range(len(libs)))]:
-            _build._LIBS[args.name] = libs[i]
-            recs[i]["ms"].append(time_ms(torch, call, args.reps))
-        for rec, lib in zip(recs, libs):
-            _build._LIBS[args.name] = lib
-            call()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            rec["launch_ms"] = {e.key[:80]: e.device_time_total / 1e3
-                                for e in prof.key_averages()
-                                if e.device_time_total > 0}
+        for case in CASES[args.name](torch, g):
+            ok &= _run_case(torch, _build, args, case, srcs, libs)
     finally:
         _build._LIBS[args.name] = libs[0]
-    for rec in recs:
-        print(json.dumps(rec), flush=True)
     return 0 if ok else 1
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) \
+        / float(want.float().abs().max())
+
+
+def _run_case(torch, _build, args, case, srcs, libs) -> bool:
+    call, want, tols = case["call"], case["want"], case["tols"]
+    err = case.get("err", _rel_err)
+    recs, ok = [], True
+    for src, lib in zip(srcs, libs):
+        _build._LIBS[args.name] = lib
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        errs = {k: err(a, w) for k, a, w in zip(tols, got, want)}
+        good = all(errs[k] <= tol for k, tol in tols.items())
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok &= good and same
+        recs.append(dict(case=case["case"], source=str(src), rel_err=errs,
+                         within_tol=good, same_bits=same, ms=[]))
+        del got, again
+    for i in [*range(len(libs)), *reversed(range(len(libs)))]:
+        _build._LIBS[args.name] = libs[i]
+        recs[i]["ms"].append(time_ms(torch, call, args.reps))
+    _build._LIBS[args.name] = libs[0]
+    base = {name: time_ms(torch, fn, args.reps)
+            for name, fn in case.get("baselines", {}).items()}
+    for rec, lib in zip(recs, libs):
+        _build._LIBS[args.name] = lib
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        rec["launch_ms"] = {e.key[:80]: e.device_time_total / 1e3
+                            for e in prof.key_averages()
+                            if e.device_time_total > 0}
+        if base:
+            rec["baseline_ms"] = base
+        print(json.dumps(rec), flush=True)
+    return ok
 
 
 if __name__ == "__main__":

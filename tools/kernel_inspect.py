@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Show what nvcc made of the port's hand-written CUDA kernels.
 
-    python3 tools/kernel_inspect.py [NAME ...]
+    python3 tools/kernel_inspect.py [NAME ...] [--csrc DIR]
 
 Run from the root of a checkout on a machine with the CUDA toolkit.  Each
 named source of src/repro_torch/kernels/csrc (by default flash_attention
-and tile_matmul) is compiled once more with the package's own nvcc command
-line plus `-Xptxas -v`, and for each kernel function the script prints its
+and tile_matmul; with --csrc, that source in DIR, an edited copy of
+csrc) is compiled once more with the package's own nvcc command line plus
+`-Xptxas -v`, and for each kernel function the script prints its
 registers, stack frame and spill bytes, then the count of the instructions
 of interest in its SASS (`cuobjdump -sass`): HGMMA (wgmma), HMMA
 (mma.sync), FFMA, LDSM (ldmatrix), LDGSTS (cp.async), MUFU (exp2 and the
 other special functions), SHFL (shuffles), MATCH (match-any), LDL and STL
-(local memory: spills).  ptxas's warnings (a wgmma it had to serialise,
-say) are printed as they come.  To time one version of the sources
+(local memory: spills).  ptxas's warnings and its notes of a potential
+performance loss (a wgmma it had to serialise, say) are printed as they
+come.  To time one version of the sources
 against another, use `chip_smoke.py --parent DIR`, or `tools/kernel_ab.py`
-for edited copies of one backward's source.
+for edited copies of one kernel's source.
 """
 from __future__ import annotations
 
@@ -43,10 +45,10 @@ def _demangle(names):
     return dict(zip(names, out.stdout.splitlines()))
 
 
-def inspect(name: str, tmp: Path) -> None:
+def inspect(name: str, tmp: Path, csrc=None) -> None:
     from repro_torch.kernels import _build
     lib = tmp / f"lib{name}.so"
-    proc = subprocess.run(_build.nvcc_command(name, lib,
+    proc = subprocess.run(_build.nvcc_command(name, lib, csrc,
                                               extra=("-Xptxas", "-v")),
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -56,7 +58,7 @@ def inspect(name: str, tmp: Path) -> None:
     # bytes spill stores, N bytes spill loads" and "Used N registers, ..."
     stats, fn = {}, None
     for line in (proc.stdout + proc.stderr).splitlines():
-        if "warning" in line.lower():
+        if "warning" in line.lower() or "performance" in line.lower():
             print(f"[inspect] {name}: {line.strip()}", flush=True)
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -95,13 +97,18 @@ def inspect(name: str, tmp: Path) -> None:
 
 
 def main(argv=None):
-    names = (argv if argv is not None else sys.argv[1:]) \
-        or ["flash_attention", "tile_matmul"]
+    args = list(argv if argv is not None else sys.argv[1:])
+    csrc = None
+    if "--csrc" in args:
+        at = args.index("--csrc")
+        csrc = Path(args[at + 1])
+        del args[at:at + 2]
+    names = args or ["flash_attention", "tile_matmul"]
     print(card_line(), flush=True)
     tmp = Path(tempfile.mkdtemp(prefix="kernel_inspect_"))
     try:
         for name in names:
-            inspect(name, tmp)
+            inspect(name, tmp, csrc)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

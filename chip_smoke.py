@@ -22,9 +22,18 @@ first mismatch:
              against a run range by range (the same bits); its
              device-count entry (a served lane's rows counted on the
              device, n < L, small and bucketed paths) bit-equal to a
-             launch over the first n rows and timed against it, and one
-             flush's 16 lanes against one `index_add_` over lane-offset
-             ids; the two backward kernels at phase 8's shapes (flash
+             launch over the first n rows and timed against it; its
+             lanes entry (`segment_reduce_lanes`: one served flush's
+             group-by, 16 lanes in one launch a pass) at mix (b)'s
+             group_by (bucketed) and kmeans_step shapes and mix (a)'s
+             group_by (small path), every lane bit-equal to a launch
+             over its rows, timed eagerly and as CUDA-graph replays
+             interleaved with the 16 device-count launches it replaces
+             (with --parent the earlier library's), which it must beat
+             from a graph, beside one `index_add_` over lane-offset ids
+             (each replay's device time by torch.profiler: the `[lanes]`
+             lines, after phase 8, apart from the other traces); the
+             two backward kernels at phase 8's shapes (flash
              [128, 2048, 128] bf16 causal against the backward of
              `scaled_dot_product_attention`, the scan [4, 2048, 8192, 16]
              with bf16 x) and at the edges of their tilings (flash
@@ -114,7 +123,10 @@ first mismatch:
              requests/s, p50 and p99, occupancy, padded rows, flushes,
              batch entries built and hit, sequential fallbacks, peak
              memory, and every lane of every flush bit-equal to its
-             request's solo run(); one flush of 16 lanes of each program
+             request's solo run(); the segment launches of each
+             program's flush of 16 lanes (every group-by through the
+             lanes entry, none through the device-count one) and of each
+             mix; one flush of 16 lanes of each program
              against 16 solo run()s, traced for device busy and idle, and
              two flushes (the second stacked while the first computes)
              traced for their host-to-device copies and the share of them
@@ -204,10 +216,12 @@ first mismatch:
              within 1e-4, every gradient leaf within 1e-3 of its max
              |ref|.
 
-Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4.
+Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4;
+last, phase 2's main lanes case is traced again (`[lanes]` lines).
 The line before the last is a JSON object with one entry per kernel
 (segment_reduce's launches count phases 3, 5, 6 and 7's world of 1;
-segment_reduce[wide]'s the MoE combines of phases 4 and 8;
+segment_reduce[lanes]'s phase 6's served flushes, in segment_reduce's
+too; segment_reduce[wide]'s the MoE combines of phases 4 and 8;
 flash_attention's and selective_scan's (both entries) phases 4 and 8,
 flash_attention[wg]'s the part of flash_attention's on the wgmma route
 (recurrentgemma-2b's and whisper-tiny's full-sequence attentions);
@@ -653,37 +667,100 @@ def _segment_rows_case(torch, g, L, n, k, op="+", reps=5):
     return rec
 
 
-def _segment_lanes_case(torch, g, lens, L, k, reps=5):
-    """One served flush's group-by: B lanes of L padded rows, each lane's
-    device-count launch reading its own count from a [B] tensor, each
-    bit-equal to a launch over its own rows; against the plain version lane
-    by lane and one library call (`index_add_` of lane-offset ids into
-    [B·K], pad rows to a sentinel)."""
+def _lanes_flush(torch, g, lens, L, k):
+    """One served flush's group-by: B lanes of L padded rows, lane b
+    counting its first lens[b] in a [B] tensor.  Returns the inputs and
+    its two forms: the lanes entry (`segment_reduce_lanes`, one launch a
+    pass) and B device-count launches (`segment_reduce_launch_rows`, the
+    entry served lanes called before the lanes entry; with --parent the
+    earlier library's)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.segment_reduce import (segment_reduce,
-                                                     segment_reduce_plain)
+                                                     segment_reduce_lanes)
     B = len(lens)
     ids = torch.randint(0, k, (B, L), generator=g, device="cuda",
                         dtype=torch.int32)
     vals = torch.randn(B, L, generator=g, device="cuda")
     counts = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    own = _build.load("segment_reduce")
+    parent = PARENT_LIBS.get("segment_reduce", own)
 
-    def kern():
-        return [segment_reduce(ids[b], vals[b], k, n_rows=counts[b])
-                for b in range(B)]
+    def lanes():
+        return segment_reduce_lanes(list(ids), list(vals), k, counts)
 
-    def plain():
-        return [segment_reduce_plain(ids[b, :n], vals[b, :n], k, "+")
-                for b, n in enumerate(lens)]
-    got, want = kern(), plain()
+    def rows():
+        _build._LIBS["segment_reduce"] = parent
+        try:
+            return [segment_reduce(ids[b], vals[b], k, n_rows=counts[b])
+                    for b in range(B)]
+        finally:
+            _build._LIBS["segment_reduce"] = own
+    return ids, vals, counts, {"rows": rows, "lanes": lanes}
+
+
+def _flush_graphs(torch, fns):
+    """Each of `fns` captured into a CUDA graph, as a served flush's region
+    captures it (after a warm-up on a side stream); the graphs and the
+    outputs they write at each replay."""
+    from repro_torch.kernels import ops
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns.values():
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = {}, {}
+    for which, fn in fns.items():
+        graphs[which] = torch.cuda.CUDAGraph()
+        with ops.captured(), torch.cuda.graph(graphs[which]):
+            outs[which] = fn()
+    return graphs, outs
+
+
+def _segment_lanes_case(torch, g, lens, L, k, reps=5, what="mix (b) "
+                        "group_by"):
+    """One served flush's group-by (`_lanes_flush`) through the lanes entry
+    and through B device-count launches: every lane of both bit-equal to a
+    launch over its own rows, eagerly and replayed from a graph, the lanes
+    against the plain version lane by lane.  Timed eagerly and as CUDA-graph
+    replays (how served lanes run), the two interleaved (B launches, lanes,
+    lanes, B launches), beside one library call (`index_add_` of
+    lane-offset ids into [B·K], pad rows to a sentinel).  The replays must
+    favour the lanes entry.  (Their device time by torch.profiler:
+    `phase_lanes_trace`, after the other phases.)"""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_reduce import (segment_reduce,
+                                                     segment_reduce_lanes_plain)
+    B = len(lens)
+    ids, vals, counts, fns = _lanes_flush(torch, g, lens, L, k)
+    before = ops.launch_counts()
+    got = fns["lanes"]()
+    after = ops.launch_counts()
+    launches = after["segment_reduce[lanes]"] - before["segment_reduce[lanes]"]
+    require(launches == -(-B // 32),
+            f"segment_reduce lanes: {launches} lanes launches for {B} lanes")
+    one = fns["rows"]()
+    want = segment_reduce_lanes_plain(list(ids), list(vals), k, counts)
+    graphs, outs = _flush_graphs(torch, fns)
+    for which in fns:
+        graphs[which].replay()
+    torch.cuda.synchronize()
     err = 0.0
     for b, n in enumerate(lens):
         host = segment_reduce(ids[b, :n], vals[b, :n], k)
-        require(torch.equal(got[b].view(torch.int32), host.view(torch.int32)),
-                f"segment_reduce lane {b} (n={n} of {L}): bits differ from "
-                "a launch over its rows")
+        for name, x in (("lanes entry", got[b]),
+                        ("device-count launch", one[b]),
+                        ("lanes graph", outs["lanes"][b]),
+                        ("device-count launches' graph", outs["rows"][b])):
+            require(torch.equal(x.view(torch.int32), host.view(torch.int32)),
+                    f"segment_reduce {what} lane {b} (n={n} of {L}): the "
+                    f"{name}'s bits differ from a launch over its rows")
         err = max(err, float((got[b] - want[b]).abs().max()))
-    rows = torch.arange(L, device="cuda")[None, :]
-    flat = torch.where(rows < counts[:, None],
+    require(err <= 1e-4 * float(want.abs().max()) + 1e-6,
+            f"segment_reduce {what} lanes: err {err} against the plain "
+            "version")
+    flat = torch.where(torch.arange(L, device="cuda")[None, :]
+                       < counts[:, None],
                        ids.to(torch.int64)
                        + k * torch.arange(B, device="cuda")[:, None],
                        B * k).reshape(-1)
@@ -692,16 +769,31 @@ def _segment_lanes_case(torch, g, lens, L, k, reps=5):
     def lib():
         return torch.zeros(B * k + 1, device="cuda").index_add_(0, flat,
                                                                 vflat)
-    kernel_ms = time_ms(torch, kern, reps)
-    plain_ms = time_ms(torch, plain, reps)
+    eager = {"rows": [], "lanes": []}
+    replay = {"rows": [], "lanes": []}
+    for which in ("rows", "lanes", "lanes", "rows"):
+        eager[which].append(time_ms(torch, fns[which], reps))
+        replay[which].append(time_ms(torch, graphs[which].replay, reps))
+    plain_ms = time_ms(torch, lambda: segment_reduce_lanes_plain(
+        list(ids), list(vals), k, counts), reps)
     library_ms = time_ms(torch, lib, reps)
     bound_ms = (8 * sum(lens) + 4 * B * k) / HBM_BYTES_S * 1e3
-    rec = dict(case=f"segment_reduce device count, one flush: B={B} lanes "
+    path = "small" if k <= 2048 else "bucketed"
+    rec = dict(case=f"segment_reduce lanes, one {what} flush: B={B} lanes "
                f"of L={L} padded rows ({min(lens)}..{max(lens)} counted), "
-               f"K={k}, +", max_abs_err=err, kernel_ms=kernel_ms,
+               f"K={k}, + ({path} path)", max_abs_err=err,
+               kernel_ms=sum(eager["lanes"]) / 2,
+               rows_ms=eager["rows"], lanes_ms=eager["lanes"],
+               graph_rows_ms=replay["rows"], graph_lanes_ms=replay["lanes"],
+               graph_speedup=sum(replay["rows"]) / sum(replay["lanes"]),
+               rows_library="parent" if PARENT_LIBS else "this tree",
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by="bytes", launches_a_flush=B)
+               bound_by="bytes", lanes_launches_a_pass=launches,
+               rows_launches_a_flush=B)
     log("[kernels] " + json.dumps(rec))
+    require(rec["graph_speedup"] > 1.0,
+            f"segment_reduce {what}: the lanes graph replays no faster than "
+            f"{B} device-count launches' ({replay})")
     return rec
 
 
@@ -1460,9 +1552,18 @@ def phase_kernels(torch, seed):
         _segment_rows_case(torch, g, L, n, k)
     _segment_rows_case(torch, g, MIX_B_ROWS[0], MIX_B_ROWS[1], MIX_B_GROUPS,
                        op="max")
+    # one served flush's group-bys through the lanes entry: mix (b)'s
+    # group_by and pagerank shape (bucketed), its kmeans_step sums and mix
+    # (a)'s group_by (small path)
     lanes = _segment_lanes_case(torch, g, [MIX_B_ROWS[i % 2]
                                            for i in range(SERVE_MAX_BATCH)],
                                 MIX_B_ROWS[0], MIX_B_GROUPS)
+    _segment_lanes_case(torch, g, [MIX_B_KM[i % 2]
+                                   for i in range(SERVE_MAX_BATCH)],
+                        MIX_B_KM[0], 64, what="mix (b) kmeans_step")
+    _segment_lanes_case(torch, g, [MIX_A["group_by"][i % 2]
+                                   for i in range(SERVE_MAX_BATCH)],
+                        MIX_A["group_by"][0], 16, what="mix (a) group_by")
     # the MoE combine (phases 4 and 8) on the wide route
     moe = {what: _segment_moe_case(torch, g, *shape, what=what)
            for what, shape in MOE_SHAPES.items()}
@@ -2445,6 +2546,10 @@ MIX_B_KM = (2 ** 18, 3 * 2 ** 16)
 MIX_B_GROUPS = MIX_B_VERTICES = 2 ** 16
 MIX_B = dict(pagerank=MIX_B_ROWS, group_by=MIX_B_ROWS, kmeans_step=MIX_B_KM)
 SERVED = ("pagerank", "group_by", "kmeans_step")
+# the segment kernel's counters: all its launches, and the device-count
+# and lanes entries' among them
+SEGMENT_COUNTERS = ("segment_reduce", "segment_reduce[rows]",
+                    "segment_reduce[lanes]")
 
 
 def _mix_request(np, mix, name, m, seed):
@@ -2641,7 +2746,9 @@ def _serve_mix(torch, np, mix, sizes, seed):
     16 solo run()s of the same requests, traced."""
     from repro_torch.core import compile_program
     from repro_torch.core.programs import ALL
+    from repro_torch.kernels import ops
     from repro_torch.serve import PlanServer
+    at_start = ops.launch_counts()
     pool = [(name, m, _mix_request(np, mix, name, m,
                                    seed + 1000 * j + 10 * i + r))
             for j, name in enumerate(SERVED)
@@ -2705,6 +2812,17 @@ def _serve_mix(torch, np, mix, sizes, seed):
             return [solo_cp[name].run(r) for r in reqs]
         flush()
         solo_runs()
+        before = ops.launch_counts()
+        flush()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        seg = {k: after[k] - before[k] for k in SEGMENT_COUNTERS}
+        log(f"[plans] mix ({mix}) {name}: segment launches a flush of "
+            f"{SERVE_MAX_BATCH} lanes {json.dumps(seg)}")
+        require(seg["segment_reduce[lanes]"] > 0
+                and seg["segment_reduce[rows]"] == 0,
+                f"plans mix ({mix}) {name}: a flush's group-bys did not go "
+                f"through the lanes entry alone ({seg})")
         f_ms, s_ms = [], []
         for _ in range(3):
             for fn, acc in ((flush, f_ms), (solo_runs, s_ms)):
@@ -2735,6 +2853,12 @@ def _serve_mix(torch, np, mix, sizes, seed):
         log(f"[plans] mix ({mix}) {name}: two flushes {_ms_text(t_ms)}; "
             f"host-to-device copies {h2d:.3f} ms, {under:.3f} ms of it "
             "while a kernel ran")
+    end = ops.launch_counts()
+    seg = {k: end[k] - at_start[k] for k in SEGMENT_COUNTERS}
+    log(f"[plans] mix ({mix}): segment launches {json.dumps(seg)}")
+    require(seg["segment_reduce[lanes]"] > 0,
+            f"plans mix ({mix}): no launch of the segment kernel's lanes "
+            "entry")
     del cps, solo_cp
     gc.collect()
     torch.cuda.empty_cache()
@@ -2841,7 +2965,7 @@ def phase_plans(torch, seed):
     require(counts["segment_reduce"] > 0,
             "phase 6 launched no segment kernel")
     ops.reset_launch_counts()
-    return counts["segment_reduce"]
+    return {k: counts[k] for k in SEGMENT_COUNTERS}
 
 
 # ---------------------------------------------------------------------------
@@ -4030,6 +4154,37 @@ def phase_train(torch, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# last: the lanes entry's replay under torch.profiler
+# ---------------------------------------------------------------------------
+
+def phase_lanes_trace(torch, seed):
+    """Phase 2's main lanes case (mix (b)'s group_by flush) captured again,
+    the lanes entry's graph and the 16 device-count launches' each replayed
+    under torch.profiler, interleaved: the device time of each (`[lanes]`
+    line).  It runs after every other phase, so that its traces of graph
+    replays touch no other phase's."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    lens = [MIX_B_ROWS[i % 2] for i in range(SERVE_MAX_BATCH)]
+    *_, fns = _lanes_flush(torch, g, lens, MIX_B_ROWS[0], MIX_B_GROUPS)
+    graphs, _ = _flush_graphs(torch, fns)
+    out = {}
+    for which in ("rows", "lanes", "lanes", "rows"):
+        run_ms = time_ms(torch, graphs[which].replay)
+        _, spans = _profile(torch, f"segment_reduce mix (b) group_by flush "
+                            f"of {len(lens)} lanes, the {which} graph's "
+                            "replay", graphs[which].replay, run_ms)
+        out.setdefault(which, []).append(
+            (_union_ms((lo, hi) for lo, hi, _ in spans), len(spans)))
+    # the graphs launch 6 kernels a lane (count, three scans, scatter,
+    # reduce) and 6 in all: a trace with fewer events dropped some
+    log(f"[lanes] one mix (b) group_by flush replayed: (device ms, kernel "
+        f"events) {json.dumps(out)} (the 16 device-count launches' graph, "
+        "rows, of 96 kernels, against the lanes entry's, of 6)")
+    del graphs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4060,7 +4215,10 @@ def main(argv=None) -> int:
         launches["segment_reduce"] += phase_ooc(torch, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
-        launches["segment_reduce"] += phase_plans(torch, args.seed)
+        plans = phase_plans(torch, args.seed)
+        launches["segment_reduce"] += plans["segment_reduce"]
+        # the lanes entry's launches: phase 6's served flushes
+        launches["segment_reduce[lanes]"] = plans["segment_reduce[lanes]"]
         gc.collect()
         torch.cuda.empty_cache()
         for k, n in phase_dist(torch, args.seed).items():
@@ -4075,6 +4233,9 @@ def main(argv=None) -> int:
         for k, n in [*served.items(), *phase_train(torch, args.seed).items()]:
             k = "segment_reduce[wide]" if k == "segment_reduce" else k
             launches[k] = launches.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_lanes_trace(torch, args.seed)
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
         return 1
@@ -4089,6 +4250,12 @@ def main(argv=None) -> int:
                                         "segment_reduce.cu",
                                         "src/repro/kernels/segment_reduce.py"
                                         ":109"),
+               # the same TPU kernel under the reference's vmap over a
+               # served batch: the lanes entry
+               "segment_reduce[lanes]": ("src/repro_torch/kernels/csrc/"
+                                         "segment_reduce.cu",
+                                         "src/repro/kernels/segment_reduce"
+                                         ".py:109"),
                "tile_matmul": ("src/repro_torch/kernels/csrc/tile_matmul.cu",
                                "src/repro/kernels/tile_matmul.py:69"),
                "flash_attention": ("src/repro_torch/kernels/csrc/"
@@ -4126,11 +4293,6 @@ def main(argv=None) -> int:
                "selective_scan_bwd[a, bx]": (
                    "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
                    "src/repro/kernels/selective_scan.py:60")}
-    lanes = per_kernel.pop("segment_reduce[lanes]")
-    log(f"[kernels] segment_reduce device-count entry, one flush: kernel "
-        f"{lanes['kernel_ms']:.4f} ms, plain {lanes['plain_ms']:.4f} ms, "
-        f"library {lanes['library_ms']:.4f} ms, bound "
-        f"{lanes['bound_ms']:.4f} ms")
     kernels = []
     for name, rec in per_kernel.items():
         src, repl = sources[name]

@@ -70,10 +70,12 @@ reads.  `free()` lets go of everything an entry holds (lower.py keeps a few
 entries and frees the one it evicts).
 
 Batches (`BatchEntry`, the serving layer's batched call; the reference
-vmaps its traced plan).  ctypes launches and host reads of a flag do not
-batch, so a batch of B requests of one padded signature runs the plan B
-times, once a lane, inside the same graphs (the walk of the schedule is
-Entry's, `_Walk`, with B lanes where an Entry has one): each region is one
+vmaps its traced plan).  Host reads of a flag do not batch, so a batch of
+B requests of one padded signature runs the plan B times, once a lane,
+inside the same graphs (the walk of the schedule is Entry's, `_Walk`, with
+B lanes where an Entry has one), node by node across the lanes; a
+group-by on the segment kernel is one call of its lanes entry for all B
+lanes (`PlanExecutor.lanes`).  Each region is one
 graph that holds every lane's nodes, each lane reading its slice of stacked buffers
 [B, ...] and its own row counts (`ExecContext.bag_limits` and
 `array_limits`: 0-d views into [B] int32 counts that each call's staging
@@ -256,7 +258,8 @@ def _quiet(executor):
 class _Walk:
     """The walk of a schedule that Entry and BatchEntry share: B lanes of
     the plan (an Entry has one), each with its env and its ExecContext.  A
-    region runs every lane's nodes (the injection sites fire for lane 0),
+    region runs its nodes one by one, each on every lane (the injection
+    sites fire for lane 0),
     then, in the last region, the write-back (`_finish`), then its loop
     step: each lane's new carry copied into its buffers and its condition
     into its flag.  With more than one lane, a lane whose condition was
@@ -293,12 +296,16 @@ class _Walk:
 
     def _work(self, it: _Region, envs: list) -> None:
         ex = self.executor
-        for b, (env, ctx) in enumerate(zip(envs, self.ctxs)):
-            if b == 0:
-                ex.execute(it.nodes, env, ctx)
-            else:
-                with _quiet(ex):
-                    ex.execute(it.nodes, env, ctx)
+        # node by node across the lanes: every lane runs a node before any
+        # runs the next, so that under a batch's `lanes()` the lanes of a
+        # group-by reach the segment kernel in one call (settle)
+        for node in it.nodes:
+            vals = [ex.run_node(node, envs[0], self.ctxs[0])]
+            with _quiet(ex):
+                vals += [ex.run_node(node, env, ctx) for env, ctx
+                         in zip(envs[1:], self.ctxs[1:])]
+            for env, v in zip(envs, ex.settle(vals)):
+                ex.assign(node, env, v)
         if it is self.last:
             self._finish(envs)
         loop = it.enter or it.back
@@ -803,15 +810,18 @@ class BatchEntry(_Walk):
             raise ValueError("a batch of another layout than its entry's")
         self._stage(batch)
         self.syncs = 0
-        if self.card:
-            if not self.captured:
-                # the warm-up: lane 0 once, eagerly, writing nothing it reads
-                self._capture(lambda: self.executor.execute(
-                    self.plan, dict(self.envs[0]), self.ctxs[0]), self._envs)
-                self.captured = True
-            self._replay(self.items)
-        else:
-            self._run_cpu(self.items, self._envs())
+        with self.executor.lanes():
+            if self.card:
+                if not self.captured:
+                    # the warm-up: lane 0 once, eagerly, writing nothing it
+                    # reads
+                    self._capture(lambda: self.executor.execute(
+                        self.plan, dict(self.envs[0]), self.ctxs[0]),
+                        self._envs)
+                    self.captured = True
+                self._replay(self.items)
+            else:
+                self._run_cpu(self.items, self._envs())
         return self._outputs()
 
     def _envs(self) -> list:

@@ -67,13 +67,17 @@ requests of one signature as the lanes of one entry of CUDA graphs
 a row count on the host cuts a lane's rows (the CPU), one on the device
 masks them and the segment kernel reads it there (the card), where
 `pads_exactly` says which programs may be padded at all; `request_salts`
-salts a lane's hot keys as its solo run does.
+salts a lane's hot keys as its solo run does.  Under `lanes()` (a batched
+entry's runs) a group-by on the segment kernel is held (`_Held`) until
+every lane has run its node, and the lanes' rows are reduced by one call
+of the kernel's lanes entry (`settle`).
 """
 from __future__ import annotations
 
 import numbers
 import operator
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -490,6 +494,67 @@ def pads_exactly(plan, program: Program, device) -> bool:
     return True
 
 
+class _Held:
+    """A group-by's segment-kernel reduction held back until every lane of
+    a batch has run its node: the lane's flat ids and values, its row count
+    on the device (None: all its rows), and `then`, which makes the node's
+    value of the [num] partial."""
+
+    __slots__ = ("ids", "vals", "num", "op", "rows", "then", "value")
+
+    def __init__(self, ids, vals, num, op, rows, then):
+        self.ids, self.vals, self.num, self.op = ids, vals, num, op
+        self.rows, self.then = rows, then
+        self.value = None
+
+
+def _lane_counts(held: list) -> torch.Tensor:
+    """The [B] int32 row counts of held reductions: the [B] tensor the
+    lanes' counts are consecutive elements of (a batch's own counts), else
+    one stacked on the device, a lane with no count counting all its
+    rows."""
+    rows = [h.rows for h in held]
+    r0 = rows[0]
+    if r0 is not None and all(
+            r is not None and r.dtype == torch.int32 and r.dim() == 0
+            and r.untyped_storage().data_ptr()
+            == r0.untyped_storage().data_ptr()
+            and r.data_ptr() == r0.data_ptr() + 4 * b
+            for b, r in enumerate(rows)):
+        return r0.as_strided((len(rows),), (1,))
+    return torch.stack([
+        h.rows.to(torch.int32) if h.rows is not None else
+        torch.full((), h.ids.shape[0], dtype=torch.int32,
+                   device=h.ids.device) for h in held])
+
+
+def _reduce_held(held: list) -> None:
+    """Each held reduction's value: the lanes of one group-by shape (K, op,
+    value and id dtypes, value width; on the card also the rows, which a
+    launch's lanes share, where the CPU's counts cut each lane's) reduced
+    by one `segment_reduce_lanes` call."""
+    from ..kernels import ops as kops
+    groups: dict = {}
+    for h in held:
+        key = (h.num, h.op, h.vals.dtype, h.ids.dtype, h.vals.device,
+               tuple(h.vals.shape[0 if h.vals.is_cuda else 1:]))
+        groups.setdefault(key, []).append(h)
+    for (num, op, *_), lanes in groups.items():
+        res = kops.segment_reduce_lanes([h.ids for h in lanes],
+                                        [h.vals for h in lanes], num,
+                                        _lane_counts(lanes), op=op)
+        for h, r in zip(lanes, res):
+            h.value = h.then(r)
+
+
+def _settled(v):
+    if isinstance(v, _Held):
+        return v.value
+    if isinstance(v, tuple) and any(isinstance(x, _Held) for x in v):
+        return tuple(_settled(x) for x in v)
+    return v
+
+
 # ---------------------------------------------------------------------------
 # plan executor
 # ---------------------------------------------------------------------------
@@ -510,6 +575,8 @@ class PlanExecutor:
         # destination without reading its old value (graphs.py stages no
         # input that such a store writes before anything reads it)
         self.replaced = None
+        # under lanes(): the group-bys held for one lanes launch
+        self.held = None
 
     @property
     def selector(self):
@@ -743,11 +810,39 @@ class PlanExecutor:
             elif isinstance(node, P.FusedRound):
                 # round-fusion region: plain sequencing on a single device
                 self.execute(node.parts, env, ctx)
-            elif isinstance(node, P.Fused):
-                for part, v in zip(node.parts, self.run_node(node, env, ctx)):
-                    env[part.dest] = v
             else:
-                env[node.dest] = self.run_node(node, env, ctx)
+                self.assign(node, env,
+                            self.settle([self.run_node(node, env, ctx)])[0])
+
+    @contextmanager
+    def lanes(self):
+        """Around a batched entry's runs: each group-by on the segment
+        kernel is held (run_node returns a `_Held` in its place) until
+        `settle`, which reduces the held lanes in one lanes call.  A node
+        that `execute` runs is settled at once, as a batch of one lane."""
+        prev, self.held = self.held, []
+        try:
+            yield
+        finally:
+            self.held = prev
+
+    def settle(self, values: list) -> list:
+        """`values` (one node's run_node results, a lane each) with the
+        group-bys held since the last settle reduced."""
+        if self.held:
+            held, self.held = self.held, []
+            _reduce_held(held)
+        return [_settled(v) for v in values]
+
+    @staticmethod
+    def assign(node, env, v) -> None:
+        """A node's settled value into the env: one destination, or each
+        part's of a Fused node."""
+        if isinstance(node, P.Fused):
+            for part, x in zip(node.parts, v):
+                env[part.dest] = x
+        else:
+            env[node.dest] = v
 
     def run_node(self, node, env, ctx: ExecContext = _EMPTY_CTX):
         # per-node guard site: under a capture it fires at capture time only
@@ -993,13 +1088,15 @@ class PlanExecutor:
             salted = torch.where(flat < num, flat * salt_s + salt,
                                  num * salt_s)
             vflat = val.reshape(-1).to(dest.dtype)
-            part = segment_flat(backend, salted, vflat, num * salt_s,
-                                node.op, rows)
-            part = REDUCE[node.op](part.reshape(num, salt_s), (1,))
             self.note(node, self.decisions.get(id(node), "")
                       + f" salt={salt_s}x[{salt_src}]")
-            return COMBINE[node.op](
-                dest, part.reshape(dest.shape).to(dest.dtype))
+
+            def unsalt(part):
+                part = REDUCE[node.op](part.reshape(num, salt_s), (1,))
+                return COMBINE[node.op](
+                    dest, part.reshape(dest.shape).to(dest.dtype))
+            return self._segment(backend, salted, vflat, num * salt_s,
+                                 node.op, rows, unsalt)
         if backend != "scatter":
             # flattened-segment backends (sort / onehot / pallas): ravel
             # the key tuple against the physical dims, route every dropped
@@ -1020,9 +1117,10 @@ class PlanExecutor:
                     flat, vflat, num, op=node.op,
                     init=ctx.partials[node.dest])
                 return dest
-            seg = segment_flat(backend, flat, vflat, num, node.op, rows)
-            return COMBINE[node.op](
-                dest, seg.reshape(dest.shape).to(dest.dtype))
+            return self._segment(
+                backend, flat, vflat, num, node.op, rows,
+                lambda seg: COMBINE[node.op](
+                    dest, seg.reshape(dest.shape).to(dest.dtype)))
         # scatter-⊕ straight into the destination; rows dropped for any
         # reason (OOB or negative key, failed condition, out-of-range value
         # gather, padded row) go to the sentinel slot
@@ -1031,6 +1129,15 @@ class PlanExecutor:
         if lim0 is not None:      # logical dim-0 bound (padded rows)
             kk[0] = torch.where(kk[0] >= lim0, -1, kk[0])
         return scatter_drop(dest, kk, val, node.op)
+
+    def _segment(self, backend, ids, vals, num, op, rows, then):
+        """`then` of the [num] partial of a flattened group-by; under
+        lanes() a segment-kernel one is held for the lanes launch."""
+        if backend != "pallas" or self.held is None:
+            return then(segment_flat(backend, ids, vals, num, op, rows))
+        held = _Held(ids, vals, num, op, rows, then)
+        self.held.append(held)
+        return held
 
     def _segment_salt(self, node: P.SegmentReduce, ctx, dest):
         """Resolve the hot-key salt factor for this node: the static hint

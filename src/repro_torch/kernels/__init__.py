@@ -1,5 +1,7 @@
-from .ops import (flash_attention, segment_reduce, segment_sum,
-                  selective_scan, selective_scan_fused, tile_matmul)
+from .ops import (flash_attention, segment_reduce, segment_reduce_lanes,
+                  segment_sum, selective_scan, selective_scan_fused,
+                  tile_matmul)
 
-__all__ = ["flash_attention", "segment_reduce", "segment_sum",
-           "selective_scan", "selective_scan_fused", "tile_matmul"]
+__all__ = ["flash_attention", "segment_reduce", "segment_reduce_lanes",
+           "segment_sum", "selective_scan", "selective_scan_fused",
+           "tile_matmul"]

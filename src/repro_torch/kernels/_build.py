@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)     # a host array of device pointers
 # C entry points and their ctypes signatures; every one returns the
 # cudaError_t of cudaGetLastError() after its launches
 SIGNATURES = {
@@ -47,6 +48,14 @@ SIGNATURES = {
                                        ctypes.c_int, ctypes.c_int, _P,
                                        ctypes.c_longlong, ctypes.c_int,
                                        ctypes.c_int],
+        "segment_reduce_launch_lanes": [ctypes.c_int, ctypes.c_int, _PP,
+                                        _PP, _PP, ctypes.c_int,
+                                        ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_longlong, ctypes.c_int, _P,
+                                        ctypes.c_int, _P, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_int, _P,
+                                        ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int],
         "segment_reduce_wide_launch": [ctypes.c_int, ctypes.c_int, _P, _P, _P,
                                        ctypes.c_longlong, ctypes.c_int,
                                        ctypes.c_longlong, ctypes.c_int, _P,

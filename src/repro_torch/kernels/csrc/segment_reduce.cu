@@ -51,6 +51,18 @@
 // count it knows (`rows_of`), blocks and ranges past them reduce nothing,
 // and the fold reads the same count.  So a padded launch gives the bits of
 // a launch over the counted rows alone, and reads no padded row.
+// The lanes entry (`segment_reduce_launch_lanes`) is that launch for the
+// lanes of a served flush at once: the same group-by (op, K, d, dtype, N)
+// over up to kMaxLanes lanes, each with its own ids, values, output and
+// count (lane b reads counts[b]).  The lane is the grid's second axis in
+// every pass, each lane's pointers reach the kernels by value in their
+// parameters (`Lanes`, which a CUDA graph keeps), and each lane's scratch is
+// a copy of one lane's plan, `lane_bytes` apart.  A lane's blocks do what
+// its own device-count launch does, so every lane has that launch's bits;
+// a flush runs each pass once with B lanes' blocks, not B chains of
+// under-filled launches.  The wide route stays a launch a lane: no served
+// program has rows of d ≥ 64.  Every pass of a solo launch is lane 0 of a
+// grid of one lane.
 // Within 32 rows, lanes that share an id commit to the warp's copy one at a
 // time in lane order for a few rounds (`lane_rounds`), and the rest of a
 // crowded id (a hot key) together, combined in a fixed tree
@@ -77,6 +89,23 @@ constexpr int kTags = 512;                // tag slots a warp (a power of two)
 // hot key
 constexpr int kSmallRounds = 6, kLargeRounds = 2;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxLanes = 32;             // lanes of one lanes launch at most
+
+// Each lane's ids, values and output: lane blockIdx.y's are read by its
+// blocks (a solo launch is lane 0).  Passed by value, as a __grid_constant__
+// parameter, so that indexing it by the lane reads the parameter bank.
+struct Lanes {
+  const void* ids[kMaxLanes];
+  const void* vals[kMaxLanes];
+  void* out[kMaxLanes];
+};
+
+// The calling block's lane's copy of a scratch array: lanes lie `lane_bytes`
+// bytes apart
+template <typename P>
+__device__ __forceinline__ P* at_lane(P* p, long long lane_bytes) {
+  return (P*)((const unsigned char*)p + (long long)blockIdx.y * lane_bytes);
+}
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -109,10 +138,10 @@ __device__ __forceinline__ void warp_range(long long n, long long per, long long
 }
 
 // Where the rows of a launch come from: none (the host's count and plan),
-// or a row count in device memory, `*n_rows - base` clamped to [0, n]
-// (`base`: the launch's first row in the caller's rows), whose plan is
-// clamp(ceil(m / rpb), 1, cap) blocks, as kernels/segment_reduce.py::_plan
-// makes it on the host
+// or a row count in device memory, `n_rows[lane] - base` clamped to [0, n]
+// (`base`: the launch's first row in the caller's rows; lane blockIdx.y),
+// whose plan is clamp(ceil(m / rpb), 1, cap) blocks, as
+// kernels/segment_reduce.py::_plan makes it on the host
 struct Count {
   const int* n_rows;
   long long base;
@@ -127,7 +156,7 @@ struct Rows {
 };
 __device__ __forceinline__ Rows rows_of(long long n, long long per, int blocks, Count c) {
   if (c.n_rows == nullptr) return {n, per, blocks};
-  const long long m = max(0LL, min((long long)*c.n_rows - c.base, n));
+  const long long m = max(0LL, min((long long)c.n_rows[blockIdx.y] - c.base, n));
   const int b = (int)max(1LL, min((long long)c.cap, (m + c.rpb - 1) / c.rpb));
   const long long ranges = (long long)b * kWarps;
   return {m, ((m + ranges - 1) / ranges + 31) / 32 * 32, b};
@@ -267,12 +296,17 @@ __device__ __forceinline__ void merge_warps(const T* copies, int warps, int stri
   }
 }
 
+// Each kernel below is a thin __global__ that finds its lane's pointers
+// (`lanes`, and the scratch at `lane_bytes` a lane) and calls its body,
+// whose pointer parameters are __restrict__ as a kernel's own would be.
+
 // small path, pass 1: block g reduces warp ranges g·kWarps … into
 // dst[g] ([K, D]; the output itself when there is one block)
 template <typename T, int OP, typename IdT>
-__global__ void __launch_bounds__(kThreads)
-small_reduce(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n, int d,
-             long long vstride, int k, long long per, Count count, T* __restrict__ dst) {
+__device__ __forceinline__ void small_reduce_body(const IdT* __restrict__ ids,
+                                                  const T* __restrict__ vals, long long n, int d,
+                                                  long long vstride, int k, long long per,
+                                                  Count count, T* __restrict__ dst) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ int tags[kWarps * kTags];
   const Rows r = rows_of(n, per, gridDim.x, count);
@@ -290,15 +324,29 @@ small_reduce(const IdT* __restrict__ ids, const T* __restrict__ vals, long long 
   merge_warps<T, OP>(copies, kWarps, cells, cells, dst + (long long)blockIdx.x * cells);
 }
 
+// part: the partials (null: the lane's output, when there is one block)
+template <typename T, int OP, typename IdT>
+__global__ void __launch_bounds__(kThreads)
+small_reduce(const __grid_constant__ Lanes lanes, long long n, int d, long long vstride, int k,
+             long long per, Count count, T* part, long long lane_bytes) {
+  small_reduce_body<T, OP, IdT>(static_cast<const IdT*>(lanes.ids[blockIdx.y]),
+                                static_cast<const T*>(lanes.vals[blockIdx.y]), n, d, vstride, k,
+                                per, count,
+                                part != nullptr ? at_lane(part, lane_bytes)
+                                                : static_cast<T*>(lanes.out[blockIdx.y]));
+}
+
 // small path, pass 2: fold the partials [blocks, cells] in block order
 // (the blocks pass 1 used: of n rows, or of the counted ones)
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-fold_partials(const T* __restrict__ part, long long n, long long per, int blocks, Count count,
-              int cells, T* __restrict__ out) {
+fold_partials(const T* part, long long lane_bytes, long long n, long long per, int blocks,
+              Count count, int cells, const __grid_constant__ Lanes lanes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= cells) return;
   blocks = rows_of(n, per, blocks, count).blocks;
+  part = at_lane(part, lane_bytes);
+  T* out = static_cast<T*>(lanes.out[blockIdx.y]);
   T acc = part[i];
   for (int g = 1; g < blocks; ++g) acc = combine<T, OP>(acc, part[(long long)g * cells + i]);
   out[i] = acc;
@@ -307,9 +355,9 @@ fold_partials(const T* __restrict__ part, long long n, long long per, int blocks
 // large path, pass 1a: kept rows per (bucket, warp range), written
 // bucket-major: counts[b · ranges + wt]
 template <typename IdT>
-__global__ void __launch_bounds__(kThreads)
-bucket_count(const IdT* __restrict__ ids, long long n, int k, int shift, int nb,
-             long long per, Count count, int ranges, int* __restrict__ counts) {
+__device__ __forceinline__ void bucket_count_body(const IdT* __restrict__ ids, long long n, int k,
+                                                  int shift, int nb, long long per, Count count,
+                                                  int ranges, int* __restrict__ counts) {
   extern __shared__ int cnt[];                 // [kWarps][nb]
   for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) cnt[i] = 0;
   __syncthreads();
@@ -331,10 +379,21 @@ bucket_count(const IdT* __restrict__ ids, long long n, int k, int shift, int nb,
   if (blockIdx.x == 0 && threadIdx.x == 0) counts[(long long)nb * ranges] = 0;
 }
 
+template <typename IdT>
+__global__ void __launch_bounds__(kThreads)
+bucket_count(const __grid_constant__ Lanes lanes, long long n, int k, int shift, int nb,
+             long long per, Count count, int ranges, int* counts, long long lane_bytes) {
+  bucket_count_body<IdT>(static_cast<const IdT*>(lanes.ids[blockIdx.y]), n, k, shift, nb, per,
+                         count, ranges, at_lane(counts, lane_bytes));
+}
+
 // exclusive scan of counts[0 … len) in place, in three kernels: chunk
 // sums, a scan of the sums by one block, each chunk scanned from its sum
+// (each lane's: its counts and sums `lane_bytes` after the last lane's)
 __global__ void __launch_bounds__(kThreads)
-scan_sums(const int* __restrict__ counts, long long len, int* __restrict__ sums) {
+scan_sums(const int* counts, long long len, int* sums, long long lane_bytes) {
+  counts = at_lane(counts, lane_bytes);
+  sums = at_lane(sums, lane_bytes);
   const long long lo = (long long)blockIdx.x * kScanChunk;
   int s = 0;
   for (long long i = lo + threadIdx.x; i < min(len, lo + kScanChunk); i += blockDim.x)
@@ -372,7 +431,9 @@ __device__ __forceinline__ int block_exclusive(int v, int* total) {
   return before + inc - v;
 }
 
-__global__ void __launch_bounds__(kThreads) scan_chunk_sums(int* sums, int chunks) {
+__global__ void __launch_bounds__(kThreads)
+scan_chunk_sums(int* sums, int chunks, long long lane_bytes) {
+  sums = at_lane(sums, lane_bytes);
   int carry = 0;
   for (int lo = 0; lo < chunks; lo += kThreads) {
     const int i = lo + threadIdx.x;
@@ -385,7 +446,9 @@ __global__ void __launch_bounds__(kThreads) scan_chunk_sums(int* sums, int chunk
 }
 
 __global__ void __launch_bounds__(kThreads)
-scan_chunks(int* __restrict__ counts, long long len, const int* __restrict__ sums) {
+scan_chunks(int* counts, long long len, const int* sums, long long lane_bytes) {
+  counts = at_lane(counts, lane_bytes);
+  sums = at_lane(sums, lane_bytes);
   constexpr int kPer = kScanChunk / kThreads;
   const long long lo = (long long)blockIdx.x * kScanChunk + (long long)threadIdx.x * kPer;
   int v[kPer];
@@ -408,12 +471,14 @@ scan_chunks(int* __restrict__ counts, long long len, const int* __restrict__ sum
 // broadcast row) values to its place, stable in row order
 // With ROWS (the wide route) each kept row's record is (id, row index), an
 // int2 at sid[2·place], and no value is read.
-template <typename T, typename IdT, bool ROWS = false>
-__global__ void __launch_bounds__(kThreads)
-bucket_scatter(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n, int d,
-               long long vstride, int k, int shift, int nb, long long per, Count count,
-               int ranges, const int* __restrict__ offs, int* __restrict__ sid,
-               T* __restrict__ sval) {
+template <typename T, typename IdT, bool ROWS>
+__device__ __forceinline__ void bucket_scatter_body(const IdT* __restrict__ ids,
+                                                    const T* __restrict__ vals, long long n, int d,
+                                                    long long vstride, int k, int shift, int nb,
+                                                    long long per, Count count, int ranges,
+                                                    const int* __restrict__ offs,
+                                                    int* __restrict__ sid,
+                                                    T* __restrict__ sval) {
   extern __shared__ int cur[];                 // [kWarps][nb]: next free place
   __shared__ int tags[kWarps * kTags];
   for (int i = threadIdx.x; i < kWarps * nb; i += blockDim.x) {
@@ -474,6 +539,17 @@ bucket_scatter(const IdT* __restrict__ ids, const T* __restrict__ vals, long lon
   }
 }
 
+template <typename T, typename IdT, bool ROWS = false>
+__global__ void __launch_bounds__(kThreads)
+bucket_scatter(const __grid_constant__ Lanes lanes, long long n, int d, long long vstride, int k,
+               int shift, int nb, long long per, Count count, int ranges, const int* offs,
+               int* sid, T* sval, long long lane_bytes) {
+  bucket_scatter_body<T, IdT, ROWS>(
+      static_cast<const IdT*>(lanes.ids[blockIdx.y]),
+      static_cast<const T*>(lanes.vals[blockIdx.y]), n, d, vstride, k, shift, nb, per, count,
+      ranges, at_lane(offs, lane_bytes), at_lane(sid, lane_bytes), at_lane(sval, lane_bytes));
+}
+
 template <typename T> __device__ __forceinline__ unsigned bits(T v);
 template <> __device__ __forceinline__ unsigned bits<float>(float v) { return __float_as_uint(v); }
 template <> __device__ __forceinline__ unsigned bits<int>(int v) { return (unsigned)v; }
@@ -488,11 +564,13 @@ template <> __device__ __forceinline__ unsigned bits<int>(int v) { return (unsig
 // partial sectors to the L2 and cost a device-memory read-modify-write
 // each; whole sectors do not.  With ROWS (the wide route, W = 2) a
 // record's second word is the row's index, and no value is read.
-template <typename T, typename IdT, int W, bool ROWS = false>
-__global__ void __launch_bounds__(kThreads)
-bucket_scatter_staged(const IdT* __restrict__ ids, const T* __restrict__ vals, long long n,
-                      int k, int shift, int nb, long long per, Count count, int ranges,
-                      const int* __restrict__ offs, unsigned* __restrict__ rec) {
+template <typename T, typename IdT, int W, bool ROWS>
+__device__ __forceinline__ void bucket_scatter_staged_body(const IdT* __restrict__ ids,
+                                                           const T* __restrict__ vals, long long n,
+                                                           int k, int shift, int nb, long long per,
+                                                           Count count, int ranges,
+                                                           const int* __restrict__ offs,
+                                                           unsigned* __restrict__ rec) {
   constexpr int R = 8 / W;
   extern __shared__ int smem_int[];
   int* cur = smem_int;                         // [kWarps][nb]: next free place
@@ -586,18 +664,31 @@ bucket_scatter_staged(const IdT* __restrict__ ids, const T* __restrict__ vals, l
   }
 }
 
+template <typename T, typename IdT, int W, bool ROWS = false>
+__global__ void __launch_bounds__(kThreads)
+bucket_scatter_staged(const __grid_constant__ Lanes lanes, long long n, int k, int shift, int nb,
+                      long long per, Count count, int ranges, const int* offs, unsigned* rec,
+                      long long lane_bytes) {
+  bucket_scatter_staged_body<T, IdT, W, ROWS>(
+      static_cast<const IdT*>(lanes.ids[blockIdx.y]),
+      static_cast<const T*>(lanes.vals[blockIdx.y]), n, k, shift, nb, per, count, ranges,
+      at_lane(offs, lane_bytes), at_lane(rec, lane_bytes));
+}
+
 // large path, pass 2: block b reduces bucket b's rows (ids[r·istride],
-// values rows[r·rstride + j]) and writes its slice of the output.  With
+// values rows[r·rstride + j]; null rows: the lane's broadcast value row)
+// and writes its slice of the lane's output.  With
 // `in_smem` each of its warps (8, or 4 for a slice above kSmallCells
 // cells, each then with twice the rows in flight) keeps a copy of the
 // slice in shared memory and takes a fixed share of the rows; the copies
 // are merged in warp order.  Otherwise (a slice too large for it) one warp
 // reduces straight into the output slice, which only this block writes.
 template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-bucket_reduce(const int* __restrict__ ids, int istride, const T* __restrict__ rows,
-              long long rstride, int d, int k, int shift, int ranges,
-              const int* __restrict__ offs, bool in_smem, T* __restrict__ out) {
+__device__ __forceinline__ void bucket_reduce_body(const int* __restrict__ ids, int istride,
+                                                   const T* __restrict__ rows, long long rstride,
+                                                   int d, int k, int shift, int ranges,
+                                                   const int* __restrict__ offs, bool in_smem,
+                                                   T* __restrict__ out) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ int tags[kWarps * kTags];
   const int b = blockIdx.x;
@@ -630,6 +721,30 @@ bucket_reduce(const int* __restrict__ ids, int istride, const T* __restrict__ ro
                                                        tags + w * kTags);
   __syncthreads();
   merge_warps<T, OP>(copies, warps, stride, cells, slice);
+}
+
+// One lane's (a solo launch, or a lanes launch of one lane): the lane's
+// pointers as parameters, which stay in the parameter bank and take no
+// registers
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+bucket_reduce_one(const int* __restrict__ ids, int istride, const T* __restrict__ rows,
+                  long long rstride, int d, int k, int shift, int ranges,
+                  const int* __restrict__ offs, bool in_smem, T* __restrict__ out) {
+  bucket_reduce_body<T, OP>(ids, istride, rows, rstride, d, k, shift, ranges, offs, in_smem, out);
+}
+
+// MIN_BLOCKS: the blocks an SM must hold at once (its registers' bound)
+template <typename T, int OP, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+bucket_reduce(const int* ids, int istride, const T* rows, long long rstride, int d, int k,
+              int shift, int ranges, const int* offs, bool in_smem,
+              const __grid_constant__ Lanes lanes, long long lane_bytes) {
+  bucket_reduce_body<T, OP>(at_lane(ids, lane_bytes), istride,
+                            rows != nullptr ? at_lane(rows, lane_bytes)
+                                            : static_cast<const T*>(lanes.vals[blockIdx.y]),
+                            rstride, d, k, shift, ranges, at_lane(offs, lane_bytes), in_smem,
+                            static_cast<T*>(lanes.out[blockIdx.y]));
 }
 
 // ---------------------------------------------------------------------------
@@ -795,10 +910,13 @@ int set_smem(const void* fn, size_t bytes) {
                                    (int)bytes);
 }
 
+// One launch of lanes 0 … nl - 1 of `ln` (a solo launch: one lane): the
+// plan is one lane's, and lane b's scratch is the `scratch_bytes` at
+// scratch + b·lane_bytes
 template <typename T, int OP, typename IdT>
-int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long vstride, int k,
-           unsigned char* scratch, long long scratch_bytes, int blocks, int shift, Count count,
-           cudaStream_t s) {
+int launch(const Lanes& ln, int nl, long long n, int d, long long vstride, int k,
+           unsigned char* scratch, long long scratch_bytes, long long lane_bytes, int blocks,
+           int shift, Count count, cudaStream_t s) {
   const long long cells = (long long)k * d;
   if (cells == 0) return 0;
   const long long ranges = (long long)blocks * kWarps;
@@ -806,16 +924,16 @@ int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long 
   if (shift < 0) {                                       // small path
     if (cells > kSmallCells) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)kWarps * cells * sizeof(T);
-    T* part = blocks == 1 ? out : reinterpret_cast<T*>(scratch);
+    T* part = blocks == 1 ? nullptr : reinterpret_cast<T*>(scratch);
     if (blocks > 1 && scratch_bytes < (long long)blocks * cells * (long long)sizeof(T))
       return (int)cudaErrorInvalidValue;
     int err = set_smem((const void*)small_reduce<T, OP, IdT>, smem);
     if (err) return err;
-    small_reduce<T, OP, IdT><<<blocks, kThreads, smem, s>>>(ids, vals, n, d, vstride, k, per,
-                                                            count, part);
+    small_reduce<T, OP, IdT><<<dim3(blocks, nl), kThreads, smem, s>>>(ln, n, d, vstride, k, per,
+                                                                      count, part, lane_bytes);
     if (blocks > 1)
-      fold_partials<T, OP><<<(int)((cells + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-          part, n, per, blocks, count, (int)cells, out);
+      fold_partials<T, OP><<<dim3((int)((cells + kThreads - 1) / kThreads), nl), kThreads, 0,
+                             s>>>(part, lane_bytes, n, per, blocks, count, (int)cells, ln);
     return 0;
   }
   // large path: the scratch holds counts [nb·ranges + 1], chunk sums, the
@@ -845,76 +963,104 @@ int launch(const IdT* ids, const T* vals, T* out, long long n, int d, long long 
   if (!err && staged && vstride != 0)
     err = set_smem((const void*)bucket_scatter_staged<T, IdT, 2>, smem_staged);
   if (!err && !staged) err = set_smem((const void*)bucket_scatter<T, IdT>, smem1);
-  if (!err) err = set_smem((const void*)bucket_reduce<T, OP>, smem2);
-  if (err) return err;
-  bucket_count<IdT><<<blocks, kThreads, smem1, s>>>(ids, n, k, shift, (int)nb, per, count,
-                                                    (int)ranges, counts);
-  scan_sums<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
-  scan_chunk_sums<<<1, kThreads, 0, s>>>(sums, (int)chunks);
-  scan_chunks<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
-  unsigned* rec = reinterpret_cast<unsigned*>(sid);
+  // The reduce of one lane takes its pointers as parameters (64 registers
+  // a thread, a few spilled), but for a slice above kSmallCells cells: its
+  // 4-warp blocks are one an SM by shared memory, and the lanes kernel's
+  // 91-100 registers, spilling nothing, serve them faster (pagerank's
+  // reduce, PERF.md).  With more lanes the lane's pointers take registers:
+  // an 8-warp block of a slice of at most kSmallCells / 2 cells then keeps
+  // four blocks an SM by its bounds (64 registers), as one lane's does,
+  // since shared memory holds four; a larger slice holds fewer.
+  const bool one = nl == 1 && !(in_smem && warps2 < kWarps);
+  const bool four = in_smem && slice <= kSmallCells / 2;
   const int threads2 = in_smem ? warps2 * 32 : 32;
+  const void* reduce_fn = one  ? (const void*)bucket_reduce_one<T, OP>
+                          : four ? (const void*)bucket_reduce<T, OP, 4>
+                                 : (const void*)bucket_reduce<T, OP, 1>;
+  if (!err) err = set_smem(reduce_fn, smem2);
+  if (err) return err;
+  auto reduce = [&](int istride, const T* rows, long long rstride) {
+    if (one)
+      bucket_reduce_one<T, OP><<<(int)nb, threads2, smem2, s>>>(
+          sid, istride, rows != nullptr ? rows : static_cast<const T*>(ln.vals[0]), rstride, d,
+          k, shift, (int)ranges, counts, in_smem, static_cast<T*>(ln.out[0]));
+    else if (four)
+      bucket_reduce<T, OP, 4><<<dim3((int)nb, nl), threads2, smem2, s>>>(
+          sid, istride, rows, rstride, d, k, shift, (int)ranges, counts, in_smem, ln, lane_bytes);
+    else
+      bucket_reduce<T, OP, 1><<<dim3((int)nb, nl), threads2, smem2, s>>>(
+          sid, istride, rows, rstride, d, k, shift, (int)ranges, counts, in_smem, ln, lane_bytes);
+  };
+  const dim3 rows_grid(blocks, nl), scan_grid((int)chunks, nl);
+  bucket_count<IdT><<<rows_grid, kThreads, smem1, s>>>(ln, n, k, shift, (int)nb, per, count,
+                                                       (int)ranges, counts, lane_bytes);
+  scan_sums<<<scan_grid, kThreads, 0, s>>>(counts, len, sums, lane_bytes);
+  scan_chunk_sums<<<dim3(1, nl), kThreads, 0, s>>>(sums, (int)chunks, lane_bytes);
+  scan_chunks<<<scan_grid, kThreads, 0, s>>>(counts, len, sums, lane_bytes);
+  unsigned* rec = reinterpret_cast<unsigned*>(sid);
   if (staged && vstride == 0) {
-    bucket_scatter_staged<T, IdT, 1><<<blocks, kThreads, smem_staged, s>>>(
-        ids, vals, n, k, shift, (int)nb, per, count, (int)ranges, counts, rec);
-    bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
-        sid, 1, vals, 0, d, k, shift, (int)ranges, counts, in_smem, out);
+    bucket_scatter_staged<T, IdT, 1><<<rows_grid, kThreads, smem_staged, s>>>(
+        ln, n, k, shift, (int)nb, per, count, (int)ranges, counts, rec, lane_bytes);
+    reduce(1, nullptr, 0);
   } else if (staged) {
-    bucket_scatter_staged<T, IdT, 2><<<blocks, kThreads, smem_staged, s>>>(
-        ids, vals, n, k, shift, (int)nb, per, count, (int)ranges, counts, rec);
-    bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
-        sid, 2, reinterpret_cast<const T*>(rec + 1), 2, d, k, shift, (int)ranges, counts,
-        in_smem, out);
+    bucket_scatter_staged<T, IdT, 2><<<rows_grid, kThreads, smem_staged, s>>>(
+        ln, n, k, shift, (int)nb, per, count, (int)ranges, counts, rec, lane_bytes);
+    reduce(2, reinterpret_cast<const T*>(rec + 1), 2);
   } else {
-    bucket_scatter<T, IdT><<<blocks, kThreads, smem1, s>>>(ids, vals, n, d, vstride, k, shift,
-                                                           (int)nb, per, count, (int)ranges,
-                                                           counts, sid, sval);
-    bucket_reduce<T, OP><<<(int)nb, threads2, smem2, s>>>(
-        sid, 1, vstride != 0 ? sval : vals, vstride != 0 ? d : 0, d, k, shift, (int)ranges,
-        counts, in_smem, out);
+    bucket_scatter<T, IdT><<<rows_grid, kThreads, smem1, s>>>(ln, n, d, vstride, k, shift,
+                                                              (int)nb, per, count, (int)ranges,
+                                                              counts, sid, sval, lane_bytes);
+    reduce(1, vstride != 0 ? sval : nullptr, vstride != 0 ? d : 0);
   }
   return 0;
 }
 
 template <typename T, typename IdT>
-int launch_op(int op, const IdT* ids, const T* vals, T* out, long long n, int d,
-              long long vstride, int k, unsigned char* scratch, long long scratch_bytes,
-              int blocks, int shift, Count count, cudaStream_t s) {
+int launch_op(int op, const Lanes& ln, int nl, long long n, int d, long long vstride, int k,
+              unsigned char* scratch, long long scratch_bytes, long long lane_bytes, int blocks,
+              int shift, Count count, cudaStream_t s) {
   if (op == kSum)
-    return launch<T, kSum, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+    return launch<T, kSum, IdT>(ln, nl, n, d, vstride, k, scratch, scratch_bytes, lane_bytes,
                                 blocks, shift, count, s);
   if (op == kMin)
-    return launch<T, kMin, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
+    return launch<T, kMin, IdT>(ln, nl, n, d, vstride, k, scratch, scratch_bytes, lane_bytes,
                                 blocks, shift, count, s);
-  return launch<T, kMax, IdT>(ids, vals, out, n, d, vstride, k, scratch, scratch_bytes,
-                              blocks, shift, count, s);
+  return launch<T, kMax, IdT>(ln, nl, n, d, vstride, k, scratch, scratch_bytes, lane_bytes, blocks,
+                              shift, count, s);
 }
 
-template <typename IdT>
-int launch_dtype(int dtype, int op, const IdT* ids, const void* vals, void* out, long long n,
-                 int d, long long vstride, int k, unsigned char* scratch,
-                 long long scratch_bytes, int blocks, int shift, Count count, cudaStream_t s) {
-  if (dtype == 0)
-    return launch_op<float, IdT>(op, ids, (const float*)vals, (float*)out, n, d, vstride, k,
-                                 scratch, scratch_bytes, blocks, shift, count, s);
-  return launch_op<int, IdT>(op, ids, (const int*)vals, (int*)out, n, d, vstride, k, scratch,
-                             scratch_bytes, blocks, shift, count, s);
-}
-
-int launch_any(int dtype, int op, const void* ids, const void* vals, void* out, long long n,
-               int d, long long vstride, int k, void* stream, int id64, void* scratch,
-               long long scratch_bytes, int blocks, int shift, Count count) {
+// The small and bucketed paths of lanes 0 … nl - 1 of `ln`: dtype 0 =
+// float32, 1 = int32; int64 ids when id64, else int32
+int launch_any(int dtype, int op, const Lanes& ln, int nl, long long n, int d, long long vstride,
+               int k, void* stream, int id64, void* scratch, long long scratch_bytes,
+               long long lane_bytes, int blocks, int shift, Count count) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (op < 0 || op > 2 || d < 1 || k < 0 || n < 0 || blocks < 1 || shift > 30 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || nl < 1 || nl > kMaxLanes || lane_bytes < 0 ||
+      lane_bytes % 256 != 0 || (nl > 1 && lane_bytes < scratch_bytes))
     return (int)cudaErrorInvalidValue;
   unsigned char* sc = static_cast<unsigned char*>(scratch);
-  const int err = id64 ? launch_dtype<long long>(dtype, op, (const long long*)ids, vals, out, n,
-                                                 d, vstride, k, sc, scratch_bytes, blocks,
-                                                 shift, count, s)
-                       : launch_dtype<int>(dtype, op, (const int*)ids, vals, out, n, d,
-                                           vstride, k, sc, scratch_bytes, blocks, shift, count, s);
+  int err;
+  if (dtype == 0)
+    err = id64 ? launch_op<float, long long>(op, ln, nl, n, d, vstride, k, sc, scratch_bytes,
+                                             lane_bytes, blocks, shift, count, s)
+               : launch_op<float, int>(op, ln, nl, n, d, vstride, k, sc, scratch_bytes, lane_bytes,
+                                       blocks, shift, count, s);
+  else
+    err = id64 ? launch_op<int, long long>(op, ln, nl, n, d, vstride, k, sc, scratch_bytes,
+                                           lane_bytes, blocks, shift, count, s)
+               : launch_op<int, int>(op, ln, nl, n, d, vstride, k, sc, scratch_bytes, lane_bytes,
+                                     blocks, shift, count, s);
   return err ? err : (int)cudaGetLastError();
+}
+
+// one lane's pointers: a solo launch
+Lanes solo(const void* ids, const void* vals, void* out) {
+  Lanes ln{};
+  ln.ids[0] = ids;
+  ln.vals[0] = vals;
+  ln.out[0] = out;
+  return ln;
 }
 
 // The wide route: count, scan, scatter of (id, row) records, then the
@@ -956,19 +1102,20 @@ int launch_wide(const IdT* ids, const V* vals, typename Wide<V>::T* out, long lo
   if (!err && !staged) err = set_smem((const void*)bucket_scatter<float, IdT, true>, smem1);
   if (!err) err = set_smem(reduce, smem2);
   if (err) return err;
-  bucket_count<IdT><<<blocks, kThreads, smem1, s>>>(ids, n, k, shift, (int)nb, per, count,
-                                                    (int)ranges, counts);
-  scan_sums<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
-  scan_chunk_sums<<<1, kThreads, 0, s>>>(sums, (int)chunks);
-  scan_chunks<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums);
+  const Lanes ln = solo(ids, nullptr, nullptr);
+  bucket_count<IdT><<<blocks, kThreads, smem1, s>>>(ln, n, k, shift, (int)nb, per, count,
+                                                    (int)ranges, counts, 0);
+  scan_sums<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums, 0);
+  scan_chunk_sums<<<1, kThreads, 0, s>>>(sums, (int)chunks, 0);
+  scan_chunks<<<(int)chunks, kThreads, 0, s>>>(counts, len, sums, 0);
   if (staged)
     bucket_scatter_staged<float, IdT, 2, true><<<blocks, kThreads, smem_staged, s>>>(
-        ids, nullptr, n, k, shift, (int)nb, per, count, (int)ranges, counts,
-        reinterpret_cast<unsigned*>(rec));
+        ln, n, k, shift, (int)nb, per, count, (int)ranges, counts,
+        reinterpret_cast<unsigned*>(rec), 0);
   else
     bucket_scatter<float, IdT, true><<<blocks, kThreads, smem1, s>>>(
-        ids, nullptr, n, 1, 0, k, shift, (int)nb, per, count, (int)ranges, counts,
-        reinterpret_cast<int*>(rec), nullptr);
+        ln, n, 1, 0, k, shift, (int)nb, per, count, (int)ranges, counts,
+        reinterpret_cast<int*>(rec), nullptr, 0);
   const int vec = reinterpret_cast<unsigned long long>(vals) % 16 == 0 &&
                   (vstride * (long long)sizeof(V)) % 16 == 0;
   const dim3 grid((unsigned)nb, (unsigned)tiles);
@@ -1029,8 +1176,8 @@ extern "C" int segment_reduce_launch(int dtype, int op, const void* ids, const v
                                      void* out, long long n, int d, long long vstride, int k,
                                      void* stream, int id64, void* scratch,
                                      long long scratch_bytes, int blocks, int shift) {
-  return launch_any(dtype, op, ids, vals, out, n, d, vstride, k, stream, id64, scratch,
-                    scratch_bytes, blocks, shift, Count{nullptr, 0, 0, 0});
+  return launch_any(dtype, op, solo(ids, vals, out), 1, n, d, vstride, k, stream, id64, scratch,
+                    scratch_bytes, 0, blocks, shift, Count{nullptr, 0, 0, 0});
 }
 
 // The device-count entry: the same launch over ids and values of n rows,
@@ -1047,9 +1194,39 @@ extern "C" int segment_reduce_launch_rows(int dtype, int op, const void* ids, co
                                           const void* n_rows, long long base, int cap,
                                           int rpb) {
   if (n_rows == nullptr || cap < 1 || rpb < 1) return (int)cudaErrorInvalidValue;
-  return launch_any(dtype, op, ids, vals, out, n, d, vstride, k, stream, id64, scratch,
-                    scratch_bytes, blocks, shift,
+  return launch_any(dtype, op, solo(ids, vals, out), 1, n, d, vstride, k, stream, id64, scratch,
+                    scratch_bytes, 0, blocks, shift,
                     Count{static_cast<const int*>(n_rows), base, cap, rpb});
+}
+
+// The lanes entry: the device-count launch for `lanes` lanes at once (1 …
+// kMaxLanes), each lane b with its own ids[b], vals[b] and out[b] (host
+// arrays of device pointers, copied into the launches' parameters, so a
+// CUDA graph that captures the launch keeps them) and its own count
+// counts[b] (an int32 array in device memory), of which it reduces the
+// first `counts[b] - base` of n rows.  The lanes share everything else
+// (dtype, op, n, d, vstride, k, id64, the plan), and lane b's scratch is the
+// `lane_bytes` (a multiple of 256, at least one lane's plan) at scratch +
+// b·lane_bytes.  Every lane's output has the bits of its own
+// segment_reduce_launch_rows.  The small and bucketed paths only.
+extern "C" int segment_reduce_launch_lanes(int dtype, int op, const void* const* ids,
+                                           const void* const* vals, void* const* out, int lanes,
+                                           long long n, int d, long long vstride, int k,
+                                           void* stream, int id64, void* scratch,
+                                           long long lane_bytes, int blocks, int shift,
+                                           const void* counts, long long base, int cap,
+                                           int rpb) {
+  if (counts == nullptr || cap < 1 || rpb < 1 || lanes < 1 || lanes > kMaxLanes)
+    return (int)cudaErrorInvalidValue;
+  Lanes ln{};
+  for (int b = 0; b < lanes; ++b) {
+    ln.ids[b] = ids[b];
+    ln.vals[b] = vals[b];
+    ln.out[b] = out[b];
+  }
+  return launch_any(dtype, op, ln, lanes, n, d, vstride, k, stream, id64, scratch, lane_bytes,
+                    lane_bytes, blocks, shift,
+                    Count{static_cast<const int*>(counts), base, cap, rpb});
 }
 
 // The wide route (rows of d ≥ 64 values; kernels/segment_reduce.py::_route):

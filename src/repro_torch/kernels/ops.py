@@ -10,7 +10,9 @@ integer attribute (`segment_reduce.launches`, `tile_matmul.launches`,
 backward kernels count in `flash_attention_bwd.launches`,
 `selective_scan_fused_bwd.launches` and, for the scan's (a, bx) entry,
 `selective_scan_bwd.launches`; the segment kernel's device-count entry
-also in `segment_reduce.rows_launches`, "segment_reduce[rows]" below; the
+also in `segment_reduce.rows_launches`, "segment_reduce[rows]" below, and
+its lanes entry `segment_reduce_lanes` in `segment_reduce.lanes_launches`,
+"segment_reduce[lanes]"; the
 flash forward's wgmma route, hd 64 and 256 in bf16, also in
 `flash_attention.wg_launches`, "flash_attention[wg]"), so a run can show
 that it went through the kernels.
@@ -27,7 +29,8 @@ from contextlib import contextmanager
 from ._build import build_all
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               wg_launches)
-from .segment_reduce import rows_launches, segment_reduce, segment_sum
+from .segment_reduce import (lanes_launches, rows_launches, segment_reduce,
+                             segment_reduce_lanes, segment_sum)
 from .selective_scan import (selective_scan, selective_scan_bwd,
                              selective_scan_fused, selective_scan_fused_bwd)
 from .tile_matmul import tile_matmul, tile_matmul_packed
@@ -42,11 +45,12 @@ KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
 
 # every counter: the kernels, the scan's second entry, the (a, bx) entry's
 # backward (in the selective_scan_bwd library), and two parts of a
-# kernel's own count: the segment kernel's device-count launches and the
-# flash forward's wgmma route
+# kernel's own count: the segment kernel's device-count and lanes
+# launches and the flash forward's wgmma route
 COUNTED = {**KERNELS, "selective_scan_fused": selective_scan_fused,
            "selective_scan_bwd[a, bx]": selective_scan_bwd,
            "segment_reduce[rows]": rows_launches,
+           "segment_reduce[lanes]": lanes_launches,
            "flash_attention[wg]": wg_launches}
 
 
@@ -83,7 +87,8 @@ def credit(counts: dict) -> None:
         COUNTED[name].launches += n
 
 
-__all__ = ["build_all", "segment_reduce", "segment_sum", "tile_matmul",
+__all__ = ["build_all", "segment_reduce", "segment_reduce_lanes",
+           "segment_sum", "tile_matmul",
            "tile_matmul_packed", "flash_attention", "flash_attention_bwd",
            "selective_scan", "selective_scan_bwd", "selective_scan_fused",
            "selective_scan_fused_bwd",

@@ -25,6 +25,12 @@ its own ids and size (`_plan`), and the ranges' results are combined with
 results in order, gives the same bits as one call over all of them (a
 chunked, out-of-core run whose chunks are ranges).
 
+`segment_reduce_lanes` reduces one group-by for the B lanes of a served
+flush in one launch a pass (the kernel's lanes entry), each lane over its
+own rows counted on the device, with the bits of its own `n_rows=` launch;
+the reference vmaps its plan over the batch, which gives its kernel the
+batch as one more grid axis.
+
 Contract (the JAX kernel's): ids [N] int; values [N] or [N, D] →
 [K] or [K, D].  Ids < 0 or ≥ K contribute nothing.  Integer values
 accumulate exactly in int32, floats in float32; the result has the
@@ -35,6 +41,8 @@ propagates through min/max, as jnp.min/jnp.max do.  int32 and int64 ids
 are read as they are.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -229,10 +237,19 @@ def segment_reduce(ids, values, num_segments: int, *, op: str = "+",
     if init is not None:
         return _by_ranges(ids, values, num_segments, op, init)
     if values.device.type == "cpu" and ids.device.type == "cpu":
-        if values.shape[0] > RANGE_ROWS:
-            return _by_ranges(ids, values, num_segments, op)
-        return segment_reduce_plain(ids, values, num_segments, op)
+        return _plain_ranges(ids, values, num_segments, op)
     return _launch(ids, values, num_segments, op)
+
+
+def _plain_ranges(ids, values, k: int, op: str):
+    """The plain version in the kernel's ranges of RANGE_ROWS rows, folded
+    in row order: the bits of the kernel's route on the CPU."""
+    out = None
+    for i in range(0, max(values.shape[0], 1), RANGE_ROWS):
+        rows = slice(i, i + RANGE_ROWS)
+        part = segment_reduce_plain(ids[rows], values[rows], k, op)
+        out = part if out is None else _COMBINE[op](out, part)
+    return out
 
 
 segment_reduce.launches = 0
@@ -243,9 +260,11 @@ class _Count:
     launches = 0
 
 
-# the device-count entry's launches (`n_rows=`), which segment_reduce's
-# count includes: `ops.launch_counts()["segment_reduce[rows]"]`
+# the device-count entry's launches (`n_rows=`) and the lanes entry's
+# (`segment_reduce_lanes`), which segment_reduce's count includes:
+# `ops.launch_counts()["segment_reduce[rows]"]` and `["segment_reduce[lanes]"]`
 rows_launches = _Count()
+lanes_launches = _Count()
 
 
 def _check_count(n_rows, values) -> None:
@@ -348,3 +367,146 @@ def segment_sum(ids, values, num_segments: int):
     """ids: [N] int32; values: [N, D] -> [num_segments, D] float32 (the
     historical float32 entry point of the JAX package)."""
     return segment_reduce(ids, values.to(torch.float32), num_segments, op="+")
+
+
+# lanes of one launch of the lanes entry at most (csrc/segment_reduce.cu:
+# kMaxLanes)
+_MAX_LANES = 32
+
+
+def segment_reduce_lanes_plain(ids, values, num_segments: int, counts,
+                               op: str = "+"):
+    """The lanes' function in plain PyTorch: lane by lane, the plain
+    version over the lane's first counts[b] rows (clamped to [0, N]), in
+    ranges of RANGE_ROWS rows folded in row order; stacked [B, K(, D)]."""
+    if op not in _OPS:
+        raise ValueError(f"segment_reduce: unsupported op {op!r}")
+    outs = []
+    for i, v, n in zip(ids, values, counts.tolist()):
+        n = max(0, min(int(n), v.shape[0]))
+        outs.append(_plain_ranges(i[:n], v[:n], num_segments, op))
+    return torch.stack(outs)
+
+
+def segment_reduce_lanes(ids, values, num_segments: int, counts, *,
+                         op: str = "+"):
+    """B lanes of one group-by (a served flush's): ids[b] [N] int and
+    values[b] [N] or [N, D] -> [B, num_segments(, D)], lane b the reduction
+    of its first counts[b] rows (clamped to [0, N]), with the bits of
+    `segment_reduce(ids[b], values[b], K, n_rows=counts[b])`.  `counts` is
+    a [B] int32 tensor on the values' device; the lanes share N, D and the
+    dtypes of ids and values.
+
+    CUDA tensors launch the kernel's lanes entry or raise; there is no
+    fallback.  Each pass is one launch over up to 32 lanes (more lanes take
+    a launch each 32), a lane's blocks on the grid's second axis, each
+    lane's count read on the device, so a CUDA graph that captured the
+    call reduces whatever counts the tensor holds at each replay.  Lanes
+    longer than RANGE_ROWS go range by range, each range one lanes launch,
+    folded in row order.  Wide rows (D >= 64) take a device-count launch a
+    lane: no served program has them.  CPU tensors run
+    `segment_reduce_lanes_plain`."""
+    if op not in _OPS:
+        raise ValueError(f"segment_reduce: unsupported op {op!r}")
+    ids, values = list(ids), list(values)
+    if not values or len(ids) != len(values):
+        raise ValueError(f"segment_reduce: {len(ids)} lanes of ids and "
+                         f"{len(values)} of values")
+    v0 = values[0]
+    if not torch.is_tensor(counts) or counts.dtype != torch.int32 \
+            or counts.shape != (len(values),) or counts.device != v0.device:
+        raise ValueError(
+            "segment_reduce: counts must be a [B] int32 tensor on the "
+            f"values' device {v0.device} (got {counts!r})")
+    if v0.device.type == "cpu":
+        return segment_reduce_lanes_plain(ids, values, num_segments, counts,
+                                          op)
+    for i, v in zip(ids, values):
+        if v.device != v0.device or i.device != v0.device \
+                or v.shape != v0.shape or v.dtype != v0.dtype \
+                or i.shape != ids[0].shape or i.dtype != ids[0].dtype:
+            raise ValueError(
+                "segment_reduce: the lanes must share a CUDA device and "
+                f"their shapes and dtypes (got ids {tuple(i.shape)} "
+                f"{i.dtype} on {i.device}, values {tuple(v.shape)} "
+                f"{v.dtype} on {v.device}; lane 0: {tuple(ids[0].shape)} "
+                f"{ids[0].dtype}, {tuple(v0.shape)} {v0.dtype} on "
+                f"{v0.device})")
+    k = int(num_segments)
+    d = v0.shape[1] if v0.dim() == 2 else 1
+    if v0.dim() == 2 and _route(d, k) == "wide":
+        # one device-count launch a lane: no served program has wide rows
+        return torch.stack([_launch(i, v, k, op, counts[b])
+                            for b, (i, v) in enumerate(zip(ids, values))])
+    counts = counts.contiguous()
+    n = v0.shape[0]
+    if n <= RANGE_ROWS:
+        return _launch_lanes(ids, values, k, op, counts)
+    out = None
+    for i in range(0, n, RANGE_ROWS):
+        rows = slice(i, i + RANGE_ROWS)
+        part = _launch_lanes([x[rows] for x in ids],
+                             [v[rows] for v in values], k, op, counts, i)
+        if out is None:
+            out = part
+        else:
+            # a lane whose count ends at or before this range has no such
+            # range: its result is left as it was, as its own launch's is
+            keep = (counts > i).view(-1, *[1] * (part.dim() - 1))
+            out = torch.where(keep, _COMBINE[op](out, part), out)
+    return out
+
+
+def _launch_lanes(ids, values, k: int, op: str, counts, base: int = 0):
+    """One launch of the lanes entry a pass for each 32 lanes, reducing
+    lane b's first `counts[b] - base` rows."""
+    v0 = values[0]
+    if v0.device.type != "cuda":
+        raise ValueError("segment_reduce: the lanes must lie on a CUDA "
+                         f"device (got {v0.device})")
+    if v0.dim() not in (1, 2) or ids[0].dim() != 1 \
+            or ids[0].shape[0] != v0.shape[0]:
+        raise ValueError(f"segment_reduce: ids {tuple(ids[0].shape)} and "
+                         f"values {tuple(v0.shape)} do not match")
+    squeeze = v0.dim() == 1
+    vals = [v[:, None] if squeeze else v for v in values]
+    n, d = vals[0].shape
+    B = len(vals)
+    if k < 0 or k * max(d, 1) >= 2 ** 31 or n >= 2 ** 62:
+        raise ValueError(f"segment_reduce: unsupported sizes n={n} k={k}")
+    acc = _acc_dtype(vals[0].dtype)
+    out = torch.empty((B, k, d), dtype=acc, device=v0.device)
+    if k == 0 or d == 0:     # nothing to write: no launch
+        return out[:, :, 0] if squeeze else out
+    vals = [v.to(acc) for v in vals]
+    if all(v.stride(0) == 0 and (d == 1 or v.stride(1) == 1) for v in vals):
+        vstride = 0          # each lane one broadcast row: never copied
+    else:
+        vals = [v.contiguous() for v in vals]
+        vstride = d
+    if ids[0].dtype not in (torch.int32, torch.int64):
+        ids = [i.to(torch.int64) for i in ids]
+    ids = [i.contiguous() for i in ids]
+    blocks, shift, scratch_bytes = _bucket_plan(n, d, k, vstride)
+    lane_bytes = _a256(max(scratch_bytes, 1))
+    scratch = torch.empty(min(B, _MAX_LANES) * lane_bytes, dtype=torch.uint8,
+                          device=v0.device)
+    lib = _build.load("segment_reduce")
+    stream = torch.cuda.current_stream(v0.device).cuda_stream
+    # the device derives each lane's plan as _plan does for its count
+    cap = _SMALL_BLOCKS if shift < 0 else _LARGE_BLOCKS
+    for lo in range(0, B, _MAX_LANES):
+        lanes = range(lo, min(B, lo + _MAX_LANES))
+        ptrs = ctypes.c_void_p * len(lanes)
+        code = lib.segment_reduce_launch_lanes(
+            _WIDE_DTYPES[acc], _OPS[op],
+            ptrs(*[ids[b].data_ptr() for b in lanes]),
+            ptrs(*[vals[b].data_ptr() for b in lanes]),
+            ptrs(*[out[b].data_ptr() for b in lanes]), len(lanes), n, d,
+            vstride, k, stream, int(ids[0].dtype == torch.int64),
+            scratch.data_ptr(), lane_bytes, blocks, shift,
+            counts.data_ptr() + 4 * lo, base, cap, _ROWS_PER_BLOCK)
+        _build.check("segment_reduce", code)
+        segment_reduce.launches += 1
+        lanes_launches.launches += 1
+    return out[:, :, 0] if squeeze else out

@@ -366,6 +366,7 @@ def test_cpu_wrappers_count_no_launches():
                                    "selective_scan_bwd": 0,
                                    "selective_scan_bwd[a, bx]": 0,
                                    "segment_reduce[rows]": 0,
+                                   "segment_reduce[lanes]": 0,
                                    "flash_attention[wg]": 0}
 
 

@@ -134,10 +134,15 @@ def test_n1_chunks(s, chunk):
 
 def test_counters_hold_the_device_count_entry():
     assert ops.COUNTED["segment_reduce[rows]"] is seg.rows_launches
+    assert ops.COUNTED["segment_reduce[lanes]"] is seg.lanes_launches
     ops.reset_launch_counts()
     segment_reduce(torch.zeros(4, dtype=torch.int32), torch.ones(4), 2,
                    n_rows=torch.tensor(3, dtype=torch.int32))
+    ops.segment_reduce_lanes([torch.zeros(4, dtype=torch.int32)],
+                             [torch.ones(4)], 2,
+                             torch.tensor([3], dtype=torch.int32))
     assert ops.launch_counts()["segment_reduce[rows]"] == 0
+    assert ops.launch_counts()["segment_reduce[lanes]"] == 0
 
 
 # ---------------------------------------------------------------------------

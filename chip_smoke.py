@@ -45,10 +45,15 @@ first mismatch:
              4096, 256] causal within a 2048-token window (one lattn
              layer of a recurrentgemma-2b microbatch; against the
              backward of `scaled_dot_product_attention` with the window's
-             mask), float32 [10, 1531, 256] within 256, whisper-tiny's
-             encoder [48, 1500, 64] and cross-attention [48, 448, 64] x
-             [48, 1500, 64] non-causal, and the scan's (a, bx) backward
-             at N = 1 [1, 4096, 2560] from h0 with dh_last (its RG-LRU);
+             mask) on the backward's wgmma route
+             (`flash_attention_bwd[wg]`, which each bf16 case checks by
+             its launch count; tools/kernel_ab.py times it beside [10,
+             2048, 256] causal), float32 [10, 1531, 256]
+             within 256, whisper-tiny's encoder [48, 1500, 64] and
+             cross-attention [48, 448, 64] x [48, 1500, 64] non-causal,
+             and the scan's (a, bx) backward at N = 1 [1, 4096, 2560],
+             [1, 2048, 2560] and [2, 4096, 2560] from h0 with dh_last
+             (its RG-LRU), bit-equal to its plain version;
              and the forward kernels' training
              entries (flash with its lse, held against the plain
              version's; the scan with its checkpoint states) bit-equal to
@@ -242,9 +247,10 @@ interleaved (earlier, current, current, earlier): `parent_ms` and
 `change_ms` in its `[kernels]` records, the backward kernels' too.  The
 segment kernel's wide route, the scan's N = 1 path and the flash
 forward's wgmma route call C entries that a library older than them
-lacks; there the earlier library is timed through its own entries as
+lacks, and the (a, bx) backward's chunked entry replaced the earlier
+one; there the earlier library is timed through its own entries as
 its wrapper called them (`_bucketed_launch`, `_scan_launch_n1_parent`,
-`_flash_launch_parent`).
+`_flash_launch_parent`, `_abx_bwd_launch_parent`).
 """
 from __future__ import annotations
 
@@ -403,17 +409,20 @@ def time_ms(torch, fn, reps=5, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def _kernel_ms(torch, name, fn, reps, parent_fn=None):
+def _kernel_ms(torch, name, fn, reps, parent_fn=None, entry=None):
     """The kernel's time in a `[kernels]` record: `fn`'s, or with --parent
     the mean of the current library's two times, interleaved with the
-    earlier library's, all through the same wrapper; or, where the current
-    wrapper calls an entry the earlier library lacks (the wide segment
-    route, the N = 1 scan), through `parent_fn`, which calls the earlier
-    library's unchanged entry as its wrapper did."""
+    earlier library's, all through the same wrapper; or, where the earlier
+    library lacks `entry`, the C entry the current wrapper calls (the wide
+    segment route, the N = 1 scan and its backward, the flash forward's
+    wgmma route), through `parent_fn`, which calls the earlier library's
+    unchanged entry as its wrapper did."""
     from repro_torch.kernels import _build
     if name not in PARENT_LIBS:
         return dict(kernel_ms=time_ms(torch, fn, reps))
     own = _build.load(name)
+    if entry is not None and hasattr(PARENT_LIBS[name], entry):
+        parent_fn = None
     times = {"parent": [], "change": []}
     try:
         for which in ("parent", "change", "change", "parent"):
@@ -863,7 +872,8 @@ def _segment_moe_case(torch, g, t, k, d, reps=5, what="prefill"):
     del want, diff, scale
     kern = _kernel_ms(torch, "segment_reduce",
                       lambda: segment_reduce(ids, vals, t), reps,
-                      parent_fn=lambda: _bucketed_launch(torch, ids, vals, t))
+                      parent_fn=lambda: _bucketed_launch(torch, ids, vals, t),
+                      entry="segment_reduce_wide_launch")
     plain_ms = time_ms(torch, lambda: segment_reduce_plain(ids, vals, t),
                        reps)
     library_ms = time_ms(torch, lambda: torch.zeros(
@@ -1018,7 +1028,8 @@ def _flash_case(torch, g, bh, s, hd, dtype, reps=5, sk=None, causal=True,
     kern = _kernel_ms(torch, "flash_attention",
                       lambda: flash_attention(q, k, v, **kw), reps,
                       parent_fn=(lambda: _flash_launch_parent(
-                          torch, q, k, v, **kw)) if wg else None)
+                          torch, q, k, v, **kw)) if wg else None,
+                      entry="flash_attention_wg_launch")
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw),
                        reps if window == 0 else 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1106,7 +1117,7 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5, rglru=False):
         a, bx, c, h0, return_state=with_h0), reps,
         parent_fn=(lambda: _scan_launch_n1_parent(torch, a, bx, c, h0,
                                                   with_h0)) if n == 1
-        else None)
+        else None, entry="selective_scan_n1_launch")
     plain_ms = time_ms(torch, lambda: selective_scan_plain(
         a, bx, c, h0, return_state=with_h0), 2)
     state = 4 * b * d * n * (2 if with_h0 else 0)   # h0 read, h_last written
@@ -1225,12 +1236,14 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
     keys (an encoder, or cross-attention when sk != s).  The kernel (from
     the forward kernel's lse) against the plain formula, a second launch
     bit-equal, and one backward of PyTorch's scaled_dot_product_attention
-    (with the window's mask where there is one) as the library call.
-    With --parent the kernel is timed against the earlier library,
-    interleaved."""
+    (with the window's mask where there is one) as the library call.  A
+    shape of the backward's wgmma route (bf16 at hd 64, 128 and 256) also
+    checks that the route took it.  With --parent the kernel is timed
+    against the earlier library, interleaved."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain)
+        _bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
     dt = getattr(torch, dtype)
     sk = s if sk is None else sk
     q, do = (torch.randn(bh, s, hd, generator=g, device="cuda").to(dt)
@@ -1256,7 +1269,12 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
         f"against the plain version (tol {lse_tol:g})")
     require(lse_err <= lse_tol,
             f"flash_attention {what}: lse err {lse_err:.4g} > {lse_tol:g}")
+    wg = _bwd_route(dt, hd) == "wgmma"
+    before = ops.launch_counts()["flash_attention_bwd[wg]"]
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    require(ops.launch_counts()["flash_attention_bwd[wg]"] == before + wg,
+            f"flash_attention_bwd {what}: the wgmma route "
+            f"{'not ' if wg else ''}taken")
     # the reference takes nothing from the kernels under test
     want = flash_attention_bwd_plain(q, k, v, wo, wlse, do, **kw)
     del wo, wlse
@@ -1306,6 +1324,7 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"flash_attention_bwd {what}",
+               route=_bwd_route(dt, hd),
                max_abs_err=err, tol=f"{tol:g}*max|ref| (dq, dk, dv)",
                **timed, plain_ms=plain_ms, library_ms=library_ms,
                library=library, bound_ms=max(t_ops, t_bytes),
@@ -1316,11 +1335,13 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
 
 def _abx_bwd_case(torch, g, b, s, d, reps=5):
     """The scan's (a, bx) backward at N = 1 at a recurrentgemma-2b
-    training microbatch's shape [B, S, lru_width]: from the forward's
-    states (the (a, bx) entry's y with c = 1, from an h0) with the final
-    state's gradient, the kernel against the plain reverse walk (each sum
-    and product rounded alone in both: 1e-6 of max|ref|), a second launch
-    bit-equal."""
+    training shape [B, S, lru_width]: from the forward's states (the (a,
+    bx) entry's y with c = 1, from an h0) with the final state's
+    gradient, the kernel against its plain version (the same chunk order,
+    each sum and product rounded alone in both: 1e-6 of max|ref|, and
+    whether the bits are equal), a second launch bit-equal.  With
+    --parent the earlier library is timed through the entry its wrapper
+    called (`_abx_bwd_launch_parent`)."""
     import importlib
     scan = importlib.import_module("repro_torch.kernels.selective_scan")
     dev = "cuda"
@@ -1345,9 +1366,11 @@ def _abx_bwd_case(torch, g, b, s, d, reps=5):
     del got, again
     timed = _kernel_ms(torch, "selective_scan_bwd",
                        lambda: scan.selective_scan_bwd(a, h, h0, dy, dh),
-                       reps)
+                       reps, parent_fn=lambda: _abx_bwd_launch_parent(
+                           torch, a, h, h0, dy, dh),
+                       entry="selective_scan_n1_bwd_launch")
     plain_ms = time_ms(torch, lambda: scan.selective_scan_bwd_plain(
-        a, h, h0, dy, dh), 1, warmup=0)
+        a, h, h0, dy, dh), 2)
     # read once: a, h, dy [B, S, D], h0, dh_last [B, D]; written once: da,
     # dbx [B, S, D], dh0 [B, D]
     bytes_ = 4.0 * 5 * b * s * d + 4.0 * 3 * b * d
@@ -1358,6 +1381,27 @@ def _abx_bwd_case(torch, g, b, s, d, reps=5):
                library="none (no single PyTorch call)",
                bound_ms=bytes_ / HBM_BYTES_S * 1e3, bound_by="bytes")
     return _rates(rec, 4.0 * b * s * d)   # g = dy + c, da, c = a·g
+
+
+def _abx_bwd_launch_parent(torch, a, h, h0, dy, dh):
+    """The (a, bx) backward as the earlier wrapper launched it: the C entry
+    `selective_scan_abx_bwd_launch` (one reverse walk a channel), which the
+    current library replaced by `selective_scan_n1_bwd_launch`: --parent's
+    side of its timings."""
+    import ctypes
+    from repro_torch.kernels import _build
+    b, s, d = a.shape
+    da, dbx = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty((b, d), dtype=torch.float32, device=a.device)
+    fn = _build.load("selective_scan_bwd").selective_scan_abx_bwd_launch
+    fn.argtypes = [*[ctypes.c_void_p] * 8, *[ctypes.c_int] * 3,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(a.data_ptr(), h.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+              dh.data_ptr(), da.data_ptr(), dbx.data_ptr(), dh0.data_ptr(),
+              b, s, d, torch.cuda.current_stream().cuda_stream)
+    _build.check("selective_scan_bwd", code)
+    return da
 
 
 def _scan_bwd_case(torch, g, b, s, d, n, x_dtype, reps=5):
@@ -1482,8 +1526,9 @@ def _family_bwd_cases(torch, g):
     in float32 (the float32 check's form) over ragged tiles;
     whisper-tiny's encoder and cross-attention at 8 requests (48 heads of
     64: 1500 frames; 448 tokens on them), non-causal; the RG-LRU's (a,
-    bx) backward over the microbatch.  Returns the windowed bf16 record
-    and the (a, bx) one, the two new items of the kernels line."""
+    bx) backward over the microbatch, over 2048 tokens and over the whole
+    batch.  Returns the windowed bf16 record and the microbatch's (a, bx)
+    one, the two new items of the kernels line."""
     from repro_torch.configs import get_config
     rg, wh = get_config("recurrentgemma-2b"), get_config(AUDIO_ARCH)
     _, rg_batch, rg_seq = TRAIN_ARCHS["recurrentgemma-2b"]
@@ -1499,6 +1544,8 @@ def _family_bwd_cases(torch, g):
                         sk=wh.enc_seq, causal=False, plain_reps=1)
     torch.cuda.empty_cache()
     abx = _abx_bwd_case(torch, g, rg_rows, rg_seq, rg.lru_width)
+    for b, s in ((rg_rows, PROMPT_LENS[0]), (rg_batch, rg_seq)):
+        _abx_bwd_case(torch, g, b, s, rg.lru_width)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return win, abx
@@ -3840,8 +3887,9 @@ def train_launches(cfg, seq) -> dict:
     is a gather (no launch).  The flash forward's wgmma route counts the
     launches it takes (bf16 at hd 64 and 256: Whisper's every attention,
     its encoder's enc_seq and its decoder's `seq` rows both past the
-    route's 64)."""
-    from repro_torch.kernels.flash_attention import _route
+    route's 64), the backward's (bf16 at hd 64, 128 and 256) every
+    backward launch of a bf16 model."""
+    from repro_torch.kernels.flash_attention import _bwd_route, _route
     if cfg.remat != "full":
         raise ValueError(f"{cfg.name}: remat {cfg.remat!r}, not 'full'")
     mb = max(1, cfg.microbatch)
@@ -3855,6 +3903,9 @@ def train_launches(cfg, seq) -> dict:
                      attn if _route(cfg.compute_dtype, cfg.head_dim, wg)
                      == "wgmma" else 0, 2),
                  "flash_attention_bwd": (attn, 1),
+                 "flash_attention_bwd[wg]": (
+                     attn if _bwd_route(cfg.compute_dtype, cfg.head_dim)
+                     == "wgmma" else 0, 1),
                  "segment_reduce": (kinds.count("moe"), 2),
                  "selective_scan_fused": (kinds.count("ssm"), 2),
                  "selective_scan_bwd": (kinds.count("ssm"), 1),

@@ -98,8 +98,8 @@ SIGNATURES = {
     "selective_scan_bwd": {
         "selective_scan_bwd_launch": [*[_P] * 5, ctypes.c_int, *[_P] * 10,
                                       *[ctypes.c_int] * 4, _P],
-        "selective_scan_abx_bwd_launch": [*[_P] * 8, *[ctypes.c_int] * 3,
-                                          _P],
+        "selective_scan_n1_bwd_launch": [*[_P] * 9, *[ctypes.c_int] * 4,
+                                         _P],
     },
 }
 

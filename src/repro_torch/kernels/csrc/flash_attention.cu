@@ -107,6 +107,7 @@
 #include <cstdint>
 
 #include "ptx.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -451,14 +452,6 @@ __device__ __forceinline__ void hold_pa(uint32_t (&pa)[PK][4]) {
   for (int kk = 0; kk < PK; ++kk) wg::hold(pa[kk]);
 }
 
-// 2^x by the special-function unit alone (results below 2^-126 flush to
-// 0, where exp2f would add instructions to keep them)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // the larger of s[4n + 2h] and s[4n + 2h + 1] over n, as a tree (no chain
 // of dependent instructions as long as the row)
 template <int NS>
@@ -511,15 +504,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], floa
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(m[h], quad_max(mx[h]));  // key k0 is real, so at least -1e30
-    alpha[h] = ex2(m[h] - mx[h]);
+    alpha[h] = ptx::ex2(m[h] - mx[h]);
     m[h] = mx[h];
   }
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < NS; ++i) s[i] = ex2(s[i] - mx[(i >> 1) & 1]);
+    for (int i = 0; i < NS; ++i) s[i] = ptx::ex2(s[i] - mx[(i >> 1) & 1]);
   } else {
 #pragma unroll
-    for (int i = 0; i < NS; ++i) s[i] = ex2(fmaf(s[i], scale_log2, -mx[(i >> 1) & 1]));
+    for (int i = 0; i < NS; ++i) s[i] = ptx::ex2(fmaf(s[i], scale_log2, -mx[(i >> 1) & 1]));
   }
   float rs[2][4] = {};  // four partial sums a row
 #pragma unroll
@@ -885,48 +878,14 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                                 tid & 127);
 }
 
-// libcuda's cuTensorMapEncodeTiled, looked up at run time (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult got;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got) ==
-            cudaSuccess &&
-        got == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// a [BH][rows][HD] bf16 tensor as boxes of [box_rows][64] with the 128-byte
-// swizzle (one wgmma.cuh panel a box); rows past `rows` read as zeros
-int tensor_map(CUtensorMap* map, const void* base, int HD, int rows, int BH, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)rows, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)rows * HD * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int HD>
 int launch_tma(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int Sq,
                int Sk, float scale, int causal, int window, cudaStream_t s) {
   constexpr int BQ = kTmaWG * kWgRows;
   CUtensorMap tq, tk, tv;
-  int e = tensor_map(&tq, q, HD, Sq, BH, BQ);
-  if (e == 0) e = tensor_map(&tk, k, HD, Sk, BH, kWgTK);
-  if (e == 0) e = tensor_map(&tv, v, HD, Sk, BH, kWgTK);
+  int e = tma::tensor_map(&tq, q, HD, Sq, BH, BQ);
+  if (e == 0) e = tma::tensor_map(&tk, k, HD, Sk, BH, kWgTK);
+  if (e == 0) e = tma::tensor_map(&tv, v, HD, Sk, BH, kWgTK);
   if (e != 0) return e;
   const size_t bytes = tma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_tma_kernel<HD>,

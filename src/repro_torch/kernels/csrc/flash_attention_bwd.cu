@@ -16,7 +16,9 @@
 //
 // Bound: operations.  Causal, the function needs 5 products of
 // 2·BH·hd·(causal pairs) flops (QKᵀ, dO·Vᵀ, PᵀdO, dSᵀQ, dS·K), far above
-// the card's flop-per-byte line at the training lengths.
+// the card's flop-per-byte line at the training lengths.  Three designs
+// by width: one pass on wgmma (hd 64, 128), a dK/dV and a dQ kernel on
+// wgmma fed by TMA (hd 256), two kernels on mma.sync (hd 16, 32).
 //
 // bfloat16, hd 64 and 128 (the training path): one pass over the keys on
 // wgmma, two launches.
@@ -71,33 +73,73 @@
 //   dQ's sum runs in another order than the two-kernel design's (a sum of
 //   float32 parts, one a key block), so its last bits differ from it.
 //
-// bfloat16, hd 16, 32 and 256: the earlier two-kernel design on mma.sync
+// bfloat16, hd 256 (recurrentgemma-2b's local attention, lattn: the one
+// place a window trains), on wgmma: rowdot, then one launch
+// (`bwd_tma_kernel`) of two kinds of block, dK/dV blocks and dQ blocks.
+// Each block is a TMA producer warpgroup (one thread issues the copies,
+// its registers lowered by setmaxnreg) and two consumer warpgroups (240
+// registers a thread), with mbarriers a stage for landed and freed and
+// ex2.approx for exp: the forward's flash_tma_kernel
+// (csrc/flash_attention.cu).  At hd 256 one warpgroup cannot hold a key
+// block's dK and dV (64 keys × 512 floats: 256 a thread), and one pass
+// with dQ summed across key blocks (as at hd 128) would move a float32
+// dQ part of 64 × 256 through L2 twice a (key block, query tile): 128 KB
+// beside the 64 KB of Q and dO tiles, with room for one stage of those
+// (K, V 64 KB, Q and dO 64 KB a stage, Pᵀ, dSᵀ 16 KB, the part 64 KB: 208
+// KB of 227).  So dQ has blocks of its own: 7 products where one pass
+// forms 5, but no cross-block sum, no workspace and no window refusal.
+//   * dkdv_block: a (bh, 64-key block); K and V stay in shared memory,
+//     64-row Q and dO tiles come in two stages.  Consumer w forms Sᵀ =
+//     K·Qᵀ and dPᵀ = V·dOᵀ for queries 32w..32w+31 of the tile
+//     (m64n32k16, both operands K-major), P and dS in float32 registers,
+//     and writes Pᵀ and dSᵀ in bf16 into swizzled [64 keys][64 queries]
+//     panels; after a barrier it adds Pᵀ·dO and dSᵀ·Q (m64n128k16, A
+//     K-major and B MN-major from shared memory) into dV and dK columns
+//     128w..128w+127: 64 accumulators of each a thread.  S and dP are
+//     formed once for both column halves.  Shared memory: K, V 32 KB
+//     each, two stages of Q and dO 32 KB each, Pᵀ and dSᵀ 8 KB each: 209
+//     KB.  (Tried on an H100, PERF.md §6: S on one consumer and dP on the
+//     other, m64n64 each, P handed over in float32, was 35% slower; the
+//     next tile's S and dP issued behind the last tile's dV and dK, with
+//     Pᵀ and dSᵀ in two buffers, no faster.)
+//   * dq_block: a (bh, 128-row query tile), consumer w owning 64 rows; Q
+//     and dO stay in shared memory, 64-key tiles of K come in two stages
+//     and of V in one (V is read by dP alone, freed before the tile's
+//     dS·K); per tile S = Q·Kᵀ, dP = dO·Vᵀ (m64n64k16), P and dS in
+//     float32, dQ += dS·K with dS as bf16 register A operands and K
+//     MN-major (two m64n128k16 a k16 step): 128 accumulators a thread.
+//     The consumers take turns to issue S and dP (named barriers), so that
+//     one's P and dS run under the other's products.  Q and dO 64 KB
+//     each, K 2 × 32 KB, V 32 KB: 225 KB.
+//   The launch takes the dK/dV blocks first, the longest first, then the
+//   dQ blocks, so that these fill the tail the dK/dV blocks leave (4–11%
+//   faster than two launches).  One block an SM.  Rows past Sq and keys
+//   past Sk are zero-filled by TMA; rows past Sq get lse = +inf (P = 0),
+//   keys past Sk are masked.  Every sum runs in one block in a fixed
+//   order: the same bits on every launch.
+//
+// bfloat16, hd 16 and 32: the earlier two-kernel design on mma.sync
 // m16n8k16 (csrc/ptx.cuh).  A 32- or 16-column bf16 row is 64 or 32
-// bytes, under the 128-byte swizzle line the wgmma path is built on; hd
-// 256 is recurrentgemma-2b's local attention (lattn), the one place a
-// window trains.  Three launches (four at hd 256):
+// bytes, under the 128-byte swizzle line the wgmma path is built on.
+// Three launches:
 //   * dK/dV: one block per (bh, 64-key tile), 4 warps of 16 keys; K and V
 //     stay in shared memory, 32-row Q and dO tiles come through a
 //     two-stage ring; per tile Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, P, dS in float32,
-//     re-packed to bf16 A fragments, dV += Pᵀ·dO, dK += dSᵀ·Q.  At hd 256
-//     a warp's 16 keys of dK and dV are 2·16·256/32 = 256 floats a lane,
-//     past the 255 registers a thread may hold, so dV and dK are formed
-//     in two launches of one template (`PASS`): the first forms Sᵀ and
-//     dV alone, the second Sᵀ, dPᵀ and dK; 128 accumulators a lane each;
+//     re-packed to bf16 A fragments, dV += Pᵀ·dO, dK += dSᵀ·Q;
 //   * dQ: one block per (bh, 64-row query tile); K and V come in 64-key
-//     tiles (32 at hd 256, for the same registers); S = Q·Kᵀ, dP = dO·Vᵀ,
-//     P, dS as above, dQ += dS·K;
+//     tiles; S = Q·Kᵀ, dP = dO·Vᵀ, P, dS as above, dQ += dS·K;
 //   tiles staged by 16-byte cp.async in the forward's XOR-swizzled layout
-//   for ldmatrix.  Within a window (key j kept for query i when i −
-//   window < j ≤ i, the forward's mask) a key block walks only the query
-//   tiles from its first key to its last key + window − 1, and a query
-//   tile only the key tiles from its first row − window + 1 on: the band,
-//   O(S·window) work; only the tiles that cross a mask edge test it.
-//   Every sum runs in one block in a fixed order: the same bits on every
-//   launch.  The wgmma path (hd 64 and 128) takes no window: its ordered
-//   dQ sum starts at each tile's highest reaching key block and ends at
-//   block 0, and no model trains a window at those widths, so the wrapper
-//   refuses a window there.
+//   for ldmatrix.
+//
+// The window (key j kept for query i when i − window < j ≤ i, the
+// forward's mask) is taken at hd 16, 32 and 256 and in float32: a key
+// block walks only the query tiles from its first key to its last key +
+// window − 1, and a query tile only the key tiles from its first row −
+// window + 1 on: the band, O(S·window) work; only the tiles that cross a
+// mask edge test it.  The one-pass path (hd 64 and 128) takes no window:
+// its ordered dQ sum starts at each tile's highest reaching key block and
+// ends at block 0, and no model trains a window at those widths, so the
+// wrapper refuses a window there.
 //
 // float32 (the float32 model checks): float32 FMAs, no tensor cores, any
 // hd of 16–256, with the window.  256 threads a block, 32 keys (dK/dV) or
@@ -112,6 +154,7 @@
 #include <cstdint>
 
 #include "ptx.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -151,14 +194,7 @@ constexpr int kTcThreads = 128;  // 4 warps
 constexpr int TKB = 64;          // keys of a dK/dV block, 16 a warp
 constexpr int TQB = 32;          // query rows of a tile staged by a dK/dV block
 constexpr int TQ = 64;           // query rows of a dQ block, 16 a warp
-
-// keys of a tile staged by a dQ block: 32 at hd 256, where a lane already
-// holds 128 floats of dQ
-template <int HD>
-__host__ __device__ constexpr int dq_keys() { return HD >= 256 ? 32 : 64; }
-
-// the dK/dV kernel's passes: dV, dK, or both in one
-constexpr int kPassDV = 1, kPassDK = 2, kPassBoth = 3;
+constexpr int TK = 64;           // keys of a tile staged by a dQ block
 
 // is key `key` masked from query `q`: past Sk, after q (causal), or at or
 // before q - window
@@ -279,7 +315,7 @@ constexpr size_t dkdv_smem_bytes() {
   return (size_t)(2 * TKB + 4 * TQB) * HD * sizeof(__nv_bfloat16) + 4 * TQB * sizeof(float);
 }
 
-template <int HD, int PASS>
+template <int HD>
 __global__ void __launch_bounds__(kTcThreads)
     dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                      const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
@@ -288,7 +324,6 @@ __global__ void __launch_bounds__(kTcThreads)
                      int Sk, float scale, int causal, int window) {
   constexpr int NT = TQB / 8;  // n-tiles of Sᵀ (8 queries each)
   constexpr int DT = HD / 8;   // n-tiles of dK, dV (8 columns each)
-  constexpr bool DK = PASS & kPassDK, DV = PASS & kPassDV;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TKB][HD]
   __nv_bfloat16* Vs = Ks + TKB * HD;                                // [TKB][HD]
@@ -311,7 +346,7 @@ __global__ void __launch_bounds__(kTcThreads)
   const int nq = qend > qstart ? (qend - qstart + TQB - 1) / TQB : 0;
 
   stage<HD>(Ks, K + koff * HD, k0, TKB, Sk, tid, kTcThreads);
-  if constexpr (DK) stage<HD>(Vs, V + koff * HD, k0, TKB, Sk, tid, kTcThreads);
+  stage<HD>(Vs, V + koff * HD, k0, TKB, Sk, tid, kTcThreads);
   auto load_q = [&](int j, int st) {
     const int q0 = qstart + j * TQB;
     stage<HD>(Qs + st * TQB * HD, Q + qoff * HD, q0, TQB, Sq, tid, kTcThreads);
@@ -325,14 +360,11 @@ __global__ void __launch_bounds__(kTcThreads)
   if (nq > 0) load_q(0, 0);
   ptx::cp_async_commit();
 
-  float dk[DK ? DT : 1][4], dv[DV ? DT : 1][4];
+  float dk[DT][4], dv[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (DK) dk[d][e] = 0.f;
-      if constexpr (DV) dv[d][e] = 0.f;
-    }
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
   const int key_a = k0 + warp * 16 + g;  // this lane's keys: key_a, key_a + 8
 
   for (int j = 0; j < nq; ++j) {
@@ -350,7 +382,7 @@ __global__ void __launch_bounds__(kTcThreads)
 
     float s[NT][4], dp[NT][4];
     scores<HD, NT>(s, Ks, warp * 16, qs, lane);      // Sᵀ = K Qᵀ
-    if constexpr (DK) scores<HD, NT>(dp, Vs, warp * 16, dos, lane);  // dPᵀ = V dOᵀ
+    scores<HD, NT>(dp, Vs, warp * 16, dos, lane);    // dPᵀ = V dOᵀ
     // the tile crosses the causal diagonal or the window's far edge
     const bool edge = (causal && k0 + TKB - 1 > q0) ||
                       (window > 0 && q0 + TQB - 1 - window >= k0);
@@ -362,21 +394,21 @@ __global__ void __launch_bounds__(kTcThreads)
         float p = exp2f(s[n][e] * scale_log2 - ls[qi]);
         if (edge && masked(key_a + (e >> 1) * 8, q0 + qi, Sk, causal, window)) p = 0.f;
         s[n][e] = p;
-        if constexpr (DK) dp[n][e] = p * (dp[n][e] - ds[qi]);
+        dp[n][e] = p * (dp[n][e] - ds[qi]);
       }
     }
-    if constexpr (DV) acc_pv<HD, TQB / 16>(dv, s, dos, lane);   // dV += Pᵀ dO
-    if constexpr (DK) acc_pv<HD, TQB / 16>(dk, dp, qs, lane);   // dK += dSᵀ Q
+    acc_pv<HD, TQB / 16>(dv, s, dos, lane);   // dV += Pᵀ dO
+    acc_pv<HD, TQB / 16>(dk, dp, qs, lane);   // dK += dSᵀ Q
   }
   ptx::cp_async_wait<0>();  // no copy outlives the block (nq = 0 issues K, V only)
 
-  if constexpr (DK) store_rows<HD>(dK + koff * HD, dk, k0 + warp * 16, Sk, scale, lane);
-  if constexpr (DV) store_rows<HD>(dV + koff * HD, dv, k0 + warp * 16, Sk, 1.f, lane);
+  store_rows<HD>(dK + koff * HD, dk, k0 + warp * 16, Sk, scale, lane);
+  store_rows<HD>(dV + koff * HD, dv, k0 + warp * 16, Sk, 1.f, lane);
 }
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * TQ + 4 * dq_keys<HD>()) * HD * sizeof(__nv_bfloat16);
+  return (size_t)(2 * TQ + 4 * TK) * HD * sizeof(__nv_bfloat16);
 }
 
 template <int HD>
@@ -386,7 +418,6 @@ __global__ void __launch_bounds__(kTcThreads)
                    const float* __restrict__ LSE, const float* __restrict__ Dv,
                    __nv_bfloat16* __restrict__ dQ, int Sq, int Sk, float scale, int causal,
                    int window) {
-  constexpr int TK = dq_keys<HD>();
   constexpr int NT = TK / 8;  // n-tiles of S (8 keys each)
   constexpr int DT = HD / 8;  // n-tiles of dQ
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -462,41 +493,23 @@ __global__ void __launch_bounds__(kTcThreads)
   store_rows<HD>(dQ + qoff * HD, dq, q0 + warp * 16, Sq, scale, lane);
 }
 
-template <int HD, int PASS>
-int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                const float* D, void* dk, void* dv, int BH, int Sq, int Sk, float scale,
-                int causal, int window, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  const size_t bytes = dkdv_smem_bytes<HD>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      dkdv_bf16_kernel<HD, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  dkdv_bf16_kernel<HD, PASS><<<dim3(BH, (Sk + TKB - 1) / TKB), kTcThreads, bytes, s>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dk, (bf*)dv, Sq,
-      Sk, scale, causal, window);
-  return (int)cudaGetLastError();
-}
-
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                 const float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk, float scale,
                 int causal, int window, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  int rc;
-  if constexpr (HD >= 256) {  // dV, then dK: 128 accumulators a lane each
-    rc = launch_dkdv<HD, kPassDV>(q, k, v, dout, lse, D, dk, dv, BH, Sq, Sk, scale, causal,
-                                  window, s);
-    if (rc != 0) return rc;
-    rc = launch_dkdv<HD, kPassDK>(q, k, v, dout, lse, D, dk, dv, BH, Sq, Sk, scale, causal,
-                                  window, s);
-  } else {
-    rc = launch_dkdv<HD, kPassBoth>(q, k, v, dout, lse, D, dk, dv, BH, Sq, Sk, scale, causal,
-                                    window, s);
-  }
-  if (rc != 0) return rc;
+  const size_t b1 = dkdv_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(dkdv_bf16_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
+  if (e != cudaSuccess) return (int)e;
+  dkdv_bf16_kernel<HD><<<dim3(BH, (Sk + TKB - 1) / TKB), kTcThreads, b1, s>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dk, (bf*)dv, Sq,
+      Sk, scale, causal, window);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   const size_t b2 = dq_smem_bytes<HD>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      dq_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b2);
+  e = cudaFuncSetAttribute(dq_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)b2);
   if (e != cudaSuccess) return (int)e;
   dq_bf16_kernel<HD><<<dim3(BH, (Sq + TQ - 1) / TQ), kTcThreads, b2, s>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, D, (bf*)dq, Sq, Sk, scale,
@@ -835,6 +848,489 @@ int launch_bf16_wg(const void* q, const void* k, const void* v, const void* dout
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, hd 256: wgmma, a dK/dV kernel and a dQ kernel fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kHd = 256;
+constexpr int kTmaWG = 2;                          // consumer warpgroups
+constexpr int kTmaThreads = (kTmaWG + 1) * 128;    // and a producer warpgroup
+constexpr int kProdRegs = 24, kConsRegs = 240;     // registers a thread (setmaxnreg)
+constexpr int HK = 64;     // keys of a dK/dV block, and of a dQ block's key tile
+constexpr int HQ = 64;     // query rows of a dK/dV block's tile, of a dQ consumer
+constexpr int HQS = 2;     // stages of a dK/dV block's Q and dO tiles
+constexpr int HKS = 2;     // stages of a dQ block's K tiles (one of V)
+// named barriers: 1, the dK/dV consumers' Pᵀ / dSᵀ free; 2, written; 3 +
+// w, warpgroup w's turn to issue its S and dP (dQ kernel); 5 + w, its
+// epilogue
+constexpr int kFreeBar = 1, kReadyBar = 2, kSchedBar = 3, kEpiBar = 5;
+constexpr uint32_t kTileBytes = 64 * kHd * 2;  // a 64-row bf16 tile of 256 columns
+
+constexpr size_t dkdv_tma_smem_bytes() {
+  // 1024 of slack to align the tiles; K, V; the Q and dO stages; Pᵀ, dSᵀ;
+  // the mbarriers (K and V's, a full and an empty one a stage)
+  return 1024 + (2 + 2 * HQS) * kTileBytes + 2 * HK * HQ * 2 + 8 * (1 + 2 * HQS);
+}
+constexpr size_t dq_tma_smem_bytes() {
+  // 1024 of slack; Q and dO of 128 rows; the K stages and V's one; the
+  // mbarriers (Q and dO's, a full and an empty one a K stage and V's)
+  return 1024 + (4 + HKS + 1) * kTileBytes + 8 * (1 + 2 * HKS + 2);
+}
+
+// a stage read by this warpgroup's finished products, freed by each warp
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) wg::mbar_arrive(bar);
+}
+
+// One block of 64 keys (key block kb) of a (batch, head) bh: the keys'
+// dK and dV over the query tiles they reach.  Consumer warpgroup w
+// forms Sᵀ and dPᵀ for queries 32w..32w+31 of each 64-row tile, P and dS
+// in float32, and writes Pᵀ and dSᵀ in bf16 to shared memory; after a
+// barrier it adds Pᵀ·dO and dSᵀ·Q into dV and dK columns 128w..128w+127
+// (64 accumulators of each a thread).
+__device__ __forceinline__ void dkdv_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                           const CUtensorMap* tv, const CUtensorMap* tdo,
+                                           const float* __restrict__ LSE,
+                                           const float* __restrict__ Dv,
+                                           __nv_bfloat16* __restrict__ dK,
+                                           __nv_bfloat16* __restrict__ dV, int Sq, int Sk,
+                                           float scale, int causal, int window, int bh, int kb,
+                                           unsigned char* smem_raw) {
+  const uint32_t raw = ptx::smem_addr(smem_raw);
+  const uint32_t sK = raw + ((1024 - (raw & 1023)) & 1023);  // [HK][256]
+  const uint32_t sV = sK + kTileBytes;                         // [HK][256]
+  const uint32_t sQ = sV + kTileBytes;                         // [HQS][HQ][256]
+  const uint32_t sO = sQ + HQS * kTileBytes;                   // [HQS][HQ][256]
+  const uint32_t sP = sO + HQS * kTileBytes;                   // Pᵀ [HK keys][HQ queries]
+  const uint32_t sS = sP + HK * HQ * 2;                        // dSᵀ [HK][HQ]
+  const uint32_t bKV = sS + HK * HQ * 2;                       // K and V landed
+  const uint32_t fullQ = bKV + 8, emptyQ = fullQ + 8 * HQS;    // a stage landed / freed
+  unsigned char* const base = smem_raw + (sK - raw);
+
+  const int k0 = kb * HK;
+  const int tid = threadIdx.x, w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  // the query tiles that reach these keys: from k0's (causal) to the one
+  // of the last key + window − 1 (the window)
+  const int jstart = causal ? k0 / HQ : 0;
+  const int qend = window > 0 ? min(Sq, k0 + HK - 1 + window) : Sq;
+  const int nt = max(0, (qend + HQ - 1) / HQ - jstart);
+
+  if (tid == 0) {
+    wg::mbar_init(bKV, 1);
+#pragma unroll
+    for (int i = 0; i < HQS; ++i) {
+      wg::mbar_init(fullQ + 8 * i, 1);
+      wg::mbar_init(emptyQ + 8 * i, kTmaWG * 4);  // each consumer warp's release
+    }
+    wg::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (w == kTmaWG) {
+    // the producer: each box one 64-column panel
+    wg::reg_dealloc<kProdRegs>();
+    if (warp == 0 && lane == 0) {
+      wg::mbar_expect(bKV, 2 * kTileBytes);
+#pragma unroll
+      for (int pn = 0; pn < kHd / 64; ++pn) {
+        wg::tma_load_3d(sK + pn * HK * 128, tk, bKV, pn * 64, k0, bh);
+        wg::tma_load_3d(sV + pn * HK * 128, tv, bKV, pn * 64, k0, bh);
+      }
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % HQS, q0 = (jstart + i) * HQ;
+        if (i >= HQS) wg::mbar_wait(emptyQ + 8 * st, (i / HQS - 1) & 1);
+        wg::mbar_expect(fullQ + 8 * st, 2 * kTileBytes);
+#pragma unroll
+        for (int pn = 0; pn < kHd / 64; ++pn) {
+          wg::tma_load_3d(sQ + st * kTileBytes + pn * HQ * 128, tq, fullQ + 8 * st, pn * 64,
+                          q0, bh);
+          wg::tma_load_3d(sO + st * kTileBytes + pn * HQ * 128, tdo, fullQ + 8 * st, pn * 64,
+                          q0, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  wg::reg_alloc<kConsRegs>();
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = 16 * warp + g;  // this thread's keys: k0 + kr, k0 + kr + 8
+  const long long qoff = (long long)bh * Sq, koff = (long long)bh * Sk;
+  const float scale_log2 = scale * kLog2e;
+  float dk[64], dv[64], s[16], dp[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  wg::mbar_wait(bKV, 0);
+
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % HQS, qw = (jstart + i) * HQ + 32 * w;  // this warpgroup's first query
+    const uint32_t q_s = sQ + st * kTileBytes, o_s = sO + st * kTileBytes;
+    // lse·log2 e and D of this thread's 8 queries, qw + 8jj + 2t + e
+    float l2[8], dd[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int q = qw + 8 * (c >> 1) + 2 * t + (c & 1);
+      l2[c] = q < Sq ? LSE[qoff + q] * kLog2e : INFINITY;  // P = 0 past Sq
+      dd[c] = q < Sq ? Dv[qoff + q] : 0.f;
+    }
+    wg::mbar_wait(fullQ + 8 * st, (i / HQS) & 1);
+
+    // Sᵀ = K Q_wᵀ, then dPᵀ = V dO_wᵀ: the block's 64 keys by the
+    // warpgroup's 32 queries, both operands K-major.  Every product of the
+    // last tile is done: with a wgmma in flight across the loop's back
+    // edge ptxas serialises them (its C7515 note), 9% slower
+    wg::hold(s);
+    wg::hold(dp);
+    wg::fence();
+#pragma unroll
+    for (int kd = 0; kd < kHd / 16; ++kd) {
+      const uint32_t ko = (kd >> 2) * HK * 128 + (kd & 3) * 32;
+      const uint32_t qo = (kd >> 2) * HQ * 128 + 32 * w * 128 + (kd & 3) * 32;
+      wg::mma_m64n32k16_ss<0, 0>(s, wg::desc(sK + ko, 16, 1024), wg::desc(q_s + qo, 16, 1024),
+                                 kd > 0);
+    }
+    wg::commit();
+#pragma unroll
+    for (int kd = 0; kd < kHd / 16; ++kd) {
+      const uint32_t ko = (kd >> 2) * HK * 128 + (kd & 3) * 32;
+      const uint32_t qo = (kd >> 2) * HQ * 128 + 32 * w * 128 + (kd & 3) * 32;
+      wg::mma_m64n32k16_ss<0, 0>(dp, wg::desc(sV + ko, 16, 1024), wg::desc(o_s + qo, 16, 1024),
+                                 kd > 0);
+    }
+    wg::commit();
+
+    // the last tile's stage is free.  Released here, once this tile's S
+    // and dP are done: released right after the last tile's own products
+    // (the next copy then runs beside S and dP) measured 5% slower
+    wg::wait<0>();
+    wg::hold(s);
+    wg::hold(dp);
+    if (i > 0) release(emptyQ + 8 * ((i - 1) % HQS), lane);
+
+    // Pᵀ = exp(Sᵀ·scale − lse), 0 where masked: the tile crosses the
+    // causal diagonal, the window's far edge, or Sk
+    const bool edge = (causal && k0 + HK - 1 > qw) ||
+                      (window > 0 && k0 <= qw + 31 - window) || k0 + HK > Sk;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int lc = 2 * (c >> 2) + (c & 1);  // this entry's query, of the 8
+      float p = ptx::ex2(fmaf(s[c], scale_log2, -l2[lc]));
+      if (edge && masked(k0 + kr + 8 * ((c >> 1) & 1), qw + 8 * (c >> 2) + 2 * t + (c & 1), Sk,
+                         causal, window))
+        p = 0.f;
+      s[c] = p;
+    }
+    // dSᵀ = Pᵀ ⊙ (dPᵀ − D)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) dp[c] = s[c] * (dp[c] - dd[2 * (c >> 2) + (c & 1)]);
+
+    // both warpgroups' last dV and dK products are done with Pᵀ and dSᵀ;
+    // this warpgroup's 32 query columns of each, bf16, into the swizzled
+    // [64 keys][64 queries] panels
+    wg::bar_sync(kFreeBar, kTmaWG * 128);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = kr + 8 * h;
+        const uint32_t off = row * 128 + (((4 * w + jj) ^ (row & 7)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(base + (sP - sK) + off) =
+            ptx::pack_bf16(s[4 * jj + 2 * h], s[4 * jj + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(base + (sS - sK) + off) =
+            ptx::pack_bf16(dp[4 * jj + 2 * h], dp[4 * jj + 2 * h + 1]);
+      }
+    wg::fence_async_shared();
+    wg::bar_sync(kReadyBar, kTmaWG * 128);
+
+    // dV += Pᵀ dO and dK += dSᵀ Q over the tile's 64 queries, columns
+    // 128w.. (A K-major, B MN-major: the tile's rows are the k)
+    wg::hold(dk);
+    wg::hold(dv);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < HQ / 16; ++kk)
+      wg::mma_m64n128k16_ss<0, 1>(dv, wg::desc(sP + kk * 32, 16, 1024),
+                                  wg::desc(o_s + 2 * w * HQ * 128 + kk * 2048, HQ * 128, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < HQ / 16; ++kk)
+      wg::mma_m64n128k16_ss<0, 1>(dk, wg::desc(sS + kk * 32, 16, 1024),
+                                  wg::desc(q_s + 2 * w * HQ * 128 + kk * 2048, HQ * 128, 1024), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::hold(dk);
+    wg::hold(dv);
+  }
+
+  // dK = scale·Σ dSᵀQ, dV = Σ PᵀdO: rows k0 + kr (+8), columns 128w + 8jj
+  // + 2t, bf16
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + kr + 8 * h;
+    if (row >= Sk) continue;
+    uint32_t* kd = reinterpret_cast<uint32_t*>(dK + (koff + row) * kHd + 128 * w + 2 * t);
+    uint32_t* vd = reinterpret_cast<uint32_t*>(dV + (koff + row) * kHd + 128 * w + 2 * t);
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      kd[jj * 4] = ptx::pack_bf16(dk[4 * jj + 2 * h] * scale, dk[4 * jj + 2 * h + 1] * scale);
+      vd[jj * 4] = ptx::pack_bf16(dv[4 * jj + 2 * h], dv[4 * jj + 2 * h + 1]);
+    }
+  }
+}
+
+// One block of 128 query rows (row block qb) of a (batch, head) bh: dQ
+// over the key tiles the rows reach.
+// The forward's flash_tma_kernel with dQ in place of O: consumer
+// warpgroup w owns rows 64w..64w+63 (Q and dO resident), and per 64-key
+// tile forms S = Q Kᵀ and dP = dO Vᵀ, P and dS in float32, and adds dS·K
+// (dS as bf16 register A operands, K MN-major) into dQ, 128 accumulators
+// a thread; the two take turns to issue S and dP (named barriers 3 + w),
+// so that one's P and dS run under the other's products.
+__device__ __forceinline__ void dq_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const CUtensorMap* tdo,
+                                         const float* __restrict__ LSE,
+                                         const float* __restrict__ Dv,
+                                         __nv_bfloat16* __restrict__ dQ, int Sq, int Sk,
+                                         float scale, int causal, int window, int bh, int qb,
+                                         unsigned char* smem_raw) {
+  constexpr int BQ = kTmaWG * HQ;
+  const uint32_t raw = ptx::smem_addr(smem_raw);
+  const uint32_t sQ = raw + ((1024 - (raw & 1023)) & 1023);  // [BQ][256]
+  const uint32_t sO = sQ + 2 * kTileBytes;                     // [BQ][256]
+  const uint32_t sK = sO + 2 * kTileBytes;                     // [HKS][HK][256]
+  const uint32_t sV = sK + HKS * kTileBytes;                   // [HK][256]
+  const uint32_t bQ = sV + kTileBytes;                         // Q and dO landed
+  const uint32_t fullK = bQ + 8, emptyK = fullK + 8 * HKS;     // a stage landed / freed
+  const uint32_t fullV = emptyK + 8 * HKS, emptyV = fullV + 8;
+  unsigned char* const qtile = smem_raw + (sQ - raw);
+
+  const int q0 = qb * BQ;
+  const int tid = threadIdx.x, w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  // the key tiles of the block: from its first row's window to its last
+  // row's diagonal (causal); at least one (Sk ≥ 1)
+  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
+  const int tile0 = min(window > 0 ? max(0, q0 - window + 1) : 0, kend - 1) / HK;
+  const int nt = (kend + HK - 1) / HK - tile0;
+
+  if (tid == 0) {
+    wg::mbar_init(bQ, 1);
+#pragma unroll
+    for (int i = 0; i < HKS; ++i) {
+      wg::mbar_init(fullK + 8 * i, 1);
+      wg::mbar_init(emptyK + 8 * i, kTmaWG * 4);
+    }
+    wg::mbar_init(fullV, 1);
+    wg::mbar_init(emptyV, kTmaWG * 4);
+    wg::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (w == kTmaWG) {
+    wg::reg_dealloc<kProdRegs>();
+    if (warp == 0 && lane == 0) {
+      wg::mbar_expect(bQ, 4 * kTileBytes);
+#pragma unroll
+      for (int pn = 0; pn < kHd / 64; ++pn) {
+        wg::tma_load_3d(sQ + pn * BQ * 128, tq, bQ, pn * 64, q0, bh);
+        wg::tma_load_3d(sO + pn * BQ * 128, tdo, bQ, pn * 64, q0, bh);
+      }
+      for (int i = 0; i < nt; ++i) {
+        const int key = (tile0 + i) * HK, ks = i % HKS;
+        if (i >= HKS) wg::mbar_wait(emptyK + 8 * ks, (i / HKS - 1) & 1);
+        wg::mbar_expect(fullK + 8 * ks, kTileBytes);
+#pragma unroll
+        for (int pn = 0; pn < kHd / 64; ++pn)
+          wg::tma_load_3d(sK + ks * kTileBytes + pn * HK * 128, tk, fullK + 8 * ks, pn * 64, key,
+                          bh);
+        if (i >= 1) wg::mbar_wait(emptyV, (i - 1) & 1);
+        wg::mbar_expect(fullV, kTileBytes);
+#pragma unroll
+        for (int pn = 0; pn < kHd / 64; ++pn)
+          wg::tma_load_3d(sV + pn * HK * 128, tv, fullV, pn * 64, key, bh);
+      }
+    }
+    return;
+  }
+
+  wg::reg_alloc<kConsRegs>();
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = q0 + HQ * w;  // this warpgroup's first row
+  const int row0 = qw + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const long long qoff = (long long)bh * Sq;
+  const float scale_log2 = scale * kLog2e;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    l2[h] = r < Sq ? LSE[qoff + r] * kLog2e : INFINITY;  // P = 0 past Sq
+    dd[h] = r < Sq ? Dv[qoff + r] : 0.f;
+  }
+  float dq[2][64];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[h][i] = 0.f;
+  const uint32_t qa = sQ + HQ * w * 128, oa = sO + HQ * w * 128;  // this warpgroup's rows
+
+  wg::mbar_wait(bQ, 0);
+  if (w == 1) wg::bar_arrive(kSchedBar, kTmaWG * 128);  // the first turn is warpgroup 0's
+  for (int i = 0; i < nt; ++i) {
+    const int k0 = (tile0 + i) * HK, ks = i % HKS;
+    const uint32_t kt = sK + ks * kTileBytes;
+    wg::mbar_wait(fullK + 8 * ks, (i / HKS) & 1);
+    wg::mbar_wait(fullV, i & 1);
+    // S = Q_w Kᵀ, then dP = dO_w Vᵀ, in this warpgroup's turn (warpgroup
+    // 1's last turn is not waited on, so it does not announce it)
+    float s[32], dp[32];
+    wg::bar_sync(kSchedBar + w, kTmaWG * 128);
+    wg::fence();
+#pragma unroll
+    for (int kd = 0; kd < kHd / 16; ++kd) {
+      const uint32_t a = (kd >> 2) * BQ * 128 + (kd & 3) * 32;
+      const uint32_t b = (kd >> 2) * HK * 128 + (kd & 3) * 32;
+      wg::mma_m64n64k16_ss<0, 0>(s, wg::desc(qa + a, 16, 1024), wg::desc(kt + b, 16, 1024),
+                                 kd > 0);
+    }
+    wg::commit();
+#pragma unroll
+    for (int kd = 0; kd < kHd / 16; ++kd) {
+      const uint32_t a = (kd >> 2) * BQ * 128 + (kd & 3) * 32;
+      const uint32_t b = (kd >> 2) * HK * 128 + (kd & 3) * 32;
+      wg::mma_m64n64k16_ss<0, 0>(dp, wg::desc(oa + a, 16, 1024), wg::desc(sV + b, 16, 1024),
+                                 kd > 0);
+    }
+    wg::commit();
+    if (w == 0 || i + 1 < nt) wg::bar_arrive(kSchedBar + (w ^ 1), kTmaWG * 128);
+
+    // P = exp(S·scale − lse), 0 where masked: the tile crosses the causal
+    // diagonal, the window's far edge, or Sk.  The last tile's dQ product
+    // was done before S (one queue): its K stage is free
+    wg::wait<1>();
+    wg::hold(s);
+    wg::hold(dq[0]);
+    wg::hold(dq[1]);
+    if (i > 0) release(emptyK + 8 * ((i - 1) % HKS), lane);
+    const bool edge = (causal && k0 + HK - 1 > qw) ||
+                      (window > 0 && k0 <= qw + HQ - 1 - window) || k0 + HK > Sk;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      float p = ptx::ex2(fmaf(s[c], scale_log2, -l2[(c >> 1) & 1]));
+      if (edge && masked(k0 + 8 * (c >> 2) + 2 * t + (c & 1), row0 + 8 * ((c >> 1) & 1), Sk,
+                         causal, window))
+        p = 0.f;
+      s[c] = p;
+    }
+    wg::wait<0>();
+    wg::hold(dp);
+    release(emptyV, lane);  // V is read by dP alone
+    // dS = P ⊙ (dP − D), as bf16 A fragments (k16 step kk: keys 16kk..)
+    uint32_t da[HK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HK / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = 8 * kk + 2 * r;
+        const float dl = dd[(c >> 1) & 1];
+        da[kk][r] = ptx::pack_bf16(s[c] * (dp[c] - dl), s[c + 1] * (dp[c + 1] - dl));
+      }
+      wg::hold(da[kk]);
+    }
+    // dQ += dS K: K MN-major (the tile's rows are the k), columns 0..127
+    // and 128..255 as two m64n128 products a k16 step
+    wg::hold(dq[0]);
+    wg::hold(dq[1]);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < HK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wg::mma_m64n128k16_rs<1>(dq[h], da[kk],
+                                 wg::desc(kt + kk * 2048 + h * 2 * HK * 128, HK * 128, 1024), 1);
+    wg::commit();
+  }
+  wg::wait<0>();
+  wg::hold(dq[0]);
+  wg::hold(dq[1]);
+
+  // dQ·scale in bf16, staged through this warpgroup's rows of the Q tile
+  // (its S products are done with them), out in whole 16-byte chunks
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = HQ * w + 16 * warp + g + 8 * hh;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+        *reinterpret_cast<uint32_t*>(qtile + wg::sw128<BQ>(r, 16 * h + jj) + 4 * t) =
+            ptx::pack_bf16(dq[h][4 * jj + 2 * hh] * scale, dq[h][4 * jj + 2 * hh + 1] * scale);
+  }
+  wg::bar_sync(kEpiBar + w, 128);
+  constexpr int C = kHd / 8;
+  const int ltid = tid & 127;
+#pragma unroll
+  for (int kk = 0; kk < HQ * C / 128; ++kk) {
+    const int i = ltid + kk * 128, r = HQ * w + i / C, c = i % C, row = q0 + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(dQ + (qoff + row) * kHd + c * 8) =
+          *reinterpret_cast<const uint4*>(qtile + wg::sw128<BQ>(r, c));
+  }
+}
+
+// dK/dV blocks (bh, key block), the key blocks with the most query tiles
+// first, then dQ blocks (bh, 128-row block), the longest causal rows first:
+// one launch, so that the dQ blocks fill the dK/dV blocks' tail
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    bwd_tma_kernel(const __grid_constant__ CUtensorMap tq64, const __grid_constant__ CUtensorMap tdo64,
+                   const __grid_constant__ CUtensorMap tq128,
+                   const __grid_constant__ CUtensorMap tdo128, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const float* __restrict__ LSE,
+                   const float* __restrict__ Dv, __nv_bfloat16* __restrict__ dQ,
+                   __nv_bfloat16* __restrict__ dK, __nv_bfloat16* __restrict__ dV, int BH, int Sq,
+                   int Sk, float scale, int causal, int window) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nkb = (Sk + HK - 1) / HK, nqb = (Sq + kTmaWG * HQ - 1) / (kTmaWG * HQ);
+  const int b = blockIdx.x;
+  if (b < BH * nkb) {
+    dkdv_block(&tq64, &tk, &tv, &tdo64, LSE, Dv, dK, dV, Sq, Sk, scale, causal, window, b % BH,
+               b / BH, smem_raw);
+  } else {
+    const int b2 = b - BH * nkb, qb = b2 / BH;
+    dq_block(&tq128, &tk, &tv, &tdo128, LSE, Dv, dQ, Sq, Sk, scale, causal, window, b2 % BH,
+             causal ? nqb - 1 - qb : qb, smem_raw);
+  }
+}
+
+int launch_bf16_tma(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* D, void* dq, void* dk, void* dv, int BH,
+                    int Sq, int Sk, float scale, int causal, int window, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  if (Sq == 0) {  // no query reaches a key: dK = dV = 0
+    const cudaError_t e = cudaMemsetAsync(dk, 0, (size_t)BH * Sk * kHd * sizeof(bf), s);
+    return (int)(e != cudaSuccess ? e
+                                  : cudaMemsetAsync(dv, 0, (size_t)BH * Sk * kHd * sizeof(bf), s));
+  }
+  CUtensorMap tq64, tdo64, tq128, tdo128, tk, tv;
+  int e = tma::tensor_map(&tq64, q, kHd, Sq, BH, HQ);
+  if (e == 0) e = tma::tensor_map(&tdo64, dout, kHd, Sq, BH, HQ);
+  if (e == 0) e = tma::tensor_map(&tq128, q, kHd, Sq, BH, kTmaWG * HQ);
+  if (e == 0) e = tma::tensor_map(&tdo128, dout, kHd, Sq, BH, kTmaWG * HQ);
+  if (e == 0) e = tma::tensor_map(&tk, k, kHd, Sk, BH, HK);
+  if (e == 0) e = tma::tensor_map(&tv, v, kHd, Sk, BH, HK);
+  if (e != 0) return e;
+  const size_t bytes = dkdv_tma_smem_bytes() > dq_tma_smem_bytes() ? dkdv_tma_smem_bytes()
+                                                                    : dq_tma_smem_bytes();
+  const cudaError_t err =
+      cudaFuncSetAttribute(bwd_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks =
+      (long long)BH * ((Sk + HK - 1) / HK + (Sq + kTmaWG * HQ - 1) / (kTmaWG * HQ));
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bwd_tma_kernel<<<(unsigned)blocks, kTmaThreads, bytes, s>>>(tq64, tdo64, tq128, tdo128, tk, tv,
+                                                              lse, D, (bf*)dq, (bf*)dk, (bf*)dv, BH,
+                                                              Sq, Sk, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMAs
 // ---------------------------------------------------------------------------
 
@@ -1035,6 +1531,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, const void* d
   if constexpr (HD == 64 || HD == 128) {
     if (window > 0) return (int)cudaErrorInvalidValue;  // the wrapper refuses it first
     return launch_bf16_wg<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
+  } else if constexpr (HD == kHd) {
+    return launch_bf16_tma(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, window,
+                           s);
   } else {
     return launch_bf16<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, window,
                            s);

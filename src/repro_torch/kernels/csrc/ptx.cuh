@@ -1,6 +1,6 @@
 // Inline-PTX helpers shared by the hand-written Hopper kernels: 16-byte
-// cp.async copies into shared memory, ldmatrix, and the bf16 tensor-core
-// product mma.sync m16n8k16 with float32 accumulators.
+// cp.async copies into shared memory, ldmatrix, the bf16 tensor-core
+// product mma.sync m16n8k16 with float32 accumulators, and ex2.approx.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4·g + t, g = lane / 4,
 // t = lane % 4), as the PTX ISA gives them:
@@ -58,6 +58,14 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the special-function unit alone (results below 2^-126 flush to
+// 0, where exp2f would add instructions to keep them)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two floats → one b32 of two bf16 (lo in the lower half), rounded to nearest

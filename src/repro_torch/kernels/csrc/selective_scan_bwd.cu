@@ -62,23 +62,36 @@
 // take about a sixth of the walk's time; its other arithmetic and its
 // shared-memory reads most of the rest.
 //
-// The (a, bx) entry's backward at N = 1 (`selective_scan_abx_bwd_launch`):
+// The (a, bx) entry's backward at N = 1 (`selective_scan_n1_bwd_launch`):
 // the RG-LRU of recurrentgemma-2b calls the scan's (a, bx) entry with
 // N = 1 and c = 1, so the forward's y is the state h itself.  Given h
 // [B, S, D] (the forward's y), a [B, S, D], dy [B, S, D] and dh_last
-// [B, D] (or zero), one reverse walk a channel:
-//   g_t = dy_t + a_{t+1}·g_{t+1}  (g_{S-1} = dy_{S-1} + dh_last),
+// [B, D] (or zero), the reverse walk
+//   g_t = dy_t + c_t,  c_t = a_{t+1}·g_{t+1}  (c_{S-1} = dh_last),
 //   da_t = g_t·h_{t-1} (h_{-1} = h0, or zero),  dbx_t = g_t,  dh0 = a_0·g_0.
-// One thread a channel d of a batch row b walks t from S − 1 to 0; a
-// warp's 32 lanes read 32 neighbouring channels (128 contiguous bytes) a
-// step, and each 16-step slice's loads are issued before its walk, so
-// that their latency overlaps.  Each sum and product is rounded on its
-// own (__fadd_rn, __fmul_rn: no fused multiply-add), as the plain
-// version's elementwise steps are: the same bits on every launch, and
+// The carry out of a stretch of steps is linear in the carry into its
+// last step: walked from c, a chunk hands on Π a · c + (its carry out from
+// zero).  So S is cut into chunks (`chunk` steps, from S alone:
+// kernels/selective_scan.py::_n1_chunk, the forward's), the forward's
+// structure run in reverse (csrc/selective_scan.cu, n1_totals / n1_walk):
+//   1. n1_bwd_totals: each (channel, chunk but the first) walks its chunk
+//      backward from a zero carry and keeps (Π a, carry out), a float2 of
+//      the scratch [B, chunks, D];
+//   2. n1_bwd_walk: each (channel, chunk) folds dh_last through the later
+//      chunks' pairs, last chunk first, then walks its chunk: da, dbx;
+//      chunk 0 writes dh0.  A chunk's first h_{t-1} is the previous
+//      chunk's last row (or h0).
+// A thread a (channel, chunk); a warp's 32 lanes read 32 neighbouring
+// channels (128 contiguous bytes) a step, and each 16-step batch's loads
+// are issued before the batch before it is walked, so that they are in
+// flight while it is (the walk 0.105 → 0.079 ms at [1, 4096, 2560];
+// batches of 32 steps were slower).  Every sum
+// and product is rounded on its own (__fadd_rn, __fmul_rn: no fused
+// multiply-add), in the order the plain version
+// (`selective_scan_bwd_plain`) takes: the same bits on every launch, and
 // the plain version's.  Bound: bytes, a, h and dy read and da and dbx
-// written once.  Like the forward at N = 1 it has one lane a channel, so
-// D = 2560 gives 80 warps a batch row for the whole walk (ROADMAP Queue 2
-// item 12).
+// written once (20 B a step); the design moves 28 (launch 1 reads a and
+// dy again).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -475,69 +488,137 @@ int launch(const Args& g, int B, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// the (a, bx) entry's backward at N = 1
+// the (a, bx) entry's backward at N = 1: chunks walked in parallel
 // ---------------------------------------------------------------------------
 
-constexpr int kAbxThreads = 32;  // one warp a block: 80 blocks a batch row at D = 2560
-constexpr int kAbxUnroll = 16;   // steps whose loads are issued together
+constexpr int kN1Tile = 128;   // channels a block
+constexpr int kN1Batch = 16;   // steps a thread loads before it walks them
 
-__global__ void __launch_bounds__(kAbxThreads)
-    abx_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
-                   const float* __restrict__ h0, const float* __restrict__ dy,
-                   const float* __restrict__ dh_last, float* __restrict__ da,
-                   float* __restrict__ dbx, float* __restrict__ dh0, int S, int D) {
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * kAbxThreads + threadIdx.x;
+// chunk j ≥ 1 (blockIdx.y + 1) of channels d of batch row b, walked
+// backward from a zero carry: (Π a, the carry out) into carry[b, j, d]
+__global__ void __launch_bounds__(kN1Tile)
+    n1_bwd_totals(const float* __restrict__ a, const float* __restrict__ dy,
+                  float2* __restrict__ carry, int S, int D, int chunk, int chunks) {
+  const int d = blockIdx.x * kN1Tile + threadIdx.x;
   if (d >= D) return;
+  const int j = blockIdx.y + 1, b = blockIdx.z;
+  const int t0 = j * chunk, tn = min(chunk, S - t0);
+  const long long at = ((long long)b * S + t0) * D + d;
+  float P = 1.f, c = 0.f;
+  float av[kN1Batch], gv[kN1Batch];
+  auto load = [&](int t, float (&x)[kN1Batch], float (&y)[kN1Batch]) {
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      if (t - u >= 0) {
+        x[u] = __ldg(a + at + (long long)(t - u) * D);
+        y[u] = __ldg(dy + at + (long long)(t - u) * D);
+      }
+    }
+  };
+  if (tn > 0) load(tn - 1, av, gv);
+  for (int t = tn - 1; t >= 0; t -= kN1Batch) {
+    float an[kN1Batch], gn[kN1Batch];
+    if (t - kN1Batch >= 0) load(t - kN1Batch, an, gn);
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      if (t - u >= 0) {
+        c = __fmul_rn(av[u], __fadd_rn(gv[u], c));
+        P = __fmul_rn(P, av[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      av[u] = an[u];
+      gv[u] = gn[u];
+    }
+  }
+  carry[((long long)b * chunks + j) * D + d] = make_float2(P, c);
+}
+
+// chunk j (blockIdx.y) of channels d of batch row b: the carry into its
+// last step (dh_last folded through the later chunks' pairs, last chunk
+// first), then its steps in reverse: da, dbx, and dh0 from chunk 0
+__global__ void __launch_bounds__(kN1Tile)
+    n1_bwd_walk(const float* __restrict__ a, const float* __restrict__ h,
+                const float* __restrict__ h0, const float* __restrict__ dy,
+                const float* __restrict__ dh_last, const float2* __restrict__ carry,
+                float* __restrict__ da, float* __restrict__ dbx, float* __restrict__ dh0,
+                int S, int D, int chunk) {
+  const int d = blockIdx.x * kN1Tile + threadIdx.x;
+  if (d >= D) return;
+  const int j = blockIdx.y, b = blockIdx.z, chunks = gridDim.y;
   const long long row = (long long)b * D + d;
-  const long long base = (long long)b * S * D + d;
-  const float start = h0 ? h0[row] : 0.f;
-  float carry = dh_last ? dh_last[row] : 0.f;  // a_{t+1}·g_{t+1}: h_t's gradient from later steps
-  int t = S - 1;
-  for (; t >= kAbxUnroll - 1; t -= kAbxUnroll) {
-    float av[kAbxUnroll], hv[kAbxUnroll], gv[kAbxUnroll];
+  float c = dh_last != nullptr ? dh_last[row] : 0.f;
+  const float2* cb = carry + (long long)b * chunks * D + d;
+#pragma unroll 8
+  for (int k = chunks - 1; k > j; --k) {
+    const float2 p = cb[(long long)k * D];
+    c = __fadd_rn(__fmul_rn(p.x, c), p.y);
+  }
+  const float start = h0 != nullptr ? h0[row] : 0.f;
+  const int t0 = j * chunk, tn = min(chunk, S - t0);
+  const long long at = ((long long)b * S + t0) * D + d;
+  float av[kN1Batch], gv[kN1Batch], hv[kN1Batch];
+  auto load = [&](int t, float (&x)[kN1Batch], float (&y)[kN1Batch], float (&z)[kN1Batch]) {
 #pragma unroll
-    for (int i = 0; i < kAbxUnroll; ++i) {
-      const long long o = base + (long long)(t - i) * D;
-      av[i] = __ldg(a + o);
-      gv[i] = __ldg(dy + o);
-      hv[i] = t - i > 0 ? __ldg(h + o - D) : start;
+    for (int u = 0; u < kN1Batch; ++u) {
+      if (t - u >= 0) {
+        const long long o = at + (long long)(t - u) * D;
+        x[u] = __ldcs(a + o);
+        y[u] = __ldcs(dy + o);
+        z[u] = t0 + t - u > 0 ? __ldcs(h + o - D) : start;  // h_{t-1}
+      }
+    }
+  };
+  if (tn > 0) load(tn - 1, av, gv, hv);
+  for (int t = tn - 1; t >= 0; t -= kN1Batch) {
+    float an[kN1Batch], gn[kN1Batch], hn[kN1Batch];
+    if (t - kN1Batch >= 0) load(t - kN1Batch, an, gn, hn);
+#pragma unroll
+    for (int u = 0; u < kN1Batch; ++u) {
+      if (t - u >= 0) {
+        const long long o = at + (long long)(t - u) * D;
+        const float g = __fadd_rn(gv[u], c);
+        da[o] = __fmul_rn(g, hv[u]);
+        dbx[o] = g;
+        c = __fmul_rn(av[u], g);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < kAbxUnroll; ++i) {
-      const long long o = base + (long long)(t - i) * D;
-      const float g = __fadd_rn(gv[i], carry);
-      da[o] = __fmul_rn(g, hv[i]);
-      dbx[o] = g;
-      carry = __fmul_rn(av[i], g);
+    for (int u = 0; u < kN1Batch; ++u) {
+      av[u] = an[u];
+      gv[u] = gn[u];
+      hv[u] = hn[u];
     }
   }
-  for (; t >= 0; --t) {
-    const long long o = base + (long long)t * D;
-    const float g = __fadd_rn(__ldg(dy + o), carry);
-    da[o] = __fmul_rn(g, t > 0 ? __ldg(h + o - D) : start);
-    dbx[o] = g;
-    carry = __fmul_rn(__ldg(a + o), g);
-  }
-  dh0[row] = carry;
+  if (j == 0) dh0[row] = c;
 }
 
 }  // namespace
 
-// The (a, bx) entry's backward at N = 1.  a, h (the forward's y), dy, da,
-// dbx: [B, S, D] float32; h0, dh_last: [B, D] float32 or null (zero); dh0:
-// [B, D] float32.  All contiguous.  Returns cudaGetLastError() after the
-// launch.
-extern "C" int selective_scan_abx_bwd_launch(const void* a, const void* h, const void* h0,
-                                             const void* dy, const void* dh_last, void* da,
-                                             void* dbx, void* dh0, int B, int S, int D,
-                                             void* stream) {
-  if (B < 0 || S < 0 || D < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+// The (a, bx) entry's backward at N = 1, in chunks of `chunk` steps (a
+// positive multiple of 16): a, h (the forward's y), dy, da, dbx [B, S, D];
+// h0, dh_last [B, D] or null (zero); dh0 [B, D]; `carry` float32 scratch of
+// 2 · B · max(1, ceil(S / chunk)) · D.  All float32 and contiguous.
+// Returns cudaGetLastError() after the launches.
+extern "C" int selective_scan_n1_bwd_launch(const void* a, const void* h, const void* h0,
+                                            const void* dy, const void* dh_last, void* da,
+                                            void* dbx, void* dh0, void* carry, int B, int S,
+                                            int D, int chunk, void* stream) {
+  if (B < 0 || S < 0 || D < 0 || B > 65535 || chunk < kN1Batch || chunk % kN1Batch != 0)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return (int)cudaGetLastError();
+  const long long chunks = S == 0 ? 1 : ((long long)S + chunk - 1) / chunk;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  abx_bwd_kernel<<<dim3((D + kAbxThreads - 1) / kAbxThreads, B), kAbxThreads, 0, s>>>(
+  const unsigned tiles = (unsigned)((D + kN1Tile - 1) / kN1Tile);
+  float2* cr = static_cast<float2*>(carry);
+  if (chunks > 1)
+    n1_bwd_totals<<<dim3(tiles, (unsigned)chunks - 1, B), kN1Tile, 0, s>>>(
+        (const float*)a, (const float*)dy, cr, S, D, chunk, (int)chunks);
+  n1_bwd_walk<<<dim3(tiles, (unsigned)chunks, B), kN1Tile, 0, s>>>(
       (const float*)a, (const float*)h, (const float*)h0, (const float*)dy,
-      (const float*)dh_last, (float*)da, (float*)dbx, (float*)dh0, S, D);
+      (const float*)dh_last, cr, (float*)da, (float*)dbx, (float*)dh0, S, D, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -35,14 +35,17 @@ is the same bits with or without it.
 The backward (csrc/flash_attention_bwd.cu, `flash_attention_bwd`) is new:
 the TPU kernel has none, and the reference trains through the jnp form.
 It recomputes the weights from q, k and the forward's lse, and sums with
-no float atomics (the same bits on every launch).  In bf16 at hd 64 and
-128 it makes one pass over the keys on wgmma, adding each key block's
-part of dQ into a float32 workspace in a fixed order; hd 16, 32 and 256
-keep a dK/dV kernel and a dQ kernel on mma.sync (at hd 256 dV and dK in
-two launches, for registers).  The window (recurrentgemma-2b's lattn, hd
-256) is taken by the mma.sync and float32 kernels, which walk only the
-band of tiles it keeps; bf16 at hd 64 and 128 refuses it with a
-ValueError (no model trains a window at those widths).
+no float atomics (the same bits on every launch).  In bf16 it runs on
+wgmma at hd 64, 128 and 256 (counted in `bwd_wg_launches` too,
+"flash_attention_bwd[wg]" in `ops.launch_counts()`): at hd 64 and 128 one
+pass over the keys, adding each key block's part of dQ into a float32
+workspace in a fixed order; at hd 256 (recurrentgemma-2b's lattn) one
+launch of dK/dV blocks and dQ blocks, each fed by TMA from a producer
+warpgroup.  hd 16 and 32 keep a dK/dV kernel and a dQ kernel on
+mma.sync.  The window is taken at hd 16, 32 and 256 and in float32,
+whose kernels walk only the band of tiles it keeps; bf16 at hd 64 and
+128 refuses it with a ValueError (no model trains a window at those
+widths).
 `FlashAttention` is the autograd Function the training path calls
 (`flash_attention_grad`): on the card both directions launch the
 kernels, on the CPU both run their plain versions.
@@ -58,6 +61,8 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the bf16 backward's one-pass wgmma kernel: no window at these widths
 WGMMA_HEAD_DIMS = (64, 128)
+# the bf16 backward's wgmma route: the one-pass kernel and hd 256's two
+WG_BWD_HEAD_DIMS = (64, 128, 256)
 # the bf16 forward's wgmma kernel: these widths, from WG_MIN_SQ query rows
 # (one consumer warpgroup's tile); the rest stays on mma.sync
 WG_FWD_HEAD_DIMS = (64, 256)
@@ -73,6 +78,10 @@ class _Count:
 # the wgmma route's launches (`_route` "wgmma"), which flash_attention's
 # count includes: `ops.launch_counts()["flash_attention[wg]"]`
 wg_launches = _Count()
+# the backward's wgmma route (bf16 at WG_BWD_HEAD_DIMS), which
+# flash_attention_bwd's count includes:
+# `ops.launch_counts()["flash_attention_bwd[wg]"]`
+bwd_wg_launches = _Count()
 
 
 def _route(dtype, hd: int, sq: int) -> str:
@@ -82,6 +91,15 @@ def _route(dtype, hd: int, sq: int) -> str:
     if dtype == torch.float32:
         return "f32"
     return "wgmma" if hd in WG_FWD_HEAD_DIMS and sq >= WG_MIN_SQ else "mma"
+
+
+def _bwd_route(dtype, hd: int) -> str:
+    """The backward kernels of a launch: "f32" for float32 inputs; for
+    bfloat16 "wgmma" at WG_BWD_HEAD_DIMS (the one-pass kernel at hd 64
+    and 128, hd 256's dK/dV and dQ blocks), else "mma" (hd 16, 32)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if hd in WG_BWD_HEAD_DIMS else "mma"
 
 
 def _check(q, k, v):
@@ -260,7 +278,8 @@ def _bwd_scratch_floats(bh, sq, hd, dtype):
 
 
 def _check_bwd_window(name, dtype, hd, window):
-    """The card's backward takes no window in bf16 at the wgmma widths."""
+    """The card's backward takes no window in bf16 at the one-pass
+    kernel's widths."""
     if window > 0 and dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         raise ValueError(f"{name}: no window in the bf16 backward at head_dim "
                          f"{hd} (the one-pass wgmma kernel); it is taken at "
@@ -306,6 +325,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         hd ** -0.5, int(causal), window, stream)
     _build.check("flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
+    if _bwd_route(q.dtype, hd) == "wgmma":
+        bwd_wg_launches.launches += 1
     return dq, dk, dv
 
 

@@ -48,12 +48,18 @@ B·S are partials reduced in a fixed order, with no float atomics.
 kernels, on the CPU both run their plain versions.
 
 The (a, bx) entry has a backward at N = 1 (`selective_scan_bwd`, the
-`selective_scan_abx_bwd_launch` entry of csrc/selective_scan_bwd.cu): the
-RG-LRU's call, where c = 1 makes y the state h itself, so one reverse walk
-over a, h and dy gives da, dbx and dh0.  `SelectiveScan` is its autograd
-Function and `selective_scan_grad` the call the RG-LRU makes: on the card
-both directions launch the kernels, on the CPU both run their plain
-versions.  A recorded call the backward cannot take (N > 1) raises.
+`selective_scan_n1_bwd_launch` entry of csrc/selective_scan_bwd.cu): the
+RG-LRU's call, where c = 1 makes y the state h itself, so the reverse
+walk over a, h and dy gives da, dbx and dh0.  Like the forward at N = 1
+it cuts S into chunks of `_n1_chunk(S)` steps walked in parallel: each
+chunk's (Π a, carry out) first, then each chunk from dh_last folded
+through the later chunks' pairs.  Its plain version takes the same order,
+each sum and product rounded on its own, so that the kernel gives its
+bits; `selective_scan_bwd_sequential` is the one reverse walk.
+`SelectiveScan` is its autograd Function and `selective_scan_grad` the
+call the RG-LRU makes: on the card both directions launch the kernels, on
+the CPU both run their plain versions.  A recorded call the backward
+cannot take (N > 1) raises.
 """
 from __future__ import annotations
 
@@ -379,13 +385,13 @@ def selective_scan_fused_grad(dt, A, Bm, Cm, x, h0=None, *,
 # the (a, bx) entry's backward at N = 1: the RG-LRU
 # ---------------------------------------------------------------------------
 
-def selective_scan_bwd_plain(a, h, h0, dy, dh_last=None):
+def selective_scan_bwd_sequential(a, h, h0, dy, dh_last=None):
     """The backward of the (a, bx) entry at N = 1 with c = 1, in plain
-    PyTorch, float32: a, h (the forward's y, which is the state), dy
-    [B, S, D]; h0 and dh_last [B, D] or None (zero).  The reverse walk
-    g_t = dy_t + a_{t+1}·g_{t+1} from dh_last gives da_t = g_t·h_{t-1}
-    (h_{-1} = h0), dbx_t = g_t and dh0 = a_0·g_0.  Returns (da, dbx,
-    dh0), float32."""
+    PyTorch, float32, one reverse walk over S: a, h (the forward's y,
+    which is the state), dy [B, S, D]; h0 and dh_last [B, D] or None
+    (zero).  g_t = dy_t + a_{t+1}·g_{t+1} from dh_last gives da_t =
+    g_t·h_{t-1} (h_{-1} = h0), dbx_t = g_t and dh0 = a_0·g_0.  Returns
+    (da, dbx, dh0), float32."""
     b, s, d = a.shape
     a, h, dy = a.float(), h.float(), dy.float()
     start = torch.zeros((b, d), dtype=torch.float32, device=a.device) \
@@ -399,6 +405,52 @@ def selective_scan_bwd_plain(a, h, h0, dy, dh_last=None):
         dbx[:, t] = g
         carry = a[:, t] * g
     return da, dbx, carry
+
+
+def selective_scan_bwd_plain(a, h, h0, dy, dh_last=None):
+    """The same gradients as `selective_scan_bwd_sequential`, in the
+    kernel's order (csrc/selective_scan_bwd.cu, n1_bwd_totals and
+    n1_bwd_walk), each sum and product rounded on its own, so that the
+    kernel gives these bits: S cut in chunks of `_n1_chunk(S)` steps
+    (the last padded with steps a = 1, dy = 0, which hand the carry on
+    exactly); each chunk's (Π a, carry out from zero) walked backward;
+    the carry into each chunk, dh_last folded through the later chunks'
+    pairs, last chunk first; then each chunk walked from its carry."""
+    b, s, d = a.shape
+    dev = a.device
+    a, h, dy = a.float(), h.float(), dy.float()
+    start = torch.zeros((b, d), dtype=torch.float32, device=dev) \
+        if h0 is None else h0.float()
+    c = torch.zeros_like(start) if dh_last is None else dh_last.float()
+    chunk = _n1_chunk(s)
+    n = max(1, -(-s // chunk))
+    pad = n * chunk - s
+
+    def chunks(x, fill):
+        x = torch.cat([x, x.new_full((b, pad, d), fill)], 1)
+        return x.view(b, n, chunk, d)
+
+    ac, gc = chunks(a, 1.0), chunks(dy, 0.0)
+    hc = chunks(torch.cat([start[:, None], h], 1)[:, :s], 0.0)   # h_{t-1}
+    prod = torch.ones((b, n, d), dtype=torch.float32, device=dev)
+    out = torch.zeros((b, n, d), dtype=torch.float32, device=dev)
+    for i in reversed(range(chunk)):
+        out = ac[:, :, i] * (gc[:, :, i] + out)
+        prod = prod * ac[:, :, i]
+    into = torch.empty_like(out)
+    for k in reversed(range(n)):
+        into[:, k] = c
+        c = prod[:, k] * c + out[:, k]
+    da = torch.empty((b, n, chunk, d), dtype=torch.float32, device=dev)
+    dbx = torch.empty_like(da)
+    c = into
+    for i in reversed(range(chunk)):
+        g = gc[:, :, i] + c
+        da[:, :, i] = g * hc[:, :, i]
+        dbx[:, :, i] = g
+        c = ac[:, :, i] * g
+    return (da.view(b, n * chunk, d)[:, :s], dbx.view(b, n * chunk, d)[:, :s],
+            c[:, 0])
 
 
 def _abx_check(a, h, h0, dy, dh_last):
@@ -434,11 +486,15 @@ def selective_scan_bwd(a, h, h0, dy, dh_last=None):
     dh_last = None if dh_last is None else _f32(dh_last)
     da, dbx = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty((b, d), dtype=torch.float32, device=a.device)
+    chunk = _n1_chunk(s)
+    carry = torch.empty(2 * b * max(1, -(-s // chunk)) * d,
+                        dtype=torch.float32, device=a.device)
     lib = _build.load("selective_scan_bwd")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = lib.selective_scan_abx_bwd_launch(
+    code = lib.selective_scan_n1_bwd_launch(
         a.data_ptr(), h.data_ptr(), _ptr(h0), dy.data_ptr(), _ptr(dh_last),
-        da.data_ptr(), dbx.data_ptr(), dh0.data_ptr(), b, s, d, stream)
+        da.data_ptr(), dbx.data_ptr(), dh0.data_ptr(), carry.data_ptr(), b,
+        s, d, chunk, stream)
     _build.check("selective_scan_bwd", code)
     selective_scan_bwd.launches += 1
     return da, dbx, dh0

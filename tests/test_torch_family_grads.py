@@ -7,11 +7,13 @@ against `jax.vjp` of the JAX package's own functions on the CPU.
   (`src/repro/models/attention.py`, which slices a query chunk's key
   span for a window), with GQA, ragged lengths and S past the window;
   whisper's non-causal Sq != Sk and Sq = Sk forms at hd 64.
-* The scan's (a, bx) backward at N = 1: `selective_scan_bwd_plain`
-  against the vjp of a sequential `lax.scan` of h_t = a_t·h_{t-1} + bx_t,
-  and the whole RG-LRU layer (`rglru_forward` with h0, the final state's
-  gradient dh_last) against the reference's (`associative_scan` in
-  chunks).
+* The scan's (a, bx) backward at N = 1: `selective_scan_bwd_plain` (the
+  kernel's chunk order) and `selective_scan_bwd_sequential` (one reverse
+  walk) against the vjp of a sequential `lax.scan` of h_t = a_t·h_{t-1}
+  + bx_t, over lengths that span several chunks with the RG-LRU's a
+  near 1, and the whole RG-LRU layer (`rglru_forward` with h0, the final
+  state's gradient dh_last) against the reference's (`associative_scan`
+  in chunks).
 * The MoE combine's backward: the port's `moe_local` under autograd (the
   router's top-k, the padded expert pass, `SegmentAdd`) against the
   reference's `moe_local`, with rows dropped by capacity.
@@ -43,9 +45,10 @@ from repro_torch.convert import (whisper_params_from_numpy,
 from repro_torch.data import SyntheticLMData
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
                                                  flash_attention_plain)
-from repro_torch.kernels.selective_scan import (SelectiveScan,
+from repro_torch.kernels.selective_scan import (SelectiveScan, _n1_chunk,
                                                 selective_scan_bwd,
                                                 selective_scan_bwd_plain,
+                                                selective_scan_bwd_sequential,
                                                 selective_scan_grad)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
@@ -203,6 +206,57 @@ def test_abx_backward_matches_jax_vjp(b, s, d, with_h0):
     fg = torch.autograd.grad((y, hl), live, (_t(dy), _t(dh)[..., None]))
     for name, g, w in zip(("da", "dbx", "dh0"), fg, want):
         assert _err(g[..., 0], w) <= TOL, name
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 300, 4097])
+def test_abx_backward_chunk_order_matches_jax_vjp(s):
+    """The plain backward in the kernel's chunk order (S cut into chunks
+    of _n1_chunk(S), the carry into each folded through the later
+    chunks' (Π a, carry) pairs) and the one reverse walk, with h0 and
+    dh_last, against jax.vjp of the sequential recurrence, over S within
+    one chunk, at a chunk's edge and across many, with a in [0.9, 0.999]
+    as the RG-LRU's gates give (carries that fade slowly across chunks)."""
+    b, d = 2, 6
+    r = np.random.default_rng(s)
+    a = r.uniform(0.9, 0.999, (b, s, d)).astype(np.float32)
+    bx, dy = (r.standard_normal((b, s, d)).astype(np.float32)
+              for _ in range(2))
+    h0, dh = (r.standard_normal((b, d)).astype(np.float32)
+              for _ in range(2))
+    (hs, _), vjp = jax.vjp(_jax_seq_scan, jnp.asarray(a), jnp.asarray(bx),
+                           jnp.asarray(h0))
+    want = [np.asarray(g) for g in vjp((jnp.asarray(dy), jnp.asarray(dh)))]
+    args = (_t(a), _t(np.asarray(hs)), _t(h0), _t(dy), _t(dh))
+    for fn in (selective_scan_bwd_plain, selective_scan_bwd_sequential):
+        for name, g, w in zip(("da", "dbx", "dh0"), fn(*args), want):
+            assert g.shape == w.shape and _err(g, w) <= TOL, (fn, name)
+
+
+def test_abx_backward_order_depends_on_s_alone():
+    """_n1_chunk is a function of S alone (a multiple of 16, at least 64,
+    at most 32 chunks), so one batch row's gradients do not depend on the
+    rows or channels beside it: each row and channel alone gives the bits
+    it gets in the whole call."""
+    for s in (0, 1, 64, 65, 1000, 4096, 8192, 10 ** 6):
+        c = _n1_chunk(s)
+        assert c % 16 == 0 and c >= 64 and -(-s // c) <= 32
+    r = np.random.default_rng(7)
+    b, s, d = 3, 300, 5
+    a = _t(r.uniform(0.9, 0.999, (b, s, d)).astype(np.float32))
+    h, dy = (_t(r.standard_normal((b, s, d)).astype(np.float32))
+             for _ in range(2))
+    h0, dh = (_t(r.standard_normal((b, d)).astype(np.float32))
+              for _ in range(2))
+    whole = selective_scan_bwd_plain(a, h, h0, dy, dh)
+    for i in range(b):
+        for j in (0, d - 1):
+            part = selective_scan_bwd_plain(
+                a[i:i + 1, :, j:j + 1], h[i:i + 1, :, j:j + 1],
+                h0[i:i + 1, j:j + 1], dy[i:i + 1, :, j:j + 1],
+                dh[i:i + 1, j:j + 1])
+            assert torch.equal(part[0], whole[0][i:i + 1, :, j:j + 1])
+            assert torch.equal(part[1], whole[1][i:i + 1, :, j:j + 1])
+            assert torch.equal(part[2], whole[2][i:i + 1, j:j + 1])
 
 
 def test_scan_grad_refuses_what_the_backward_lacks():

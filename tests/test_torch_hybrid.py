@@ -401,6 +401,26 @@ def test_chip_smoke_cuts_depth_in_whole_periods(arch, layers, kinds):
         cs.SERVE_DEPTH.get(arch, get_config(arch).num_layers)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-tiny",
+                                  "llama3-8b", "qwen3-moe-30b-a3b",
+                                  "falcon-mamba-7b"])
+def test_chip_smoke_counts_the_flash_bwd_wgmma_route(arch):
+    """chip_smoke.py's launches a training step: the flash backward's
+    wgmma route (bf16 at hd 64, 128 and 256) takes every backward launch
+    of the bf16 models (recurrentgemma-2b's windowed hd-256 ones too),
+    and a model without attention has none."""
+    cs = _chip_smoke()
+    layers, _, seq = cs.TRAIN_ARCHS[arch]
+    cfg = cs.train_config(get_config, arch, layers)
+    per_step = cs.train_launches(cfg, seq)
+    assert per_step.get("flash_attention_bwd[wg]", 0) == \
+        per_step.get("flash_attention_bwd", 0)
+    assert (arch == "falcon-mamba-7b") == ("flash_attention_bwd" not in
+                                           per_step)
+    if arch == "recurrentgemma-2b":      # 8 lattn layers, microbatches of 1
+        assert per_step["flash_attention_bwd[wg]"] == 16
+
+
 @pytest.mark.parametrize("arch,wg", [("recurrentgemma-2b", True),
                                      ("whisper-tiny", True),
                                      ("llama3-8b", False),

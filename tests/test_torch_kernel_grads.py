@@ -496,6 +496,37 @@ def test_cuda_flash_bwd_hd256(cuda, dtype, causal, sq, sk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [2048, 1000])
+def test_cuda_flash_bwd_hd256_training_shape(cuda, window):
+    """A recurrentgemma-2b microbatch's lattn layer, [10, 4096, 256] bf16
+    causal, on hd 256's dK/dV and dQ blocks: its 2048-key window, and a
+    window that 64 does not divide (its edge inside a tile)."""
+    _flash_bwd_window_check(cuda, window, 10, 4096, 4096, 256,
+                            torch.bfloat16, True, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype,wg", [(256, torch.bfloat16, 1),
+                                         (128, torch.bfloat16, 1),
+                                         (64, torch.bfloat16, 1),
+                                         (32, torch.bfloat16, 0),
+                                         (256, torch.float32, 0)])
+def test_cuda_flash_bwd_counts_the_wgmma_route(cuda, hd, dtype, wg):
+    """"flash_attention_bwd[wg]" counts each launch of the backward's wgmma
+    route (bf16 at hd 64, 128 and 256), within flash_attention_bwd's own
+    count, and no other."""
+    q, k, v, do = (_t(a).to(cuda, dtype)
+                   for a in _flash_inputs(hd, 2, 100, 100, hd))
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    before = ops.launch_counts()
+    flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    after = ops.launch_counts()
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert after["flash_attention_bwd[wg]"] == \
+        before["flash_attention_bwd[wg]"] + wg
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd,dtype", [(16, torch.bfloat16),
                                       (32, torch.bfloat16),
                                       (64, torch.float32),
@@ -557,6 +588,27 @@ def test_cuda_abx_bwd_matches_plain(cuda, b, s, d, with_state):
     again = selective_scan_bwd(a, h, h0, dy, dh)
     for g, w in zip(got, again):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 64, 65, 4096])
+def test_cuda_abx_bwd_chunk_edges(cuda, s):
+    """The chunked (a, bx) backward at the edges of its chunks (S = 1, a
+    chunk exactly, a chunk and one step, 4096 steps in 32 chunks of 128)
+    over ragged blocks of channels, with a in [0.9, 0.999] (the RG-LRU's
+    gates): the plain version's bits (the same chunk order, each
+    operation rounded alone), and the same bits on a second launch."""
+    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                    selective_scan_bwd_plain)
+    b, d = 2, 300
+    a, h, h0, dy, dh = _abx_inputs(s + 1, b, s, d, cuda)
+    a = 0.9 + 0.099 * a
+    got = selective_scan_bwd(a, h, h0, dy, dh)
+    want = selective_scan_bwd_plain(a, h, h0, dy, dh)
+    again = selective_scan_bwd(a, h, h0, dy, dh)
+    for name, g, w, g2 in zip(("da", "dbx", "dh0"), got, want, again):
+        assert torch.equal(g, w), name
+        assert torch.equal(g, g2), name
 
 
 @pytest.mark.cuda

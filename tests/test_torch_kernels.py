@@ -367,7 +367,8 @@ def test_cpu_wrappers_count_no_launches():
                                    "selective_scan_bwd[a, bx]": 0,
                                    "segment_reduce[rows]": 0,
                                    "segment_reduce[lanes]": 0,
-                                   "flash_attention[wg]": 0}
+                                   "flash_attention[wg]": 0,
+                                   "flash_attention_bwd[wg]": 0}
 
 
 def test_every_source_has_its_ctypes_signatures():
@@ -468,6 +469,18 @@ def test_flash_route(dtype, hd, sq, route):
     # at hd 64 and 256 from one warpgroup's 64 rows; hd 128, hd 16 and 32,
     # a decode tick's Sq = 1 and float32 keep their kernels
     assert flash_module._route(dtype, hd, sq) == route
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "f32"),
+    (torch.float32, 256, "f32")])
+def test_flash_bwd_route(dtype, hd, route):
+    # the backward's kernels by (dtype, hd): bf16 at hd 64 and 128 (the
+    # one-pass kernel) and 256 (its dK/dV and dQ blocks) on wgmma, hd 16
+    # and 32 on mma.sync, float32 on FMAs
+    assert flash_module._bwd_route(dtype, hd) == route
 
 
 def test_flash_attention_bad_shapes_raise():

@@ -9,9 +9,12 @@ Run from the root of a checkout on a machine with a CUDA card.  NAME is
 in which that source was edited (another layout or design to compare:
 edit the copy, never the package); the package's own csrc comes first.
 Every library is built with the package's nvcc line and served to the
-same wrapper in turn.  The backwards run at phase 8's shape (flash [128,
+same wrapper in turn.  The backwards run at phase 8's shapes (flash [128,
 2048, 128] bf16 causal, the scan [4, 2048, 8192, 16] with bf16 x, the
-inputs of chip_smoke.py's phase 2); the forward at the shapes of
+inputs of chip_smoke.py's phase 2) and at rows 4bw's and 5ba's (flash
+[10, 4096, 256] bf16 causal within a 2048-key window and [10, 2048, 256]
+causal; the (a, bx) entry's backward at N = 1 [1, 4096, 2560], [1, 2048,
+2560] and [2, 4096, 2560]); the forward at the shapes of
 chip_smoke.py's rows 4w and 4n (bf16 [10, 2048, 256] causal, [10, 8192,
 256] and [10, 4096, 256] within a 2048-key window, [24, 1500, 64]
 non-causal), each also timed through the package's mma.sync entry
@@ -40,14 +43,23 @@ from chip_smoke import card_line, time_ms  # noqa: E402
 def _flash_bwd(torch, g):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
-    q, k, v, do = (torch.randn(128, 2048, 128, generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
-    return [dict(case="[128, 2048, 128] bf16 causal",
-                 call=lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                  causal=True),
-                 want=want, tols=dict(dq=2e-2, dk=2e-2, dv=2e-2))]
+    cases = []
+    for bh, s, hd, window in ((128, 2048, 128, 0), (10, 4096, 256, 2048),
+                              (10, 2048, 256, 0)):
+        q, k, v, do = (torch.randn(bh, s, hd, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = flash_attention(q, k, v, causal=True, window=window,
+                                 return_lse=True)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                         window=window)
+        form = "causal" + (f" window {window}" if window else "")
+        cases.append(dict(
+            case=f"[{bh}, {s}, {hd}] bf16 {form}",
+            call=lambda q=q, k=k, v=v, o=o, lse=lse, do=do, window=window:
+            flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                window=window),
+            want=want, tols=dict(dq=2e-2, dk=2e-2, dv=2e-2)))
+    return cases
 
 
 def _row_err(got, want):
@@ -114,10 +126,25 @@ def _scan(torch, g):
     _, _, states = scan._fused_launch(dt, A, Bm, Cm, x, None, True, True)
     want = scan.selective_scan_fused_bwd_plain(dt, A, Bm, Cm, x, None, dy)
     tols = dict(ddt=1e-4, dA=1e-4, dBm=1e-4, dCm=1e-4, dx=8e-3, dh0=1e-4)
-    return [dict(case="[4, 2048, 8192, 16] bf16 x",
-                 call=lambda: scan.selective_scan_fused_bwd(
-                     dt, A, Bm, Cm, x, None, dy, states=states),
-                 want=want, tols=tols)]
+    cases = [dict(case="[4, 2048, 8192, 16] bf16 x",
+                  call=lambda: scan.selective_scan_fused_bwd(
+                      dt, A, Bm, Cm, x, None, dy, states=states),
+                  want=want, tols=tols)]
+    # the (a, bx) entry's backward at N = 1 (the RG-LRU's): row 5ba's
+    # training microbatch, a 2048-token one and the whole batch
+    for b, s, d in ((1, 4096, 2560), (1, 2048, 2560), (2, 4096, 2560)):
+        a = torch.exp(-torch.randn(b, s, d, generator=g, device="cuda").abs())
+        h, dy1 = (torch.randn(b, s, d, generator=g, device="cuda")
+                  for _ in range(2))
+        h0, dh = (torch.randn(b, d, generator=g, device="cuda")
+                  for _ in range(2))
+        cases.append(dict(
+            case=f"(a, bx) [{b}, {s}, {d}] h0 and dh_last",
+            call=lambda a=a, h=h, h0=h0, dy1=dy1, dh=dh:
+            scan.selective_scan_bwd(a, h, h0, dy1, dh),
+            want=scan.selective_scan_bwd_plain(a, h, h0, dy1, dh),
+            tols=dict(da=1e-6, dbx=1e-6, dh0=1e-6)))
+    return cases
 
 
 CASES = {"flash_attention": _flash_fwd, "flash_attention_bwd": _flash_bwd,

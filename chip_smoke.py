@@ -49,8 +49,11 @@ first mismatch:
              (`flash_attention_bwd[wg]`, which each bf16 case checks by
              its launch count; tools/kernel_ab.py times it beside [10,
              2048, 256] causal), float32 [10, 1531, 256]
-             within 256, whisper-tiny's encoder [48, 1500, 64] and
-             cross-attention [48, 448, 64] x [48, 1500, 64] non-causal,
+             within 256, whisper-tiny's encoder [24, 1500, 64] and
+             cross-attention [24, 448, 64] x [24, 1500, 64] non-causal
+             (a microbatch's launches: 4 rows of 6 heads) on the
+             backward's split route (`flash_attention_bwd[full, hd 64]`,
+             each case checks it by its launch count),
              and the scan's (a, bx) backward at N = 1 [1, 4096, 2560],
              [1, 2048, 2560] and [2, 4096, 2560] from h0 with dh_last
              (its RG-LRU), bit-equal to its plain version;
@@ -1237,12 +1240,15 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
     the forward kernel's lse) against the plain formula, a second launch
     bit-equal, and one backward of PyTorch's scaled_dot_product_attention
     (with the window's mask where there is one) as the library call.  A
-    shape of the backward's wgmma route (bf16 at hd 64, 128 and 256) also
-    checks that the route took it.  With --parent the kernel is timed
-    against the earlier library, interleaved."""
+    shape of the backward's wgmma routes (bf16 at hd 64, 128 and 256)
+    also checks that the route took it, and of its split route (bf16 at
+    hd 64, not causal) that route's own count.  With --parent the kernel
+    is timed against the earlier library, interleaved; a split shape
+    through `_flash_bwd_launch_parent`, with the earlier library's
+    scratch."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        _bwd_route, flash_attention, flash_attention_bwd,
+        WG_BWD_ROUTES, _bwd_route, flash_attention, flash_attention_bwd,
         flash_attention_bwd_plain, flash_attention_plain)
     dt = getattr(torch, dtype)
     sk = s if sk is None else sk
@@ -1269,12 +1275,16 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
         f"against the plain version (tol {lse_tol:g})")
     require(lse_err <= lse_tol,
             f"flash_attention {what}: lse err {lse_err:.4g} > {lse_tol:g}")
-    wg = _bwd_route(dt, hd) == "wgmma"
-    before = ops.launch_counts()["flash_attention_bwd[wg]"]
+    route = _bwd_route(dt, hd, causal)
+    before = ops.launch_counts()
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    require(ops.launch_counts()["flash_attention_bwd[wg]"] == before + wg,
-            f"flash_attention_bwd {what}: the wgmma route "
-            f"{'not ' if wg else ''}taken")
+    after = ops.launch_counts()
+    for key, took in (("flash_attention_bwd[wg]", route in WG_BWD_ROUTES),
+                      ("flash_attention_bwd[full, hd 64]",
+                       route == "wgmma-split")):
+        require(after[key] == before[key] + took,
+                f"flash_attention_bwd {what}: {key} "
+                f"{'not ' if took else ''}counted")
     # the reference takes nothing from the kernels under test
     want = flash_attention_bwd_plain(q, k, v, wo, wlse, do, **kw)
     del wo, wlse
@@ -1292,7 +1302,9 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
     torch.cuda.empty_cache()
     timed = _kernel_ms(torch, "flash_attention_bwd",
                        lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
-                       reps)
+                       reps, parent_fn=(lambda: _flash_bwd_launch_parent(
+                           torch, q, k, v, o, lse, do))
+                       if route == "wgmma-split" else None)
     plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, **kw), plain_reps,
         warmup=1 if plain_reps > 1 else 0)
@@ -1324,13 +1336,35 @@ def _flash_bwd_case(torch, g, bh, s, hd, dtype, reps=5, plain_reps=2,
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     rec = dict(case=f"flash_attention_bwd {what}",
-               route=_bwd_route(dt, hd),
+               route=route,
                max_abs_err=err, tol=f"{tol:g}*max|ref| (dq, dk, dv)",
                **timed, plain_ms=plain_ms, library_ms=library_ms,
                library=library, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                same_bits_twice=True)
     return _rates(rec, flops)
+
+
+def _flash_bwd_launch_parent(torch, q, k, v, o, lse, do):
+    """The bf16 backward at hd 64 not causal as the earlier wrapper
+    launched it: the same C entry (`flash_attention_bwd_launch`) of the
+    library `_kernel_ms` installed, whose one-pass kernel writes its sync
+    words and dQ workspace after D, so the scratch is that kernel's size
+    (`_bwd_scratch_floats` as the earlier wrapper computed it): --parent's
+    side of the split route's timings."""
+    from repro_torch.kernels import _build
+    bh, sq, hd = q.shape
+    tiles = bh * -(-sq // 64)
+    d = torch.empty(-(-(bh * sq + 1 + tiles) // 4) * 4 + tiles * 64 * hd,
+                    dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    code = _build.load("flash_attention_bwd").flash_attention_bwd_launch(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), d.data_ptr(), bh, sq, k.shape[1], hd, hd ** -0.5,
+        0, 0, torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_attention_bwd", code)
+    return dq, dk, dv
 
 
 def _abx_bwd_case(torch, g, b, s, d, reps=5):
@@ -1524,11 +1558,12 @@ def _family_bwd_cases(torch, g):
     layer of a recurrentgemma-2b microbatch (10 query heads on its one KV
     head, hd 256, 4096 tokens within the 2048-token window) in bf16, and
     in float32 (the float32 check's form) over ragged tiles;
-    whisper-tiny's encoder and cross-attention at 8 requests (48 heads of
-    64: 1500 frames; 448 tokens on them), non-causal; the RG-LRU's (a,
+    whisper-tiny's encoder and cross-attention at a microbatch's rows (8
+    requests in microbatches of 2: 4 rows of 6 heads of 64; 1500 frames,
+    448 tokens on them), non-causal, on the split route; the RG-LRU's (a,
     bx) backward over the microbatch, over 2048 tokens and over the whole
-    batch.  Returns the windowed bf16 record and the microbatch's (a, bx)
-    one, the two new items of the kernels line."""
+    batch.  Returns the windowed bf16 record, the whisper encoder's and
+    the microbatch's (a, bx) one, items of the kernels line."""
     from repro_torch.configs import get_config
     rg, wh = get_config("recurrentgemma-2b"), get_config(AUDIO_ARCH)
     _, rg_batch, rg_seq = TRAIN_ARCHS["recurrentgemma-2b"]
@@ -1538,17 +1573,17 @@ def _family_bwd_cases(torch, g):
                           window=rg.window)
     _flash_bwd_case(torch, g, hq, PROMPT_LENS[1], hd, "float32", window=256,
                     plain_reps=1)
-    bh = TRAIN_ARCHS[AUDIO_ARCH][1] * wh.num_heads
-    for sq in (wh.enc_seq, TRAIN_ARCHS[AUDIO_ARCH][2]):
-        _flash_bwd_case(torch, g, bh, sq, wh.head_dim, "bfloat16",
-                        sk=wh.enc_seq, causal=False, plain_reps=1)
+    bh = TRAIN_ARCHS[AUDIO_ARCH][1] // wh.microbatch * wh.num_heads
+    enc, _ = [_flash_bwd_case(torch, g, bh, sq, wh.head_dim, "bfloat16",
+                              sk=wh.enc_seq, causal=False, plain_reps=1)
+              for sq in (wh.enc_seq, TRAIN_ARCHS[AUDIO_ARCH][2])]
     torch.cuda.empty_cache()
     abx = _abx_bwd_case(torch, g, rg_rows, rg_seq, rg.lru_width)
     for b, s in ((rg_rows, PROMPT_LENS[0]), (rg_batch, rg_seq)):
         _abx_bwd_case(torch, g, b, s, rg.lru_width)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return win, abx
+    return win, enc, abx
 
 
 def phase_kernels(torch, seed):
@@ -1661,7 +1696,7 @@ def phase_kernels(torch, seed):
             _scan_bwd_case(torch, g, 4, 1531, 8136, 16, "bfloat16")]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    hyb, abx = _family_bwd_cases(torch, g)
+    hyb, enc, abx = _family_bwd_cases(torch, g)
     # the entries of the kernel line: the main paths' shapes (the group-by
     # over 2^20 segments, the packed 8192^3 product through the packed
     # entry, the 2048-token llama3-8b prefill's attention, the scan kernel
@@ -1675,6 +1710,7 @@ def phase_kernels(torch, seed):
             "selective_scan[a, bx]": rglru,
             "flash_attention_bwd": bwd[0], "selective_scan_bwd": sbwd[0],
             "flash_attention_bwd[window, hd 256]": hyb,
+            "flash_attention_bwd[full, hd 64]": enc,
             "selective_scan_bwd[a, bx]": abx,
             "segment_reduce[wide]": moe["prefill"],
             "segment_reduce[lanes]": lanes}
@@ -3888,8 +3924,11 @@ def train_launches(cfg, seq) -> dict:
     launches it takes (bf16 at hd 64 and 256: Whisper's every attention,
     its encoder's enc_seq and its decoder's `seq` rows both past the
     route's 64), the backward's (bf16 at hd 64, 128 and 256) every
-    backward launch of a bf16 model."""
-    from repro_torch.kernels.flash_attention import _bwd_route, _route
+    backward launch of a bf16 model, and of those its split route (bf16
+    at hd 64, not causal) Whisper's encoder self-attention and decoder
+    cross-attention."""
+    from repro_torch.kernels.flash_attention import (WG_BWD_ROUTES,
+                                                     _bwd_route, _route)
     if cfg.remat != "full":
         raise ValueError(f"{cfg.name}: remat {cfg.remat!r}, not 'full'")
     mb = max(1, cfg.microbatch)
@@ -3897,6 +3936,7 @@ def train_launches(cfg, seq) -> dict:
              for k in pattern]
     attn = cfg.enc_layers + 2 * len(kinds) if cfg.family == "audio" else \
         sum(k in ("dense", "moe", "lattn") for k in kinds)
+    full = cfg.enc_layers + len(kinds) if cfg.family == "audio" else 0
     wg = min(seq, cfg.enc_seq) if cfg.family == "audio" else seq
     per_layer = {"flash_attention": (attn, 2),
                  "flash_attention[wg]": (
@@ -3905,7 +3945,11 @@ def train_launches(cfg, seq) -> dict:
                  "flash_attention_bwd": (attn, 1),
                  "flash_attention_bwd[wg]": (
                      attn if _bwd_route(cfg.compute_dtype, cfg.head_dim)
-                     == "wgmma" else 0, 1),
+                     in WG_BWD_ROUTES else 0, 1),
+                 "flash_attention_bwd[full, hd 64]": (
+                     full if _bwd_route(cfg.compute_dtype, cfg.head_dim,
+                                        causal=False) == "wgmma-split"
+                     else 0, 1),
                  "segment_reduce": (kinds.count("moe"), 2),
                  "selective_scan_fused": (kinds.count("ssm"), 2),
                  "selective_scan_bwd": (kinds.count("ssm"), 1),
@@ -4257,36 +4301,34 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
+    secs = {}      # each phase's seconds, for the time limit's account
+
+    def timed(name, phase, *a):
+        t = time.perf_counter()
+        out = phase(torch, *a)
+        secs[name] = round(time.perf_counter() - t, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
     try:
-        phase_build(torch, args.parent)
-        per_kernel = phase_kernels(torch, args.seed)
-        launches = phase_main(torch, args.seed)
-        gc.collect()
-        torch.cuda.empty_cache()
-        launches["segment_reduce"] += phase_ooc(torch, args.seed)
-        gc.collect()
-        torch.cuda.empty_cache()
-        plans = phase_plans(torch, args.seed)
+        timed("build", phase_build, args.parent)
+        per_kernel = timed("kernels", phase_kernels, args.seed)
+        launches = timed("main", phase_main, args.seed)
+        launches["segment_reduce"] += timed("ooc", phase_ooc, args.seed)
+        plans = timed("plans", phase_plans, args.seed)
         launches["segment_reduce"] += plans["segment_reduce"]
         # the lanes entry's launches: phase 6's served flushes
         launches["segment_reduce[lanes]"] = plans["segment_reduce[lanes]"]
-        gc.collect()
-        torch.cuda.empty_cache()
-        for k, n in phase_dist(torch, args.seed).items():
+        for k, n in timed("dist", phase_dist, args.seed).items():
             launches[k] += n
-        gc.collect()
-        torch.cuda.empty_cache()
         # phases 4 and 8 launch the segment kernel only as the MoE
         # combine, on its wide route: the kernel line's own item
-        served = phase_serve(torch, args.seed)
-        gc.collect()
-        torch.cuda.empty_cache()
-        for k, n in [*served.items(), *phase_train(torch, args.seed).items()]:
+        served = timed("serve", phase_serve, args.seed)
+        for k, n in [*served.items(),
+                     *timed("train", phase_train, args.seed).items()]:
             k = "segment_reduce[wide]" if k == "segment_reduce" else k
             launches[k] = launches.get(k, 0) + n
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase_lanes_trace(torch, args.seed)
+        timed("lanes", phase_lanes_trace, args.seed)
     except SmokeFailure as ex:
         print(f"chip_smoke.py: FAILED: {ex}", file=sys.stderr)
         return 1
@@ -4341,6 +4383,12 @@ def main(argv=None) -> int:
                "flash_attention_bwd[window, hd 256]": (
                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                    "src/repro/kernels/flash_attention.py:70"),
+               # and its split route at hd 64 not causal (whisper-tiny's
+               # encoder and cross-attention), within flash_attention_bwd's
+               # launches
+               "flash_attention_bwd[full, hd 64]": (
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:70"),
                "selective_scan_bwd[a, bx]": (
                    "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
                    "src/repro/kernels/selective_scan.py:60")}
@@ -4359,7 +4407,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke.py: FAILED: no launch on the main paths of "
               f"{idle}", file=sys.stderr)
         return 1
-    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    log(f"[done] {time.perf_counter() - t0:.1f} s; by phase "
+        f"{json.dumps(secs)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

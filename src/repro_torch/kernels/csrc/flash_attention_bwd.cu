@@ -16,12 +16,13 @@
 //
 // Bound: operations.  Causal, the function needs 5 products of
 // 2·BH·hd·(causal pairs) flops (QKᵀ, dO·Vᵀ, PᵀdO, dSᵀQ, dS·K), far above
-// the card's flop-per-byte line at the training lengths.  Three designs
-// by width: one pass on wgmma (hd 64, 128), a dK/dV and a dQ kernel on
-// wgmma fed by TMA (hd 256), two kernels on mma.sync (hd 16, 32).
+// the card's flop-per-byte line at the training lengths.  The designs:
+// one pass on wgmma (hd 128, and hd 64 causal); dK/dV blocks and dQ blocks
+// on wgmma fed by TMA (hd 256, and hd 64 not causal); two kernels on
+// mma.sync (hd 16, 32).
 //
-// bfloat16, hd 64 and 128 (the training path): one pass over the keys on
-// wgmma, two launches.
+// bfloat16, hd 128, and hd 64 causal (the LM training path): one pass over
+// the keys on wgmma, two launches.
 //   1. rowdot: D [BH, Sq] float32, one warp a row; it also zeroes the sync
 //      words (a ticket counter and one flag a (bh, 64-row query tile)).
 //   2. One block of two warpgroups (256 threads) a (bh, 128-key block);
@@ -72,6 +73,9 @@
 //   in step, so the tensor cores idle while both form P and dS.
 //   dQ's sum runs in another order than the two-kernel design's (a sum of
 //   float32 parts, one a key block), so its last bits differ from it.
+//   Not causal, the order is a chain (block kb waits on kb + 1 at every
+//   tile), so hd 64 not causal takes the split design below; hd 128 not
+//   causal (no model trains it) stays here.
 //
 // bfloat16, hd 256 (recurrentgemma-2b's local attention, lattn: the one
 // place a window trains), on wgmma: rowdot, then one launch
@@ -118,6 +122,39 @@
 //   keys past Sk are masked.  Every sum runs in one block in a fixed
 //   order: the same bits on every launch.
 //
+// bfloat16, hd 64, not causal (whisper-tiny's encoder self-attention and
+// its cross-attention): hd 256's split design at hd 64
+// (`bwd_split_kernel`): D (`rowdot64_kernel`), then one launch of dK/dV
+// blocks and dQ blocks, each a TMA producer warpgroup and two consumer
+// warpgroups (240 registers a thread), mbarriers a stage, ex2.approx.
+// Unlike hd 256's, the consumers do not take turns to issue S and dP (2–4%
+// slower with turns here, PERF.md §6).  The one-pass kernel's dQ order is
+// a chain without a causal
+// mask: all 12 key blocks of 1500 keys start at query tile 0, each waits
+// on the one above at every tile, and every (key block, tile) moves a
+// 16 KB float32 part through L2 twice (226 MB at [24, 1500, 64] against
+// the function's 37 MB).  Here every sum runs inside one block: no flags,
+// no workspace (the scratch is D alone), 7 products where one pass forms 5.
+//   * dkdv_split_block: a (bh, 128-key block), consumer w owning 64 keys;
+//     K and V stay in shared memory, 64-row Q and dO tiles come in four
+//     stages, and the producer's second warp stages each tile's lse·log2 e
+//     and D beside them (read by the consumers from global memory, their
+//     latency cost 17%: PERF.md §6).  Per tile Sᵀ = K_w·Qᵀ and dPᵀ =
+//     V_w·dOᵀ (m64n64k16, both K-major), P and dS in float32 registers,
+//     then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ as bf16 register A
+//     operands (m64n64k16, dO and Q MN-major): 32 accumulators of each a
+//     thread.
+//   * dq_split_block: a (bh, 128-row block), consumer w owning 64 rows; Q
+//     and dO stay in shared memory and, as bf16 register A operands, in
+//     registers (ldmatrix, 5% faster than reading them from shared memory
+//     at each product); 64-key tiles of K and V come in four stages; per
+//     tile S = Q_w·Kᵀ, dP = dO_w·Vᵀ, dQ += dS·K (K MN-major).
+//   The longer kind of block goes first (dK/dV at the encoder's shape, dQ
+//   at cross-attention's 448 rows on 1500 keys), so that the other fills
+//   the tail.  Shared memory 97 KB, one block an SM (registers).  Keys
+//   past Sk and rows past Sq are zero-filled by TMA; rows past Sq get lse
+//   = +inf (P = 0); a dQ block's ragged last key tile is masked.
+//
 // bfloat16, hd 16 and 32: the earlier two-kernel design on mma.sync
 // m16n8k16 (csrc/ptx.cuh).  A 32- or 16-column bf16 row is 64 or 32
 // bytes, under the 128-byte swizzle line the wgmma path is built on.
@@ -136,7 +173,8 @@
 // block walks only the query tiles from its first key to its last key +
 // window − 1, and a query tile only the key tiles from its first row −
 // window + 1 on: the band, O(S·window) work; only the tiles that cross a
-// mask edge test it.  The one-pass path (hd 64 and 128) takes no window:
+// mask edge test it.  bfloat16 at hd 64 and 128 takes no window (the
+// window is causal, and causal there is the one-pass path):
 // its ordered dQ sum starts at each tile's highest reaching key block and
 // ends at block 0, and no model trains a window at those widths, so the
 // wrapper refuses a window there.
@@ -184,6 +222,33 @@ __global__ void rowdot_kernel(const T* __restrict__ dO, const T* __restrict__ O,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) D[r] = s;
+}
+
+// D for the split route (bf16, hd 64): eight threads a row, each one
+// 16-byte chunk of dO and O, summed across the eight by shuffles (the
+// one-warp-a-row rowdot reads 2-byte values: 8.6 against 4.1 us at [24,
+// 1500, 64], PERF.md §6)
+__global__ void rowdot64_kernel(const __nv_bfloat16* __restrict__ dO,
+                                const __nv_bfloat16* __restrict__ O, float* __restrict__ D,
+                                long long rows) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long r = i >> 3;
+  float s = 0.f;
+  if (r < rows) {
+    const uint4 a = reinterpret_cast<const uint4*>(dO)[i];
+    const uint4 b = reinterpret_cast<const uint4*>(O)[i];
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[j]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[j]));
+      s = fmaf(x.x, y.x, s);
+      s = fmaf(x.y, y.y, s);
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (r < rows && (threadIdx.x & 7) == 0) D[r] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -1331,6 +1396,425 @@ int launch_bf16_tma(const void* q, const void* k, const void* v, const void* dou
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, hd 64, not causal: wgmma, dK/dV blocks and dQ blocks fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int FK = 128;   // keys of a dK/dV block, 64 a consumer
+constexpr int FQ = 64;    // query rows of a dK/dV block's tile, of a dQ consumer; keys of a dQ tile
+constexpr int FQS = 4;    // stages of a dK/dV block's Q and dO tiles
+constexpr int FKS = 4;    // stages of a dQ block's K and V tiles
+constexpr uint32_t kTile64 = 64 * 64 * 2;  // a 64-row bf16 tile of 64 columns: one panel
+
+constexpr size_t split_smem_bytes() {
+  // 1024 of slack to align the tiles; the resident pair (K and V of 128
+  // rows, or Q and dO of 128 rows); the stages of the streamed pair; the
+  // mbarriers (the resident pair's, a full and an empty one a stage); a
+  // dK/dV block's lse·log2 e and D a stage
+  return 1024 + (4 + 2 * (FQS > FKS ? FQS : FKS)) * kTile64 +
+         8 * (1 + 2 * (FQS > FKS ? FQS : FKS)) + 2 * FQS * FQ * 4;
+}
+
+// One block of 128 keys (key block kb) of a (batch, head) bh: the keys'
+// dK and dV over every query tile.  Consumer warpgroup w owns keys
+// 64w..64w+63: per 64-row tile it forms Sᵀ = K_w Qᵀ and dPᵀ = V_w dOᵀ
+// (m64n64k16, both operands K-major), P and dS in float32
+// registers, and adds Pᵀ·dO and dSᵀ·Q (Pᵀ and dSᵀ as bf16 register A
+// operands, dO and Q MN-major) into dV and dK: 32 accumulators of each a
+// thread.  Keys past Sk are zero-filled and their rows are not stored;
+// rows past Sq get lse = +inf (P = 0), so no entry is masked.
+__device__ __forceinline__ void dkdv_split_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                 const CUtensorMap* tv, const CUtensorMap* tdo,
+                                                 const float* __restrict__ LSE,
+                                                 const float* __restrict__ Dv,
+                                                 __nv_bfloat16* __restrict__ dK,
+                                                 __nv_bfloat16* __restrict__ dV, int Sq, int Sk,
+                                                 float scale, int bh, int kb,
+                                                 unsigned char* smem_raw) {
+  const uint32_t raw = ptx::smem_addr(smem_raw);
+  const uint32_t sK = raw + ((1024 - (raw & 1023)) & 1023);  // [FK][64]
+  const uint32_t sV = sK + 2 * kTile64;                        // [FK][64]
+  const uint32_t sQ = sV + 2 * kTile64;                        // [FQS][FQ][64]
+  const uint32_t sO = sQ + FQS * kTile64;                      // [FQS][FQ][64]
+  const uint32_t bKV = sO + FQS * kTile64;                     // K and V landed
+  const uint32_t fullQ = bKV + 8, emptyQ = fullQ + 8 * FQS;    // a stage landed / freed
+  // lse·log2 e and D of each stage's 64 queries
+  float* const Ls = reinterpret_cast<float*>(smem_raw + (emptyQ + 8 * FQS - raw));
+  float* const Ds = Ls + FQS * FQ;
+
+  const int k0 = kb * FK, nt = (Sq + FQ - 1) / FQ;
+  const int tid = threadIdx.x, w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+
+  if (tid == 0) {
+    wg::mbar_init(bKV, 1);
+#pragma unroll
+    for (int i = 0; i < FQS; ++i) {
+      wg::mbar_init(fullQ + 8 * i, 2);  // the TMA's and the row values'
+      wg::mbar_init(emptyQ + 8 * i, kTmaWG * 4);  // each consumer warp's release
+    }
+    wg::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (w == kTmaWG) {
+    wg::reg_dealloc<kProdRegs>();
+    if (warp == 1) {
+      const long long qoff = (long long)bh * Sq;
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % FQS;
+        if (i >= FQS) wg::mbar_wait(emptyQ + 8 * st, (i / FQS - 1) & 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = i * FQ + lane + 32 * h;
+          Ls[st * FQ + lane + 32 * h] = q < Sq ? LSE[qoff + q] * kLog2e : INFINITY;
+          Ds[st * FQ + lane + 32 * h] = q < Sq ? Dv[qoff + q] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) wg::mbar_arrive(fullQ + 8 * st);
+      }
+    }
+    if (warp == 0 && lane == 0) {
+      wg::mbar_expect(bKV, 4 * kTile64);
+      wg::tma_load_3d(sK, tk, bKV, 0, k0, bh);
+      wg::tma_load_3d(sV, tv, bKV, 0, k0, bh);
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % FQS;
+        if (i >= FQS) wg::mbar_wait(emptyQ + 8 * st, (i / FQS - 1) & 1);
+        wg::mbar_expect(fullQ + 8 * st, 2 * kTile64);
+        wg::tma_load_3d(sQ + st * kTile64, tq, fullQ + 8 * st, 0, i * FQ, bh);
+        wg::tma_load_3d(sO + st * kTile64, tdo, fullQ + 8 * st, 0, i * FQ, bh);
+      }
+    }
+    return;
+  }
+
+  wg::reg_alloc<kConsRegs>();
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = 64 * w + 16 * warp + g;  // this thread's keys: k0 + kr, k0 + kr + 8
+  const long long koff = (long long)bh * Sk;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t kw = sK + 64 * w * 128, vw = sV + 64 * w * 128;  // this warpgroup's keys
+  float dk[32], dv[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  wg::mbar_wait(bKV, 0);
+
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % FQS;
+    const uint32_t q_s = sQ + st * kTile64, o_s = sO + st * kTile64;
+    wg::mbar_wait(fullQ + 8 * st, (i / FQS) & 1);
+    // lse·log2 e and D of this thread's 16 queries, 8j + 2t + e
+    float l2[16], dd[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 a = *reinterpret_cast<const float2*>(Ls + st * FQ + 8 * j + 2 * t);
+      const float2 b = *reinterpret_cast<const float2*>(Ds + st * FQ + 8 * j + 2 * t);
+      l2[2 * j] = a.x, l2[2 * j + 1] = a.y, dd[2 * j] = b.x, dd[2 * j + 1] = b.y;
+    }
+
+    // Sᵀ = K_w Qᵀ, then dPᵀ = V_w dOᵀ (the consumers do not take turns
+    // here: turns measured 2–4% slower, PERF.md §6)
+    wg::fence();
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd)
+      wg::mma_m64n64k16_ss<0, 0>(s, wg::desc(kw + kd * 32, 16, 1024),
+                                 wg::desc(q_s + kd * 32, 16, 1024), kd > 0);
+    wg::commit();
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd)
+      wg::mma_m64n64k16_ss<0, 0>(dp, wg::desc(vw + kd * 32, 16, 1024),
+                                 wg::desc(o_s + kd * 32, 16, 1024), kd > 0);
+    wg::commit();
+
+    // Pᵀ = exp(Sᵀ·scale − lse); its bf16 A fragments (k16 step kk =
+    // queries 16kk..16kk+15), and dV += Pᵀ dO while dPᵀ finishes
+    wg::wait<1>();
+    wg::hold(s);
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      s[c] = ptx::ex2(fmaf(s[c], scale_log2, -l2[2 * (c >> 2) + (c & 1)]));
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = ptx::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      wg::hold(pa[kk]);
+    }
+    wg::hold(dv);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n64k16_rs<1>(dv, pa[kk], wg::desc(o_s + kk * 2048, FQ * 128, 1024), 1);
+    wg::commit();
+
+    // dSᵀ = Pᵀ ⊙ (dPᵀ − D); dK += dSᵀ Q
+    wg::wait<1>();
+    wg::hold(dp);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = 8 * kk + 2 * r, lc = 2 * (c >> 2);
+        sa[kk][r] = ptx::pack_bf16(s[c] * (dp[c] - dd[lc]), s[c + 1] * (dp[c + 1] - dd[lc + 1]));
+      }
+      wg::hold(sa[kk]);
+    }
+    wg::hold(dk);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n64k16_rs<1>(dk, sa[kk], wg::desc(q_s + kk * 2048, FQ * 128, 1024), 1);
+    wg::commit();
+    // every product of the tile is done before the next: with a wgmma in
+    // flight across the loop's back edge ptxas serialises them (C7515)
+    wg::wait<0>();
+    wg::hold(dk);
+    wg::hold(dv);
+    release(emptyQ + 8 * st, lane);
+  }
+
+  // dK = scale·Σ dSᵀQ, dV = Σ PᵀdO: rows k0 + kr (+8), bf16
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + kr + 8 * h;
+    if (row >= Sk) continue;
+    uint32_t* kd = reinterpret_cast<uint32_t*>(dK + (koff + row) * 64 + 2 * t);
+    uint32_t* vd = reinterpret_cast<uint32_t*>(dV + (koff + row) * 64 + 2 * t);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      kd[jj * 4] = ptx::pack_bf16(dk[4 * jj + 2 * h] * scale, dk[4 * jj + 2 * h + 1] * scale);
+      vd[jj * 4] = ptx::pack_bf16(dv[4 * jj + 2 * h], dv[4 * jj + 2 * h + 1]);
+    }
+  }
+}
+
+// One block of 128 query rows (row block qb) of a (batch, head) bh: dQ
+// over every 64-key tile.  Consumer warpgroup w owns rows 64w..64w+63 (Q
+// and dO resident, their bf16 A fragments loaded once into registers) and
+// per tile forms S = Q_w Kᵀ and dP = dO_w Vᵀ (m64n64k16, K K-major), P and
+// dS in float32, and adds dS·K (dS as bf16 register A operands, K
+// MN-major) into dQ: 32 accumulators a thread.
+// Keys past Sk are masked in the last tile (zero-filled K rows would add
+// nothing, but P there is exp(−lse), unbounded).
+__device__ __forceinline__ void dq_split_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                               const CUtensorMap* tv, const CUtensorMap* tdo,
+                                               const float* __restrict__ LSE,
+                                               const float* __restrict__ Dv,
+                                               __nv_bfloat16* __restrict__ dQ, int Sq, int Sk,
+                                               float scale, int bh, int qb,
+                                               unsigned char* smem_raw) {
+  constexpr int BQ = kTmaWG * FQ;
+  const uint32_t raw = ptx::smem_addr(smem_raw);
+  const uint32_t sQ = raw + ((1024 - (raw & 1023)) & 1023);  // [BQ][64]
+  const uint32_t sO = sQ + 2 * kTile64;                        // [BQ][64]
+  const uint32_t sK = sO + 2 * kTile64;                        // [FKS][FQ][64]
+  const uint32_t sV = sK + FKS * kTile64;                      // [FKS][FQ][64]
+  const uint32_t bQ = sV + FKS * kTile64;                      // Q and dO landed
+  const uint32_t full = bQ + 8, empty = full + 8 * FKS;        // a stage landed / freed
+  unsigned char* const qtile = smem_raw + (sQ - raw);
+
+  const int q0 = qb * BQ, nt = (Sk + FQ - 1) / FQ;
+  const int tid = threadIdx.x, w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+
+  if (tid == 0) {
+    wg::mbar_init(bQ, 1);
+#pragma unroll
+    for (int i = 0; i < FKS; ++i) {
+      wg::mbar_init(full + 8 * i, 1);
+      wg::mbar_init(empty + 8 * i, kTmaWG * 4);
+    }
+    wg::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (w == kTmaWG) {
+    wg::reg_dealloc<kProdRegs>();
+    if (warp == 0 && lane == 0) {
+      wg::mbar_expect(bQ, 4 * kTile64);
+      wg::tma_load_3d(sQ, tq, bQ, 0, q0, bh);
+      wg::tma_load_3d(sO, tdo, bQ, 0, q0, bh);
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % FKS;
+        if (i >= FKS) wg::mbar_wait(empty + 8 * st, (i / FKS - 1) & 1);
+        wg::mbar_expect(full + 8 * st, 2 * kTile64);
+        wg::tma_load_3d(sK + st * kTile64, tk, full + 8 * st, 0, i * FQ, bh);
+        wg::tma_load_3d(sV + st * kTile64, tv, full + 8 * st, 0, i * FQ, bh);
+      }
+    }
+    return;
+  }
+
+  wg::reg_alloc<kConsRegs>();
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + FQ * w + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const long long qoff = (long long)bh * Sq;
+  const float scale_log2 = scale * kLog2e;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    l2[h] = r < Sq ? LSE[qoff + r] * kLog2e : INFINITY;  // P = 0 past Sq
+    dd[h] = r < Sq ? Dv[qoff + r] : 0.f;
+  }
+  float dq[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  wg::mbar_wait(bQ, 0);
+  // Q_w and dO_w as the A fragments of S and dP, each warp's 16 rows
+  uint32_t qf[4][4], of[4][4];
+  {
+    const int row = FQ * w + 16 * warp + (lane & 15);
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd) {
+      const uint32_t off = row * 128 + (((2 * kd + (lane >> 4)) ^ (row & 7)) << 4);
+      ptx::ldmatrix_x4(qf[kd], sQ + off);
+      ptx::ldmatrix_x4(of[kd], sO + off);
+    }
+  }
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % FKS, k0 = i * FQ;
+    const uint32_t kt = sK + st * kTile64, vt = sV + st * kTile64;
+    wg::mbar_wait(full + 8 * st, (i / FKS) & 1);
+    wg::fence();
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd)
+      wg::mma_m64n64k16_rs<0>(s, qf[kd], wg::desc(kt + kd * 32, 16, 1024), kd > 0);
+    wg::commit();
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd)
+      wg::mma_m64n64k16_rs<0>(dp, of[kd], wg::desc(vt + kd * 32, 16, 1024), kd > 0);
+    wg::commit();
+
+    // P = exp(S·scale − lse).  The last tile's dQ product was done before
+    // S (one queue): its stage is free
+    wg::wait<1>();
+    wg::hold(s);
+    wg::hold(dq);
+    if (i > 0) release(empty + 8 * ((i - 1) % FKS), lane);
+#pragma unroll
+    for (int c = 0; c < 32; ++c) s[c] = ptx::ex2(fmaf(s[c], scale_log2, -l2[(c >> 1) & 1]));
+    if (k0 + FQ > Sk) {
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+        if (k0 + 8 * (c >> 2) + 2 * t + (c & 1) >= Sk) s[c] = 0.f;
+    }
+    wg::wait<0>();
+    wg::hold(dp);
+    // dS = P ⊙ (dP − D), as bf16 A fragments (k16 step kk: keys 16kk..)
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = 8 * kk + 2 * r;
+        const float dl = dd[(c >> 1) & 1];
+        da[kk][r] = ptx::pack_bf16(s[c] * (dp[c] - dl), s[c + 1] * (dp[c + 1] - dl));
+      }
+      wg::hold(da[kk]);
+    }
+    // dQ += dS K: K MN-major (the tile's rows are the k)
+    wg::hold(dq);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n64k16_rs<1>(dq, da[kk], wg::desc(kt + kk * 2048, FQ * 128, 1024), 1);
+    wg::commit();
+  }
+  wg::wait<0>();
+  wg::hold(dq);
+
+  // dQ·scale in bf16, staged through this warpgroup's rows of the Q tile
+  // (its S products are done with them), out in whole 16-byte chunks
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = FQ * w + 16 * warp + g + 8 * h;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<uint32_t*>(qtile + wg::sw128<BQ>(r, jj) + 4 * t) =
+          ptx::pack_bf16(dq[4 * jj + 2 * h] * scale, dq[4 * jj + 2 * h + 1] * scale);
+  }
+  wg::bar_sync(kEpiBar + w, 128);
+  const int ltid = tid & 127;
+#pragma unroll
+  for (int kk = 0; kk < FQ * 8 / 128; ++kk) {
+    const int i = ltid + kk * 128, r = FQ * w + i / 8, c = i % 8, row = q0 + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(dQ + (qoff + row) * 64 + c * 8) =
+          *reinterpret_cast<const uint4*>(qtile + wg::sw128<BQ>(r, c));
+  }
+}
+
+// whether the launch takes its dQ blocks first: the longer kind of block
+// goes first, so that the shorter fills the tail (a dK/dV tile is four
+// products a consumer, a dQ tile three)
+__device__ __forceinline__ bool split_dq_first(int Sq, int Sk) {
+  return 3 * ((Sk + FQ - 1) / FQ) > 4 * ((Sq + FQ - 1) / FQ);
+}
+
+// dK/dV blocks (bh, 128-key block) and dQ blocks (bh, 128-row block) in
+// one launch, the longer kind first
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    bwd_split_kernel(const __grid_constant__ CUtensorMap tq64,
+                     const __grid_constant__ CUtensorMap tdo64,
+                     const __grid_constant__ CUtensorMap tq128,
+                     const __grid_constant__ CUtensorMap tdo128,
+                     const __grid_constant__ CUtensorMap tk128,
+                     const __grid_constant__ CUtensorMap tv128,
+                     const __grid_constant__ CUtensorMap tk64,
+                     const __grid_constant__ CUtensorMap tv64, const float* __restrict__ LSE,
+                     const float* __restrict__ Dv, __nv_bfloat16* __restrict__ dQ,
+                     __nv_bfloat16* __restrict__ dK, __nv_bfloat16* __restrict__ dV, int BH,
+                     int Sq, int Sk, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nkv = BH * ((Sk + FK - 1) / FK), nq = BH * ((Sq + 2 * FQ - 1) / (2 * FQ));
+  int b = blockIdx.x;
+  bool kv;
+  if (split_dq_first(Sq, Sk)) {
+    kv = b >= nq;
+    if (kv) b -= nq;
+  } else {
+    kv = b < nkv;
+    if (!kv) b -= nkv;
+  }
+  if (kv)
+    dkdv_split_block(&tq64, &tk128, &tv128, &tdo64, LSE, Dv, dK, dV, Sq, Sk, scale, b % BH, b / BH,
+                     smem_raw);
+  else
+    dq_split_block(&tq128, &tk64, &tv64, &tdo128, LSE, Dv, dQ, Sq, Sk, scale, b % BH, b / BH,
+                   smem_raw);
+}
+
+int launch_bf16_split(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* D, void* dq, void* dk, void* dv, int BH,
+                      int Sq, int Sk, float scale, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  if (Sq == 0) {  // no query reaches a key: dK = dV = 0
+    const cudaError_t e = cudaMemsetAsync(dk, 0, (size_t)BH * Sk * 64 * sizeof(bf), s);
+    return (int)(e != cudaSuccess ? e : cudaMemsetAsync(dv, 0, (size_t)BH * Sk * 64 * sizeof(bf), s));
+  }
+  CUtensorMap tq64, tdo64, tq128, tdo128, tk128, tv128, tk64, tv64;
+  int e = tma::tensor_map(&tq64, q, 64, Sq, BH, FQ);
+  if (e == 0) e = tma::tensor_map(&tdo64, dout, 64, Sq, BH, FQ);
+  if (e == 0) e = tma::tensor_map(&tq128, q, 64, Sq, BH, 2 * FQ);
+  if (e == 0) e = tma::tensor_map(&tdo128, dout, 64, Sq, BH, 2 * FQ);
+  if (e == 0) e = tma::tensor_map(&tk128, k, 64, Sk, BH, FK);
+  if (e == 0) e = tma::tensor_map(&tv128, v, 64, Sk, BH, FK);
+  if (e == 0) e = tma::tensor_map(&tk64, k, 64, Sk, BH, FQ);
+  if (e == 0) e = tma::tensor_map(&tv64, v, 64, Sk, BH, FQ);
+  if (e != 0) return e;
+  const size_t bytes = split_smem_bytes();
+  const cudaError_t err =
+      cudaFuncSetAttribute(bwd_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)BH * ((Sk + FK - 1) / FK + (Sq + 2 * FQ - 1) / (2 * FQ));
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bwd_split_kernel<<<(unsigned)blocks, kTmaThreads, bytes, s>>>(
+      tq64, tdo64, tq128, tdo128, tk128, tv128, tk64, tv64, lse, D, (bf*)dq, (bf*)dk, (bf*)dv, BH,
+      Sq, Sk, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMAs
 // ---------------------------------------------------------------------------
 
@@ -1521,6 +2005,15 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+// whether a launch takes the one-pass kernel, whose scratch holds the sync
+// words and the dQ workspace after D, or the split route
+inline bool one_pass(int dtype, int hd, int causal) {
+  return dtype == 1 && (hd == 128 || (hd == 64 && causal));
+}
+inline bool split_route(int dtype, int hd, int causal) {
+  return dtype == 1 && hd == 64 && !causal;
+}
+
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
@@ -1530,6 +2023,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, const void* d
                           s);
   if constexpr (HD == 64 || HD == 128) {
     if (window > 0) return (int)cudaErrorInvalidValue;  // the wrapper refuses it first
+    if (split_route(1, HD, causal))
+      return launch_bf16_split(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, s);
     return launch_bf16_wg<HD>(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, s);
   } else if constexpr (HD == kHd) {
     return launch_bf16_tma(q, k, v, dout, lse, D, dq, dk, dv, BH, Sq, Sk, scale, causal, window,
@@ -1545,13 +2040,14 @@ int launch(int dtype, const void* q, const void* k, const void* v, const void* d
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike).
 // q, o, dout, dq: [BH, Sq, hd]; k, v, dk, dv: [BH, Sk, hd]; lse: [BH, Sq]
 // float32 as flash_attention_lse_launch writes it.  The scratch d (float32,
-// overwritten) holds D [BH, Sq]; for bfloat16 at hd 64 and 128 it goes on
-// with the sync words (1 + BH·ceil(Sq/64) of 32 bits), padded to 16 bytes,
-// then the dQ workspace [BH, ceil(Sq/64), 64·hd]: BH·Sq + 1 + BH·ceil(Sq/64)
-// rounded up to a multiple of 4, plus BH·ceil(Sq/64)·64·hd floats in all.  All contiguous,
-// bfloat16 ones and d 16-byte aligned.  hd ∈ {16, 32, 64, 128, 256}.  window > 0 keeps key
-// j for query i only when j > i - window (bfloat16 at hd 64 and 128 take none).  Returns
-// cudaGetLastError() after the launches.
+// overwritten) holds D [BH, Sq]; for the one-pass kernel (bfloat16 at hd
+// 128, and at hd 64 causal) it goes on with the sync words (1 +
+// BH·ceil(Sq/64) of 32 bits), padded to 16 bytes, then the dQ workspace [BH,
+// ceil(Sq/64), 64·hd]: BH·Sq + 1 + BH·ceil(Sq/64) rounded up to a multiple
+// of 4, plus BH·ceil(Sq/64)·64·hd floats in all.  All contiguous, bfloat16
+// ones and d 16-byte aligned.  hd ∈ {16, 32, 64, 128, 256}.  window > 0
+// keeps key j for query i only when j > i - window (bfloat16 at hd 64 and
+// 128 take none).  Returns cudaGetLastError() after the launches.
 extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                           const void* v, const void* o, const void* lse,
                                           const void* dout, void* dq, void* dk, void* dv,
@@ -1567,9 +2063,16 @@ extern "C" int flash_attention_bwd_launch(int dtype, const void* q, const void* 
   if (BH == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long rows = (long long)BH * Sq;
-  const long long nsync = dtype == 1 && (hd == 64 || hd == 128) ? wg_sync_words(BH, Sq) : 0;
+  const long long nsync = one_pass(dtype, hd, causal) ? wg_sync_words(BH, Sq) : 0;
   unsigned* sync = reinterpret_cast<unsigned*>((float*)d + rows);
-  {
+  if (split_route(dtype, hd, causal)) {
+    const long long blocks = rows > 0 ? (rows * 8 + 255) / 256 : 1;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    rowdot64_kernel<<<(unsigned)blocks, 256, 0, s>>>((const __nv_bfloat16*)dout,
+                                                      (const __nv_bfloat16*)o, (float*)d, rows);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  } else {
     const int warps = 8;
     const long long blocks = rows > 0 ? (rows + warps - 1) / warps : 1;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

@@ -37,15 +37,19 @@ the TPU kernel has none, and the reference trains through the jnp form.
 It recomputes the weights from q, k and the forward's lse, and sums with
 no float atomics (the same bits on every launch).  In bf16 it runs on
 wgmma at hd 64, 128 and 256 (counted in `bwd_wg_launches` too,
-"flash_attention_bwd[wg]" in `ops.launch_counts()`): at hd 64 and 128 one
-pass over the keys, adding each key block's part of dQ into a float32
-workspace in a fixed order; at hd 256 (recurrentgemma-2b's lattn) one
-launch of dK/dV blocks and dQ blocks, each fed by TMA from a producer
-warpgroup.  hd 16 and 32 keep a dK/dV kernel and a dQ kernel on
-mma.sync.  The window is taken at hd 16, 32 and 256 and in float32,
-whose kernels walk only the band of tiles it keeps; bf16 at hd 64 and
-128 refuses it with a ValueError (no model trains a window at those
-widths).
+"flash_attention_bwd[wg]" in `ops.launch_counts()`), by `_bwd_route`:
+  * "wgmma": at hd 128, and hd 64 causal, one pass over the keys, adding
+    each key block's part of dQ into a float32 workspace in a fixed
+    order; at hd 256 (recurrentgemma-2b's lattn) one launch of dK/dV
+    blocks and dQ blocks, each fed by TMA from a producer warpgroup;
+  * "wgmma-split": hd 64 not causal (whisper-tiny's encoder and
+    cross-attention), hd 256's split design at hd 64, whose scratch is D
+    alone (counted in `bwd_split_launches` too, "flash_attention_bwd[full,
+    hd 64]").
+hd 16 and 32 keep a dK/dV kernel and a dQ kernel on mma.sync.  The
+window is taken at hd 16, 32 and 256 and in float32, whose kernels walk
+only the band of tiles it keeps; bf16 at hd 64 and 128 refuses it with a
+ValueError (no model trains a window at those widths).
 `FlashAttention` is the autograd Function the training path calls
 (`flash_attention_grad`): on the card both directions launch the
 kernels, on the CPU both run their plain versions.
@@ -61,8 +65,10 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the bf16 backward's one-pass wgmma kernel: no window at these widths
 WGMMA_HEAD_DIMS = (64, 128)
-# the bf16 backward's wgmma route: the one-pass kernel and hd 256's two
+# the bf16 backward's wgmma routes: the one-pass kernel, hd 256's dK/dV
+# and dQ blocks, and hd 64's when not causal
 WG_BWD_HEAD_DIMS = (64, 128, 256)
+WG_BWD_ROUTES = ("wgmma", "wgmma-split")
 # the bf16 forward's wgmma kernel: these widths, from WG_MIN_SQ query rows
 # (one consumer warpgroup's tile); the rest stays on mma.sync
 WG_FWD_HEAD_DIMS = (64, 256)
@@ -78,10 +84,13 @@ class _Count:
 # the wgmma route's launches (`_route` "wgmma"), which flash_attention's
 # count includes: `ops.launch_counts()["flash_attention[wg]"]`
 wg_launches = _Count()
-# the backward's wgmma route (bf16 at WG_BWD_HEAD_DIMS), which
+# the backward's wgmma routes (bf16 at WG_BWD_HEAD_DIMS), which
 # flash_attention_bwd's count includes:
 # `ops.launch_counts()["flash_attention_bwd[wg]"]`
 bwd_wg_launches = _Count()
+# of those, the "wgmma-split" route's (bf16 at hd 64, not causal):
+# `ops.launch_counts()["flash_attention_bwd[full, hd 64]"]`
+bwd_split_launches = _Count()
 
 
 def _route(dtype, hd: int, sq: int) -> str:
@@ -93,12 +102,16 @@ def _route(dtype, hd: int, sq: int) -> str:
     return "wgmma" if hd in WG_FWD_HEAD_DIMS and sq >= WG_MIN_SQ else "mma"
 
 
-def _bwd_route(dtype, hd: int) -> str:
+def _bwd_route(dtype, hd: int, causal: bool = True) -> str:
     """The backward kernels of a launch: "f32" for float32 inputs; for
-    bfloat16 "wgmma" at WG_BWD_HEAD_DIMS (the one-pass kernel at hd 64
-    and 128, hd 256's dK/dV and dQ blocks), else "mma" (hd 16, 32)."""
+    bfloat16 "wgmma-split" at hd 64 not causal (dK/dV and dQ blocks),
+    "wgmma" at the rest of WG_BWD_HEAD_DIMS (the one-pass kernel at hd 64
+    causal and hd 128, hd 256's dK/dV and dQ blocks), else "mma" (hd 16,
+    32)."""
     if dtype == torch.float32:
         return "f32"
+    if hd == 64 and not causal:
+        return "wgmma-split"
     return "wgmma" if hd in WG_BWD_HEAD_DIMS else "mma"
 
 
@@ -264,14 +277,15 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_scratch_floats(bh, sq, hd, dtype):
-    """Floats of the backward's scratch: D [BH, Sq]; for the bf16 kernel
-    of hd 64 and 128 also its sync words (a ticket counter and a flag a
-    (bh, 64-row query tile)), padded to 16 bytes, and the float32 dQ
-    workspace, a part of 64·hd a (bh, query tile) (flash_attention_bwd.cu's
-    entry point)."""
+def _bwd_scratch_floats(bh, sq, hd, dtype, causal=True):
+    """Floats of the backward's scratch: D [BH, Sq]; for the bf16 one-pass
+    kernel (hd 128, and hd 64 causal) also its sync words (a ticket
+    counter and a flag a (bh, 64-row query tile)), padded to 16 bytes, and
+    the float32 dQ workspace, a part of 64·hd a (bh, query tile)
+    (flash_attention_bwd.cu's entry point)."""
     n = bh * sq
-    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS \
+            and _bwd_route(dtype, hd, causal) == "wgmma":
         tiles = bh * -(-sq // 64)
         n = -(-(n + 1 + tiles) // 4) * 4 + tiles * 64 * hd
     return n
@@ -314,7 +328,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     q, k, v, o, do = _aligned(q, k, v, o, do)
     lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    d = torch.empty(_bwd_scratch_floats(bh, sq, hd, q.dtype),
+    d = torch.empty(_bwd_scratch_floats(bh, sq, hd, q.dtype, causal),
                     dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -325,8 +339,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         hd ** -0.5, int(causal), window, stream)
     _build.check("flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
-    if _bwd_route(q.dtype, hd) == "wgmma":
+    route = _bwd_route(q.dtype, hd, causal)
+    if route in WG_BWD_ROUTES:
         bwd_wg_launches.launches += 1
+    if route == "wgmma-split":
+        bwd_split_launches.launches += 1
     return dq, dk, dv
 
 

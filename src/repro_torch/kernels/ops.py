@@ -14,10 +14,11 @@ also in `segment_reduce.rows_launches`, "segment_reduce[rows]" below, and
 its lanes entry `segment_reduce_lanes` in `segment_reduce.lanes_launches`,
 "segment_reduce[lanes]"; the
 flash forward's wgmma route, hd 64 and 256 in bf16, also in
-`flash_attention.wg_launches`, "flash_attention[wg]", and the backward's,
+`flash_attention.wg_launches`, "flash_attention[wg]", the backward's,
 hd 64, 128 and 256 in bf16, in `flash_attention.bwd_wg_launches`,
-"flash_attention_bwd[wg]"), so a run can show that it went through the
-kernels.
+"flash_attention_bwd[wg]", and of those its split route at hd 64 not
+causal in `flash_attention.bwd_split_launches`, "flash_attention_bwd[full,
+hd 64]"), so a run can show that it went through the kernels.
 
 The counts are of launches that ran on the device.  A CUDA graph capture
 calls the wrappers, but launches nothing: `captured()` takes the counts the
@@ -29,8 +30,9 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 from ._build import build_all
-from .flash_attention import (bwd_wg_launches, flash_attention,
-                              flash_attention_bwd, wg_launches)
+from .flash_attention import (bwd_split_launches, bwd_wg_launches,
+                              flash_attention, flash_attention_bwd,
+                              wg_launches)
 from .segment_reduce import (lanes_launches, rows_launches, segment_reduce,
                              segment_reduce_lanes, segment_sum)
 from .selective_scan import (selective_scan, selective_scan_bwd,
@@ -47,14 +49,16 @@ KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
 
 # every counter: the kernels, the scan's second entry, the (a, bx) entry's
 # backward (in the selective_scan_bwd library), and parts of a kernel's
-# own count: the segment kernel's device-count and lanes launches and the
-# flash forward's and backward's wgmma routes
+# own count: the segment kernel's device-count and lanes launches, the
+# flash forward's and backward's wgmma routes and the backward's split
+# route at hd 64
 COUNTED = {**KERNELS, "selective_scan_fused": selective_scan_fused,
            "selective_scan_bwd[a, bx]": selective_scan_bwd,
            "segment_reduce[rows]": rows_launches,
            "segment_reduce[lanes]": lanes_launches,
            "flash_attention[wg]": wg_launches,
-           "flash_attention_bwd[wg]": bwd_wg_launches}
+           "flash_attention_bwd[wg]": bwd_wg_launches,
+           "flash_attention_bwd[full, hd 64]": bwd_split_launches}
 
 
 def launch_counts() -> dict:

@@ -374,7 +374,8 @@ def _flash_bwd_check(cuda, seed, bh, sq, sk, hd, causal):
 @pytest.mark.parametrize("sq,sk", [(129, 257), (257, 129)])
 def test_cuda_flash_bwd_ragged_tiles(cuda, sq, sk, hd, causal):
     """Sq and Sk that no 64-query tile or 128-key block divides, Sq ≠ Sk,
-    every head width (hd 64 and 128 take the one-pass wgmma kernel, 16
+    every head width (hd 128 and hd 64 causal take the one-pass wgmma
+    kernel, hd 64 not causal the split route's dK/dV and dQ blocks, 16
     and 32 the two mma.sync kernels)."""
     _flash_bwd_check(cuda, sq + 7 * sk + hd, 2, sq, sk, hd, causal)
 
@@ -385,7 +386,9 @@ def test_cuda_flash_bwd_ragged_tiles(cuda, sq, sk, hd, causal):
 def test_cuda_flash_bwd_ordered_dq(cuda, hd, causal):
     """Five 128-key blocks add to each late query tile of dQ (all of them
     when not causal), each waiting its turn on the tile's flag: the sum
-    within tolerance and bit-equal on a second launch."""
+    within tolerance and bit-equal on a second launch.  hd 64 not causal
+    takes the split route (dQ in blocks of its own, no flags): the same
+    checks."""
     _flash_bwd_check(cuda, 11 + hd, 3, 640, 640, hd, causal)
 
 
@@ -513,8 +516,9 @@ def test_cuda_flash_bwd_hd256_training_shape(cuda, window):
                                          (256, torch.float32, 0)])
 def test_cuda_flash_bwd_counts_the_wgmma_route(cuda, hd, dtype, wg):
     """"flash_attention_bwd[wg]" counts each launch of the backward's wgmma
-    route (bf16 at hd 64, 128 and 256), within flash_attention_bwd's own
-    count, and no other."""
+    routes (bf16 at hd 64, 128 and 256), within flash_attention_bwd's own
+    count, and no other (causal here: the one-pass kernel at hd 64;
+    tests/test_torch_flash_split.py counts the split route's)."""
     q, k, v, do = (_t(a).to(cuda, dtype)
                    for a in _flash_inputs(hd, 2, 100, 100, hd))
     o, lse = flash_attention(q, k, v, causal=True, return_lse=True)

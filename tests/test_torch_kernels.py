@@ -368,7 +368,8 @@ def test_cpu_wrappers_count_no_launches():
                                    "segment_reduce[rows]": 0,
                                    "segment_reduce[lanes]": 0,
                                    "flash_attention[wg]": 0,
-                                   "flash_attention_bwd[wg]": 0}
+                                   "flash_attention_bwd[wg]": 0,
+                                   "flash_attention_bwd[full, hd 64]": 0}
 
 
 def test_every_source_has_its_ctypes_signatures():

@@ -11,10 +11,18 @@ edit the copy, never the package); the package's own csrc comes first.
 Every library is built with the package's nvcc line and served to the
 same wrapper in turn.  The backwards run at phase 8's shapes (flash [128,
 2048, 128] bf16 causal, the scan [4, 2048, 8192, 16] with bf16 x, the
-inputs of chip_smoke.py's phase 2) and at rows 4bw's and 5ba's (flash
-[10, 4096, 256] bf16 causal within a 2048-key window and [10, 2048, 256]
-causal; the (a, bx) entry's backward at N = 1 [1, 4096, 2560], [1, 2048,
-2560] and [2, 4096, 2560]); the forward at the shapes of
+inputs of chip_smoke.py's phase 2) and at rows 4bn's, 4bw's and 5ba's
+(flash bf16 non-causal at hd 64: whisper-tiny's encoder [24, 1500, 64]
+and cross-attention [24, 448, 64] x [24, 1500, 64], as a training
+microbatch launches them, and [48, 1500, 64], the shape row 4bn was
+first timed at; [10, 4096, 256] causal within a 2048-key window and [10,
+2048, 256] causal; the (a, bx) entry's backward at N = 1 [1, 4096,
+2560], [1, 2048, 2560] and [2, 4096, 2560]).  The non-causal hd-64 cases
+call the C entry with the one-pass kernel's scratch
+(`chip_smoke._flash_bwd_launch_parent`), which the split route leaves
+unread past D, so that an earlier library (whose one-pass kernel writes
+a dQ workspace there) can be timed beside the current one; the forward
+at the shapes of
 chip_smoke.py's rows 4w and 4n (bf16 [10, 2048, 256] causal, [10, 8192,
 256] and [10, 4096, 256] within a 2048-key window, [24, 1500, 64]
 non-causal), each also timed through the package's mma.sync entry
@@ -23,8 +31,9 @@ beside `scaled_dot_product_attention`.  Each case is held against the
 plain version with phase 2's tolerances and launched twice for its bits,
 then all libraries are timed by CUDA events in turns (first to last,
 then last to first), and one call of each is traced with torch.profiler
-for its launches' device times.  Prints the card, then one JSON line per
-case and library; exits 1 if one disagrees with the plain version.
+for its launches' device times.  `--only TEXT` keeps the cases whose
+name holds TEXT.  Prints the card, then one JSON line per case and
+library; exits 1 if one disagrees with the plain version.
 """
 from __future__ import annotations
 
@@ -37,28 +46,38 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-from chip_smoke import card_line, time_ms  # noqa: E402
+from chip_smoke import (_flash_bwd_launch_parent, card_line,  # noqa: E402
+                        time_ms)
 
 
 def _flash_bwd(torch, g):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
     cases = []
-    for bh, s, hd, window in ((128, 2048, 128, 0), (10, 4096, 256, 2048),
-                              (10, 2048, 256, 0)):
-        q, k, v, do = (torch.randn(bh, s, hd, generator=g, device="cuda")
-                       .to(torch.bfloat16) for _ in range(4))
-        o, lse = flash_attention(q, k, v, causal=True, window=window,
-                                 return_lse=True)
-        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
-                                         window=window)
-        form = "causal" + (f" window {window}" if window else "")
-        cases.append(dict(
-            case=f"[{bh}, {s}, {hd}] bf16 {form}",
-            call=lambda q=q, k=k, v=v, o=o, lse=lse, do=do, window=window:
-            flash_attention_bwd(q, k, v, o, lse, do, causal=True,
-                                window=window),
-            want=want, tols=dict(dq=2e-2, dk=2e-2, dv=2e-2)))
+    for bh, s, sk, hd, causal, window in (
+            (24, 1500, 1500, 64, False, 0), (24, 448, 1500, 64, False, 0),
+            (48, 1500, 1500, 64, False, 0), (128, 2048, 2048, 128, True, 0),
+            (10, 4096, 4096, 256, True, 2048),
+            (10, 2048, 2048, 256, True, 0)):
+        q, do = (torch.randn(bh, s, hd, generator=g, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(bh, sk, hd, generator=g, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        form = ("causal" if causal else "full") \
+            + (f" window {window}" if window else "")
+        shape = f"[{bh}, {s}, {hd}]" + ("" if sk == s else
+                                        f"x[{bh}, {sk}, {hd}]")
+        if hd == 64 and not causal:
+            call = (lambda q=q, k=k, v=v, o=o, lse=lse, do=do:
+                    _flash_bwd_launch_parent(torch, q, k, v, o, lse, do))
+        else:
+            call = (lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw:
+                    flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        cases.append(dict(case=f"{shape} bf16 {form}", call=call, want=want,
+                          tols=dict(dq=2e-2, dk=2e-2, dv=2e-2)))
     return cases
 
 
@@ -156,6 +175,8 @@ def main(argv=None) -> int:
     ap.add_argument("name", choices=sorted(CASES))
     ap.add_argument("dirs", nargs="*", type=Path)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", default="", help="keep the cases whose name "
+                    "holds this text")
     args = ap.parse_args(argv)
     import torch
     from repro_torch.kernels import _build
@@ -170,7 +191,8 @@ def main(argv=None) -> int:
     ok = True
     try:
         for case in CASES[args.name](torch, g):
-            ok &= _run_case(torch, _build, args, case, srcs, libs)
+            if args.only in case["case"]:
+                ok &= _run_case(torch, _build, args, case, srcs, libs)
     finally:
         _build._LIBS[args.name] = libs[0]
     return 0 if ok else 1

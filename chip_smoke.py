@@ -163,7 +163,23 @@ first mismatch:
              card); pagerank with rank 1's block lost after a round inside
              its loop bit-equal to the fault-free run, no descent, the
              reference's ledger text; a straggling round's speculative
-             backup;
+             backup; and in both worlds data-parallel training
+             (`[train-dp]` lines, `make_train_step(cfg, mesh)`): llama3-8b
+             at phase 8's config, 3 steps without a mesh and 3 through
+             the world of 1 from the same weights and batches
+             (compress_grads on: the first step's parameters and moments
+             bit-equal, 64-bit fingerprints on the card; step ms, the
+             exchange's all_reduce calls and bytes a step, its NCCL
+             device time in one profiled step, peak memory, launches as
+             phase 8 counts them), then whisper-tiny whole at phase 8's
+             batch over the 4 ranks, two rows each: one float32 step
+             against a world-of-1 step of the same global batch in this
+             process (loss and grad_norm within 1e-4, each summed
+             gradient leaf within 1e-3 of its max |ref|), then 6 bf16
+             steps through TrainRunner, every leaf's crc32 equal on every
+             rank after each step, rank 0's last snapshot resumed in this
+             process without a mesh at its step and data position with
+             rank 0's crc32s (ms by rank: not scaling numbers);
 4. serve   — serve llama3-8b, falcon-mamba-7b, minitron-4b,
              phi3-medium-14b, qwen2-72b (32 of 80 layers),
              qwen3-moe-30b-a3b, arctic-480b (2 of 35 layers) and
@@ -216,13 +232,13 @@ first mismatch:
              (each array read once, its crc32 checked as it is loaded),
              bit-equal leaf by leaf; then a float32 copy of each but
              llama3-8b (weights drawn on the card from --seed and copied
-             to the CPU: 2 layers of falcon-mamba-7b, 1 of
+             to the CPU: 1 layer of falcon-mamba-7b, 1 of
              qwen3-moe-30b-a3b with rows dropped by capacity, one (rec,
              rec, lattn) period of recurrentgemma-2b at 2300 tokens, past
              its window, the whole whisper-tiny) takes one step's
              gradients on the card and on the CPU: loss and grad_norm
              within 1e-4, every gradient leaf within 1e-3 of its max
-             |ref|.
+             |ref| (compared on the card).
 
 Phases 5, 6 and 7 run after phase 3 and before phase 4; phase 8 after 4;
 last, phase 2's main lanes case is traced again (`[lanes]` lines).
@@ -230,10 +246,11 @@ The line before the last is a JSON object with one entry per kernel
 (segment_reduce's launches count phases 3, 5, 6 and 7's world of 1;
 segment_reduce[lanes]'s phase 6's served flushes, in segment_reduce's
 too; segment_reduce[wide]'s the MoE combines of phases 4 and 8;
-flash_attention's and selective_scan's (both entries) phases 4 and 8,
-flash_attention[wg]'s the part of flash_attention's on the wgmma route
-(recurrentgemma-2b's and whisper-tiny's full-sequence attentions);
-the backward kernels' phase 8, the windowed hd-256 flash backward
+flash_attention's and selective_scan's (both entries) phases 4 and 8
+and 7's [train-dp] steps (every rank's), flash_attention[wg]'s the
+part of flash_attention's on the wgmma route (recurrentgemma-2b's and
+whisper-tiny's full-sequence attentions); the backward kernels' phase 8
+and [train-dp], the windowed hd-256 flash backward
 (recurrentgemma-2b's) apart from the other flash backwards); the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, the script exits non-zero
@@ -404,6 +421,27 @@ def time_ms(torch, fn, reps=5, warmup=1):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps=5, warmup=1, spin_cycles=50_000_000):
+    """Mean device time of one call, as `time_ms`, with the stream held by
+    a spin kernel (about 25 ms) while the host enqueues the start event,
+    the `reps` calls and the end event: the window then holds the calls
+    back to back on the device, and neither the host's launch time nor a
+    stall of its shared cores lands in it.  For work of a few microseconds
+    a call (a CUDA graph's replay), where `time_ms` reads the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -737,9 +775,11 @@ def _segment_lanes_case(torch, g, lens, L, k, reps=5, what="mix (b) "
     against the plain version lane by lane.  Timed eagerly and as CUDA-graph
     replays (how served lanes run), the two interleaved (B launches, lanes,
     lanes, B launches), beside one library call (`index_add_` of
-    lane-offset ids into [B·K], pad rows to a sentinel).  The replays must
-    favour the lanes entry.  (Their device time by torch.profiler:
-    `phase_lanes_trace`, after the other phases.)"""
+    lane-offset ids into [B·K], pad rows to a sentinel).  The replays are
+    timed queued on the device (`queued_ms`): a lanes replay takes about
+    10 us, so one host stall in `time_ms`'s window outweighs it.  The
+    replays must favour the lanes entry.  (Their device time by
+    torch.profiler: `phase_lanes_trace`, after the other phases.)"""
     from repro_torch.kernels import ops
     from repro_torch.kernels.segment_reduce import (segment_reduce,
                                                      segment_reduce_lanes_plain)
@@ -785,7 +825,7 @@ def _segment_lanes_case(torch, g, lens, L, k, reps=5, what="mix (b) "
     replay = {"rows": [], "lanes": []}
     for which in ("rows", "lanes", "lanes", "rows"):
         eager[which].append(time_ms(torch, fns[which], reps))
-        replay[which].append(time_ms(torch, graphs[which].replay, reps))
+        replay[which].append(queued_ms(torch, graphs[which].replay, reps))
     plain_ms = time_ms(torch, lambda: segment_reduce_lanes_plain(
         list(ids), list(vals), k, counts), reps)
     library_ms = time_ms(torch, lib, reps)
@@ -1121,8 +1161,11 @@ def _scan_case(torch, g, b, s, d, n, with_h0, reps=5, rglru=False):
         parent_fn=(lambda: _scan_launch_n1_parent(torch, a, bx, c, h0,
                                                   with_h0)) if n == 1
         else None, entry="selective_scan_n1_launch")
+    # the plain version walks S in Python: at N = 1 (the RG-LRU's 4096-
+    # and 8192-step cases, half a second a call) one timed call after the
+    # check's
     plain_ms = time_ms(torch, lambda: selective_scan_plain(
-        a, bx, c, h0, return_state=with_h0), 2)
+        a, bx, c, h0, return_state=with_h0), *((1, 0) if n == 1 else (2,)))
     state = 4 * b * d * n * (2 if with_h0 else 0)   # h0 read, h_last written
     bytes_ = 4.0 * (2 * b * s * d * n + b * s * n + b * s * d) + state
     rec = dict(case=f"selective_scan [{b}, {s}, {d}, {n}] float32 "
@@ -3242,9 +3285,12 @@ def _dist_world1(torch, np, seed):
             torch.cuda.empty_cache()
         require(launches["segment_reduce"] > 0,
                 "the distributed path launched no segment kernel")
+        t = time.perf_counter()
+        dp_launches = _train_dp_world1(torch, mesh, seed)
+        dp_secs = time.perf_counter() - t
     finally:
         dist.destroy_process_group()
-    return launches
+    return launches, dp_launches, dp_secs
 
 
 def _quiet(cp):
@@ -3406,7 +3452,8 @@ def _rank_pagerank_faults(mesh, seed):
 
 
 def _dist_ranks(torch, np, seed):
-    """Part 2: DIST_RANKS ranks spawned on the one card over gloo."""
+    """Part 2: DIST_RANKS ranks spawned on the one card over gloo; their
+    [train-dp] part's launches and seconds."""
     from repro_torch.launch.ranks import RankFailure, RankGroup
     try:
         with RankGroup(DIST_RANKS, backend="gloo", device="cuda:0",
@@ -3460,6 +3507,9 @@ def _dist_ranks(torch, np, seed):
                     f"{json.dumps(r0['calls'])}; transport {r0['transport']}")
                 for line in _round_lines(r0["rounds"]):
                     log(f"[dist]   {line}")
+            t = time.perf_counter()
+            dp_launches = _train_dp_ranks(torch, g, seed)
+            dp_secs = time.perf_counter() - t
             res = g.run(_rank_pagerank_faults, seed)
     except RankFailure as ex:
         raise SmokeFailure(f"dist ranks: {ex}") from None
@@ -3475,22 +3525,379 @@ def _dist_ranks(torch, np, seed):
         f"round {LOST_NTH}: bit-equal to the fault-free run, 0 descents, "
         f"ledger text the reference's; straggler: "
         f"{res[0]['spec_text'][0].strip()}")
+    return dp_launches, dp_secs
+
+
+# [train-dp]: data-parallel training in phase 7's worlds.  llama3-8b at
+# phase 8's config over the NCCL world of 1 with compress_grads on (the
+# reference's default): DP_STEPS steps without a mesh and DP_STEPS
+# through it, from the same weights and batches, the first bit-equal;
+# whisper-tiny whole at phase 8's batch over the DIST_RANKS gloo ranks
+# that share the card (two rows a rank): one float32 step against a
+# world-of-1 step of the same global batch in this process (phase 8's
+# check tolerances), then TRAIN_STEPS bf16 steps through TrainRunner,
+# rank 0 saving every DP_SAVE_EVERY steps, its last snapshot resumed here
+DP_ARCH, DP_RANK_ARCH, DP_STEPS, DP_SAVE_EVERY = ("llama3-8b", "whisper-tiny",
+                                                  3, 3)
+
+
+def _bits_digest(torch, t):
+    """A 64-bit fingerprint of a tensor's bits, on its device: its 16-bit
+    words, each times an odd multiplier of its position, summed modulo
+    2^64 (a word that differs changes the sum)."""
+    w = t.detach().reshape(-1).view(torch.int16)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 26
+    for lo in range(0, w.numel(), step):
+        c = w[lo:lo + step].to(torch.int64) & 0xFFFF
+        idx = torch.arange(lo, lo + c.numel(), dtype=torch.int64,
+                           device=t.device)
+        total += (c * ((idx * -7046029254386353131) | 1)).sum()
+    return int(total)
+
+
+def _dp_state(model, opt):
+    """Every parameter and moment of a model and its AdamW state."""
+    return [t for _, t in model.named_leaves()] + list(opt.mu.values()) \
+        + list(opt.nu.values())
+
+
+def _dp_opt(torch, cfg, model):
+    """AdamW's state for `model`, its moments in the config's dtype."""
+    from repro_torch.optim import adamw_init
+    return adamw_init(dict(model.named_leaves()),
+                      torch.bfloat16 if cfg.opt_dtype == "bf16"
+                      else torch.float32)
+
+
+def _crc32s(model, opt):
+    """The crc32 of every parameter's and moment's bytes, on the host."""
+    import torch
+    from repro_torch.core.faults import checksum
+    return [checksum(t.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+            for t in _dp_state(model, opt)]
+
+
+def _dp_config(f32=False):
+    """whisper-tiny at phase 8's config (float32 with `f32`) and its batch."""
+    from repro_torch.configs import get_config
+    layers, batch, seq = TRAIN_ARCHS[DP_RANK_ARCH]
+    cfg = train_config(get_config, DP_RANK_ARCH, layers)
+    if f32:
+        import torch
+        cfg = cfg.replace(param_dtype=torch.float32,
+                          compute_dtype=torch.float32,
+                          cache_dtype=torch.float32)
+    return cfg, batch, seq
+
+
+def _dp_grads(torch, cfg, mesh, seed, batch, seq):
+    """One float32 step (compress_grads off) of `cfg` from the seed's
+    weights on this process's rows: (loss, grad_norm, the gradients AdamW
+    was handed: the ranks' sum over a mesh)."""
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as step_mod
+    model = get_model(cfg).init(seed)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    data = _train_data(cfg, batch, seq, seed, rank, world)
+    seen, real = {}, step_mod.adamw_update
+
+    def spy(params, grads, state, **kw):
+        seen.update({k: g.detach().clone() for k, g in grads.items()})
+        return real(params, grads, state, **kw)
+    step_mod.adamw_update = spy
+    try:
+        step = make_train_step(cfg, mesh, lr=TRAIN_LR, compress_grads=False)
+        _, _, m = step(model, adamw_init(dict(model.named_leaves())),
+                       data.next_batch())
+    finally:
+        step_mod.adamw_update = real
+    return float(m["loss"]), float(m["grad_norm"]), seen
+
+
+def _rank_dp_f32(mesh, seed):
+    """[train-dp] on one of the ranks that share the card: one float32
+    whisper-tiny step through the mesh on this rank's rows; the summed
+    gradients (rank 0's, as numpy) and their crc32s."""
+    import torch
+    from repro_torch.core.faults import checksum
+    cfg, batch, seq = _dp_config(f32=True)
+    loss, gn, grads = _dp_grads(torch, cfg, mesh, seed, batch, seq)
+    host = {k: g.cpu().numpy() for k, g in grads.items()}
+    return {"loss": loss, "grad_norm": gn,
+            "crc": [checksum(v) for v in host.values()],
+            "grads": host if mesh.rank == 0 else None}
+
+
+def _rank_dp_runner(mesh, seed, ckpt_dir):
+    """[train-dp] on one of the ranks: TRAIN_STEPS bf16 whisper-tiny steps
+    through TrainRunner over the mesh (compress_grads on), rank 0 saving
+    every DP_SAVE_EVERY: per step ms, loss and every leaf's crc32, the
+    rank's kernel launches, collective calls and bytes, and peak memory."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.runtime import TrainRunner
+    from repro_torch.train import make_train_step
+    cfg, batch, seq = _dp_config()
+    model = get_model(cfg).init(seed)
+    opt = _dp_opt(torch, cfg, model)
+    r = TrainRunner(make_train_step(cfg, mesh, lr=TRAIN_LR,
+                                    compress_grads=True),
+                    model, opt, _train_data(cfg, batch, seq, seed, mesh.rank,
+                                            mesh.size),
+                    ckpt_dir=ckpt_dir, ckpt_every=DP_SAVE_EVERY)
+    calls, nbytes = dict(mesh.coll.calls), dict(mesh.coll.bytes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ms, losses, crcs = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = r.run(i + 1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        crcs.append(_crc32s(r.params, r.opt_state))
+    return {"ms": ms, "losses": losses, "crcs": crcs,
+            "launches": ops.launch_counts(),
+            "calls": {k: n - calls.get(k, 0) for k, n in
+                      mesh.coll.calls.items()},
+            "bytes": {k: n - nbytes.get(k, 0) for k, n in
+                      mesh.coll.bytes.items()},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _train_dp_world1(torch, mesh, seed):
+    """[train-dp] part 1: llama3-8b at phase 8's config, DP_STEPS steps
+    without a mesh, then from the same weights and batches DP_STEPS
+    through the NCCL world of 1: every parameter and moment bit-equal
+    after the first step (one rank: the sum is the identity, the division
+    by 1 exact), each run's launches as `train_launches` says; then one
+    mesh step profiled.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.train import make_train_step
+    layers, batch, seq = TRAIN_ARCHS[DP_ARCH]
+    cfg = train_config(get_config, DP_ARCH, layers)
+    data = _train_data(cfg, batch, seq, seed)
+    batches = [data.next_batch() for _ in range(DP_STEPS)]
+    model = get_model(cfg).init(seed)
+    opt = _dp_opt(torch, cfg, model)
+    per_step = train_launches(cfg, seq)
+    launches, runs = {}, {}
+    for name, m in (("no mesh", None), ("world of 1", mesh)):
+        if m is not None:        # the seed's weights again, zero moments
+            with torch.no_grad():
+                model.init(seed)
+                opt.step.zero_()
+                for v in [*opt.mu.values(), *opt.nu.values()]:
+                    v.zero_()
+        step = make_train_step(cfg, m, lr=TRAIN_LR, compress_grads=True)
+        calls, nbytes = dict(mesh.coll.calls), dict(mesh.coll.bytes)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ms, losses = [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, opt, met = step(model, opt, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(met["loss"]))
+            if i == 0:
+                digests = [_bits_digest(torch, t)
+                           for t in _dp_state(model, opt)]
+        counts = ops.launch_counts()
+        want = {k: per_step.get(k, 0) * DP_STEPS for k in counts}
+        require(counts == want, f"train-dp {DP_ARCH} {name}: launches "
+                f"{json.dumps(counts)} in {DP_STEPS} steps, expected "
+                f"{json.dumps(want)}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        runs[name] = {"ms": ms, "losses": losses, "digests": digests,
+                      "peak": torch.cuda.max_memory_allocated() / 1e9,
+                      "calls": {k: (n - calls.get(k, 0)) / DP_STEPS
+                                for k, n in mesh.coll.calls.items()
+                                if n != calls.get(k, 0)},
+                      "bytes": {k: (n - nbytes.get(k, 0)) / DP_STEPS
+                                for k, n in mesh.coll.bytes.items()
+                                if n != nbytes.get(k, 0)},
+                      "step": step}
+    a, b = runs["no mesh"], runs["world of 1"]
+    same = sum(x == y for x, y in zip(a["digests"], b["digests"]))
+    require(same == len(a["digests"]) and a["losses"][0] == b["losses"][0],
+            f"train-dp {DP_ARCH}: the world-of-1 step differs from the "
+            f"mesh-free one in {len(a['digests']) - same} of "
+            f"{len(a['digests'])} leaves (loss {b['losses'][0]!r} vs "
+            f"{a['losses'][0]!r})")
+    require(not a["calls"] and b["calls"].get("all_reduce", 0) >= 2,
+            f"train-dp {DP_ARCH}: collectives {a['calls']} without a mesh, "
+            f"{b['calls']} through it")
+    require(all(math.isfinite(x) for x in a["losses"] + b["losses"]),
+            f"train-dp {DP_ARCH}: non-finite loss")
+    buckets = len(b["step"].exchange.buckets)
+    run_ms = _median(b["ms"][1:])
+    per, _ = _profile(torch, f"train-dp {DP_ARCH} world-of-1 step", lambda: (
+        b["step"](model, opt, batches[-1]), torch.cuda.synchronize()),
+        run_ms, top=3)
+    nccl = [(ms, c) for k, (ms, c) in per.items() if "nccl" in k.lower()]
+    nccl_ms = sum(ms for ms, _ in nccl)
+    log(f"[train-dp] {DP_ARCH}: phase 8's config ({cfg.num_layers} layers, "
+        f"{batch} x {seq}, bf16), compress_grads on: {DP_STEPS} steps "
+        f"without a mesh and {DP_STEPS} through a NCCL world of 1 from the "
+        f"same weights and batches: the first step's parameters and moments "
+        f"bit-equal in {same} of {len(a['digests'])} leaves (64-bit "
+        f"fingerprints on the card), losses {a['losses']} / {b['losses']}; "
+        f"step ms (steps 2-{DP_STEPS}) {[round(x, 1) for x in b['ms'][1:]]} "
+        f"through the mesh, {[round(x, 1) for x in a['ms'][1:]]} without "
+        f"(phase 8's median is on its [train] line); the exchange a step: "
+        f"all_reduce calls {b['calls'].get('all_reduce', 0):g} "
+        f"({buckets} buckets of at most 256 MiB and the loss), bytes "
+        f"{json.dumps(b['bytes'])}; NCCL device time in the profiled step "
+        f"{nccl_ms:.3f} ms over {sum(c for _, c in nccl)} kernels; peak "
+        f"{b['peak']:.2f} GB through the mesh, {a['peak']:.2f} GB without; "
+        f"launches {json.dumps({k: n for k, n in launches.items() if n})}")
+    del runs, a, b, model, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_dp_ranks(torch, g, seed):
+    """[train-dp] part 2, over the gloo ranks that share the card (not a
+    scaling number: DIST_RANKS processes on one card): whisper-tiny's
+    float32 step against a world-of-1 step here, then the bf16 runner,
+    every leaf's crc32 equal on every rank after each step, rank 0's
+    last snapshot resumed here at its step and data position with rank
+    0's crc32s.  Returns the ranks' launches, summed."""
+    import tempfile
+
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime import TrainRunner
+    from repro_torch.train import make_train_step
+    t0 = time.perf_counter()
+    res = g.run(_rank_dp_f32, seed)
+    require(all(r["crc"] == res[0]["crc"] for r in res),
+            "train-dp: the ranks' summed gradients differ")
+    cfg, batch, seq = _dp_config(f32=True)
+    l_ref, gn_ref, g_ref = _dp_grads(torch, cfg, None, seed, batch, seq)
+    l_got, gn_got = res[0]["loss"], res[0]["grad_norm"]
+    e_loss = abs(l_got - l_ref) / abs(l_ref)
+    e_gn = abs(gn_got - gn_ref) / abs(gn_ref)
+    require(e_loss <= 1e-4 and e_gn <= 1e-4,
+            f"train-dp {DP_RANK_ARCH}: loss {l_got} vs {l_ref} "
+            f"({e_loss:.3g}), grad_norm {gn_got} vs {gn_ref} ({e_gn:.3g}), "
+            "tol 1e-4")
+    worst, where = 0.0, ""
+    for k, ref in g_ref.items():
+        got = torch.from_numpy(res[0]["grads"][k]).to(ref.device)
+        e = float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                 1e-30)
+        if e > worst:
+            worst, where = e, k
+    require(worst <= 1e-3, f"train-dp {DP_RANK_ARCH}: gradient {where} err "
+                           f"{worst:.3g} of its max |ref| > 1e-3")
+    require(abs(float(global_norm(g_ref)) - gn_ref) <= 1e-4 * gn_ref,
+            "train-dp: the spied gradients are not the step's")
+    log(f"[train-dp] {DP_RANK_ARCH}: {DIST_RANKS} gloo ranks on one card "
+        f"({batch // DIST_RANKS} rows a rank of {batch} x {seq}, microbatch "
+        f"{cfg.microbatch}), float32, one step against a world-of-1 step of "
+        f"the same global batch here: loss {l_got!r} (here {l_ref!r}, rel "
+        f"err {e_loss:.3g}), grad_norm {gn_got!r} (here {gn_ref!r}, rel err "
+        f"{e_gn:.3g}), worst summed gradient leaf {where} {worst:.3g} of its "
+        f"max |ref| (tol 1e-3); every rank's sums bit-equal")
+    del g_ref, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        res = g.run(_rank_dp_runner, seed, tmp)
+        for i in range(TRAIN_STEPS):
+            require(all(r["crcs"][i] == res[0]["crcs"][i] for r in res),
+                    f"train-dp {DP_RANK_ARCH}: the ranks' parameters or "
+                    f"moments differ after step {i + 1}")
+        require(all(math.isfinite(x) for r in res for x in r["losses"]),
+                f"train-dp {DP_RANK_ARCH}: non-finite loss")
+        cfg, batch, seq = _dp_config()
+        per_step = train_launches(cfg, seq)
+        for r in res:
+            want = {k: per_step.get(k, 0) * TRAIN_STEPS
+                    for k in r["launches"]}
+            require(r["launches"] == want, f"train-dp {DP_RANK_ARCH}: a "
+                    f"rank's launches {json.dumps(r['launches'])}, expected "
+                    f"{json.dumps(want)}")
+        model = get_model(cfg).init(seed + 1)
+        one = TrainRunner(make_train_step(cfg, lr=TRAIN_LR,
+                                          compress_grads=True),
+                          model, _dp_opt(torch, cfg, model),
+                          _train_data(cfg, batch, seq, seed), ckpt_dir=tmp,
+                          ckpt_every=10 ** 6)
+        t = time.perf_counter()
+        require(one.maybe_resume() and one.step == TRAIN_STEPS
+                and one.data.step == TRAIN_STEPS
+                and int(one.opt_state.step) == TRAIN_STEPS,
+                f"train-dp {DP_RANK_ARCH}: resumed at step {one.step}, data "
+                f"{one.data.step}")
+        t_resume = time.perf_counter() - t
+        require(_crc32s(one.params, one.opt_state) == res[0]["crcs"][-1],
+                f"train-dp {DP_RANK_ARCH}: the resumed state differs from "
+                "rank 0's")
+        del one, model
+    launches = {}
+    for r in res:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    med = [round(_median(r["ms"][1:]), 1) for r in res]
+    calls, nbytes = ({k: n / TRAIN_STEPS for k, n in res[0][part].items()
+                      if n} for part in ("calls", "bytes"))
+    log(f"[train-dp] {DP_RANK_ARCH}: bf16, compress_grads on, {TRAIN_STEPS} "
+        f"steps through TrainRunner on {DIST_RANKS} gloo ranks sharing one "
+        f"card (a check of correctness, not a scaling number): every "
+        f"parameter's and moment's crc32 equal on every rank after each "
+        f"step; losses {[round(x, 4) for x in res[0]['losses']]}; step ms "
+        f"by rank (median of steps 2-{TRAIN_STEPS}) {med}; collectives a "
+        f"step (rank 0: the exchange, the runner's barrier, the first "
+        f"call's crc32 gather) calls {json.dumps(calls)}, bytes "
+        f"{json.dumps(nbytes)}; peak GB by rank {[round(r['peak_gb'], 3) for r in res]}; rank "
+        f"0's step-{TRAIN_STEPS} snapshot resumed in one process (no mesh) "
+        f"at step {TRAIN_STEPS}, data position {TRAIN_STEPS}, with rank 0's "
+        f"crc32s, in {t_resume:.1f} s; launches (all ranks) "
+        f"{json.dumps({k: n for k, n in launches.items() if n})}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_dist(torch, seed):
     """Phase 7: the distributed rounds, a world of 1 over NCCL, then
-    DIST_RANKS ranks sharing the card over gloo.  Returns the program
-    kernels' launches on the world-of-1 distributed path."""
+    DIST_RANKS ranks sharing the card over gloo, each world also training
+    (`[train-dp]`).  Returns the program kernels' launches on the
+    world-of-1 distributed path, and the [train-dp] parts' launches and
+    seconds."""
     import numpy as np
     t0 = time.perf_counter()
-    launches = _dist_world1(torch, np, seed)
+    launches, dp_launches, dp_secs = _dist_world1(torch, np, seed)
     gc.collect()
     torch.cuda.empty_cache()
-    _dist_ranks(torch, np, seed)
+    more, secs = _dist_ranks(torch, np, seed)
+    for k, n in more.items():
+        dp_launches[k] = dp_launches.get(k, 0) + n
+    dp_secs += secs
     log(f"[dist] launches on the distributed path (world of 1): "
         f"{json.dumps(launches)}; phase 7 took "
-        f"{time.perf_counter() - t0:.1f} s")
-    return launches
+        f"{time.perf_counter() - t0:.1f} s, [train-dp] {dp_secs:.1f} s of "
+        f"it; [train-dp] launches {json.dumps(dp_launches)}")
+    return launches, {"launches": dp_launches, "secs": dp_secs}
 
 
 # ---------------------------------------------------------------------------
@@ -3744,8 +4151,8 @@ def _router_probe(torch, k):
                           float((top[:, k - 1] - top[:, k]).min()))
         return router(cfg, p, xt)
 
-    def probed_dispatch(*a):
-        out = dispatch(*a)
+    def probed_dispatch(*a, **kw):
+        out = dispatch(*a, **kw)
         seen["dropped"] += int((~out[1]).sum())
         return out
 
@@ -3900,10 +4307,12 @@ RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 6, 5, 4
 # the card-against-CPU checks, float32: arch -> (layers kept or None for
 # the whole model, batch, tokens a row).  qwen3-moe-30b-a3b's capacity
 # drops rows; recurrentgemma-2b's one (rec, rec, lattn) period runs past
-# its window.  llama3-8b's (about 42 s, the costliest but one) left for
-# the time limit: its attention and norms are qwen3-moe-30b-a3b's, whose
-# check stays, and its float32 prefill is checked in phase 4
-TRAIN_CHECKS = {"falcon-mamba-7b": (2, 1, 1024),
+# its window; falcon-mamba-7b's one layer crosses the CPU path's 256-step
+# scan chunks (it had two before [train-dp] took its seconds).
+# llama3-8b's (about 42 s, the costliest but one) left for the time
+# limit: its attention and norms are qwen3-moe-30b-a3b's, whose check
+# stays, and its float32 prefill is checked in phase 4
+TRAIN_CHECKS = {"falcon-mamba-7b": (1, 1, 1024),
                 "qwen3-moe-30b-a3b": (1, 1, 1024),
                 "recurrentgemma-2b": (3, 1, 2300),
                 "whisper-tiny": (None, 1, 448)}
@@ -3958,11 +4367,14 @@ def train_launches(cfg, seq) -> dict:
     return {k: n * times * mb for k, (n, times) in per_layer.items() if n}
 
 
-def _train_data(cfg, batch, seq, seed):
+def _train_data(cfg, batch, seq, seed, rank=0, world=1):
     """The reference launcher's data: frames for the audio family, M-RoPE
-    positions for the vlm family."""
+    positions for the vlm family; rank `rank`'s rows of `world` (its part
+    of each of the config's microbatches)."""
     from repro_torch.data import SyntheticLMData
     return SyntheticLMData(cfg.vocab_size, batch, seq, seed=seed,
+                           host_index=rank, host_count=world,
+                           microbatch=cfg.microbatch if world > 1 else 1,
                            with_frames=cfg.enc_seq
                            if cfg.family == "audio" else 0,
                            d_model=cfg.d_model,
@@ -4185,13 +4597,16 @@ def _train_check(torch, np, arch, seed):
     require(e_loss <= 1e-4 and e_gn <= 1e-4,
             f"{arch} train check: loss {l_got} vs {l_ref} ({e_loss:.3g}), "
             f"grad_norm {gn_got} vs {gn_ref} ({e_gn:.3g}), tol 1e-4")
+    # compared on the card, leaf by leaf: float64 copies of a full-width
+    # vocabulary's leaves on the host took seconds each
     worst, where = 0.0, ""
     for k, ref in g_ref.items():
-        got = g_got[k].double().cpu()
-        e = float((got - ref.double()).abs().max()) \
+        ref = ref.to(g_got[k].device)
+        e = float((g_got[k] - ref).abs().max()) \
             / max(float(ref.abs().max()), 1e-30)
         if e > worst:
             worst, where = e, k
+        del ref
     require(worst <= 1e-3, f"{arch} train check: gradient {where} err "
                            f"{worst:.3g} of its max |ref| > 1e-3")
     depth = "the whole model" if layers is None else (
@@ -4319,12 +4734,16 @@ def main(argv=None) -> int:
         launches["segment_reduce"] += plans["segment_reduce"]
         # the lanes entry's launches: phase 6's served flushes
         launches["segment_reduce[lanes]"] = plans["segment_reduce[lanes]"]
-        for k, n in timed("dist", phase_dist, args.seed).items():
+        dist, dp = timed("dist", phase_dist, args.seed)
+        for k, n in dist.items():
             launches[k] += n
-        # phases 4 and 8 launch the segment kernel only as the MoE
-        # combine, on its wide route: the kernel line's own item
+        secs["dist"] = round(secs["dist"] - dp["secs"], 1)
+        secs["train-dp"] = round(dp["secs"], 1)
+        # phases 4 and 8 (and phase 7's [train-dp] part) launch the segment
+        # kernel only as the MoE combine, on its wide route: the kernel
+        # line's own item
         served = timed("serve", phase_serve, args.seed)
-        for k, n in [*served.items(),
+        for k, n in [*served.items(), *dp["launches"].items(),
                      *timed("train", phase_train, args.seed).items()]:
             k = "segment_reduce[wide]" if k == "segment_reduce" else k
             launches[k] = launches.get(k, 0) + n

@@ -92,7 +92,16 @@ class Collectives:
         return ", ".join(f"{op}={self.transport(op)}" for op in OPS)
 
     # ---- staging ----
-    def _enter(self, coll: str, x: torch.Tensor, **payload) -> torch.Tensor:
+    def staging(self, op: str, numel: int, dtype) -> torch.Tensor | None:
+        """A pinned host buffer of `numel` elements for `op`'s input where
+        its transport stages (None where it takes the device's tensors), to
+        hand to calls again and again: pinning is not free."""
+        if op in self.direct:
+            return None
+        return torch.empty(numel, dtype=dtype, pin_memory=True)
+
+    def _enter(self, coll: str, x: torch.Tensor, staging=None,
+               **payload) -> torch.Tensor:
         F.site("dist.exchange", collective=coll, **payload)
         self.calls[coll] += 1
         self.bytes[coll] += x.numel() * x.element_size()
@@ -100,7 +109,8 @@ class Collectives:
         x = x.contiguous()
         if coll in self.direct:
             return x
-        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True) \
+            if staging is None else staging.view(x.shape)
         buf.copy_(x)
         return buf
 
@@ -122,6 +132,19 @@ class Collectives:
         dist.all_reduce(y, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]),
                         group=self.group)
         return self._leave(y)
+
+    def all_reduce_(self, x: torch.Tensor, op: str = "+",
+                    staging: torch.Tensor | None = None) -> torch.Tensor:
+        """x ← the ⊕ of every rank's x, in place (x contiguous), through
+        `staging` (from `staging("all_reduce", ...)`) where the transport
+        stages.  Returns x."""
+        import torch.distributed as dist
+        y = self._enter("all_reduce", x, staging=staging, op=op)
+        dist.all_reduce(y, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]),
+                        group=self.group)
+        if y is not x:
+            x.copy_(y)
+        return x
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """The + of every rank's x, this rank's dim-0 block of it."""

@@ -1,6 +1,15 @@
-"""Deterministic synthetic LM data pipeline: a verbatim copy of the
-reference's src/repro/data/pipeline.py (numpy only), so that both packages
-draw the same token stream from (seed, step).
+"""Deterministic synthetic LM data pipeline: a copy of the reference's
+src/repro/data/pipeline.py (numpy only), so that both packages draw the
+same token stream from (seed, step).
+
+One addition, `microbatch` (the train config's k): a host's rows are its
+share of each of the k microbatches, not one contiguous block.  The
+reference's step on a global batch takes microbatch i as global rows
+[i·B/k, (i+1)·B/k) and GSPMD cuts those over the data axis, so host h of
+H holds the h-th of H equal parts of each, in row order; the port's data-
+parallel step then cuts its local rows into k slices as the single-device
+step does.  With k = 1 (the default) that is the reference's contiguous
+slice.
 
 Designed for the multi-host setting: every host draws only its slice of the
 global batch (host-sharded loading), and the pipeline position (`step`) is
@@ -16,8 +25,11 @@ class SyntheticLMData:
     def __init__(self, vocab_size: int, global_batch: int, seq_len: int,
                  seed: int = 0, host_index: int = 0, host_count: int = 1,
                  with_frames: int = 0, d_model: int = 0,
-                 with_pos_ids: bool = False):
-        assert global_batch % host_count == 0
+                 with_pos_ids: bool = False, microbatch: int = 1):
+        if global_batch % (host_count * microbatch):
+            raise ValueError(f"global batch {global_batch} does not cut "
+                             f"into {microbatch} microbatches of "
+                             f"{host_count} hosts' equal shares")
         self.vocab = vocab_size
         self.global_batch = global_batch
         self.local_batch = global_batch // host_count
@@ -28,6 +40,7 @@ class SyntheticLMData:
         self.with_frames = with_frames
         self.d_model = d_model
         self.with_pos_ids = with_pos_ids
+        self.microbatch = microbatch
 
     # --- checkpointable state ---
     def state(self) -> dict:
@@ -39,7 +52,11 @@ class SyntheticLMData:
         self.step = int(state["step"])
         self.seed = int(state["seed"])
         if host_count is not None:
-            assert self.global_batch % host_count == 0
+            if self.global_batch % (host_count * self.microbatch):
+                raise ValueError(f"global batch {self.global_batch} does "
+                                 f"not cut into {self.microbatch} "
+                                 f"microbatches of {host_count} hosts' "
+                                 "equal shares")
             self.local_batch = self.global_batch // host_count
             self.host = host_index or 0
 
@@ -47,13 +64,24 @@ class SyntheticLMData:
         # independent of host_count: key on (seed, step) then slice rows
         return np.random.default_rng((self.seed, self.step))
 
+    def _rows(self):
+        """This host's rows of the global batch: its part of each
+        microbatch (a slice when there is one microbatch)."""
+        k = self.microbatch
+        part = self.local_batch // k
+        if k == 1:
+            lo = self.host * part
+            return slice(lo, lo + part)
+        per = self.global_batch // k
+        lo = np.arange(k)[:, None] * per + self.host * part
+        return (lo + np.arange(part)[None, :]).reshape(-1)
+
     def next_batch(self) -> dict:
         rng = self._rng()
         tokens = rng.integers(0, self.vocab,
                               size=(self.global_batch, self.seq + 1),
                               dtype=np.int32)
-        lo = self.host * self.local_batch
-        sl = slice(lo, lo + self.local_batch)
+        sl = self._rows()
         batch = {"tokens": tokens[sl, :-1], "labels": tokens[sl, 1:]}
         if self.with_frames:
             batch["frames"] = rng.standard_normal(

@@ -15,9 +15,15 @@ rank, the data-parallel axes and the device the rank computes on.
 The device is `cuda:(rank % device_count)` unless the caller names one.
 A rank never goes on on the CPU because it found no card: asking for the
 card without one raises.
+
+Training over a mesh is pure data parallelism (`dp_world`): every rank one
+replica, the batch cut over the data-parallel axes.  An axis outside them
+larger than 1 (the reference's `model` axis, which its sharding
+constraints use for tensor parallelism) raises.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -36,6 +42,14 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    @functools.cached_property
+    def coll(self):
+        """The mesh's collectives for training (core/collectives.py): the
+        gradient exchange and the MoE layers' count gathers count their
+        calls and bytes in one place."""
+        from ..core.collectives import Collectives
+        return Collectives(self)
 
 
 def rank_device(rank: int, device=None) -> torch.device:
@@ -81,3 +95,18 @@ def axis_sizes(mesh) -> dict[str, int]:
 
 def dp_axes_of(mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def dp_world(mesh, dp_axes=("data",)) -> int:
+    """The number of data-parallel replicas of a mesh over `dp_axes`: every
+    rank of its group.  Raises where another axis is larger than 1: the
+    port trains over a mesh by data parallelism alone."""
+    wide = {a: n for a, n in mesh.shape.items()
+            if a not in tuple(dp_axes) and n > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide} outside the data-parallel axes "
+            f"{tuple(dp_axes)}: tensor parallelism is not ported yet "
+            "(ROADMAP.md, Queue 1, 'Tensor parallelism over the model "
+            "axis'); give every other axis size 1")
+    return mesh.size

@@ -5,7 +5,8 @@ residual SwiGLU]), "ssm" (Mamba-1), "rec" (RG-LRU + SwiGLU) and "lattn"
 (local-window attn + SwiGLU), as the reference's `models/blocks.py`.
 
 `pos_ids` ([B, S, 3] M-RoPE positions) reaches the attention layers;
-`moe_groups` (decode only) the MoE layers' capacity groups.
+`moe_groups` (decode only) the MoE layers' capacity groups; `mesh` and
+`dp_axes` (training over a mesh) the MoE layers.
 """
 from __future__ import annotations
 
@@ -60,9 +61,10 @@ def block_cache_defs(cfg, kind: str, batch: int, max_seq: int):
     raise ValueError(kind)
 
 
-def _ffn(cfg, kind, p, h, moe_groups=1):
+def _ffn(cfg, kind, p, h, moe_groups=1, mesh=None, dp_axes=("data",)):
     if kind == "moe":
-        y = moe_mod.moe_forward(cfg, p["moe"], h, groups=moe_groups)
+        y = moe_mod.moe_forward(cfg, p["moe"], h, mesh, dp_axes,
+                                groups=moe_groups)
         if cfg.dense_residual:
             y = y + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_in"],
                            p["mlp"]["w_out"])
@@ -74,7 +76,8 @@ def _window(cfg, kind):
     return cfg.window if kind == "lattn" else 0
 
 
-def block_forward(cfg, kind, p, x, pos_ids=None):
+def block_forward(cfg, kind, p, x, pos_ids=None, mesh=None,
+                  dp_axes=("data",)):
     """Training-mode block. x: [B,S,d] -> [B,S,d]."""
     if kind == "ssm":
         return x + ssm_mod.mamba_forward(cfg, p["ssm"], rms_norm(x, p["ln"]))
@@ -83,7 +86,8 @@ def block_forward(cfg, kind, p, x, pos_ids=None):
         return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"]))
     h = x + attn.attn_forward(cfg, p["attn"], rms_norm(x, p["ln1"]),
                               window=_window(cfg, kind), pos_ids=pos_ids)
-    return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"]))
+    return h + _ffn(cfg, kind, p, rms_norm(h, p["ln2"]), mesh=mesh,
+                    dp_axes=dp_axes)
 
 
 def block_prefill(cfg, kind, p, x, cache, pos_ids=None):

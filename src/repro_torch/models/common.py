@@ -10,8 +10,10 @@ without gradients, for serving; training turns them on
 (`LM.train_mode()`).
 
 Mesh and sharding helpers (`constrain`, `pspec_for`, `LOGICAL_RULES`) are
-not ported: the LM runs on one device (data-parallel training over a
-`RankGroup` is a ROADMAP.md item).
+not ported: every rank holds the whole model, and training over a mesh is
+data parallelism alone (train/step.py); the sharding constraints' tensor
+parallelism over `model` is the ROADMAP.md item "Tensor parallelism over
+the model axis".
 """
 from __future__ import annotations
 

@@ -8,7 +8,9 @@ layer of the port is, which is all a weight converter needs.  The cache is
 a list with one dict per layer (dense and moe: k, v [B, max_seq, Hkv,
 hd]; ssm: conv [B, k-1, d_inner], h [B, d_inner, N] float32).
 
-Training: `loss(batch)` is the reference's — embedding, the layers (each
+Training: `loss(batch, mesh=None, dp_axes=("data",))` is the reference's
+(the mesh reaches the MoE layers, whose capacity then counts the rows of
+every rank of a data-parallel step) — embedding, the layers (each
 under the config's `remat`: "full" is `torch.utils.checkpoint`, "dots"
 a selective checkpoint that saves the matrix products' outputs, as the
 reference's `dots_with_no_batch_dims_saveable`, "none" none), and
@@ -169,10 +171,10 @@ class LM(ParamTree):
             logits = c * torch.tanh(logits / c)
         return logits
 
-    def _forward(self, x, pos_ids):
+    def _forward(self, x, pos_ids, mesh=None, dp_axes=("data",)):
         for p, kind in zip(self.layers, self.kinds):
             x = _remat(self.cfg, block_forward, self.cfg, kind, p, x,
-                       pos_ids)
+                       pos_ids, mesh, dp_axes)
         return x
 
     def _pos_ids(self, pos_ids):
@@ -180,12 +182,15 @@ class LM(ParamTree):
             torch.as_tensor(pos_ids, device=self.device).long()
 
     # ---------------- public entry points ----------------
-    def loss(self, batch):
+    def loss(self, batch, mesh=None, dp_axes=("data",)):
         """batch: {tokens: [B, S], labels: [B, S], (pos_ids: [B, S, 3])}
         (numpy or tensors) -> (loss, {"loss": loss}), the mean next-token
-        cross-entropy, float32."""
+        cross-entropy, float32.  With a mesh the batch is this rank's part
+        of a data-parallel step's (the MoE layers route it as part of the
+        whole); the loss is this part's."""
         x = self._embed(batch["tokens"])
-        x = self._forward(x, self._pos_ids(batch.get("pos_ids")))
+        x = self._forward(x, self._pos_ids(batch.get("pos_ids")), mesh,
+                          dp_axes)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         loss = chunked_ce(self.cfg, self._head, x, labels)
         return loss, {"loss": loss}

@@ -30,9 +30,19 @@ forward is the segment kernel and whose backward is the gather
 `dy[src]` in the values' dtype, the transpose of the reference's
 `.at[].add` (an XLA gather, outside any Pallas kernel).  The router's
 top-k and the padded expert pass differentiate through torch, as the
-reference's do through `lax.top_k` and its einsums.  The reference's
-expert-parallel modes (`ep_alltoall`, `ep_local`, under shard_map) wait
-for more than one card.
+reference's do through `lax.top_k` and its einsums.
+
+Data parallelism (`moe_forward(mesh=...)` with `model` = 1): the reference
+runs the local mode on the global microbatch, so its capacity and each
+row's rank within its expert count every rank's rows, in global row order
+(rank r's rows are the r-th part of it).  Each rank here routes its own
+rows with the capacity of the global row count, and a row's rank is its
+rank among this rank's rows plus the rows of lower ranks routed to the
+same expert (an all-gather of E counts a call): the slots, and the rows
+dropped, are the reference's.  Under remat the recompute issues the
+gather again, in the same order on every rank.  The reference's expert-
+parallel modes (`ep_alltoall`, `ep_local`, under shard_map, `model` > 1)
+wait for more than one card.
 """
 from __future__ import annotations
 
@@ -133,26 +143,37 @@ def segment_add(values, segment_ids, num_segments: int):
     return segment_reduce(segment_ids, values, num_segments)
 
 
-def _dispatch(flat_e, n_experts: int, groups: int, cf: float):
+def _dispatch(flat_e, n_experts: int, groups: int, cf: float, coll=None):
     """(slot [N], keep [N], width) of the routed rows (token-major, then
     the k choices): each group of N/groups rows gets cap_e slots an
     expert, a kept row the slot group·cap_e + its rank; a row of rank
-    ≥ cap_e is dropped."""
+    ≥ cap_e is dropped.  With `coll` (one group): the rows of every rank
+    of its mesh, N each, in rank order, are the group."""
     n = flat_e.shape[0]
     per = n // groups
-    cap_e = _cap_e(per, n_experts, cf)
+    cap_e = _cap_e(per * (1 if coll is None else coll.n), n_experts, cf)
     rank = _ranks(flat_e, n_experts, groups)
+    if coll is not None:
+        counts = torch.bincount(flat_e, minlength=n_experts).to(torch.int32)
+        every = coll.all_gather(counts[None])
+        rank = rank + every[:coll.rank].sum(0).to(rank.device)[flat_e]
     keep = rank < cap_e
     group = torch.arange(n, device=flat_e.device) // per
     slot = torch.where(keep, group * cap_e + rank, groups * cap_e)
     return slot, keep, groups * cap_e
 
 
-def moe_local(cfg, p, x, groups: int = 1):
+def moe_local(cfg, p, x, groups: int = 1, coll=None):
     """x: [B, S, d] -> [B, S, d].  `groups` cuts the B·S tokens, in order,
-    into that many equal groups, each routed with its own capacity."""
+    into that many equal groups, each routed with its own capacity.
+    `coll` (a mesh's Collectives; one group): x is this rank's part of a
+    microbatch that every rank of the mesh holds a part of, routed as
+    one."""
     b, s, d = x.shape
     t = b * s
+    if coll is not None and groups != 1:
+        raise ValueError("moe_local: the rows of a mesh's ranks are routed "
+                         "as one group")
     if t % groups:
         raise ValueError(f"moe_local: {t} tokens do not cut into {groups} "
                          "equal groups")
@@ -163,19 +184,25 @@ def moe_local(cfg, p, x, groups: int = 1):
     flat_w = gw.reshape(t * k)
     src = torch.arange(t, device=x.device).repeat_interleave(k)
     slot, keep, width = _dispatch(flat_e, cfg.num_experts, groups,
-                                  cfg.capacity_factor)
+                                  cfg.capacity_factor, coll)
     ys = _padded_expert_pass(xt[src], flat_e, slot, keep, cfg.num_experts,
                              width, p["w_gate"], p["w_in"], p["w_out"])
     y = segment_add(ys * flat_w[:, None].to(ys.dtype), src, t)
     return y.reshape(b, s, d).to(x.dtype)
 
 
-def moe_forward(cfg, p, x, mesh=None, groups: int = 1):
-    """The reference's entry: local on one device; a mesh (its expert-
-    parallel modes) raises."""
-    if mesh is not None:
+def moe_forward(cfg, p, x, mesh=None, dp_axes=("data",), groups: int = 1):
+    """The reference's entry: local on one device; over a mesh with
+    `model` = 1, local on each rank's part of the global microbatch (its
+    capacity counted over all of it); a `model` axis larger than 1 (the
+    reference's expert-parallel modes) raises."""
+    if mesh is None:
+        return moe_local(cfg, p, x, groups)
+    if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
             "moe_forward: expert parallelism over a mesh is not ported yet "
             "(ROADMAP.md, Queue 1, 'expert parallelism over a RankGroup'); "
-            "pass mesh=None")
-    return moe_local(cfg, p, x, groups)
+            "give the mesh model = 1")
+    from ..launch.mesh import dp_world
+    dp_world(mesh, dp_axes)
+    return moe_local(cfg, p, x, groups, coll=mesh.coll)

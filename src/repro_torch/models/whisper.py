@@ -151,10 +151,12 @@ class Whisper(ParamTree):
         it); returns the model."""
         return self.requires_grad_(True)
 
-    def loss(self, batch):
+    def loss(self, batch, mesh=None, dp_axes=("data",)):
         """batch: {frames: [B, S_enc, d], tokens: [B, S], labels: [B, S]}
         (numpy or tensors) -> (loss, {"loss": loss}), the mean next-token
-        cross-entropy of the decoder, float32."""
+        cross-entropy of the decoder, float32.  `mesh` and `dp_axes` are
+        the reference's arguments; no layer here needs them (no MoE), so
+        over a mesh the loss is that of this rank's rows."""
         enc = self._encoder(batch["frames"], remat=True)
         x = self._dec_embed(batch["tokens"])
         for p in self.dec:

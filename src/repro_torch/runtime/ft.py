@@ -130,7 +130,17 @@ class TrainRunner:
     steps, with the data pipeline's position), resume from the latest
     snapshot that verifies, the shared `FaultLedger` straggler watchdog,
     and simulated failure — the reference's, with its arguments (no
-    `shardings`: the port trains on one device).
+    `shardings`: every rank holds the whole model).
+
+    Over a mesh (the step function's `mesh`, a data-parallel step of
+    `train.make_train_step`), every rank runs its own runner on the same
+    `ckpt_dir` with its own data (`host_index` = its rank): only rank 0
+    writes snapshots (the replicas are bit-equal), `wait()` lets every
+    rank go on only once rank 0's writes are whole, and `maybe_resume`
+    restores the same snapshot on every rank (they agree on its step and
+    then on their parameters' crc32s) and re-slices the data for the
+    rank.  A snapshot holds the whole model whatever the world size, so it
+    resumes on any number of ranks, one process without a mesh included.
 
     `step_fn(params, opt_state, batch) -> (params, opt_state, metrics)`.
     `params` and `opt_state` are saved as they stand and restored like
@@ -151,6 +161,7 @@ class TrainRunner:
         self.data = data
         self.mgr = CheckpointManager(ckpt_dir)
         self.ckpt_every = ckpt_every
+        self.mesh = getattr(step_fn, "mesh", None)
         self.step = 0
         # ONE straggler watchdog for the whole system: the shared
         # FaultLedger trailing-median idiom (same as core rounds and
@@ -173,7 +184,10 @@ class TrainRunner:
         return to_tree(), opt
 
     def save(self):
-        """Checkpoint the current step (the data position with it)."""
+        """Checkpoint the current step (the data position with it): rank
+        0's part over a mesh."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         params, opt = self._trees()
         self.mgr.save(self.step, params, opt,
                       extra={"data": self.data.state()})
@@ -198,15 +212,38 @@ class TrainRunner:
         skipped for the next older, `mgr.skipped`); False when there is
         none."""
         found = self.mgr.resume(self._restore)
+        if self.mesh is not None:
+            self._agree(-1 if found is None else found[0])
         if found is None:
             return False
         self.step, self.params, self.opt_state, extra = found
+        if self.mesh is not None and hasattr(self.params, "named_leaves"):
+            from ..train.step import check_replicas
+            check_replicas(self.mesh, dict(self.params.named_leaves()))
         if "data" in extra:
             self.data.restore(extra["data"],
                               host_index=self.data.host,
                               host_count=self.data.global_batch
                               // self.data.local_batch)
         return True
+
+    def _agree(self, step: int):
+        """Raise unless every rank resumes the snapshot of `step` (-1:
+        none)."""
+        from ..train.step import ReplicaDivergence
+        every = self.mesh.coll.all_gather(torch.tensor(
+            [step], dtype=torch.int64, device=self.mesh.device)).tolist()
+        if len(set(every)) > 1:
+            raise ReplicaDivergence(f"the ranks resume different snapshots "
+                                    f"(steps by rank {every})")
+
+    def wait(self):
+        """Wait for the snapshots being written; over a mesh every rank
+        waits for rank 0's (a barrier after its writes), so that no rank
+        reads a snapshot before it is whole."""
+        self.mgr.wait()
+        if self.mesh is not None:
+            self.mesh.coll.agree(False)     # a barrier: every rank joins
 
     def run(self, num_steps: int, fail_at_step: int | None = None):
         metrics = None
@@ -223,7 +260,7 @@ class TrainRunner:
             self.step += 1
             if self.step % self.ckpt_every == 0:
                 self.save()
-        self.mgr.wait()
+        self.wait()
         return metrics
 
 

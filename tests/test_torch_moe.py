@@ -231,11 +231,17 @@ def test_training_a_moe_layout_raises():
 
 
 def test_meshed_moe_forward_raises():
+    """A mesh with a model axis larger than 1 asks for the reference's
+    expert-parallel modes, which raise naming their ROADMAP item (model = 1
+    is data parallelism: tests/test_torch_train_dp.py)."""
+    from repro_torch.launch.mesh import Mesh
     cfg = smoke_config(ARCH)
     p, x = _moe_case(cfg, 8, seed=7)
+    mesh = Mesh(("data", "model"), {"data": 1, "model": 2}, 0,
+                torch.device("cpu"), "gloo")
     with pytest.raises(NotImplementedError,
                        match="expert parallelism over a RankGroup"):
-        moe.moe_forward(cfg, *_port(p, x), mesh=object())
+        moe.moe_forward(cfg, *_port(p, x), mesh=mesh)
 
 
 def test_recorded_combine_raises_on_the_card(monkeypatch):

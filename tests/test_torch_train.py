@@ -374,8 +374,15 @@ def test_mrope_loss_matches_reference():
 
 
 def test_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="RankGroup"):
-        make_train_step(smoke_config("llama3-8b"), mesh=object())
+    """A mesh is data parallelism (tests/test_torch_train_dp.py); one
+    whose model axis is larger than 1 asks for tensor parallelism, which
+    raises naming its ROADMAP item before any collective."""
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(("data", "model"), {"data": 1, "model": 2}, 0,
+                torch.device("cpu"), "gloo")
+    with pytest.raises(NotImplementedError,
+                       match="Tensor parallelism over the model axis"):
+        make_train_step(smoke_config("llama3-8b"), mesh=mesh)
 
 
 def test_serving_builds_no_graph_after_training():

@@ -171,9 +171,13 @@ first mismatch:
              bit-equal, 64-bit fingerprints on the card; step ms, the
              exchange's all_reduce calls and bytes a step, its NCCL
              device time in one profiled step, peak memory, launches as
-             phase 8 counts them), then whisper-tiny whole at phase 8's
-             batch over the 4 ranks, two rows each: one float32 step
-             against a world-of-1 step of the same global batch in this
+             phase 8 counts them), then 3 more through the world of 1 as
+             one CUDA graph (`graphed_step`), after the last step
+             bit-equal to the eager mesh steps, then whisper-tiny whole
+             at phase 8's batch over the 4 ranks, two rows each (a graph
+             of the step over them raises on every rank: gloo stages
+             through host memory): one float32 step against a world-of-1
+             step of the same global batch in this
              process (loss and grad_norm within 1e-4, each summed
              gradient leaf within 1e-3 of its max |ref|), then 6 bf16
              steps through TrainRunner, every leaf's crc32 equal on every
@@ -221,13 +225,18 @@ first mismatch:
              stub frames) at full width, bf16 with float32 moments, remat
              "full", the configs' ce_chunk and microbatch, through
              `repro_torch.runtime.TrainRunner` on `SyntheticLMData`
-             batches (the others 4 x 2048 tokens): loss and grad_norm a
-             step, step ms (median after the first), tokens/s, peak
-             memory, the launches of each kernel (a forward kernel twice
-             a layer and microbatch, a backward once, every other none),
-             one profiled step (device busy, idle share, top kernels, the
-             hand-written kernels' share), and 10 steps on one fixed batch
-             whose loss must fall; then whisper-tiny six steps against a
+             batches (the others 4 x 2048 tokens), each first 3 steps
+             eagerly, then from the same weights through the graphed
+             step (`graphed_step`: one CUDA graph of the whole step, the
+             reference's jit), bit-equal to the eager steps after the
+             third: loss and grad_norm a step, step ms of both (median
+             after the first), the graph's capture seconds, tokens/s,
+             peak memory, the launches of each kernel (a forward kernel
+             twice a layer and microbatch, a backward once, AdamW twice
+             a step, every other none), one profiled step (device busy,
+             idle share, top kernels, the hand-written kernels' share),
+             and 10 steps on one fixed batch whose loss must fall (the
+             graphed step alone timed); then whisper-tiny six steps against a
              run failed at step 5 and resumed from its step-4 snapshot
              (each array read once, its crc32 checked as it is loaded),
              bit-equal leaf by leaf; then a float32 copy of each but
@@ -247,7 +256,8 @@ The line before the last is a JSON object with one entry per kernel
 segment_reduce[lanes]'s phase 6's served flushes, in segment_reduce's
 too; segment_reduce[wide]'s the MoE combines of phases 4 and 8;
 flash_attention's and selective_scan's (both entries) phases 4 and 8
-and 7's [train-dp] steps (every rank's), flash_attention[wg]'s the
+and 7's [train-dp] steps (every rank's), adamw's phase 8's and
+[train-dp]'s steps, flash_attention[wg]'s the
 part of flash_attention's on the wgmma route (recurrentgemma-2b's and
 whisper-tiny's full-sequence attentions); the backward kernels' phase 8
 and [train-dp], the windowed hd-256 flash backward
@@ -1629,6 +1639,125 @@ def _family_bwd_cases(torch, g):
     return win, enc, abx
 
 
+# the AdamW cases: arch -> (layers, moments): phase 8's llama3-8b leaves
+# with float32 moments, and 2 of its layers with bf16 moments (the
+# configs' opt_dtype="bf16", arctic-480b's)
+ADAMW_CASES = (("llama3-8b", 8, "float32"), ("llama3-8b", 2, "bfloat16"))
+ADAMW_STEP = 3.0     # the bias corrections of a mid-run step
+ADAMW_FLOPS = 19     # float32 operations an element: the norm's 2, 17
+
+
+def _adamw_state(torch, shapes, moments, seed):
+    """[parameters, gradients, first moments, second moments] of leaves of
+    (shape, dtype), drawn on the card from `seed`: a mid-run state whose
+    global norm is above 1 (the clip scales), gradients in the
+    parameters' dtype, moments in `moments` (None: the parameters')."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    out = [[], [], [], []]
+    for shape, dt in shapes:
+        mdt = dt if moments is None else moments
+        out[0].append((torch.randn(shape, generator=g, device="cuda")
+                       * 0.02).to(dt))
+        out[1].append((torch.randn(shape, generator=g, device="cuda")
+                       * 1e-3).to(dt))
+        out[2].append((torch.randn(shape, generator=g, device="cuda")
+                       * 1e-4).to(mdt))
+        out[3].append((torch.rand(shape, generator=g, device="cuda")
+                       * 1e-8).to(mdt))
+    return out
+
+
+def _fused_adamw_ms(torch, shapes, seed, reps):
+    """`torch._fused_adamw_` (torch's fused AdamW, its moments in the
+    parameters' dtype: its kernel takes one dtype a list; no clipping, the
+    decay applied first) over the same leaves, a call a dtype: the
+    library yardstick, never on the path."""
+    p, gr, m, v = _adamw_state(torch, shapes, None, seed)
+    groups = {}
+    for i, (_, dt) in enumerate(shapes):
+        groups.setdefault(dt, []).append(i)
+    steps = [torch.full((), ADAMW_STEP, device="cuda") for _ in shapes]
+
+    def call():
+        for idx in groups.values():
+            torch._fused_adamw_(
+                [p[i] for i in idx], [gr[i] for i in idx],
+                [m[i] for i in idx], [v[i] for i in idx], [],
+                [steps[i] for i in idx], lr=TRAIN_LR, beta1=0.9, beta2=0.95,
+                weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
+    ms = time_ms(torch, call, reps)
+    del p, gr, m, v
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _adamw_case(torch, arch, layers, moments, seed, reps=5):
+    """The multi-tensor AdamW (norm and update, two launches) over `arch`'s
+    leaves at `layers` layers (a meta model's shapes and dtypes) against
+    its plain versions (the chunk-ordered norm, the per-leaf update) from
+    the same state: the norm, the clip scale and every parameter and
+    moment bit-equal (64-bit fingerprints on the card); kernel, plain and
+    `torch._fused_adamw_` ms beside the byte bound (p, g, m, v read once,
+    p, m, v written once)."""
+    import importlib
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    K = importlib.import_module("repro_torch.kernels.adamw")
+    mdt = getattr(torch, moments)
+    cfg = train_config(get_config, arch, layers)
+    shapes = [(tuple(p.shape), p.dtype)
+              for _, p in get_model(cfg, device="meta").named_leaves()]
+    n = sum(math.prod(s) for s, _ in shapes)
+    step = torch.full((), ADAMW_STEP, device="cuda")
+    kw = dict(lr_t=torch.full((), TRAIN_LR, device="cuda"),
+              b1t=1.0 - torch.pow(0.9, step), b2t=1.0 - torch.pow(0.95, step),
+              b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, max_norm=1.0)
+    what = (f"adamw {arch} {cfg.num_layers} layers: {len(shapes)} leaves, "
+            f"{n} parameters, moments {moments}")
+    got, times = {}, {}
+    for which, fn in (("kernel", K.adamw), ("plain", K.adamw_plain)):
+        st = _adamw_state(torch, shapes, mdt, seed)
+        before = K.adamw.launches
+        gn, scale = fn(*st, **kw)
+        launched = K.adamw.launches - before
+        torch.cuda.synchronize()
+        got[which] = ([gn.clone(), scale.clone()],
+                      [_bits_digest(torch, t) for t in st[0] + st[2] + st[3]])
+        if which == "kernel":
+            require(launched == 2, f"{what}: {launched} launches, not 2")
+            times[which] = time_ms(torch, lambda: fn(*st, **kw), reps)
+        else:
+            times[which] = time_ms(torch, lambda: fn(*st, **kw), 1)
+        del st, gn, scale
+        gc.collect()
+        torch.cuda.empty_cache()
+    (kn, kd), (pn, pd) = got["kernel"], got["plain"]
+    differ = [shapes[i % len(shapes)] for i, (a, b) in
+              enumerate(zip(kd, pd)) if a != b]
+    require(torch.equal(kn[0], pn[0]) and torch.equal(kn[1], pn[1])
+            and not differ,
+            f"{what}: the kernel's norm {float(kn[0])!r}, scale "
+            f"{float(kn[1])!r} against the plain versions' "
+            f"{float(pn[0])!r}, {float(pn[1])!r}; {len(differ)} of "
+            f"{len(kd)} parameters and moments differ (first "
+            f"{differ[:3]})")
+    library_ms = _fused_adamw_ms(torch, shapes, seed, reps)
+    bytes_ = sum(math.prod(s) * (3 * dt.itemsize + 4 * mdt.itemsize)
+                 for s, dt in shapes)
+    rec = dict(case=f"{what}, norm {float(kn[0])!r}, clip scale "
+               f"{float(kn[1])!r}: bit-equal to the plain versions (norm, "
+               f"scale, every parameter and moment)", max_abs_err=0.0,
+               tol="bit-equal", bits_equal_to_plain=True,
+               kernel_ms=times["kernel"], plain_ms=times["plain"],
+               library_ms=library_ms,
+               library="torch._fused_adamw_ (moments in the parameters' "
+               "dtype; no clipping, decay first)",
+               bound_ms=bytes_ / HBM_BYTES_S * 1e3, bound_by="bytes",
+               bytes=bytes_, launches_a_call=2)
+    return _rates(rec, ADAMW_FLOPS * n)
+
+
 def phase_kernels(torch, seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -1740,6 +1869,7 @@ def phase_kernels(torch, seed):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     hyb, enc, abx = _family_bwd_cases(torch, g)
+    adamw = [_adamw_case(torch, *case, seed) for case in ADAMW_CASES]
     # the entries of the kernel line: the main paths' shapes (the group-by
     # over 2^20 segments, the packed 8192^3 product through the packed
     # entry, the 2048-token llama3-8b prefill's attention, the scan kernel
@@ -1756,7 +1886,7 @@ def phase_kernels(torch, seed):
             "flash_attention_bwd[full, hd 64]": enc,
             "selective_scan_bwd[a, bx]": abx,
             "segment_reduce[wide]": moe["prefill"],
-            "segment_reduce[lanes]": lanes}
+            "segment_reduce[lanes]": lanes, "adamw": adamw[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -3547,7 +3677,7 @@ def _bits_digest(torch, t):
     2^64 (a word that differs changes the sum)."""
     w = t.detach().reshape(-1).view(torch.int16)
     total = torch.zeros((), dtype=torch.int64, device=t.device)
-    step = 1 << 26
+    step = 1 << 22        # 32 MB int64 temporaries a chunk: no peak of its own
     for lo in range(0, w.numel(), step):
         c = w[lo:lo + step].to(torch.int64) & 0xFFFF
         idx = torch.arange(lo, lo + c.numel(), dtype=torch.int64,
@@ -3620,15 +3750,22 @@ def _dp_grads(torch, cfg, mesh, seed, batch, seq):
 def _rank_dp_f32(mesh, seed):
     """[train-dp] on one of the ranks that share the card: one float32
     whisper-tiny step through the mesh on this rank's rows; the summed
-    gradients (rank 0's, as numpy) and their crc32s."""
+    gradients (rank 0's, as numpy) and their crc32s; and the refusal of a
+    graph of the step over this mesh (gloo through pinned host memory)."""
     import torch
     from repro_torch.core.faults import checksum
+    from repro_torch.train import CaptureError, graphed_step, make_train_step
     cfg, batch, seq = _dp_config(f32=True)
+    try:
+        graphed_step(make_train_step(cfg, mesh))
+        refused = None
+    except CaptureError as ex:
+        refused = str(ex)
     loss, gn, grads = _dp_grads(torch, cfg, mesh, seed, batch, seq)
     host = {k: g.cpu().numpy() for k, g in grads.items()}
     return {"loss": loss, "grad_norm": gn,
             "crc": [checksum(v) for v in host.values()],
-            "grads": host if mesh.rank == 0 else None}
+            "grads": host if mesh.rank == 0 else None, "refused": refused}
 
 
 def _rank_dp_runner(mesh, seed, ckpt_dir):
@@ -3676,12 +3813,16 @@ def _train_dp_world1(torch, mesh, seed):
     without a mesh, then from the same weights and batches DP_STEPS
     through the NCCL world of 1: every parameter and moment bit-equal
     after the first step (one rank: the sum is the identity, the division
-    by 1 exact), each run's launches as `train_launches` says; then one
-    mesh step profiled.  Returns the launches."""
+    by 1 exact), each run's launches as `train_launches` says; then
+    DP_STEPS through the world of 1 as one CUDA graph (`graphed_step`: a
+    NCCL mesh is captured) from the same weights again, its parameters
+    and moments after the last step bit-equal to the eager mesh step's,
+    its collective calls and bytes the same; then one mesh step
+    profiled.  Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
-    from repro_torch.train import make_train_step
+    from repro_torch.train import graphed_step, make_train_step
     layers, batch, seq = TRAIN_ARCHS[DP_ARCH]
     cfg = train_config(get_config, DP_ARCH, layers)
     data = _train_data(cfg, batch, seq, seed)
@@ -3690,17 +3831,18 @@ def _train_dp_world1(torch, mesh, seed):
     opt = _dp_opt(torch, cfg, model)
     per_step = train_launches(cfg, seq)
     launches, runs = {}, {}
-    for name, m in (("no mesh", None), ("world of 1", mesh)):
+    for name, m, graphed in (("no mesh", None, False),
+                             ("world of 1", mesh, False),
+                             ("world of 1, graph", mesh, True)):
         if m is not None:        # the seed's weights again, zero moments
-            with torch.no_grad():
-                model.init(seed)
-                opt.step.zero_()
-                for v in [*opt.mu.values(), *opt.nu.values()]:
-                    v.zero_()
+            _reset(torch, model, opt, seed)
         step = make_train_step(cfg, m, lr=TRAIN_LR, compress_grads=True)
+        if graphed:
+            step = graphed_step(step)
         calls, nbytes = dict(mesh.coll.calls), dict(mesh.coll.bytes)
         gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         ms, losses = [], []
@@ -3711,9 +3853,11 @@ def _train_dp_world1(torch, mesh, seed):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
             losses.append(float(met["loss"]))
-            if i == 0:
+            if i in (0, len(batches) - 1):
                 digests = [_bits_digest(torch, t)
                            for t in _dp_state(model, opt)]
+                if i == 0:
+                    first = digests
         counts = ops.launch_counts()
         want = {k: per_step.get(k, 0) * DP_STEPS for k in counts}
         require(counts == want, f"train-dp {DP_ARCH} {name}: launches "
@@ -3721,7 +3865,8 @@ def _train_dp_world1(torch, mesh, seed):
                 f"{json.dumps(want)}")
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
-        runs[name] = {"ms": ms, "losses": losses, "digests": digests,
+        runs[name] = {"ms": ms, "losses": losses, "digests": first,
+                      "last": digests,
                       "peak": torch.cuda.max_memory_allocated() / 1e9,
                       "calls": {k: (n - calls.get(k, 0)) / DP_STEPS
                                 for k, n in mesh.coll.calls.items()
@@ -3730,16 +3875,28 @@ def _train_dp_world1(torch, mesh, seed):
                                 for k, n in mesh.coll.bytes.items()
                                 if n != nbytes.get(k, 0)},
                       "step": step}
-    a, b = runs["no mesh"], runs["world of 1"]
+        if graphed:
+            del step
+            runs[name]["step"] = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    a, b, c = runs["no mesh"], runs["world of 1"], runs["world of 1, graph"]
     same = sum(x == y for x, y in zip(a["digests"], b["digests"]))
     require(same == len(a["digests"]) and a["losses"][0] == b["losses"][0],
             f"train-dp {DP_ARCH}: the world-of-1 step differs from the "
             f"mesh-free one in {len(a['digests']) - same} of "
             f"{len(a['digests'])} leaves (loss {b['losses'][0]!r} vs "
             f"{a['losses'][0]!r})")
-    require(not a["calls"] and b["calls"].get("all_reduce", 0) >= 2,
+    same_g = sum(x == y for x, y in zip(b["last"], c["last"]))
+    require(same_g == len(b["last"]) and b["losses"] == c["losses"],
+            f"train-dp {DP_ARCH}: after {DP_STEPS} steps the graphed mesh "
+            f"step differs from the eager one in {len(b['last']) - same_g} "
+            f"of {len(b['last'])} leaves (losses {c['losses']} vs "
+            f"{b['losses']})")
+    require(not a["calls"] and b["calls"].get("all_reduce", 0) >= 2
+            and c["calls"] == b["calls"] and c["bytes"] == b["bytes"],
             f"train-dp {DP_ARCH}: collectives {a['calls']} without a mesh, "
-            f"{b['calls']} through it")
+            f"{b['calls']} through it, {c['calls']} through its graph")
     require(all(math.isfinite(x) for x in a["losses"] + b["losses"]),
             f"train-dp {DP_ARCH}: non-finite loss")
     buckets = len(b["step"].exchange.buckets)
@@ -3761,10 +3918,16 @@ def _train_dp_world1(torch, mesh, seed):
         f"all_reduce calls {b['calls'].get('all_reduce', 0):g} "
         f"({buckets} buckets of at most 256 MiB and the loss), bytes "
         f"{json.dumps(b['bytes'])}; NCCL device time in the profiled step "
-        f"{nccl_ms:.3f} ms over {sum(c for _, c in nccl)} kernels; peak "
+        f"{nccl_ms:.3f} ms over {sum(n for _, n in nccl)} kernels; peak "
         f"{b['peak']:.2f} GB through the mesh, {a['peak']:.2f} GB without; "
+        f"the graphed mesh step (the first call the eager warm-up and the "
+        f"capture, then replays): step ms {[round(x, 1) for x in c['ms']]}, "
+        f"after {DP_STEPS} steps every parameter and moment bit-equal to "
+        f"the eager mesh step's ({same_g} of {len(b['last'])} leaves), the "
+        f"same losses, the same collective calls and bytes a step; peak "
+        f"{c['peak']:.2f} GB; "
         f"launches {json.dumps({k: n for k, n in launches.items() if n})}")
-    del runs, a, b, model, opt, batches
+    del runs, a, b, c, model, opt, batches
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3787,6 +3950,11 @@ def _train_dp_ranks(torch, g, seed):
     res = g.run(_rank_dp_f32, seed)
     require(all(r["crc"] == res[0]["crc"] for r in res),
             "train-dp: the ranks' summed gradients differ")
+    require(all(r["refused"] for r in res),
+            f"train-dp: a graph of the step over the gloo ranks did not "
+            f"raise on {[i for i, r in enumerate(res) if not r['refused']]}")
+    log(f"[train-dp] {DP_RANK_ARCH}: graphed_step over the {DIST_RANKS} "
+        f"gloo ranks raises on every rank: {res[0]['refused']}")
     cfg, batch, seq = _dp_config(f32=True)
     l_ref, gn_ref, g_ref = _dp_grads(torch, cfg, None, seed, batch, seq)
     l_got, gn_got = res[0]["loss"], res[0]["grad_norm"]
@@ -4299,6 +4467,8 @@ TRAIN_ARCHS = {"llama3-8b": (8, 4, 2048),
                "whisper-tiny": (None, 8, 448)}
 TRAIN_STEPS, TRAIN_LR = 6, 3e-4
 LEARN_STEPS = 10
+# the eager steps each graphed run is held against, bit for bit
+EAGER_STEPS = 3
 # the resume check, on the model whose snapshot is small: six steps against
 # a run failed at step 5 and resumed from its step-4 snapshot (the other
 # families' resume is held on the CPU, tests/test_torch_train.py)
@@ -4335,9 +4505,12 @@ def train_launches(cfg, seq) -> dict:
     route's 64), the backward's (bf16 at hd 64, 128 and 256) every
     backward launch of a bf16 model, and of those its split route (bf16
     at hd 64, not causal) Whisper's encoder self-attention and decoder
-    cross-attention."""
+    cross-attention.  The AdamW kernel launches twice a step (norm and
+    update) for each table of up to MAX_LEAVES leaves."""
+    from repro_torch.kernels.adamw import MAX_LEAVES
     from repro_torch.kernels.flash_attention import (WG_BWD_ROUTES,
                                                      _bwd_route, _route)
+    from repro_torch.models import get_model
     if cfg.remat != "full":
         raise ValueError(f"{cfg.name}: remat {cfg.remat!r}, not 'full'")
     mb = max(1, cfg.microbatch)
@@ -4364,7 +4537,10 @@ def train_launches(cfg, seq) -> dict:
                  "selective_scan_bwd": (kinds.count("ssm"), 1),
                  "selective_scan": (kinds.count("rec"), 2),
                  "selective_scan_bwd[a, bx]": (kinds.count("rec"), 1)}
-    return {k: n * times * mb for k, (n, times) in per_layer.items() if n}
+    out = {k: n * times * mb for k, (n, times) in per_layer.items() if n}
+    leaves = len(list(get_model(cfg, device="meta").named_leaves()))
+    out["adamw"] = 2 * -(-leaves // MAX_LEAVES)
+    return out
 
 
 def _train_data(cfg, batch, seq, seed, rank=0, world=1):
@@ -4381,36 +4557,81 @@ def _train_data(cfg, batch, seq, seed, rank=0, world=1):
                            with_pos_ids=cfg.family == "vlm")
 
 
-def _runner(torch, cfg, seed, ckpt_dir, ckpt_every, batch, seq):
+def _runner(torch, cfg, seed, ckpt_dir, ckpt_every, batch, seq,
+            model=None, opt=None):
+    """A TrainRunner of `cfg` from the seed's weights (or `model` and
+    `opt`) through the graphed step, as the launcher runs it."""
     from repro_torch.models import get_model
     from repro_torch.optim import adamw_init
     from repro_torch.runtime import TrainRunner
-    from repro_torch.train import make_train_step
-    model = get_model(cfg).init(seed)
-    opt = adamw_init(dict(model.named_leaves()),
-                     torch.bfloat16 if cfg.opt_dtype == "bf16"
-                     else torch.float32)
-    step = make_train_step(cfg, lr=TRAIN_LR, compress_grads=False)
+    from repro_torch.train import graphed_step, make_train_step
+    if model is None:
+        model = get_model(cfg).init(seed)
+        opt = adamw_init(dict(model.named_leaves()),
+                         torch.bfloat16 if cfg.opt_dtype == "bf16"
+                         else torch.float32)
+    step = graphed_step(make_train_step(cfg, lr=TRAIN_LR,
+                                        compress_grads=False))
     return TrainRunner(step, model, opt, _train_data(cfg, batch, seq, seed),
                        ckpt_dir=str(ckpt_dir), ckpt_every=ckpt_every)
 
 
+def _reset(torch, model, opt, seed):
+    """The seed's weights again, in place, zero moments and step."""
+    with torch.no_grad():
+        model.init(seed)
+        opt.step.zero_()
+        for v in [*opt.mu.values(), *opt.nu.values()]:
+            v.zero_()
+
+
+def _eager_digests(torch, cfg, model, opt, seed, batch, seq, steps):
+    """`steps` eager steps (no graph) from the seed's weights on the
+    runner's batches: the step ms (the step alone, its batch made before)
+    and the 64-bit fingerprint of every parameter and moment after them;
+    the state is reset after."""
+    from repro_torch.train import make_train_step
+    step = make_train_step(cfg, lr=TRAIN_LR, compress_grads=False)
+    data = _train_data(cfg, batch, seq, seed)
+    ms = []
+    for _ in range(steps):
+        batch = data.next_batch()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt, _ = step(model, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    digests = [_bits_digest(torch, t) for t in _dp_state(model, opt)]
+    _reset(torch, model, opt, seed)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms, digests
+
+
 def _train_model(torch, np, arch, seed, tmp):
-    """Train one model through TrainRunner: TRAIN_STEPS steps with the
-    launch counts read around them (each kernel's as `train_launches`
-    says, every other counted kernel none), one profiled step, then
-    LEARN_STEPS steps on one fixed batch.  Returns the launch counts of
-    the run."""
+    """Train one model: EAGER_STEPS eager steps from the seed (no graph:
+    their ms, peak and fingerprints), then from the seed's weights again
+    TRAIN_STEPS steps through TrainRunner and the graphed step (the first
+    the eager warm-up and the capture, the others replays) with the launch
+    counts read around them (each kernel's as `train_launches` says, every
+    other counted kernel none), the state after step EAGER_STEPS bit-equal
+    to the eager run's, one profiled step, then LEARN_STEPS steps on one
+    fixed batch.  Returns the launch counts of the run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
     layers, batch, seq = TRAIN_ARCHS[arch]
     full = get_config(arch)
     cfg = train_config(get_config, arch, layers)
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = _runner(torch, cfg, seed, tmp / arch, 10 ** 6, batch, seq)
+    model = get_model(cfg).init(seed)
+    opt = adamw_init(dict(model.named_leaves()),
+                     torch.bfloat16 if cfg.opt_dtype == "bf16"
+                     else torch.float32)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in r.params.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
     depth = "the whole model" if layers is None else \
         f"{cfg.num_layers} of {full.num_layers} layers"
     frames = f", {cfg.enc_seq} stub frames a row" \
@@ -4421,7 +4642,17 @@ def _train_model(torch, np, arch, seed, tmp):
         f"{cfg.remat}, ce_chunk {cfg.ce_chunk}, microbatch "
         f"{cfg.microbatch}, batch {batch} x {seq}{frames}; init from seed "
         f"{seed} in {time.perf_counter() - t0:.1f} s")
-    # the main path: TRAIN_STEPS steps through the runner, launches counted
+    held = torch.cuda.memory_allocated() / 1e9   # the model, its moments
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms, want = _eager_digests(torch, cfg, model, opt, seed, batch, seq,
+                                    EAGER_STEPS)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    r = _runner(torch, cfg, seed, tmp / arch, 10 ** 6, batch, seq, model,
+                opt)
+    del model, opt
+    # the main path: TRAIN_STEPS graphed steps through the runner,
+    # launches counted
     ops.reset_launch_counts()
     ms, losses, gnorms = [], [], []
     for i in range(TRAIN_STEPS):
@@ -4432,17 +4663,34 @@ def _train_model(torch, np, arch, seed, tmp):
         ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
+        if i + 1 == EAGER_STEPS:
+            got = [_bits_digest(torch, t) for t in _dp_state(r.params,
+                                                             r.opt_state)]
     counts = ops.launch_counts()
     require(all(math.isfinite(x) for x in losses + gnorms),
             f"{arch}: non-finite loss or grad_norm {losses} {gnorms}")
+    same = sum(a == b for a, b in zip(got, want))
+    require(same == len(want), f"{arch}: after {EAGER_STEPS} steps the "
+            f"graphed step's parameters and moments differ from the eager "
+            f"step's in {len(want) - same} of {len(want)} leaves")
+    entry = r.step_fn.entry
     step_ms = _median(ms[1:])
     log(f"[train] {arch}: loss by step {[round(x, 4) for x in losses]}, "
         f"grad_norm {[round(x, 4) for x in gnorms]}")
-    log(f"[train] {arch}: step {step_ms:.1f} ms (median of steps 2-"
-        f"{TRAIN_STEPS}; first {ms[0]:.1f}, min {min(ms[1:]):.1f}, max "
-        f"{max(ms[1:]):.1f}), {batch * seq / step_ms * 1e3:.0f} "
-        f"tokens/s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[train] {arch}: graphed step {step_ms:.1f} ms (median of steps "
+        f"2-{TRAIN_STEPS}, replays; first {ms[0]:.1f}: the eager warm-up "
+        f"{entry.warm_s:.2f} s and the capture {entry.capture_s:.2f} s; "
+        f"min {min(ms[1:]):.1f}, max {max(ms[1:]):.1f}), "
+        f"{batch * seq / step_ms * 1e3:.0f} tokens/s (the runner's step: "
+        f"its batch made on the host in it); eager step alone "
+        f"{_median(eager_ms[1:]):.1f} ms (steps 2-{EAGER_STEPS} "
+        f"{[round(x, 1) for x in eager_ms[1:]]}; first {eager_ms[0]:.1f}); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB graphed, {eager_peak:.2f} GB eager ({held:.2f} GB held before "
+        f"the first step: the model, its moments and anything an earlier "
+        f"phase left); after {EAGER_STEPS} steps "
+        f"every parameter and moment bit-equal to the eager step's "
+        f"({same} of {len(want)} leaves, 64-bit fingerprints on the card)")
     per_step = train_launches(cfg, seq)
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in counts}
     log(f"[train] {arch}: kernel launches {json.dumps(counts)}; a step "
@@ -4465,15 +4713,21 @@ def _train_model(torch, np, arch, seed, tmp):
             f"({hand_ms / dev_ms:.3f})")
     # learning: LEARN_STEPS steps on one fixed batch
     fixed = r.data.next_batch()
-    learn = []
+    learn, learn_ms = [], []
     for _ in range(LEARN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         r.params, r.opt_state, m = r.step_fn(r.params, r.opt_state, fixed)
         learn.append(float(m["loss"]))
+        learn_ms.append((time.perf_counter() - t) * 1e3)
     require(learn[-1] < learn[0], f"{arch}: the loss on one fixed batch did "
                                   f"not fall: {learn}")
     log(f"[train] {arch}: {LEARN_STEPS} steps on one fixed batch: loss "
         f"{learn[0]:.4f} -> {learn[-1]:.4f} (every step "
-        f"{[round(x, 3) for x in learn]})")
+        f"{[round(x, 3) for x in learn]}); the graphed step alone (its "
+        f"batch made before it, staged and replayed) {_median(learn_ms):.1f}"
+        f" ms a step (median; min {min(learn_ms):.1f}, max "
+        f"{max(learn_ms):.1f})")
     del r, m, fixed
     gc.collect()
     torch.cuda.empty_cache()
@@ -4810,7 +5064,11 @@ def main(argv=None) -> int:
                    "src/repro/kernels/flash_attention.py:70"),
                "selective_scan_bwd[a, bx]": (
                    "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
-                   "src/repro/kernels/selective_scan.py:60")}
+                   "src/repro/kernels/selective_scan.py:60"),
+               # no TPU kernel: the reference's AdamW update, which XLA
+               # fuses into the step it jits (src/repro/launch/train.py:61)
+               "adamw": ("src/repro_torch/kernels/csrc/adamw.cu",
+                         "src/repro/optim/adamw.py:44")}
     kernels = []
     for name, rec in per_kernel.items():
         src, repl = sources[name]

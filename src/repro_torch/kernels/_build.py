@@ -26,12 +26,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("segment_reduce", "tile_matmul", "flash_attention",
-           "selective_scan", "flash_attention_bwd", "selective_scan_bwd")
+           "selective_scan", "flash_attention_bwd", "selective_scan_bwd",
+           "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)     # a host array of device pointers
+_LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of lengths
+_IP = ctypes.POINTER(ctypes.c_int)        # a host array of ints
 # C entry points and their ctypes signatures; every one returns the
 # cudaError_t of cudaGetLastError() after its launches
 SIGNATURES = {
@@ -100,6 +103,14 @@ SIGNATURES = {
                                       *[ctypes.c_int] * 4, _P],
         "selective_scan_n1_bwd_launch": [*[_P] * 9, *[ctypes.c_int] * 4,
                                          _P],
+    },
+    "adamw": {
+        "adamw_norm_launch": [_PP, _LLP, _IP, ctypes.c_int, _P, _P, _P,
+                              ctypes.c_float, ctypes.c_float, _P],
+        "adamw_update_launch": [_PP, _PP, _PP, _PP, _LLP, _IP, ctypes.c_int,
+                                *[_P] * 4, *[ctypes.c_float] * 6, _P],
+        "adamw_chunk_elems": [],
+        "adamw_max_leaves": [],
     },
 }
 

@@ -18,7 +18,8 @@ flash forward's wgmma route, hd 64 and 256 in bf16, also in
 hd 64, 128 and 256 in bf16, in `flash_attention.bwd_wg_launches`,
 "flash_attention_bwd[wg]", and of those its split route at hd 64 not
 causal in `flash_attention.bwd_split_launches`, "flash_attention_bwd[full,
-hd 64]"), so a run can show that it went through the kernels.
+hd 64]"; the multi-tensor AdamW's two kernels, norm and update, in
+`adamw.launches`), so a run can show that it went through the kernels.
 
 The counts are of launches that ran on the device.  A CUDA graph capture
 calls the wrappers, but launches nothing: `captured()` takes the counts the
@@ -30,6 +31,7 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 from ._build import build_all
+from .adamw import adamw
 from .flash_attention import (bwd_split_launches, bwd_wg_launches,
                               flash_attention, flash_attention_bwd,
                               wg_launches)
@@ -44,7 +46,8 @@ KERNELS = {"segment_reduce": segment_reduce, "tile_matmul": tile_matmul,
            "flash_attention": flash_attention,
            "selective_scan": selective_scan,
            "flash_attention_bwd": flash_attention_bwd,
-           "selective_scan_bwd": selective_scan_fused_bwd}
+           "selective_scan_bwd": selective_scan_fused_bwd,
+           "adamw": adamw}
 
 
 # every counter: the kernels, the scan's second entry, the (a, bx) entry's
@@ -94,7 +97,7 @@ def credit(counts: dict) -> None:
         COUNTED[name].launches += n
 
 
-__all__ = ["build_all", "segment_reduce", "segment_reduce_lanes",
+__all__ = ["adamw", "build_all", "segment_reduce", "segment_reduce_lanes",
            "segment_sum", "tile_matmul",
            "tile_matmul_packed", "flash_attention", "flash_attention_bwd",
            "selective_scan", "selective_scan_bwd", "selective_scan_fused",

@@ -6,7 +6,10 @@ its flags, plus --device.
       --smoke --device cpu --steps 20 --ckpt /tmp/ckpt
 
 trains on the card by default (--device cuda); --smoke takes the tiny
-same-family config.  Weights are random from --seed, the data
+same-family config.  The step is `graphed_step(make_train_step(...))`, as
+the reference jits it: on the card one CUDA graph of the whole step,
+replayed from the second step on; on the CPU the same step eagerly over
+the same static buffers.  Weights are random from --seed, the data
 `SyntheticLMData` from the same seed.  Without --ckpt the checkpoints go
 to a temporary directory that is removed at the end.
 """
@@ -42,7 +45,7 @@ def main(argv=None):
     from ..models import get_model
     from ..optim.adamw import adamw_init
     from ..runtime import TrainRunner
-    from ..train import make_train_step
+    from ..train import graphed_step, make_train_step
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.d_model:
@@ -64,8 +67,8 @@ def main(argv=None):
                            else 0,
                            d_model=cfg.d_model,
                            with_pos_ids=cfg.family == "vlm")
-    step_fn = make_train_step(cfg, None, ("data",), lr=args.lr,
-                              compress_grads=False)
+    step_fn = graphed_step(make_train_step(cfg, None, ("data",), lr=args.lr,
+                                           compress_grads=False))
     opt = adamw_init(dict(model.named_leaves()))
 
     with tempfile.TemporaryDirectory() as tmp:

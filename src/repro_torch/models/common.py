@@ -204,9 +204,8 @@ def apply_mrope(x, pos3, theta: float, sections: tuple[int, ...]):
     as its angle, with no frequency factor (the reference computes the
     frequencies and leaves them out; ROADMAP.md, 'Reference limits').
     `theta` is unused for that reason."""
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))            # [hd/2]
+    sec_id = torch.cat([torch.full((n,), i, device=x.device)   # [hd/2]
+                        for i, n in enumerate(sections)])
     pos = pos3.float()[..., sec_id] if pos3.shape[-1] == 3 else pos3.float()
     angles = pos[..., None, :]                               # [B, S, 1, hd/2]
     cos, sin = torch.cos(angles), torch.sin(angles)

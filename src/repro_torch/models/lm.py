@@ -14,8 +14,10 @@ every rank of a data-parallel step) — embedding, the layers (each
 under the config's `remat`: "full" is `torch.utils.checkpoint`, "dots"
 a selective checkpoint that saves the matrix products' outputs, as the
 reference's `dots_with_no_batch_dims_saveable`, "none" none), and
-`chunked_ce`.  The embedding gathers with `F.embedding`, whose backward
-sums a token's rows in a fixed order (no atomics).  Parameters are made
+`chunked_ce`.  No layer draws random numbers, so the checkpoints keep no
+RNG state (`preserve_rng_state=False`: a CUDA graph of the step captures
+no generator reads).  The embedding gathers with `F.embedding`, whose
+backward sums a token's rows in a fixed order (no atomics).  Parameters are made
 without gradients (serving); `train_mode()` turns them on.  Serving runs
 under `torch.no_grad` and builds no autograd graph.
 """
@@ -81,7 +83,8 @@ def chunked_ce(cfg, head_fn, x, labels):
     for c0 in range(0, s, chunk):
         total = total + checkpoint(_ce_sum, head_fn, x[:, c0:c0 + chunk],
                                    labels[:, c0:c0 + chunk],
-                                   use_reentrant=False)
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
     return total / (b * s)
 
 
@@ -99,13 +102,15 @@ def _remat(cfg, fn, *args):
         return fn(*args)
     if cfg.remat == "dots":
         return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
                           context_fn=functools.partial(
                               create_selective_checkpoint_contexts,
                               _save_products))
     if cfg.remat != "full":
         raise ValueError(f"remat {cfg.remat!r} is not one of full, dots, "
                          "none")
-    return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _device(device) -> torch.device:

@@ -154,7 +154,11 @@ def _dispatch(flat_e, n_experts: int, groups: int, cf: float, coll=None):
     cap_e = _cap_e(per * (1 if coll is None else coll.n), n_experts, cf)
     rank = _ranks(flat_e, n_experts, groups)
     if coll is not None:
-        counts = torch.bincount(flat_e, minlength=n_experts).to(torch.int32)
+        # E counts on the device (bincount reads its input's max on the
+        # host)
+        counts = torch.zeros(n_experts, dtype=torch.int32,
+                             device=flat_e.device).index_add_(
+            0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
         every = coll.all_gather(counts[None])
         rank = rank + every[:coll.rank].sum(0).to(rank.device)[flat_e]
     keep = rank < cap_e

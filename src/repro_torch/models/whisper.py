@@ -47,10 +47,13 @@ from .lm import _device, chunked_ce
 
 def _sinusoid(seq: int, d: int, offset=0, device=None):
     """[seq, d] (or [B, seq, d] for a [B] offset) sin | cos positions
-    offset + 0..seq-1, float32."""
-    off = torch.as_tensor(offset, device=device).float()
-    pos = off[..., None] + torch.arange(seq, dtype=torch.float32,
-                                        device=device)
+    offset + 0..seq-1, float32.  An int offset is added on the device as
+    a scalar (no copy from the host: a CUDA graph captures the step)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)
+    if isinstance(offset, int):
+        pos = float(offset) + pos
+    else:
+        pos = torch.as_tensor(offset, device=device).float()[..., None] + pos
     inv = torch.exp(-math.log(10000.0) * torch.arange(
         0, d, 2, dtype=torch.float32, device=device) / d)
     ang = pos[..., None] * inv
@@ -161,7 +164,7 @@ class Whisper(ParamTree):
         x = self._dec_embed(batch["tokens"])
         for p in self.dec:
             x = checkpoint(_dec_layer, self.cfg, p, x, enc,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         loss = chunked_ce(self.cfg, self._head, x, labels)
         return loss, {"loss": loss}
@@ -173,7 +176,8 @@ class Whisper(ParamTree):
         x = x + _sinusoid(x.shape[1], cfg.d_model,
                           device=self.device).to(x.dtype)[None]
         for p in self.enc:
-            x = checkpoint(_enc_layer, cfg, p, x, use_reentrant=False) \
+            x = checkpoint(_enc_layer, cfg, p, x, use_reentrant=False,
+                           preserve_rng_state=False) \
                 if remat else _enc_layer(cfg, p, x)
         return rms_norm(x, self.enc_norm)
 

@@ -8,9 +8,15 @@ dtype.  Moments are float32 (bf16 under the config's `opt_dtype="bf16"`).
 
 The port updates in place.  `params` is a flat dict {path: tensor} (an
 LM's `dict(model.named_leaves())`) or a module, whose parameters are taken
-by name; grads and the moments are dicts with the same keys, in the same
-order.  Every leaf is updated with float32 temporaries of its own size
-only, one leaf at a time.
+by name; grads and the moments are dicts with the same keys.  The update
+is `kernels.adamw`: on the card two multi-tensor launches over every leaf
+(the global norm and clip scale to device scalars, then each element's
+p, g, m, v read once and p, m, v written once, the formula's float32
+operations in its order, each rounded alone); on the CPU its plain
+versions, the norm summed in the kernel's order and the update leaf by
+leaf.  The step counter is incremented in place on its device, and the
+learning rate and the bias corrections are formed there, so that a CUDA
+graph of the train step (`train/graph.py`) replays them.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..kernels.adamw import adamw, clip_scale
 
 
 class AdamWState(NamedTuple):
@@ -72,16 +80,12 @@ def global_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _clip_scale(gn, max_norm: float):
-    return torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-
-
 @torch.no_grad()
 def clip_by_global_norm(grads: dict, max_norm: float):
     """({path: g·scale float32}, the global norm), scale = min(1, max_norm /
     (norm + 1e-9))."""
     gn = global_norm(grads)
-    scale = _clip_scale(gn, max_norm)
+    scale = clip_scale(gn, max_norm)
     return {k: g.float() * scale for k, g in grads.items()}, gn
 
 
@@ -98,32 +102,19 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 @torch.no_grad()
 def adamw_update(params, grads: dict, state: AdamWState, *, lr, b1=0.9,
                  b2=0.95, eps=1e-8, weight_decay=0.1, max_norm=1.0):
-    """Update `params` and the moments in place; returns (params, new state,
-    metrics {"grad_norm", "lr"}).  grads may be bf16; the math is float32.
-    The global norm is taken before any leaf changes; each leaf is then
-    clipped, updated and written back on its own."""
+    """Update `params` and the moments in place; returns (params, the state
+    with its step counter incremented in place, metrics {"grad_norm",
+    "lr"}).  grads may be bf16; the math is float32.  The global norm is
+    taken before any leaf changes."""
     params = _leaves(params)
-    gn = global_norm(grads)
-    scale = _clip_scale(gn, max_norm)     # clip_by_global_norm, leaf by leaf
-    step = state.step + 1
-    lr_t = lr(step) if callable(lr) else torch.tensor(
-        lr, dtype=torch.float32, device=step.device)
+    step = state.step.add_(1)
+    lr_t = lr(step) if callable(lr) else torch.full(
+        (), lr, dtype=torch.float32, device=step.device)
     stepf = step.float()
-    b1t = 1.0 - torch.tensor(b1, dtype=torch.float32,
-                             device=step.device) ** stepf
-    b2t = 1.0 - torch.tensor(b2, dtype=torch.float32,
-                             device=step.device) ** stepf
-    for k, p in params.items():
-        g = grads[k].float() * scale
-        m, v = state.mu[k], state.nu[k]
-        m32 = b1 * m.float() + (1 - b1) * g
-        v32 = b2 * v.float() + (1 - b2) * g * g
-        mh = m32 / b1t
-        vh = v32 / b2t
-        p32 = p.float()
-        delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p32
-        p.copy_((p32 - lr_t * delta).to(p.dtype))
-        m.copy_(m32.to(m.dtype))
-        v.copy_(v32.to(v.dtype))
-    return params, AdamWState(step, state.mu, state.nu), \
-        {"grad_norm": gn, "lr": lr_t}
+    b1t = 1.0 - torch.pow(b1, stepf)
+    b2t = 1.0 - torch.pow(b2, stepf)
+    gn, _ = adamw(list(params.values()), [grads[k] for k in params],
+                  [state.mu[k] for k in params], [state.nu[k] for k in params],
+                  lr_t=lr_t, b1t=b1t, b2t=b2t, b1=b1, b2=b2, eps=eps,
+                  weight_decay=weight_decay, max_norm=max_norm)
+    return params, state, {"grad_norm": gn, "lr": lr_t}

@@ -16,8 +16,10 @@ functional step returns new trees instead.  Semantics are the reference's:
 
 The model is any of the ten architectures' (`models.get_model`): an `LM`
 of dense, moe, ssm, rec and lattn layers, or `Whisper`, whose batch also
-carries the encoder's frames.  The step runs eagerly (the reference jits
-it; a CUDA-graph step is a ROADMAP.md item).
+carries the encoder's frames.  The step runs eagerly; `train/graph.py`'s
+`graphed_step` wraps it as the reference's `jax.jit` does (one CUDA graph
+of the whole step for each batch signature on the card).  AdamW is the
+multi-tensor kernel (`kernels/adamw.py`) on the card.
 
 Data parallelism (`mesh`, launch/mesh.py): every rank of the mesh's group
 runs the step on its part of the global batch (`SyntheticLMData(...,

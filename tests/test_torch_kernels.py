@@ -359,6 +359,11 @@ def test_cpu_wrappers_count_no_launches():
     selective_scan_fused_bwd(dt, -torch.ones(4, 2), torch.ones(1, 3, 2),
                              torch.ones(1, 3, 2), dt, None, dt)
     selective_scan_bwd(dt, dt, None, dt)
+    ops.adamw([torch.ones(3)], [torch.ones(3)], [torch.zeros(3)],
+              [torch.zeros(3)],
+              lr_t=torch.tensor(1e-3), b1t=torch.tensor(0.1),
+              b2t=torch.tensor(0.05), b1=0.9, b2=0.95, eps=1e-8,
+              weight_decay=0.1, max_norm=1.0)
     assert ops.launch_counts() == {"segment_reduce": 0, "tile_matmul": 0,
                                    "flash_attention": 0, "selective_scan": 0,
                                    "selective_scan_fused": 0,
@@ -369,7 +374,8 @@ def test_cpu_wrappers_count_no_launches():
                                    "segment_reduce[lanes]": 0,
                                    "flash_attention[wg]": 0,
                                    "flash_attention_bwd[wg]": 0,
-                                   "flash_attention_bwd[full, hd 64]": 0}
+                                   "flash_attention_bwd[full, hd 64]": 0,
+                                   "adamw": 0}
 
 
 def test_every_source_has_its_ctypes_signatures():

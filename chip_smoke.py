@@ -190,34 +190,51 @@ first mismatch:
              recurrentgemma-2b at full width (bf16, random weights from
              --seed, one model on the card at a time; depth cut, in whole
              layout periods, only where the weights do not fit one 80 GB
-             card) through `repro_torch.serve.ServeEngine`: 4 slots,
+             card) through `repro_torch.serve.ServeEngine` and its
+             compiled steps (`serve/graph.py`: one CUDA graph for the
+             decode, one a prompt length seen twice for the prefill, a
+             length's first prefill by the plain step): 4 slots,
              max_seq 2112, six requests of 2048, 1531, 1024, 777, 512 and
              300 prompt tokens (recurrentgemma-2b: also one of 8192, four
-             of its windows, at max_seq 8256), 32 new tokens each, with
-             the launch counts read around the run (flash_attention for
-             every attention model, segment_reduce for the MoE combine,
-             selective_scan for the RG-LRU); whisper-tiny through
-             `make_prefill_step` / `make_decode_step` (4 requests of 1500
-             stub frames and 300 tokens from the seed, 32 new tokens:
-             prefill ms with the encoder, decode ms a tick); then
-             prefill ms per prompt length, decode ms per tick at 4 active
-             slots, peak device memory, the seconds each config took, and
-             for llama3-8b, falcon-mamba-7b, qwen3-moe-30b-a3b and
-             recurrentgemma-2b one torch.profiler trace of the longest
-             prefill and of a tick of the engine's own decode step (a
-             prefill over a second is timed once, the others three times);
-             then a float32 copy (full width; weights drawn on the card
-             from --seed and copied to the CPU) of llama3-8b,
-             falcon-mamba-7b, qwen3-moe-30b-a3b (its 300-token prompt
-             drops rows by capacity; the smallest gap between the k-th and
-             (k+1)-th router logit is printed) and qwen2-vl-72b (through
-             `make_prefill_step` with three M-RoPE position streams from
-             the seed) at 2 layers, of recurrentgemma-2b at one (rec, rec,
-             lattn) period with a 2300-token prompt (past the window, the
-             ring wrapped), and of the whole whisper-tiny, run on the card
-             against the same weights on the CPU (the kernels' plain
-             versions); the served tokens' crc32 (tools/serve_tokens.py
-             prints the same digest from another tree's sources);
+             of its windows, at max_seq 8256), 32 new tokens each, then
+             each length's prefill seen again (its graph built) and
+             replayed, bit-equal to its build's eager warm-up, with the
+             launch counts read around the engine run and the replays
+             (flash_attention for every attention model, segment_reduce
+             for the MoE combine, selective_scan for the RG-LRU; each
+             also in the launches the replays credit): the decode ms a
+             tick at 4 active slots and the decode call's host ms, each
+             request's time to first token in the engine run, each
+             length's prefill replay ms and time to first token replayed
+             and at second sight (the entry's eager warm-up and capture),
+             the capture seconds, peak device memory with the graphs'
+             pools, and a torch.profiler trace of a replayed tick (device
+             busy, idle share); for llama3-8b, falcon-mamba-7b,
+             qwen3-moe-30b-a3b and recurrentgemma-2b also the same
+             requests through an eager engine (`graphed=False`: each
+             request's time to first token, the tick), whose tokens'
+             crc32 must be the graphed engine's, and a trace of the
+             longest prefill replayed; for the others the plain decode
+             step, eagerly; whisper-tiny through the graphed `make_prefill_step`
+             / `make_decode_step` (4 requests of 1500 stub frames and 300
+             tokens from the seed, 32 new tokens: prefill ms with the
+             encoder, decode ms a tick, time to first token at first,
+             second and later sights), then through the plain steps
+             eagerly, the same tokens; then a float32 copy (full width;
+             weights drawn on the card from --seed and copied to the CPU)
+             of llama3-8b, falcon-mamba-7b, qwen3-moe-30b-a3b (its
+             300-token prompt drops rows by capacity; the smallest gap
+             between the k-th and (k+1)-th router logit is printed) and
+             qwen2-vl-72b (through `make_prefill_step` with three M-RoPE
+             position streams from the seed) at 2 layers, of
+             recurrentgemma-2b at one (rec, rec, lattn) period with a
+             2300-token prompt (past the window, the ring wrapped), and
+             of the whole whisper-tiny, run through the graphed steps on
+             the card (the prefill's third call, a replay, then the
+             decode's) against
+             the same weights on the CPU (the kernels' plain versions);
+             the served tokens' crc32 (tools/serve_tokens.py prints the
+             same digest from another tree's sources);
 8. train   — train llama3-8b (8 of 32 layers), falcon-mamba-7b (16 of
              64), qwen3-moe-30b-a3b (4 of 48), recurrentgemma-2b (all 26,
              batches of 2 x 4096 tokens, so that its 2048-token window
@@ -337,7 +354,8 @@ SERVE_ARCHS = {"llama3-8b": ("flash_attention",),
 # qwen2-72b 145 GB -> 61.2 GB, arctic-480b 951 GB -> 55.4 GB (one layer's
 # 128 experts are 26.8 GB); no cut is made in width
 SERVE_DEPTH = {"qwen2-72b": 32, "arctic-480b": 2}
-# the configs whose prefill and decode tick phase 4 traces
+# the configs whose longest prefill phase 4 traces, and whose requests it
+# also serves through an eager engine (the same tokens as the graphed one)
 SERVE_TRACED = ("llama3-8b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
                 "recurrentgemma-2b")
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW = 4, 2112, 32
@@ -4077,13 +4095,71 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
+def _ms_range(xs):
+    return f"median of {len(xs)}; min {min(xs):.3f}, max {max(xs):.3f}"
+
+
+def _engine_run(torch, eng, prompts):
+    """The prompts through the engine, SERVE_MAX_NEW tokens each: (the
+    requests, every tick's ms, the ticks' ms that decoded every slot with
+    no admission, seconds)."""
+    reqs = [eng.submit(p, SERVE_MAX_NEW) for p in prompts]
+    ticks, full_ticks = [], []
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    while any(eng.active) or eng.queue:
+        full = all(r is not None for r in eng.active)   # no slot to admit
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        ticks.append(ms)
+        if full:               # a pure decode tick over every slot
+            full_ticks.append(ms)
+    return reqs, ticks, full_ticks, time.perf_counter() - t_run
+
+
+def _ttft_probe(torch, eng, into):
+    """Time the engine's prefills: each call with its first token read on
+    the host, in ms, into `into` by prompt length.  Returns the engine's
+    own prefill step."""
+    step = eng._prefill
+
+    def prefill(model, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = step(model, batch)
+        int(torch.argmax(logits[0]))
+        into.setdefault(batch["tokens"].shape[1], []).append(
+            (time.perf_counter() - t) * 1e3)
+        return logits, cache
+    eng._prefill = prefill
+    return step
+
+
+def _wall_ms(torch, fn, reps=3, long_ms=1000):
+    """`fn`'s wall ms a call, synchronized around each of `reps` calls (a
+    call over `long_ms` is timed once)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if times[0] > long_ms:
+            break
+    return times
+
+
 def _serve_model(torch, np, arch, kernels, seed):
-    """Serve one model through the engine; returns the launch counts of the
-    engine run."""
+    """Serve one model through the engine (its graphed steps, the default);
+    returns the launch counts of the engine run and of the prefill
+    replays that follow it."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
-    from repro_torch.serve import ServeEngine, make_prefill_step
+    from repro_torch.serve import ServeEngine, make_decode_step
     cfg = serve_config(get_config, arch)
     full = get_config(arch).num_layers
     depth = "full depth" if cfg.num_layers == full else \
@@ -4101,36 +4177,76 @@ def _serve_model(torch, np, arch, kernels, seed):
         f"full width, {depth}")
     prompts = serve_prompts(np, cfg, seed)
     max_seq = serve_max_seq(arch)
-    # warm-up: one short request (allocator, cuBLAS handles, kernel build)
-    warm = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=max_seq)
-    warm.submit(prompts[-1][:64], 2)
-    warm.run()
-    del warm
 
-    # the main path: six requests through the engine, launches counted
+    # the main path: six requests through the graphed engine (each prompt
+    # length's first sight: its prefill by the plain step; the decode
+    # captured at the first tick, replayed after), each request's time to
+    # first token and each decode call's host time read as the engine runs
     eng = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=max_seq)
-    reqs = [eng.submit(p, SERVE_MAX_NEW) for p in prompts]
-    ticks, full_ticks = [], []
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t_run = time.perf_counter()
-    while any(eng.active) or eng.queue:
-        full = all(r is not None for r in eng.active)   # no slot to admit
+    run_ttft, dec_host = {}, []
+    graphed_prefill = _ttft_probe(torch, eng, run_ttft)
+    graphed_decode = eng._decode
+
+    def host_timed_decode(*args):
         t = time.perf_counter()
-        eng.step()
+        out = graphed_decode(*args)
+        dec_host.append((time.perf_counter() - t) * 1e3)
+        return out
+    eng._decode = host_timed_decode
+    ops.reset_launch_counts()
+    reqs, ticks, full_ticks, run_s = _engine_run(torch, eng, prompts)
+    run_counts = ops.launch_counts()
+    eng._prefill, eng._decode = graphed_prefill, graphed_decode
+    require(graphed_prefill.plain_calls == len(prompts)
+            and not graphed_prefill.entries,
+            f"{arch}: the engine run's {len(prompts)} prompt lengths, each "
+            f"seen once, built {graphed_prefill.entries_built} prefill "
+            "entries")
+    # then each length's second sight (its prefill eagerly on a side
+    # stream, then captured: held against the replays that follow, bit for
+    # bit) and its replays through the engine's own step, launches counted
+    ttft2, first = {}, {}
+    for p in prompts:
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        ticks.append(ms)
-        if full:               # a pure decode tick over every slot
-            full_ticks.append(ms)
-    run_s = time.perf_counter() - t_run
+        t = time.perf_counter()
+        logits, _ = graphed_prefill(model, {"tokens": p[None]})
+        int(torch.argmax(logits[0]))
+        ttft2[len(p)] = (time.perf_counter() - t) * 1e3
+        first[len(p)] = logits.clone()
+    built = ops.launch_counts()
+    pre_ms, ttft_ms = {}, {}
+    for p in prompts:
+        # a replay's ms, and with the first token read on the host its time
+        # to first token (a prefill of a second or more is timed once)
+        pre, ttft = pre_ms.setdefault(len(p), []), \
+            ttft_ms.setdefault(len(p), [])
+        while len(pre) < 3 and (not pre or pre[0] < 1000):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = graphed_prefill(model, {"tokens": p[None]})
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t) * 1e3)
+            int(torch.argmax(logits[0]))
+            ttft.append((time.perf_counter() - t) * 1e3)
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (1, cfg.vocab_size),
+                f"{arch}: prefill of {len(p)} tokens gave non-finite logits "
+                f"or shape {tuple(logits.shape)}")
+        require(torch.equal(logits, first[len(p)]),
+                f"{arch}: the replayed prefill of {len(p)} tokens gave other "
+                "logits than its eager warm-up")
     counts = ops.launch_counts()
-    log(f"[serve] {arch}: engine run of {len(reqs)} requests in {run_s:.3f} s"
-        f" ({len(ticks)} ticks, {SERVE_SLOTS} slots); kernel launches "
-        f"{json.dumps(counts)}")
+    replayed = {k: n - built[k] for k, n in counts.items() if n != built[k]}
+    log(f"[serve] {arch}: graphed engine run of {len(reqs)} requests in "
+        f"{run_s:.3f} s ({len(ticks)} ticks, {SERVE_SLOTS} slots); kernel "
+        f"launches {json.dumps(run_counts)}; then each prompt length's "
+        f"prefill built and replayed {sum(len(v) for v in pre_ms.values())} "
+        f"times, launches credited {json.dumps(replayed)}")
     for kernel in kernels:
-        require(counts[kernel] > 0, f"{arch}: {kernel} was not launched on "
-                                    "the serve path")
+        require(run_counts[kernel] > 0, f"{arch}: {kernel} was not launched "
+                                        "on the serve path")
+        require(replayed.get(kernel, 0) > 0,
+                f"{arch}: {kernel} was not credited to a prefill replay")
     if "selective_scan_fused" in kernels:
         # one scan a layer and prefill, each through the fused entry
         require(counts["selective_scan"] == 0,
@@ -4144,159 +4260,247 @@ def _serve_model(torch, np, arch, kernels, seed):
                 f"{arch}: request {r.rid} produced a token out of the "
                 "vocabulary")
     require(full_ticks, f"{arch}: no decode tick ran with every slot busy")
+    require(graphed_decode.entries_built == 1,
+            f"{arch}: {graphed_decode.entries_built} decode entries built")
     # the served tokens' digest: tools/serve_tokens.py computes the same
     # one from another tree's sources
     n_toks, crc = served_digest(np, reqs)
-    log(f"[serve] {arch}: served tokens {n_toks}, crc32 {crc}")
+    log(f"[serve] {arch}: served tokens {n_toks}, crc32 {crc} (graphed)")
     dec_ms = _median(full_ticks)
-    log(f"[serve] {arch}: decode {dec_ms:.3f} ms per tick at {SERVE_SLOTS} "
-        f"active slots (median of {len(full_ticks)} ticks; min "
-        f"{min(full_ticks):.3f}, max {max(full_ticks):.3f}), "
-        f"{SERVE_SLOTS / dec_ms * 1e3:.1f} decode tokens/s")
-
-    # prefill per prompt length, through the engine's own prefill step
-    prefill = make_prefill_step(cfg, max_seq)
-    pre_ms = {}
-    for p in prompts:
-        tokens = torch.as_tensor(p[None], device="cuda")
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            logits, cache1 = prefill(model, {"tokens": tokens})
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            if times[0] > 1000:    # a prefill of seconds is timed once
-                break
-        require(bool(torch.isfinite(logits).all())
-                and tuple(logits.shape) == (1, cfg.vocab_size),
-                f"{arch}: prefill of {len(p)} tokens gave non-finite logits "
-                f"or shape {tuple(logits.shape)}")
-        del cache1
-        pre_ms[len(p)] = _median(times)
-        log(f"[serve] {arch}: prefill {len(p)} tokens {pre_ms[len(p)]:.3f} ms"
-            f" (median of {len(times)}; min {min(times):.3f}, max "
-            f"{max(times):.3f}), "
-            f"{len(p) / pre_ms[len(p)] * 1e3:.0f} tokens/s")
+    d = graphed_decode.entry
+    log(f"[serve] {arch}: decode {dec_ms:.3f} ms per tick graphed at "
+        f"{SERVE_SLOTS} active slots ({_ms_range(full_ticks)}), "
+        f"{SERVE_SLOTS / dec_ms * 1e3:.1f} decode tokens/s; the decode "
+        f"call's host ms (staging, replay, credit) {_median(dec_host):.3f} "
+        f"({_ms_range(dec_host)}); its entry: warm-up "
+        f"{d.warm_s * 1e3:.1f} ms, capture {d.capture_s * 1e3:.1f} ms")
+    log(f"[serve] {arch}: time to first token in the graphed engine's run "
+        "(each length's first sight: the plain prefill step): " + ", ".join(
+            f"{n} tokens {v[0]:.3f} ms" for n, v in run_ttft.items()))
+    # (warm-up s, capture s) by prompt length: the engine's prefill keys
+    # on the [1, length] tokens alone
+    builds = {e.key[0][1][1]: (e.warm_s, e.capture_s)
+              for e in graphed_prefill.entries.values()}
+    for n in sorted(pre_ms, reverse=True):
+        warm, cap = builds[n]
+        log(f"[serve] {arch}: prefill {n} tokens replayed "
+            f"{_median(pre_ms[n]):.3f} ms ({_ms_range(pre_ms[n])}), "
+            f"{n / _median(pre_ms[n]) * 1e3:.0f} tokens/s; time to first "
+            f"token replayed {_median(ttft_ms[n]):.3f} ms, at first sight "
+            f"{run_ttft[n][0]:.3f} ms (plain step), at second sight "
+            f"{ttft2[n]:.1f} ms (warm-up {warm * 1e3:.1f}, capture "
+            f"{cap * 1e3:.1f})")
     # one decode over the engine's cache, through the engine's own decode
     # step (a moe config's capacity groups are its slots): finite logits
     # for every slot
-    decode = eng._decode
-    toks = torch.as_tensor([[r.out[-1]] for r in reqs[:SERVE_SLOTS]],
-                           device="cuda")
+    toks = np.asarray([[r.out[-1]] for r in reqs[:SERVE_SLOTS]], np.int64)
     pos = np.minimum(eng.pos, max_seq - 1)
-    logits, _ = decode(model, eng.cache, toks, pos)
+    logits, _ = eng._decode(model, eng.cache, toks, pos)
     require(bool(torch.isfinite(logits).all())
             and tuple(logits.shape) == (SERVE_SLOTS, cfg.vocab_size),
             f"{arch}: decode gave non-finite logits or shape "
             f"{tuple(logits.shape)}")
-    log(f"[serve] {arch}: peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-        "(max_memory_allocated over init, engine run and prefills)")
-
-    # traced last: one prefill (the 2048-token prompt) and one decode tick
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[serve] {arch}: peak device memory {peak:.2f} GB "
+        "(max_memory_allocated over init, the graphed run with its graphs' "
+        f"pools and the replays; {len(builds)} prefill entries kept, "
+        f"capture {sum(c for _, c in builds.values()) + d.capture_s:.2f} s "
+        "in all)")
+    top = 10 if "segment_reduce" in kernels else 5
+    _profile(torch, f"{arch} decode tick at {SERVE_SLOTS} slots replayed",
+             lambda: eng._decode(model, eng.cache, toks, pos), dec_ms, top)
+    longest = max(prompts, key=len)
     if arch in SERVE_TRACED:
-        longest = max(prompts, key=len)
-        tokens = torch.as_tensor(longest[None], device="cuda")
-        top = 10 if "segment_reduce" in kernels else 5
-        _profile(torch, f"{arch} prefill {len(longest)} tokens",
-                 lambda: prefill(model, {"tokens": tokens}),
-                 pre_ms[len(longest)], top)
-        _profile(torch, f"{arch} decode tick at {SERVE_SLOTS} slots (the "
-                 "engine's decode step)",
-                 lambda: decode(model, eng.cache, toks, pos), dec_ms, top)
-    del model, eng, logits
+        _profile(torch, f"{arch} prefill {len(longest)} tokens replayed",
+                 lambda: eng._prefill(model, {"tokens": longest[None]}),
+                 _median(pre_ms[len(longest)]), top)
+
+    # eagerly: SERVE_TRACED through an eager engine over the same requests,
+    # whose tokens must be the graphed ones (each request's time to first
+    # token as the engine calls its prefill); the others the plain decode
+    # step on the graphed engine's cache (their plain prefill is the
+    # graphed engine run's first sights)
+    if arch not in SERVE_TRACED:
+        decode = make_decode_step(cfg, moe_groups=SERVE_SLOTS)
+        times = _wall_ms(torch, lambda: decode(model, eng.cache, toks, pos),
+                         reps=5)
+        log(f"[serve] {arch}: decode {_median(times):.3f} ms per tick eager "
+            f"(the plain step on the engine's cache, {_ms_range(times)})")
+    else:
+        # the graphs' pools go before the eager engine's peak is read
+        del eng, logits, graphed_prefill, graphed_decode, d, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(cfg, model, slots=SERVE_SLOTS, max_seq=max_seq,
+                          graphed=False)
+        eager_ttft = {}
+        _ttft_probe(torch, eng, eager_ttft)
+        reqs, ticks, full_ticks, run_s = _engine_run(torch, eng, prompts)
+        log(f"[serve] {arch}: time to first token in the eager engine's run "
+            "(the plain prefill step): " + ", ".join(
+                f"{n} tokens {v[0]:.3f} ms" for n, v in eager_ttft.items()))
+        n_eager, crc_eager = served_digest(np, reqs)
+        eager_ms = _median(full_ticks)
+        log(f"[serve] {arch}: eager engine run in {run_s:.3f} s; decode "
+            f"{eager_ms:.3f} ms per tick eager ({_ms_range(full_ticks)}); "
+            f"served tokens {n_eager}, crc32 {crc_eager}; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        require((n_eager, crc_eager) == (n_toks, crc),
+                f"{arch}: the graphed engine served other tokens (crc32 "
+                f"{crc}) than the eager one ({crc_eager})")
+    del model, eng
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[serve] {arch}: {time.perf_counter() - t0:.1f} s for this config")
     return counts
 
 
+def audio_batch(torch, np, cfg, seed):
+    """whisper-tiny's served batch: AUDIO_BATCH rows of AUDIO_PROMPT tokens
+    and enc_seq stub frames from `seed`, on the card."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (AUDIO_BATCH, AUDIO_PROMPT)).astype(np.int32),
+        device="cuda"),
+        "frames": torch.as_tensor(rng.standard_normal(
+            (AUDIO_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+            device="cuda")}
+
+
+def serve_audio(torch, model, batch, prefill, decode, ticks=None,
+                ttft=None):
+    """One prefill, then SERVE_MAX_NEW - 1 greedy decode steps, as the
+    reference's launcher drives them: the [AUDIO_BATCH, SERVE_MAX_NEW]
+    tokens on the host and the last logits (each decode step's ms into
+    `ticks`, the ms to the first tokens on the host into `ttft`)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(model, batch)
+    tok = torch.argmax(logits, -1)[:, None]
+    out = [tok.cpu()]
+    if ttft is not None:
+        ttft.append((time.perf_counter() - t) * 1e3)
+    for i in range(SERVE_MAX_NEW - 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = decode(model, cache, tok, AUDIO_PROMPT + i)
+        tok = torch.argmax(logits, -1)[:, None]
+        out.append(tok.cpu())
+        if ticks is not None:
+            ticks.append((time.perf_counter() - t) * 1e3)
+    return torch.cat(out, 1).numpy(), logits
+
+
 def _serve_whisper(torch, np, seed):
-    """whisper-tiny through the serving steps at full size, as the
-    reference's launcher drives it: AUDIO_BATCH requests of enc_seq stub
-    frames and AUDIO_PROMPT tokens from the seed, one prefill (the encoder
-    with it) then SERVE_MAX_NEW - 1 greedy decode steps, launches counted;
-    then the prefill timed alone.  Returns the launch counts."""
+    """whisper-tiny through the graphed serving steps at full size, as the
+    reference's launcher drives its jitted ones: AUDIO_BATCH requests of
+    enc_seq stub frames and AUDIO_PROMPT tokens from the seed, one prefill
+    (the encoder with it) then SERVE_MAX_NEW - 1 greedy decode steps.
+    Three runs see the batch's signature first (the plain prefill step),
+    second (its graph built) and third (replayed), each decoding from a
+    cache of its own (the plain step's, the warm-up's, the graph's), so
+    each builds a decode entry; the fourth is counted and builds none;
+    then the plain steps' run, whose tokens must be the same.  Returns the
+    launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
-    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve import (graphed_decode, graphed_prefill,
+                                   make_decode_step, make_prefill_step)
     arch = AUDIO_ARCH
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = get_model(cfg).init(seed)
     n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(seed)
-    batch = {"tokens": torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (AUDIO_BATCH, AUDIO_PROMPT)).astype(np.int32),
-        device="cuda"),
-        "frames": torch.as_tensor(rng.standard_normal(
-            (AUDIO_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32),
-            device="cuda")}
+    batch = audio_batch(torch, np, cfg, seed)
     max_seq = AUDIO_PROMPT + SERVE_MAX_NEW
-    prefill = make_prefill_step(cfg, max_seq)
-    decode = make_decode_step(cfg)
+    prefill = graphed_prefill(make_prefill_step(cfg, max_seq))
+    decode = graphed_decode(make_decode_step(cfg))
     log(f"[serve] {arch}: {cfg.enc_layers} encoder and "
         f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, vocab "
         f"{cfg.vocab_size}, {n_params / 1e6:.1f} M parameters "
         f"({str(cfg.param_dtype)}), full size; batch of {AUDIO_BATCH}: "
         f"{cfg.enc_seq} stub frames and {AUDIO_PROMPT} prompt tokens each "
         f"from seed {seed}, {SERVE_MAX_NEW} new tokens")
-
-    def serve():
-        logits, cache = prefill(model, batch)
-        tok = torch.argmax(logits, -1)[:, None]
-        out, ticks = [tok], []
-        for i in range(SERVE_MAX_NEW - 1):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            logits, cache = decode(model, cache, tok, AUDIO_PROMPT + i)
-            tok = torch.argmax(logits, -1)[:, None]
-            torch.cuda.synchronize()
-            ticks.append((time.perf_counter() - t) * 1e3)
-            out.append(tok)
-        return torch.cat(out, 1).cpu().numpy(), ticks, logits
-    serve()                                    # warm-up
+    sights = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first, _ = serve_audio(torch, model, batch, prefill, decode, ttft=sights)
+    first_s = time.perf_counter() - t
+    for _ in range(2):
+        serve_audio(torch, model, batch, prefill, decode, ttft=sights)
+    (pe,) = prefill.entries.values()
+    built = decode.entries_built
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    toks, ticks, logits = serve()
+    ticks = []
+    toks, logits = serve_audio(torch, model, batch, prefill, decode, ticks)
     run_s = time.perf_counter() - t
     counts = ops.launch_counts()
     require(counts["flash_attention"] > 0 and counts["flash_attention[wg]"] > 0,
             f"{arch}: flash_attention (its wgmma route: "
             f"{counts['flash_attention[wg]']}) was not launched on the serve "
             "path")
+    require(decode.entries_built == built and prefill.entries_built == 1
+            and prefill.plain_calls == 1,
+            f"{arch}: the counted run built an entry")
     require(bool(torch.isfinite(logits).all()) and toks.shape ==
             (AUDIO_BATCH, SERVE_MAX_NEW) and ((toks >= 0)
                                               & (toks < cfg.vocab_size)).all(),
             f"{arch}: served tokens {toks.shape} out of the vocabulary or "
             "non-finite logits")
+    require(np.array_equal(toks, first), f"{arch}: the replayed run served "
+                                         "other tokens than the first")
     import zlib
     crc = zlib.crc32(toks.astype(np.int64).tobytes()) & 0xFFFFFFFF
-    log(f"[serve] {arch}: {AUDIO_BATCH} requests in {run_s:.3f} s; kernel "
-        f"launches {json.dumps(counts)}; served tokens {toks.size}, crc32 "
-        f"{crc}")
+    log(f"[serve] {arch}: {AUDIO_BATCH} requests in {run_s:.3f} s replayed "
+        f"({first_s:.3f} s at first sight, its decode entry built); kernel "
+        f"launches {json.dumps(counts)}; served tokens {toks.size}, crc32 {crc} "
+        "(graphed)")
     dec_ms = _median(ticks)
-    log(f"[serve] {arch}: decode {dec_ms:.3f} ms per tick at "
-        f"{AUDIO_BATCH} requests (median of {len(ticks)}; min "
-        f"{min(ticks):.3f}, max {max(ticks):.3f}), "
-        f"{AUDIO_BATCH / dec_ms * 1e3:.1f} decode tokens/s")
-    times = []
+    log(f"[serve] {arch}: decode {dec_ms:.3f} ms per tick graphed at "
+        f"{AUDIO_BATCH} requests ({_ms_range(ticks)}), "
+        f"{AUDIO_BATCH / dec_ms * 1e3:.1f} decode tokens/s; its capture "
+        f"{decode.entry.capture_s * 1e3:.1f} ms")
+    times = _wall_ms(torch, lambda: prefill(model, batch))
+    ttft = []
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        prefill(model, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
+        logits, _ = prefill(model, batch)
+        torch.argmax(logits, -1).cpu()
+        ttft.append((time.perf_counter() - t) * 1e3)
     log(f"[serve] {arch}: prefill (encoder of {cfg.enc_seq} frames and "
-        f"{AUDIO_PROMPT} tokens, batch {AUDIO_BATCH}) {_median(times):.3f} "
-        f"ms (median of 3; min {min(times):.3f}, max {max(times):.3f}); "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"GB; {time.perf_counter() - t0:.1f} s for this config")
-    del model, logits
+        f"{AUDIO_PROMPT} tokens, batch {AUDIO_BATCH}) replayed "
+        f"{_median(times):.3f} ms ({_ms_range(times)}); time to first token "
+        f"replayed {_median(ttft):.3f} ms (the third run's "
+        f"{sights[2]:.3f}), at first sight {sights[0]:.3f} ms (plain step), "
+        f"at second sight {sights[1]:.1f} ms (warm-up "
+        f"{pe.warm_s * 1e3:.1f}, capture {pe.capture_s * 1e3:.1f}); peak "
+        "device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB with the graphs' "
+        "pools")
+    tok = torch.as_tensor(toks[:, -1:], device="cuda")
+    _profile(torch, f"{arch} decode tick at {AUDIO_BATCH} requests replayed",
+             lambda: decode(model, decode.entry.cache, tok,
+                            AUDIO_PROMPT + SERVE_MAX_NEW - 1), dec_ms)
+    # the plain steps, eagerly: the same tokens
+    eprefill, edecode = make_prefill_step(cfg, max_seq), \
+        make_decode_step(cfg)
+    ticks = []
+    etoks, _ = serve_audio(torch, model, batch, eprefill, edecode, ticks)
+    ecrc = zlib.crc32(etoks.astype(np.int64).tobytes()) & 0xFFFFFFFF
+    times = _wall_ms(torch, lambda: eprefill(model, batch))
+    log(f"[serve] {arch}: eager decode {_median(ticks):.3f} ms per tick "
+        f"({_ms_range(ticks)}), prefill {_median(times):.3f} ms "
+        f"({_ms_range(times)}); served tokens crc32 {ecrc}; "
+        f"{time.perf_counter() - t0:.1f} s for this config")
+    require(ecrc == crc, f"{arch}: the graphed steps served other tokens "
+                         f"(crc32 {crc}) than the eager ones ({ecrc})")
+    del model, logits, prefill, decode
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -4305,23 +4509,26 @@ def _serve_whisper(torch, np, seed):
 def _router_probe(torch, k):
     """Wrap the MoE router and dispatch: the smallest gap met between the
     k-th and (k+1)-th router logit of a token, and the rows dropped by
-    capacity, over the calls made until `restore()`."""
+    capacity, over the calls made until `restore()`, a graph's capture
+    apart (it runs nothing, and reads nothing back)."""
     from repro_torch.models import moe
     from repro_torch.models.common import dense
     seen = {"gap": float("inf"), "dropped": 0}
     router, dispatch = moe._router, moe._dispatch
 
     def probed_router(cfg, p, xt):
-        with torch.no_grad():
-            top = torch.sort(dense(xt, p["router"]).float(), dim=-1,
-                             descending=True).values
-        seen["gap"] = min(seen["gap"],
-                          float((top[:, k - 1] - top[:, k]).min()))
+        if not torch.cuda.is_current_stream_capturing():
+            with torch.no_grad():
+                top = torch.sort(dense(xt, p["router"]).float(), dim=-1,
+                                 descending=True).values
+            seen["gap"] = min(seen["gap"],
+                              float((top[:, k - 1] - top[:, k]).min()))
         return router(cfg, p, xt)
 
     def probed_dispatch(*a, **kw):
         out = dispatch(*a, **kw)
-        seen["dropped"] += int((~out[1]).sum())
+        if not torch.cuda.is_current_stream_capturing():
+            seen["dropped"] += int((~out[1]).sum())
         return out
 
     def restore():
@@ -4342,7 +4549,8 @@ def _model_check(torch, np, arch, seed):
     failure from a genuine near-tie can be told from a fault."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
-    from repro_torch.serve import make_prefill_step
+    from repro_torch.serve import (graphed_decode, graphed_prefill,
+                                   make_decode_step, make_prefill_step)
     full = get_config(arch)
     f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32,
                cache_dtype=torch.float32)
@@ -4372,20 +4580,28 @@ def _model_check(torch, np, arch, seed):
         note = (f"; window {cfg.window}: the prompt crosses it and wraps "
                 f"the {min(cfg.window, n_prompt + CHECK_NEW)}-row ring")
     max_seq = n_prompt + CHECK_NEW
-    prefill = make_prefill_step(cfg, max_seq)
+    # each device through its own graphed steps: the card's prefill is
+    # called three times (the plain step, the graph's build, a replay) and
+    # its third call is checked
+    cpu_steps, card_steps = [(graphed_prefill(make_prefill_step(cfg,
+                                                               max_seq)),
+                              graphed_decode(make_decode_step(cfg)))
+                             for _ in range(2)]
     probes = []
 
-    def run(model, dev):
-        if cfg.num_experts:
-            probes.append(_router_probe(torch, cfg.top_k))
-        try:
-            return prefill(model, {n: torch.as_tensor(v, device=dev)
-                                   for n, v in batch.items()})
-        finally:
-            if cfg.num_experts:
-                probes[-1][1]()
-    ref, cc = run(cpu, "cpu")
-    got, gc_ = run(gpu, "cuda")
+    def run(model, dev, prefill, calls):
+        inputs = {n: torch.as_tensor(v, device=dev) for n, v in batch.items()}
+        for i in range(calls):
+            if cfg.num_experts and i == 0:
+                probes.append(_router_probe(torch, cfg.top_k))
+            try:
+                out = prefill(model, inputs)
+            finally:
+                if cfg.num_experts and i == 0:
+                    probes[-1][1]()
+        return out
+    ref, cc = run(cpu, "cpu", cpu_steps[0], 1)
+    got, gc_ = run(gpu, "cuda", card_steps[0], 3)
     if cfg.num_experts:
         (c, _), (g, _) = probes
         note = (f"; prefill rows dropped by capacity {c['dropped']} (CPU), "
@@ -4411,9 +4627,8 @@ def _model_check(torch, np, arch, seed):
         if step == CHECK_NEW:
             break
         pos = n_prompt + step
-        ref, cc = cpu.decode(cc, torch.tensor([[t_ref]]), pos)
-        got, gc_ = gpu.decode(gc_, torch.tensor([[t_got]], device="cuda"),
-                              pos)
+        ref, cc = cpu_steps[1](cpu, cc, [[t_ref]], pos)
+        got, gc_ = card_steps[1](gpu, gc_, [[t_got]], pos)
     depth = "the whole model" if audio else (
         f"{cfg.num_layers} of {full.num_layers} layers (depth cut for this "
         "check only)")
@@ -4421,7 +4636,7 @@ def _model_check(torch, np, arch, seed):
         f"{n_prompt} then {CHECK_NEW} greedy tokens, card vs CPU: max "
         f"rel err {max(errs):.3g} (tol 1e-3; prefill {errs[0]:.3g}), tokens "
         f"identical {toks}{note}; {time.perf_counter() - t0:.1f} s")
-    del cpu, gpu, cc, gc_
+    del cpu, gpu, cc, gc_, cpu_steps, card_steps, ref, got
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -6,7 +6,12 @@
 runs the full-size config on the card (random weights from --seed);
 --smoke takes the tiny same-family config and --device cpu the CPU.  The
 audio family (--arch whisper-tiny) gets stub frames [batch, enc_seq,
-d_model] from --seed, as the reference's launcher.
+d_model] from --seed, as the reference's launcher.  As the reference jits
+its two steps, the prefill and the decode run through `serve/graph.py`:
+the decode as one CUDA graph on the card (over the prefill's cache, its
+position staged into the graph's buffer each step), eagerly over the
+same buffers on the CPU; the one prefill, a first sight, runs the plain
+step.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ def main(argv=None):
     import torch
     from ..configs import get_config, smoke_config
     from ..models import get_model
-    from ..serve import make_decode_step, make_prefill_step
+    from ..serve import (graphed_decode, graphed_prefill, make_decode_step,
+                         make_prefill_step)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg, device=args.device)
@@ -51,8 +57,8 @@ def main(argv=None):
         batch["pos_ids"] = torch.as_tensor(np.broadcast_to(
             np.arange(args.prompt_len, dtype=np.int32)[None, :, None],
             (args.batch, args.prompt_len, 3)).copy(), device=model.device)
-    prefill = make_prefill_step(cfg, max_seq)
-    decode = make_decode_step(cfg)
+    prefill = graphed_prefill(make_prefill_step(cfg, max_seq))
+    decode = graphed_decode(make_decode_step(cfg))
 
     t0 = time.time()
     logits, cache = prefill(model, batch)

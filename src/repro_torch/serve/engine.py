@@ -11,6 +11,14 @@ cache position and attends to the positions ≤ its own.  MoE layers route
 each slot's token as a group of its own (`moe_groups=slots`): capacity
 couples the rows of one call, and a batch routed as one would let other
 slots, idle ones included, take a slot's capacity.
+
+Compiled steps: as the reference jits its decode and its prefill a prompt
+length, the engine runs both through `serve/graph.py` by default: one CUDA
+graph for the decode over the engine's own cache (updated in place), one a
+prompt length seen twice for the prefill (a length's first prefill runs
+the plain step), whose outputs are spliced into the slot at once.  Both
+paths take the argmax of the returned logits and read it once a tick.
+`graphed=False` runs the plain steps eagerly, for comparing the two.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .graph import graphed_decode, graphed_prefill
 from .step import make_decode_step, make_prefill_step
 
 
@@ -32,7 +41,8 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, cfg, model, *, slots: int = 4, max_seq: int = 128):
+    def __init__(self, cfg, model, *, slots: int = 4, max_seq: int = 128,
+                 graphed: bool = True):
         if cfg.family == "audio":      # the reference's refusal
             raise ValueError("enc-dec engine: use Whisper API "
                              "(make_prefill_step / make_decode_step)")
@@ -40,8 +50,12 @@ class ServeEngine:
         self.model = model
         self.slots = slots
         self.max_seq = max_seq
-        self._prefill = make_prefill_step(cfg, max_seq)
-        self._decode = make_decode_step(cfg, moe_groups=slots)
+        self.graphed = graphed
+        prefill = make_prefill_step(cfg, max_seq)
+        decode = make_decode_step(cfg, moe_groups=slots)
+        if graphed:
+            prefill, decode = graphed_prefill(prefill), graphed_decode(decode)
+        self._prefill, self._decode = prefill, decode
         self.cache = model.init_cache(slots, max_seq)
         self.pos = np.zeros(slots, np.int64)
         self.active: list[Request | None] = [None] * slots
@@ -63,9 +77,8 @@ class ServeEngine:
         for s in range(self.slots):
             if self.active[s] is None and self.queue:
                 r = self.queue.pop(0)
-                tokens = torch.as_tensor(np.asarray(r.prompt)[None],
-                                         device=self.model.device)
-                logits, cache1 = self._prefill(self.model, {"tokens": tokens})
+                logits, cache1 = self._prefill(
+                    self.model, {"tokens": np.asarray(r.prompt)[None]})
                 # splice the single-sequence cache into slot s
                 for full, one in zip(self.cache, cache1):
                     for k, t in one.items():

@@ -5,6 +5,8 @@ family's prefill takes the batch's stub frames [B, enc_seq, d] beside its
 tokens."""
 from __future__ import annotations
 
+import torch
+
 
 def make_prefill_step(cfg, max_seq):
     if cfg.family == "audio":
@@ -22,6 +24,10 @@ def make_decode_step(cfg, moe_groups: int = 1):
     audio family has no MoE layer and takes none)."""
     if cfg.family == "audio":
         def decode_step(model, cache, token, pos):
+            # the sinusoid takes the position as a tensor: an int would be
+            # a constant of a captured graph
+            pos = torch.as_tensor(pos, device=model.device).long() \
+                .reshape(-1).expand(len(token))
             return model.decode(cache, token, pos)
     else:
         def decode_step(model, cache, token, pos):

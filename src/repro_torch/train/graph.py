@@ -10,7 +10,8 @@ signature (every array's name, shape and dtype):
   arrays (a numpy batch or tensors);
 * on the card, one graph of the whole step: the loss, the backward, the
   microbatches' accumulation, the gradient exchange over a NCCL mesh and
-  the AdamW kernel's two launches.  The entry's first call runs the step
+  the AdamW kernel's two launches (`core/capture.py`'s `StepGraph`, which
+  the serving steps share).  The entry's first call runs the step
   eagerly on a side stream (autograd's and cuBLAS's first use, the
   kernels' builds, the replicas' check, which reads crc32s on the host);
   that is the call's step.  The step is then captured under
@@ -39,24 +40,10 @@ ranks that share a card) raises at once: gloo cannot be captured.
 from __future__ import annotations
 
 import gc
-import time
-import traceback
-from pathlib import Path
 
-import numpy as np
 import torch
 
-from ..kernels import ops
-
-_PACKAGE = Path(__file__).resolve().parents[1]
-
-
-class CaptureError(RuntimeError):
-    pass
-
-
-def _signature(batch: dict) -> tuple:
-    return tuple((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items())
+from ..core.capture import CaptureError, StepGraph, buffers, signature, stage
 
 
 def _state(model, opt_state) -> tuple:
@@ -65,20 +52,6 @@ def _state(model, opt_state) -> tuple:
     return tuple(t.data_ptr() for t in (
         *[p for _, p in model.named_leaves()], *opt_state.mu.values(),
         *opt_state.nu.values(), opt_state.step))
-
-
-def _where(ex: BaseException) -> str:
-    """The innermost frame of the package in an exception's traceback:
-    file:line (function): its source line."""
-    frames = [(Path(f.filename).resolve(), f)
-              for f in traceback.extract_tb(ex.__traceback__)]
-    frames = [(p, f) for p, f in frames if p.is_relative_to(_PACKAGE)
-              and p.name != "graph.py"]
-    if not frames:
-        return "outside the package"
-    path, f = frames[-1]
-    rel = path.relative_to(_PACKAGE.parent)
-    return f"{rel}:{f.lineno} ({f.name}): {(f.line or '').strip()}"
 
 
 class _Counts:
@@ -121,90 +94,21 @@ class _Counts:
         self.coll.issued += issued
 
 
-class _Entry:
-    """One batch signature's static buffers and, on the card, its graph."""
+class _Entry(StepGraph):
+    """One batch signature's static buffers and, on the card, its graph of
+    the step, whose outputs (`out`) are the metrics' static tensors."""
 
     def __init__(self, key, batch: dict, device, state):
-        self.key, self.state, self.device = key, state, device
-        self.card = device.type == "cuda"
-        self.inputs = {k: torch.empty(tuple(v.shape), dtype=_dtype(v),
-                                      device=device)
-                       for k, v in batch.items()}
-        self.graph = self.pool = None
-        self.out = None              # the metrics' static tensors
-        self.launches: dict = {}
-        self.counts = None
-        self.warm_s = self.capture_s = 0.0
+        super().__init__(device, "graphed_step")
+        self.key, self.state = key, state
+        self.inputs = buffers(batch, device)
 
     def stage(self, batch: dict) -> None:
-        for k, buf in self.inputs.items():
-            v = batch[k]
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(v))
-                      if isinstance(v, np.ndarray) else v)
-
-    def run_cpu(self, step_fn, model, opt_state):
-        model, opt_state, metrics = step_fn(model, opt_state, self.inputs)
-        if self.out is None:
-            self.out = {k: torch.empty_like(v) for k, v in metrics.items()}
-        for k, v in metrics.items():
-            self.out[k].copy_(v)
-        return model, opt_state, self._clones()
-
-    def build(self, step_fn, model, opt_state, coll):
-        """The first call on the card: the step eagerly on a side stream,
-        then the capture.  Returns the eager step's result."""
-        dev = self.device
-        t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            model, opt_state, metrics = step_fn(model, opt_state,
-                                                self.inputs)
-        cur.wait_stream(side)
-        first = {k: v.clone() for k, v in metrics.items()}
-        del metrics
-        torch.cuda.synchronize(dev)
-        self.warm_s = time.perf_counter() - t0
-        # the warm-up's cached blocks go back to the device before the
-        # graph's pool grows beside them
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        self.counts = _Counts(coll)
-        try:
-            with ops.captured() as took, self.counts, \
-                    torch.cuda.graph(graph, pool=self.pool):
-                _, _, out = step_fn(model, opt_state, self.inputs)
-        except Exception as ex:
-            self.free()
-            raise CaptureError(f"graphed_step: the capture of the train "
-                               f"step failed at {_where(ex)}: "
-                               f"{type(ex).__name__}: {ex}") from ex
-        self.graph, self.out, self.launches = graph, out, took
-        self.capture_s = time.perf_counter() - t0
-        return model, opt_state, first
-
-    def replay(self, model, opt_state):
-        self.graph.replay()
-        ops.credit(self.launches)
-        self.counts.credit()
-        return model, opt_state, self._clones()
-
-    def _clones(self) -> dict:
-        return {k: v.clone() for k, v in self.out.items()}
+        stage(self.inputs, batch)
 
     def free(self) -> None:
-        self.graph = self.pool = self.out = None
+        super().free()
         self.inputs = {}
-
-
-def _dtype(v) -> torch.dtype:
-    if isinstance(v, torch.Tensor):
-        return v.dtype
-    return torch.from_numpy(np.empty(0, dtype=v.dtype)).dtype
 
 
 class GraphedStep:
@@ -228,32 +132,38 @@ class GraphedStep:
                 "each rank a card of its own (NCCL) or run the step eagerly")
 
     def __call__(self, model, opt_state, batch):
-        key = _signature(batch)
+        key = signature(batch)
         state = _state(model, opt_state)
         e = self.entry
-        if e is None or e.key != key or e.state != state:
-            if e is not None:
-                e.free()
-                self.entry = e = None
-                gc.collect()
-                if model.device.type == "cuda":
-                    torch.cuda.empty_cache()
-            e = _Entry(key, batch, model.device, state)
+
+        def work():         # the step updates the state in place
+            return self.step_fn(model, opt_state, e.inputs)[2]
+        if e is not None and e.key == key and e.state == state:
             e.stage(batch)
-            self.entries_built += 1
-            self.entry = e
-            if not e.card:
-                return e.run_cpu(self.step_fn, model, opt_state)
-            try:
-                return e.build(self.step_fn, model, opt_state,
-                               None if self.mesh is None else self.mesh.coll)
-            except BaseException:
-                self.entry = None
-                raise
+            metrics = e.replay() if e.card else e.run_cpu(work)
+            # clones: the next call overwrites the static metrics
+            return model, opt_state, {k: v.clone()
+                                      for k, v in metrics.items()}
+        if e is not None:
+            e.free()
+            self.entry = e = None
+            gc.collect()
+            if model.device.type == "cuda":
+                torch.cuda.empty_cache()
+        e = _Entry(key, batch, model.device, state)
         e.stage(batch)
-        if e.card:
-            return e.replay(model, opt_state)
-        return e.run_cpu(self.step_fn, model, opt_state)
+        self.entries_built += 1
+        self.entry = e
+        if not e.card:
+            return model, opt_state, {k: v.clone()
+                                      for k, v in e.run_cpu(work).items()}
+        coll = None if self.mesh is None else self.mesh.coll
+        try:
+            return model, opt_state, e.build(work, counts=_Counts(coll),
+                                             release=True)
+        except BaseException:
+            self.entry = None
+            raise
 
 
 def graphed_step(step_fn) -> GraphedStep:

@@ -22,7 +22,6 @@ from repro_torch.optim.adamw import adamw_init
 from repro_torch.runtime import TrainRunner
 from repro_torch.runtime.ft import SimulatedFailure
 from repro_torch.train import CaptureError, graphed_step, make_train_step
-from repro_torch.train import graph as G
 
 # one smoke config of each family: dense, moe (with a microbatch of 2),
 # ssm, hybrid (rec + lattn) and audio
@@ -177,14 +176,15 @@ def test_graph_over_a_mesh_that_stages_through_host_raises():
 
 
 def test_capture_error_names_the_line_of_the_package():
+    from repro_torch.core.capture import where
     from repro_torch.models.common import apply_mrope
     try:
         apply_mrope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2, 3), 1e4,
                     (1, 1, 1))
     except Exception as ex:      # [.., 4] angles against an hd/2 of 4
-        where = G._where(ex)
-    assert where.startswith("repro_torch/models/common.py:")
-    assert "(apply_mrope)" in where
+        at = where(ex)
+    assert at.startswith("repro_torch/models/common.py:")
+    assert "(apply_mrope)" in at
 
 
 def test_host_batch_is_staged_into_the_entry_buffers():

@@ -4,16 +4,18 @@
     python3 tools/serve_tokens.py [--tree DIR] [--seed N]
 
 Imports `repro_torch` from DIR/src (the checkout's own by default) and
-serves phase 4's models and requests through `ServeEngine`, with phase 4's
-own constants, depth cuts, prompts and digest (imported from this
-checkout's chip_smoke.py): full width, random weights from --seed.  An
-arch that DIR's `get_config` does not know is reported as not in that
-tree, so that an earlier tree's digests still print.  Prints one JSON
-line: each model's tokens' crc32 and count, as phase 4's `[serve] ...
-crc32` lines.  Run it for two trees (a parent unpacked by `git archive`
-into the git-ignored `.checkout/`, and the checkout) in separate
-processes on the same card to show that a change left the served tokens
-as they were.  Needs a CUDA card.
+serves phase 4's models and requests through `ServeEngine` (DIR's default
+path: its compiled steps where DIR has `serve/graph.py`), then
+whisper-tiny's batch through DIR's serving steps (graphed where DIR has
+them), with phase 4's own constants, depth cuts, prompts, audio batch and
+digest (imported from this checkout's chip_smoke.py): full width, random
+weights from --seed.  An arch that DIR's `get_config` does not know is
+reported as not in that tree, so that an earlier tree's digests still
+print.  Prints one JSON line: each model's tokens' crc32 and count, as
+phase 4's `[serve] ... crc32` lines.  Run it for two trees (a parent
+unpacked by `git archive` into the git-ignored `.checkout/`, and the
+checkout) in separate processes on the same card to show that a change
+left the served tokens as they were.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -58,6 +60,23 @@ def main(argv=None) -> int:
         out[arch] = {"tokens": n, "crc32": crc}
         del model, eng
         torch.cuda.empty_cache()
+    import zlib
+
+    from repro_torch import serve
+    cfg = get_config(smoke.AUDIO_ARCH)
+    model = get_model(cfg).init(args.seed)
+    max_seq = smoke.AUDIO_PROMPT + smoke.SERVE_MAX_NEW
+    prefill = serve.make_prefill_step(cfg, max_seq)
+    decode = serve.make_decode_step(cfg)
+    if hasattr(serve, "graphed_prefill"):
+        prefill = serve.graphed_prefill(prefill)
+        decode = serve.graphed_decode(decode)
+    toks, _ = smoke.serve_audio(torch, model,
+                                smoke.audio_batch(torch, np, cfg, args.seed),
+                                prefill, decode)
+    out[smoke.AUDIO_ARCH] = {
+        "tokens": int(toks.size),
+        "crc32": zlib.crc32(toks.astype(np.int64).tobytes()) & 0xFFFFFFFF}
     print(json.dumps(out), flush=True)
     return 0
 
